@@ -1,0 +1,53 @@
+"""Parameter conversion from the JAX package's flax tree to the port's
+``R2D2Network`` state dict.
+
+The flax tree (``init_params`` / a checkpoint's ``params``), as numpy
+arrays, maps onto the port's modules by name:
+
+- ``torso/Conv_{0,1,2}`` → ``torso.conv{1,2,3}``: kernels HWIO → OIHW;
+- ``torso/Dense_0`` → ``torso.dense``: kernel (in, out) → weight (out, in);
+  its rows are already in NHWC flatten order, which the port's torso keeps;
+- ``lstm_i/{wi, wh, b}`` → ``lstm_layers.i.{wi, wh, b}`` as they are: one
+  bias, not ``nn.LSTM``'s two;
+- ``head/{adv,val}_{hidden,out}`` → ``head.*``: Dense kernels transposed.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+_CONVS = {"Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "conv3"}
+_HEAD = ("adv_hidden", "adv_out", "val_hidden", "val_out")
+
+
+def _leaf(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's state dict (float32 CPU tensors) from a flax param tree
+    with or without its top-level ``"params"`` key."""
+    p = tree.get("params", tree)
+    out: Dict[str, torch.Tensor] = {}
+    for name, layer in p["torso"].items():
+        if name in _CONVS:
+            out[f"torso.{_CONVS[name]}.weight"] = _leaf(
+                layer["kernel"]).permute(3, 2, 0, 1).contiguous()
+        elif name == "Dense_0":
+            out["torso.dense.weight"] = _leaf(layer["kernel"]).T.contiguous()
+        else:
+            raise ValueError(f"unknown torso layer {name!r} (only the nature "
+                             "and mlp torsos are ported)")
+        out[f"torso.{_CONVS.get(name, 'dense')}.bias"] = _leaf(layer["bias"])
+    i = 0
+    while f"lstm_{i}" in p:
+        for k in ("wi", "wh", "b"):
+            out[f"lstm_layers.{i}.{k}"] = _leaf(p[f"lstm_{i}"][k])
+        i += 1
+    for name in _HEAD:
+        layer = p["head"][name]
+        out[f"head.{name}.weight"] = _leaf(layer["kernel"]).T.contiguous()
+        out[f"head.{name}.bias"] = _leaf(layer["bias"])
+    return out
