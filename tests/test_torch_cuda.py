@@ -6,15 +6,27 @@ package, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 
-Tolerances (as in chip_smoke.py): 1e-5 max-abs in float32 with TF32 off,
-1e-4 in bfloat16 — both sides round the operands at the same points, only
-the order of the f32 sums differs.
+Both routes are held to the plain version: the tensor-core kernel (bf16
+``wh``) and the CUDA-core kernel (f32 ``wh``, and bf16 through the private
+``_lstm_unroll_cudacore``, the first design kept for comparison), at
+B = 65 (two 64-row tiles) and at ragged hidden sizes (H = 100, whose gate
+strips start off 16-byte boundaries).  Tolerances (as in chip_smoke.py):
+1e-5 max-abs in float32 with TF32 off, 1e-4 in bfloat16 — both sides round
+the operands at the same points, only the order of the f32 sums differs.
 """
 import numpy as np
 import pytest
 import torch
 
-from r2d2_tpu_torch.ops.lstm import lstm_unroll_cuda, lstm_unroll_reference
+from r2d2_tpu_torch.ops import lstm as lstm_ops
+from r2d2_tpu_torch.ops.lstm import (
+    CUDACORE_COUNTER,
+    KERNEL,
+    _lstm_unroll_cudacore,
+    launch_plan,
+    lstm_unroll_cuda,
+    lstm_unroll_reference,
+)
 from r2d2_tpu_torch.utils.trace import KERNEL_LAUNCHES
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
@@ -41,17 +53,69 @@ def _inputs(T, B, H, seed, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,B,H", [(1, 3, 16), (9, 3, 16), (1, 256, 512),
-                                   (5, 7, 100)])
+                                   (5, 7, 100), (1, 65, 512), (3, 65, 100),
+                                   (2, 9, 36)])
 def test_kernel_matches_reference(cuda, T, B, H, dtype):
     xp, wh, h0, c0 = _inputs(T, B, H, seed=T * B + H, device=cuda)
-    before = KERNEL_LAUNCHES.get("lstm_infer")
+    counter = KERNEL if dtype == torch.bfloat16 else CUDACORE_COUNTER
+    before = KERNEL_LAUNCHES.get(counter)
     got = lstm_unroll_cuda(xp, wh.to(dtype), h0, c0)
     want = lstm_unroll_reference(xp, wh, h0, c0, dtype)
     torch.cuda.synchronize()
-    assert KERNEL_LAUNCHES.get("lstm_infer") == before + 1
+    assert KERNEL_LAUNCHES.get(counter) == before + 1
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert (g - w).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(1, 7, 512), (4, 65, 512), (3, 5, 100)])
+def test_cudacore_bf16_keeps_the_first_designs_numerics(cuda, T, B, H):
+    """The CUDA-core kernel in bf16 is the first design unchanged: h rounded
+    to bf16, exact products, f32 sums, each step within 1e-4 of the plain
+    step; deterministic; counted under its own name, never the tensor-core
+    kernel's."""
+    xp, wh, h0, c0 = _inputs(T, B, H, seed=7 * T + B, device=cuda)
+    whb = wh.to(torch.bfloat16)
+    before = {k: KERNEL_LAUNCHES.get(k) for k in (KERNEL, CUDACORE_COUNTER)}
+    got = _lstm_unroll_cudacore(xp, whb, h0, c0)
+    again = _lstm_unroll_cudacore(xp, whb, h0, c0)
+    assert KERNEL_LAUNCHES.get(CUDACORE_COUNTER) == before[CUDACORE_COUNTER] + 2
+    assert KERNEL_LAUNCHES.get(KERNEL) == before[KERNEL]
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    h, c = h0, c0
+    for t in range(T):
+        _, h1, c1 = _lstm_unroll_cudacore(xp[t:t + 1], whb, h, c)
+        _, h2, c2 = lstm_unroll_reference(xp[t:t + 1], wh, h, c,
+                                          torch.bfloat16)
+        assert torch.equal(h1, got[0][t])
+        assert (h1 - h2).abs().max().item() <= TOL[torch.bfloat16]
+        assert (c1 - c2).abs().max().item() <= TOL[torch.bfloat16]
+        h, c = h1, c1
+
+
+@pytest.mark.cuda
+def test_launch_plan_matches_the_kernels_smem_count(cuda):
+    lib = lstm_ops._library()
+    for H in (16, 32, 36, 64, 100, 256, 512):
+        for B in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            plan = launch_plan(B, H)
+            assert lib.lstm_infer_wgmma_smem(plan.n, H) == plan.smem_bytes
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_grid_that_is_not_launch_plans(cuda):
+    """The C entry point launches the plan's grid and refuses one that
+    would leave a (row, unit) uncovered or add an empty block."""
+    B, H = 65, 512
+    xp, wh, h0, c0 = _inputs(1, B, H, seed=3, device=cuda)
+    whb = wh.to(torch.bfloat16)
+    plan = launch_plan(B, H)
+    for grid in ((plan.grid[0] - 1, plan.grid[1]),
+                 (plan.grid[0], plan.grid[1] + 1)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            lstm_ops._launch_wgmma(xp, whb, h0, c0, plan._replace(grid=grid))
 
 
 @pytest.mark.cuda
@@ -61,6 +125,9 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         lstm_unroll_cuda(xp, wh.t().contiguous().t(), h0, c0)
     with pytest.raises(ValueError, match="CUDA device"):
         lstm_unroll_cuda(xp, wh, h0.cpu(), c0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(16 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+        lstm_unroll_cuda(xp, flat[1:].view(16, 64), h0, c0)
     big = _inputs(1, 1, 1600, seed=0, device=cuda)
     with pytest.raises(ValueError, match="shared-memory"):
         lstm_unroll_cuda(*big)

@@ -386,6 +386,11 @@ def test_server_disconnect_reaps_and_health_degrades():
         _assert_accounting(c)
         h = srv.healthz()
         assert h["ok"] and h["status"] == "degraded"
+        # the batch loop counts a batch's requests after its replies go
+        # out, so the count can trail the client's last reply
+        while srv.registry.get_counter("serving.requests") < 2:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
         assert srv.registry.get_counter("serving.requests") == 2
 
 
