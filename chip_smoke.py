@@ -13,7 +13,8 @@ Phases (each exits non-zero on failure):
 2. build: compile every kernel of the serving path from ``r2d2_tpu_torch/
    csrc`` (one ``nvcc`` per source, all at once) and print the seconds;
 3. kernel vs plain: three designs against ``lstm_unroll_reference`` on
-   the card, H=512, B in {1, 7, 64, 65, 256} (65 crosses a 64-row tile),
+   the card, H=512, B in {1, 7, 8, 64, 65, 256} (65 crosses a 64-row tile;
+   8 is the actor fleet's batch),
    T in {1, 85}, TF32 off: the tensor-core kernel (bf16 ``wh``, the main
    path), the CUDA-core kernel in float32 (the f32 route) and in bfloat16
    (the first design, kept for comparison).  Each step, taken from the
@@ -25,12 +26,12 @@ Phases (each exits non-zero on failure):
    bfloat16 (there a last-bit difference that crosses a bf16 rounding
    boundary of h moves the next operand by one bf16 ulp, and the
    recurrence carries it).  Then the tensor-core kernel's device time at
-   each tile width n, and at (T, B) = (1, 1), (1, 32), (1, 256), (85, 64)
-   in bf16, in ``ROUNDS`` rounds that take the designs in turns (forward,
-   then backward): time per call with the launch (CUDA events), device
-   time (``torch.profiler``) and the host's time to issue a call, of both
-   kernels and the plain version, and of the layer step (``x @ wi + b``
-   then the kernel) against one library call for the same layer step
+   each tile width n, and at (T, B) = (1, 1), (1, 8), (1, 32), (1, 256),
+   (85, 64) in bf16, in ``ROUNDS`` rounds that take the designs in turns
+   (forward, then backward): time per call with the launch (CUDA events),
+   device time (``torch.profiler``) and the host's time to issue a call, of
+   both kernels and the plain version, and of the layer step (``x @ wi +
+   b`` then the kernel) against one library call for the same layer step
    (``torch.lstm_cell`` at T=1, cuDNN ``nn.LSTM`` at T=85, both in bf16,
    held to the plain layer to a loose ``LIB_TOL``); and the bound;
 4. full-width serving: the flagship ``Config()`` (nature torso over
@@ -50,8 +51,26 @@ Phases (each exits non-zero on failure):
    Prints the client-side p50/p99 act latency, and per act alone at n in
    {1, 32, 256} the host wall clock against the device time, in which the
    profiler must find the tensor-core kernel and not the CUDA-core one;
-5. one ``{"kernels": [...]}`` JSON line;
-6. last line: ``{"ok": true, "device": {...}}``.
+5. full-width training: ``train_sync(cfg, device="cuda")`` on the flagship
+   ``Config(game_name="Fake")`` (nature torso on 21×21×16 frames, H=512,
+   bf16 compute, batch 64, burn-in 40 + learning 40 + forward 5, 8 actors,
+   blocks of 400) with only the replay size, warm-up and run length cut
+   (printed on the ``reduced:`` line): 16 updates, a target sync at step 8,
+   saves at 8 and 16, then 4 greedy evaluation episodes.  Checked: the
+   tensor-core kernel launched once per layer for every actor iteration and
+   evaluator step and the CUDA-core one never (counts reset just before
+   the run); all 16 losses finite and all 16 priority feedbacks in the
+   buffer; the target equal to the online params after step 8 and not
+   after 7; the latest checkpoint restoring into a fresh learner bit for
+   bit; a finite greedy return; the profiler finding the tensor-core
+   kernel in an actor iteration and no LSTM kernel in a learner update;
+   and one learner step at a reduced width (mlp torso, H=64) in bf16 on
+   the card against float32 on the CPU (``STEP_LOSS_RTOL``,
+   ``STEP_PRIO_ATOL``).  Prints env steps/s while filling, the learner
+   update's wall clock, device time, idle share and top device ops, and
+   the host and device time of an actor iteration;
+6. one ``{"kernels": [...]}`` JSON line;
+7. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -78,9 +97,10 @@ BF16_TOL = 1e-4
 # operand differs by one bf16 ulp, and that carries through the recurrence
 BF16_FREE_TOL = 1e-2
 Q_TOL = 2e-3
-# phase 3's shapes: B = 65 crosses a 64-row tile of the tensor-core kernel
-CHECK_B = (1, 7, 64, 65, 256)
-TIMED = ((1, 1), (1, 32), (1, 256), (85, 64))
+# phase 3's shapes: B = 65 crosses a 64-row tile of the tensor-core kernel;
+# B = 8 is the flagship actor fleet's lockstep batch (phase 5)
+CHECK_B = (1, 7, 8, 64, 65, 256)
+TIMED = ((1, 1), (1, 8), (1, 32), (1, 256), (85, 64))
 # rounds of the timing, each taking the designs in turns
 ROUNDS = 4
 # the flagship LSTM layer's input: torso features, last action, reward
@@ -92,6 +112,27 @@ LIB_TOL = {1: 6e-2, 85: 2.5e-1}
 # the two designs' kernels, as the profiler names them
 WGMMA_KERNEL = "lstm_step_wgmma"
 CUDACORE_KERNEL = "lstm_step_cudacore"
+# phase 5: the flagship Config(game_name="Fake") cut only in replay size,
+# warm-up and run length, so that a target sync and two saves happen
+TRAIN_REDUCED = dict(buffer_capacity=40_000, learning_starts=4_000,
+                     training_steps=16, target_net_update_interval=8,
+                     save_interval=8)
+# the fake env's episodes: its default of 32 steps would fill each of the
+# 100 ring slots with one 32-step block, 3 200 transitions in all, under
+# learning_starts; 1 000-step episodes fill blocks to block_length (400)
+FAKE_EPISODE_LEN = 1000
+TRAIN_ACTIONS = 4
+EVAL_EPISODES = 4
+# the learner step in bf16 on the card against float32 on the CPU: bf16
+# keeps 8 significant bits, so every dense/conv output and every h the
+# scan feeds back is rounded by up to 2^-9 relative; a CPU rehearsal of the
+# same comparison (bf16 CPU step vs f32 CPU step, this batch, these
+# params) measured 4.8e-4 relative on the loss and 1.9e-3 max-abs on the
+# priorities (max 1.17).  The bounds are 20x and 10x that; a wrong gate,
+# window index or target is off by O(1)
+STEP_LOSS_RTOL = 1e-2
+STEP_PRIO_ATOL = 2e-2
+STEP_H = 64
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -673,6 +714,321 @@ def phase_serving(torch, card: str):
     return launches
 
 
+def profile_events(torch, fn, iters: int, tries: int = 3):
+    """Device-side events of ``iters`` calls of ``fn`` under
+    ``torch.profiler``: ``[(name, ms per call, count per call)]``, longest
+    first, or None when no trace in ``tries`` holds device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.key, getattr(e, "self_device_time_total", 0.0)
+                   / iters / 1e3, e.count / iters)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if sum(ms for _, ms, _ in events) > 0:
+            return sorted(events, key=lambda e: -e[1])
+    return None
+
+
+def short_kernel_name(name: str, width: int = 110) -> str:
+    """A device kernel's symbol without the namespaces that every ATen
+    kernel shares, so the functor (add, sigmoid, gemm ...) shows."""
+    for prefix in ("void ", "at::native::", "(anonymous namespace)::",
+                   "c10::"):
+        name = name.replace(prefix, "")
+    return name[:width]
+
+
+def wall_ms(torch, fn, iters: int) -> float:
+    """Host wall clock per call of ``iters`` calls, synchronised at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def step_batch(cfg, seed: int = 0) -> dict:
+    """One learner batch with ragged windows, made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    B, T, L, n = (cfg.batch_size, cfg.seq_len, cfg.learning_steps,
+                  cfg.forward_steps)
+    learning = rng.integers(1, L + 1, B).astype(np.int32)
+    burn_in = rng.integers(0, cfg.burn_in_steps + 1, B).astype(np.int32)
+    forward = np.where(learning == L, rng.integers(1, n + 1, B),
+                       1).astype(np.int32)
+    return dict(
+        obs=rng.integers(0, 256, (B, T, *cfg.stored_obs_shape), np.uint8),
+        last_action=np.eye(TRAIN_ACTIONS, dtype=np.float32)[
+            rng.integers(TRAIN_ACTIONS, size=(B, T))],
+        last_reward=rng.normal(size=(B, T)).astype(np.float32),
+        hidden=(rng.normal(size=(B, 2, cfg.lstm_layers, cfg.hidden_dim))
+                * 0.5).astype(np.float32),
+        action=rng.integers(0, TRAIN_ACTIONS, (B, L)).astype(np.int32),
+        n_step_reward=rng.normal(size=(B, L)).astype(np.float32),
+        n_step_gamma=np.full((B, L), cfg.gamma ** n, np.float32),
+        burn_in=burn_in, learning=learning, forward=forward,
+        is_weights=rng.uniform(0.2, 1.0, B).astype(np.float32))
+
+
+def learner_step_card_vs_cpu(torch) -> dict:
+    """One learner step at a reduced width (mlp torso, H=64) from the same
+    params on the same batch: bf16 on the card against float32 on the
+    CPU, which is the reference here (the card has no JAX)."""
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.learner.step import (
+        create_train_state,
+        make_train_step,
+    )
+    from r2d2_tpu_torch.models import create_network
+
+    out = {}
+    for dev, dtype in (("cuda", "bfloat16"), ("cpu", "float32")):
+        cfg = Config(game_name="Fake", torso="mlp", hidden_dim=STEP_H,
+                     compute_dtype=dtype)
+        net = create_network(cfg, TRAIN_ACTIONS, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+        state = create_train_state(cfg, net.state_dict())
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in step_batch(cfg).items()}
+        _, loss, prios = make_train_step(cfg, net)(state, batch)
+        out[dev] = (loss.item(), prios.cpu().numpy())
+    (lc, pc), (lf, pf) = out["cuda"], out["cpu"]
+    loss_rel = abs(lc - lf) / abs(lf)
+    prio_err = float(np.abs(pc - pf).max())
+    print(f"learner step card vs CPU (mlp torso, H={STEP_H}, batch 64, "
+          f"T=85): loss bf16 card {lc:.6f} vs f32 CPU {lf:.6f}, relative "
+          f"{loss_rel:.3e} (tol {STEP_LOSS_RTOL:.0e}); priorities max-abs "
+          f"{prio_err:.3e} (tol {STEP_PRIO_ATOL:.0e}, max {pf.max():.3f})",
+          flush=True)
+    if not (np.isfinite(lc) and np.isfinite(pc).all()):
+        fail("the card's learner step is not finite")
+    if loss_rel > STEP_LOSS_RTOL or prio_err > STEP_PRIO_ATOL:
+        fail("the card's learner step disagrees with the CPU's")
+    return dict(loss_rel_err=loss_rel, prio_max_abs_err=prio_err)
+
+
+def phase_training(torch, card: str) -> int:
+    """Phase 5: ``train_sync`` at the flagship width on the card."""
+    import shutil
+    import tempfile
+
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.actor import ACTOR_ACT
+    from r2d2_tpu_torch.checkpoint import Checkpointer
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.envs import FakeAtariEnv
+    from r2d2_tpu_torch.evaluate import EVAL_ACT, evaluate_params
+    from r2d2_tpu_torch.learner.learner import Learner
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+
+    t_phase = time.perf_counter()
+    base = Config(game_name="Fake")
+    flagship = dict(torso="nature", stored_obs_shape=(21, 21, 16),
+                    hidden_dim=H, lstm_layers=1, compute_dtype="bfloat16",
+                    param_dtype="float32", batch_size=64, burn_in_steps=40,
+                    learning_steps=40, forward_steps=5, num_actors=8,
+                    block_length=400)
+    got = {k: getattr(base, k) for k in flagship}
+    if got != flagship:
+        fail(f"Config(game_name='Fake') is not the flagship: {got}")
+    cfg = base.replace(**TRAIN_REDUCED)
+    print("reduced: " + ", ".join(
+        f"{k} {getattr(base, k)} -> {v}" for k, v in TRAIN_REDUCED.items())
+        + f" (host ring {cfg.num_blocks} blocks of {cfg.block_length}); "
+        f"fake env episodes of {FAKE_EPISODE_LEN} steps, {TRAIN_ACTIONS} "
+        "actions", flush=True)
+
+    def env_factory(c, seed):
+        return FakeAtariEnv(obs_shape=c.stored_obs_shape,
+                            action_dim=TRAIN_ACTIONS,
+                            episode_len=FAKE_EPISODE_LEN, seed=seed)
+
+    # the run's parts, captured as train_sync builds them, so that the
+    # checks below can read the buffer, the actor and the learner; the
+    # actor's bursts and the learner's steps are timed (each step ends in
+    # a synchronise, as the result fetch at pipeline 0 does anyway)
+    rec = dict(fill=[], acts=[], updates=[], synced={})
+    built = {}
+    real_build = train._build
+
+    def capture(*args, **kw):
+        sys_ = real_build(*args, **kw)
+        actor, learner = sys_["actor"], sys_["learner"]
+        run, step = actor.run, learner._step_fn
+
+        def timed_run(max_steps, stop=None):
+            t0 = time.perf_counter()
+            run(max_steps, stop)
+            key = "fill" if max_steps == cfg.block_length else "acts"
+            rec[key].append((max_steps, time.perf_counter() - t0))
+
+        def timed_step(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            rec["updates"].append((time.perf_counter() - t0) * 1e3)
+            st = out[0]
+            if st.step in (7, 8):
+                rec["synced"][st.step] = all(
+                    torch.equal(st.params[k], st.target_params[k])
+                    for k in st.params)
+            return out
+
+        actor.run, learner._step_fn = timed_run, timed_step
+        built.update(sys_, run=run, step=step)
+        return sys_
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        KERNEL_LAUNCHES.reset()
+        HOST_TRANSFERS.reset()
+        train._build = capture
+        t0 = time.perf_counter()
+        try:
+            m = train.train_sync(cfg, env_factory, checkpoint_dir=ckdir,
+                                 device="cuda")
+        finally:
+            train._build = real_build
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eval_return = evaluate_params(cfg, built["act_net"],
+                                      m["final_params"], env_factory,
+                                      episodes=EVAL_EPISODES, epsilon=0.0,
+                                      seed=cfg.seed)
+        eval_s = time.perf_counter() - t0
+        launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
+        old_launches = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
+        acts = HOST_TRANSFERS.get(ACTOR_ACT)
+        evals = HOST_TRANSFERS.get(EVAL_ACT)
+        actor, learner, buffer = (built["actor"], built["learner"],
+                                  built["buffer"])
+
+        # the main path's checks
+        if built["act_net"].lstm_layers[0].impl != "pallas":
+            fail("the actors' network did not resolve the fused LSTM kernel")
+        if acts != actor.actor_steps:
+            fail(f"{acts} actor acts for {actor.actor_steps} lockstep "
+                 "iterations")
+        if (launches != cfg.lstm_layers * (acts + evals) or not acts
+                or not evals or old_launches):
+            fail(f"lstm_infer launched {launches} times (CUDA-core "
+                 f"{old_launches}) for {acts} actor iterations and {evals} "
+                 f"evaluator steps, {cfg.lstm_layers} layer(s)")
+        losses = np.asarray(m["losses"])
+        stats = buffer.stats()
+        if (m["num_updates"] != cfg.training_steps
+                or losses.shape != (cfg.training_steps,)
+                or not np.isfinite(losses).all()
+                or stats["training_steps"] != cfg.training_steps):
+            fail(f"training: {m['num_updates']} updates, losses {losses}, "
+                 f"buffer training_steps {stats['training_steps']}")
+        if rec["synced"] != {7: False, 8: True}:
+            fail(f"target params equal to the online params after steps "
+                 f"7, 8: {rec['synced']} (want False, True)")
+        if not np.isfinite(eval_return):
+            fail(f"evaluation return {eval_return}")
+
+        # the latest checkpoint restores into a fresh learner bit for bit
+        ck = Checkpointer(ckdir)
+        if ck.steps() != [8, 16]:
+            fail(f"checkpoints {ck.steps()}, expected [8, 16]")
+        state, meta = ck.restore()
+        fresh = Learner(built["cfg"], built["net"], state)
+        a, b = learner.state, fresh.state
+        same = (a.step == b.step == cfg.training_steps
+                and a.opt_state.count == b.opt_state.count
+                and all(torch.equal(x[k], y[k])
+                        for x, y in ((a.params, b.params),
+                                     (a.target_params, b.target_params),
+                                     (a.opt_state.mu, b.opt_state.mu),
+                                     (a.opt_state.nu, b.opt_state.nu))
+                        for k in x))
+        if not same:
+            fail("the latest checkpoint did not restore bit for bit")
+        print(f"training: {m['num_updates']} updates in {train_s:.2f} s, "
+              f"losses {fmt_list(losses.tolist())}, buffer training_steps "
+              f"{stats['training_steps']}, env_steps {m['env_steps']}; "
+              f"target == online after step 7 {rec['synced'][7]}, after 8 "
+              f"{rec['synced'][8]}; checkpoints {ck.steps()} restore bit "
+              f"for bit (step {b.step}, env_steps {meta['env_steps']}); "
+              f"greedy return over {EVAL_EPISODES} episodes "
+              f"{eval_return:.3f} in {eval_s:.2f} s; lstm_infer launches "
+              f"{launches} = {cfg.lstm_layers} x ({acts} actor iterations "
+              f"+ {evals} evaluator steps), CUDA-core {old_launches}",
+              flush=True)
+
+        # timings (after the checks; they run the actor and learner on)
+        fill_steps = sum(n for n, _ in rec["fill"])
+        fill_s = sum(t for _, t in rec["fill"])
+        upd = np.asarray(rec["updates"])
+        spans = learner.tracer.snapshot()
+        print(f"training timings on {card}: fill {fill_steps} lockstep "
+              f"iterations x {cfg.num_actors} envs in {fill_s:.2f} s = "
+              f"{fill_steps * cfg.num_actors / fill_s:.0f} env steps/s; "
+              f"learner update (step + synchronise) p50 "
+              f"{np.percentile(upd, 50):.2f} ms, min {upd.min():.2f}, max "
+              f"{upd.max():.2f}, first {upd[0]:.2f} over {len(upd)}; "
+              "per-update spans (mean ms) "
+              + ", ".join(f"{k[5:-8]} {v:.2f}" for k, v in sorted(
+                  spans.items()) if k.endswith(".mean_ms")), flush=True)
+
+        one_iter = lambda: built["run"](1)   # noqa: E731
+        act_events = profile_events(torch, one_iter, 10)
+        act_wall = wall_ms(torch, one_iter, 20)
+        if act_events is None:
+            fail("no device time in an actor iteration")
+        act_dev = sum(ms for _, ms, _ in act_events)
+        kern = [(ms, n) for k, ms, n in act_events if WGMMA_KERNEL in k]
+        if (not kern or kern[0][1] != cfg.lstm_layers
+                or any("lstm_step_cudacore" in k for k, _, _ in act_events)):
+            fail(f"an actor iteration ran {kern} tensor-core LSTM kernels")
+
+        def one_update():
+            dev, _ = learner._stage(buffer.sample_batch())
+            _, loss, _ = built["step"](learner.state, dev)
+            return loss.item()
+
+        upd_events = profile_events(torch, one_update, 2)
+        upd_wall = wall_ms(torch, one_update, 2)
+        if upd_events is None:
+            fail("no device time in a learner update")
+        if any("lstm_step" in k for k, _, _ in upd_events):
+            fail("a learner update launched an lstm_infer kernel")
+        upd_dev = sum(ms for _, ms, _ in upd_events)
+        n_upd = sum(n for _, _, n in upd_events)
+        print(f"actor iteration (B={cfg.num_actors}) on {card}: host wall "
+              f"{act_wall:.3f} ms, device {act_dev:.4f} ms in "
+              f"{sum(n for _, _, n in act_events):.0f} device events, "
+              f"lstm_infer tensor-core kernel {kern[0][0]:.4f} ms "
+              f"({kern[0][0] / act_dev:.1%} of the device time), device idle "
+              f"{1 - act_dev / act_wall:.1%}", flush=True)
+        print(f"learner update (sample, stage, step, fetch; 2 updates "
+              f"profiled) on {card}: host wall {upd_wall:.2f} ms, device "
+              f"{upd_dev:.3f} ms in {n_upd:.0f} device events, device idle "
+              f"{1 - upd_dev / upd_wall:.1%}; no lstm_infer kernel; top 5 "
+              "device ops (ms per update, count): " + "; ".join(
+                  f"{short_kernel_name(k)} {ms:.3f} ({n:.0f})"
+                  for k, ms, n in upd_events[:5]), flush=True)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    learner_step_card_vs_cpu(torch)
+    print(f"phase 5 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -709,8 +1065,11 @@ def main() -> None:
     # phase 3: every design against its plain version, and the timings
     errs, sweep, timings = phase_kernel(torch, lstm)
 
-    # phase 4: the main path — serving at full width
-    launches = phase_serving(torch, card)
+    # phase 4: the serving path at full width
+    serve_launches = phase_serving(torch, card)
+
+    # phase 5: the training path at full width
+    train_launches = phase_training(torch, card)
 
     head = timings[(1, 256)]
     print(json.dumps({"kernels": [{
@@ -718,7 +1077,9 @@ def main() -> None:
         "route": "cuda",
         "source": "r2d2_tpu_torch/csrc/lstm_infer.cu",
         "replaces": "r2d2_tpu/ops/lstm.py:46",
-        "launches": launches,
+        "launches": serve_launches + train_launches,
+        "launches_by_path": {"serving": serve_launches,
+                             "training": train_launches},
         "max_abs_err": errs["tensor_core"][0],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

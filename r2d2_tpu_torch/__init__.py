@@ -8,7 +8,9 @@ passes ``device="cpu"``.
 
 Ported so far: the session-serving path (``serving/``) over the R2D2
 network (``models/``) with the fused LSTM inference unroll as a
-hand-written Hopper kernel (``ops/lstm.py``, ``csrc/lstm_infer.cu``).
+hand-written Hopper kernel (``ops/lstm.py``, ``csrc/lstm_infer.cu``), and
+the training path (``train.train_sync``: actors, replay, learner,
+checkpoints, evaluation), whose actors act through that kernel.
 ROADMAP.md lists what comes next.
 """
 from r2d2_tpu_torch.config import Config, test_config

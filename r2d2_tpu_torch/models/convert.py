@@ -10,6 +10,12 @@ arrays, maps onto the port's modules by name:
 - ``lstm_i/{wi, wh, b}`` → ``lstm_layers.i.{wi, wh, b}`` as they are: one
   bias, not ``nn.LSTM``'s two;
 - ``head/{adv,val}_{hidden,out}`` → ``head.*``: Dense kernels transposed.
+
+:func:`train_state_from_jax` carries a whole JAX ``TrainState`` across
+(online and target params, optax Adam's ``mu``/``nu``/``count``, the
+step): the moments have the params' tree shape, so they map by the same
+rules.  The caller reads the JAX state (e.g. an orbax checkpoint) and
+passes numpy; the port itself never imports orbax.
 """
 from __future__ import annotations
 
@@ -51,3 +57,20 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         out[f"head.{name}.weight"] = _leaf(layer["kernel"]).T.contiguous()
         out[f"head.{name}.bias"] = _leaf(layer["bias"])
     return out
+
+
+def train_state_from_jax(params: Mapping[str, Any],
+                         target_params: Mapping[str, Any],
+                         mu: Mapping[str, Any], nu: Mapping[str, Any],
+                         count: int, step: int):
+    """The port's :class:`~r2d2_tpu_torch.learner.step.TrainState` (CPU
+    float32 tensors) from a JAX ``TrainState`` as numpy: the flax params
+    and target params, optax ``ScaleByAdamState``'s ``mu``/``nu``/``count``
+    (the clip's state is empty) and the step counter."""
+    from r2d2_tpu_torch.learner.step import AdamState, TrainState
+
+    return TrainState(
+        step=int(step), params=params_from_flax(params),
+        target_params=params_from_flax(target_params),
+        opt_state=AdamState(count=int(count), mu=params_from_flax(mu),
+                            nu=params_from_flax(nu)))

@@ -222,8 +222,9 @@ def resolve_lstm_impl(cfg: Config, device: torch.device) -> str:
 
 
 class R2D2Network(nn.Module):
-    """The full Q-network.  ``forward`` is :meth:`act`, so
-    ``torch.func.functional_call`` can run it over published params.
+    """The full Q-network.  ``forward`` is :meth:`act` (or :meth:`unroll`
+    with ``method="unroll"``), so ``torch.func.functional_call`` can run it
+    over published params.
 
     - ``unroll``: (obs (B,T,*obs) uint8, last_action (B,T,A), last_reward
       (B,T), hidden (B,2,layers,H)) → (q (B,T,A) f32, new hidden).
@@ -291,7 +292,14 @@ class R2D2Network(nn.Module):
                                     last_reward[:, None], hidden)
         return q[:, 0], new_hidden
 
-    def forward(self, obs, last_action, last_reward, hidden):
+    def forward(self, obs, last_action, last_reward, hidden,
+                method: str = "act"):
+        """``method`` picks :meth:`act` or :meth:`unroll` (flax's
+        ``apply(..., method=)``), so ``functional_call`` reaches both."""
+        if method == "unroll":
+            return self.unroll(obs, last_action, last_reward, hidden)
+        if method != "act":
+            raise ValueError(f"unknown method {method!r}")
         return self.act(obs, last_action, last_reward, hidden)
 
 

@@ -156,3 +156,36 @@ def test_network_kernel_path_matches_plain_path(cuda):
         q2, h2 = plain.act(obs, la, lr, hid)
     assert (h1 - h2).abs().max().item() <= 1e-4
     assert (q1 - q2).abs().max().item() <= 2e-3
+
+
+@pytest.mark.cuda
+def test_training_path_acts_through_the_kernel_and_learns_without_it(cuda):
+    """The actors' acts launch the tensor-core kernel once per layer per
+    lockstep iteration (B = 8); the learner's update launches none (its
+    loss runs the scan recurrence)."""
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.envs import create_env
+    from r2d2_tpu_torch.train import _build
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS
+
+    cfg = Config(game_name="Fake", torso="mlp", hidden_dim=64, num_actors=8,
+                 burn_in_steps=4, learning_steps=4, forward_steps=2,
+                 block_length=8, buffer_capacity=160, learning_starts=16,
+                 batch_size=8)
+    sys = _build(cfg, lambda c, seed: create_env(c, seed=seed), None, False,
+                 device=cuda)
+    assert sys["net"].lstm_layers[0].impl == "pallas"
+    KERNEL_LAUNCHES.reset()
+    before = HOST_TRANSFERS.get("actor.act_fetch")
+    sys["actor"].run(12)
+    acts = HOST_TRANSFERS.get("actor.act_fetch") - before
+    assert acts == 12
+    assert KERNEL_LAUNCHES.get(KERNEL) == acts * cfg.lstm_layers
+    assert KERNEL_LAUNCHES.get(CUDACORE_COUNTER) == 0
+    learner = sys["learner"]
+    dev, host = learner._stage(sys["buffer"].sample_batch())
+    KERNEL_LAUNCHES.reset()
+    state, loss, prios = learner._step_fn(learner.state, dev)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES.get(KERNEL) == 0
+    assert torch.isfinite(loss) and prios.shape == (8,)

@@ -172,6 +172,28 @@ def test_launch_plan_spreads_small_buckets_over_many_blocks():
         launch_plan(1, 1600)
 
 
+# the training path's batches at the flagship width: the actor fleet's
+# lockstep batch (num_actors = 8) and evaluator batches of one episode per
+# env (eval_episodes = 5 by default, 4 in chip_smoke.py), which need not be
+# serving buckets
+@pytest.mark.parametrize("B", [3, 4, 5, 8, 10])
+def test_training_path_batches_pass_the_checks_and_plan(monkeypatch, B):
+    calls = []
+    monkeypatch.setattr(lstm_ops, "_launch_wgmma",
+                        lambda *a: calls.append(a[4]))
+    H = 512
+    rng = np.random.default_rng(B)
+    xp = torch.from_numpy(rng.normal(size=(1, B, 4 * H)).astype(np.float32))
+    # the layer's wh as the network passes it: the f32 param cast per act
+    wh = torch.from_numpy(rng.normal(size=(H, 4 * H)).astype(np.float32)
+                          ).to(torch.bfloat16).contiguous()
+    h0 = torch.zeros(B, H)
+    lstm_unroll_cuda(xp, wh, h0, h0.clone())
+    assert calls == [launch_plan(B, H)]
+    assert calls[0].grid == (64, 1) and calls[0].n == 8
+    lstm_ops._check_tma(wh)
+
+
 @pytest.mark.parametrize("dtype,route,launcher", [
     (torch.bfloat16, "tensor_core", "_launch_wgmma"),
     (torch.float32, "cuda_core", "_lstm_unroll_cudacore"),

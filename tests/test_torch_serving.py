@@ -434,7 +434,15 @@ def test_act_device_resolution_never_moves_to_cpu_silently(monkeypatch):
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import r2d2_tpu_torch, r2d2_tpu_torch.serving.server, "
-            "r2d2_tpu_torch.models, r2d2_tpu_torch.actor; "
+            "r2d2_tpu_torch.models, r2d2_tpu_torch.actor, "
+            "r2d2_tpu_torch.utils.math, r2d2_tpu_torch.native, "
+            "r2d2_tpu_torch.replay.sum_tree, r2d2_tpu_torch.replay.block, "
+            "r2d2_tpu_torch.replay.replay_buffer, r2d2_tpu_torch.envs, "
+            "r2d2_tpu_torch.utils.store, r2d2_tpu_torch.learner.step, "
+            "r2d2_tpu_torch.learner.learner, r2d2_tpu_torch.checkpoint, "
+            "r2d2_tpu_torch.train, r2d2_tpu_torch.evaluate, "
+            "r2d2_tpu_torch.models.convert, "
+            "r2d2_tpu_torch.telemetry.tracing; "
             "bad = [m for m in sys.modules if m == 'r2d2_tpu' "
             "or m.startswith('r2d2_tpu.') or m.split('.')[0] in "
             "('flax', 'optax', 'orbax')]; "
