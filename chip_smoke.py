@@ -69,8 +69,30 @@ Phases (each exits non-zero on failure):
    ``STEP_PRIO_ATOL``).  Prints env steps/s while filling, the learner
    update's wall clock, device time, idle share and top device ops, and
    the host and device time of an actor iteration;
-6. one ``{"kernels": [...]}`` JSON line;
-7. last line: ``{"ok": true, "device": {...}}``.
+6. the IMPALA-deep fabric at full width: ``impala_deep_config(game_name=
+   "Fake")`` (the IMPALA residual CNN over raw 84×84 frames, two LSTM
+   layers of H=512, batch 64, burn-in 40 + learning 75 + forward 5, blocks
+   of 375, remat, bf16 compute, 8 actors) with only the replay size,
+   warm-up and run length cut (the ``reduced:`` line), trained by the
+   threaded ``train()`` in this (the main) thread for 24 updates, resumed
+   warm to 28, then its checkpoint served by ``run_server`` in a worker
+   thread to a client process (16 sessions × 4 steps).  Checked: 24
+   updates and 24 priority feedbacks, no thread restarted, every loss
+   finite; the kernel launched twice per actor act (one per layer), the
+   CUDA-core one never; ``/healthz`` (``ok``) and ``/metrics`` answered on
+   the run's ephemeral port; the JSONL run log and a complete ``step_24``
+   replay snapshot on disk; the resume restores the replay and the actors
+   (counters monotone) and ends at 28 updates; every served q within 2e-3
+   of the plain-LSTM act of the same restored params; the store's
+   accounting quadruple exact; two launches per served batch; the
+   shutdown session snapshot's counters equal to the server's.  Prints env
+   steps/s while filling and while training, updates/s and the update
+   interval p50, the device time, idle share and top ops of one profiled
+   update, an actor iteration's host/device time and the kernel's share,
+   tensor-map encodes per act, the served act and client round trip
+   p50/p99, and the phase's seconds;
+7. one ``{"kernels": [...]}`` JSON line;
+8. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -78,9 +100,11 @@ from __future__ import annotations
 
 import json
 import multiprocessing
+import os
 import queue
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -133,6 +157,18 @@ EVAL_EPISODES = 4
 STEP_LOSS_RTOL = 1e-2
 STEP_PRIO_ATOL = 2e-2
 STEP_H = 64
+# phase 6: impala_deep_config(game_name="Fake") cut only in replay size
+# (1 500 000 -> 37 500 transitions, 100 blocks), warm-up and run length;
+# the exporter on an ephemeral port and a log entry a second, so that the
+# run's /healthz and /metrics can be read while it trains
+FABRIC_REDUCED = dict(buffer_capacity=37_500, learning_starts=3_750,
+                      training_steps=24, target_net_update_interval=8,
+                      save_interval=8, telemetry_port=-1, log_interval=1.0)
+FABRIC_RESUME_STEPS = 28
+# a wall budget that fails the phase rather than let a stuck fabric hang
+FABRIC_WALL_S = 420
+FABRIC_SESSIONS = 16
+FABRIC_GROUPS = (1, 2, 5, 8)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -478,11 +514,11 @@ def fmt_list(xs, digits: int = 4) -> str:
     return "[" + ", ".join(f"{x:.{digits}f}" for x in xs) + "]"
 
 
-def session_inputs(obs_shape, seed: int = 1):
+def session_inputs(obs_shape, seed: int = 1, n_sessions: int = N_SESSIONS):
     """The traffic: per (session, step) an observation and a reward, made
     from ``seed`` — the client process and the checks rebuild the same."""
     rng = np.random.default_rng(seed)
-    sids = list(range(100, 100 + N_SESSIONS))
+    sids = list(range(100, 100 + n_sessions))
     obs = {(s, t): rng.integers(0, 256, obs_shape, np.uint8)
            for s in sids for t in range(N_STEPS)}
     reward = {(s, t): float(rng.normal()) for s in sids
@@ -490,20 +526,32 @@ def session_inputs(obs_shape, seed: int = 1):
     return sids, obs, reward
 
 
-def client_process(host: str, port: int, out) -> None:
+def client_setup(kind: str):
+    """(config, action dim, sessions, groups) of a client: ``flagship``
+    for phase 4's served net, ``impala`` for phase 6's checkpoint."""
+    from r2d2_tpu_torch.config import Config, impala_deep_config
+
+    if kind == "flagship":
+        return Config(serve_max_batch=256), ACTION_DIM, N_SESSIONS, GROUPS
+    return (impala_deep_config(game_name="Fake").replace(**FABRIC_REDUCED),
+            TRAIN_ACTIONS, FABRIC_SESSIONS, FABRIC_GROUPS)
+
+
+def client_process(host: str, port: int, out, kind: str = "flagship"
+                   ) -> None:
     """The external client (its own process, as a frontend would be):
     opens the sessions, sends the steps in groups, feeds each session its
     greedy action back, and puts ``("ok", replies, latencies)`` or
     ``("error", message)`` on ``out``."""
-    from r2d2_tpu_torch.config import Config
     from r2d2_tpu_torch.serving.client import SessionClient
     from r2d2_tpu_torch.serving.wire import STATUS_OK
 
-    cfg = Config(serve_max_batch=256)
-    sids, obs, reward = session_inputs(cfg.stored_obs_shape)
+    cfg, action_dim, n_sessions, groups = client_setup(kind)
+    sids, obs, reward = session_inputs(cfg.stored_obs_shape,
+                                       n_sessions=n_sessions)
     replies, lat = {}, []
     try:
-        client = SessionClient(cfg, ACTION_DIM, host, port, timeout=60.0)
+        client = SessionClient(cfg, action_dim, host, port, timeout=60.0)
     except OSError as e:
         out.put(("error", f"connect failed: {e}"))
         return
@@ -512,10 +560,10 @@ def client_process(host: str, port: int, out) -> None:
             if client.open_session(s) != STATUS_OK:
                 out.put(("error", f"open_session({s}) refused"))
                 return
-        la = {s: np.zeros(ACTION_DIM, np.float32) for s in sids}
+        la = {s: np.zeros(action_dim, np.float32) for s in sids}
         for t in range(N_STEPS):
             lo = 0
-            for g in GROUPS:
+            for g in groups:
                 group = sids[lo:lo + g]
                 lo += g
                 sent = {s: (client.send_act(s, obs[(s, t)], la[s],
@@ -529,7 +577,7 @@ def client_process(host: str, port: int, out) -> None:
                                           f"{status}"))
                         return
                     replies[(s, t)] = q
-                    la[s] = np.zeros(ACTION_DIM, np.float32)
+                    la[s] = np.zeros(action_dim, np.float32)
                     la[s][int(np.argmax(q))] = 1.0
         for s in sids:
             client.close_session(s)
@@ -1029,6 +1077,456 @@ def phase_training(torch, card: str) -> int:
     return launches
 
 
+def http_get(port: int, path: str):
+    """``(status, body)`` of a GET to the local exporter (no proxy: a
+    direct connection to 127.0.0.1)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read().decode()
+    finally:
+        conn.close()
+
+
+def served_vs_plain(torch, cfg, action_dim, served, params, bucket):
+    """Max-abs error of every served batch's (q, new hidden) against a
+    direct act with the plain LSTM on the same card, params and padded
+    rows."""
+    from r2d2_tpu_torch.actor import make_act_fn
+    from r2d2_tpu_torch.models import create_network
+
+    plain = create_network(cfg, action_dim, device="cuda",
+                           lstm_impl="reference")
+    plain_act = make_act_fn(plain)
+    gparams = {k: v.to("cuda") for k, v in params.items()}
+    q_err = h_err = 0.0
+    for b_obs, b_la, b_lr, b_hid, b_q, b_new in served:
+        n = len(b_obs)
+        pad = bucket(n)
+
+        def padded(a):
+            out = np.zeros((pad, *a.shape[1:]), a.dtype)
+            out[:n] = a
+            return torch.from_numpy(out).to("cuda")
+
+        q, new_hidden = plain_act(gparams, padded(b_obs), padded(b_la),
+                                  padded(b_lr), padded(b_hid))
+        q_err = max(q_err, float(np.abs(q[:n].cpu().numpy() - b_q).max()))
+        h_err = max(h_err, float(np.abs(new_hidden[:n].cpu().numpy()
+                                        - b_new).max()))
+    return q_err, h_err
+
+
+def phase_fabric(torch, card: str):
+    """Phase 6: the IMPALA-deep net trained by the threaded ``train()``,
+    resumed warm, and its checkpoint served by ``run_server``.  Returns
+    the kernel's launches on the fabric and on the served checkpoint."""
+    import shutil
+    import tempfile
+
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.actor import ACTOR_ACT
+    from r2d2_tpu_torch.checkpoint import Checkpointer
+    from r2d2_tpu_torch.config import impala_deep_config
+    from r2d2_tpu_torch.envs import FakeAtariEnv
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.replay.replay_buffer import data_bytes
+    from r2d2_tpu_torch.serving import server as server_mod
+    from r2d2_tpu_torch.telemetry.runlog import read_entries
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+
+    t_phase = time.perf_counter()
+    base = impala_deep_config(game_name="Fake")
+    literal = dict(torso="impala", lstm_layers=2, hidden_dim=H,
+                   obs_shape=(84, 84, 1), stored_obs_shape=(84, 84, 1),
+                   obs_space_to_depth=False, batch_size=64,
+                   burn_in_steps=40, learning_steps=75, forward_steps=5,
+                   block_length=375, remat=True, compute_dtype="bfloat16",
+                   param_dtype="float32", num_actors=8)
+    got = {k: getattr(base, k) for k in literal}
+    if got != literal:
+        fail(f"impala_deep_config(game_name='Fake') is not the IMPALA-deep "
+             f"configuration: {got}")
+    cfg = base.replace(**FABRIC_REDUCED)
+    print("reduced: " + ", ".join(
+        f"{k} {getattr(base, k)} -> {v}" for k, v in FABRIC_REDUCED.items())
+        + f" (host ring {cfg.num_blocks} blocks of {cfg.block_length}, "
+        f"{data_bytes(cfg, TRAIN_ACTIONS) / 1e9:.3f} GB); fake env episodes "
+        f"of {FAKE_EPISODE_LEN} steps, {TRAIN_ACTIONS} actions", flush=True)
+
+    def env_factory(c, seed):
+        return FakeAtariEnv(obs_shape=c.stored_obs_shape,
+                            action_dim=TRAIN_ACTIONS,
+                            episode_len=FAKE_EPISODE_LEN, seed=seed)
+
+    # each run's parts, captured as train() builds them: the learner's
+    # steps are stamped (entry, exit, actor iterations so far) without any
+    # synchronisation, so the fabric runs as it would unobserved
+    runs = []
+    real_build = train._build
+
+    def capture(*args, **kw):
+        sys_ = real_build(*args, **kw)
+        actor, learner = sys_["actor"], sys_["learner"]
+        run, step = actor.run, learner._step_fn
+        rec = dict(sys_, run=run, step=step, steps=[], start=None,
+                   actor_steps0=actor.actor_steps,
+                   episode_steps0=actor.episode_steps.copy())
+
+        def timed_run(max_steps, stop=None):
+            if rec["start"] is None:
+                rec["start"] = (time.perf_counter(), actor.actor_steps)
+            run(max_steps, stop)
+
+        def timed_step(state, batch):
+            t0, a0 = time.perf_counter(), actor.actor_steps
+            out = step(state, batch)
+            rec["steps"].append((t0, a0, time.perf_counter(),
+                                 actor.actor_steps))
+            return out
+
+        actor.run, learner._step_fn = timed_run, timed_step
+        runs.append(rec)
+        return sys_
+
+    probe = {}
+
+    def log_sink(entry):
+        # the first entry: read the run's exporter while it trains
+        if probe:
+            return
+        try:
+            port = entry["telemetry_port"]
+            probe["healthz"] = http_get(port, "/healthz")
+            probe["metrics"] = http_get(port, "/metrics")
+        except Exception as e:  # checked below, after the run
+            probe["error"] = f"{type(e).__name__}: {e}"
+
+    def counts():
+        return (KERNEL_LAUNCHES.get(lstm.KERNEL),
+                KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER),
+                HOST_TRANSFERS.get(ACTOR_ACT),
+                lstm.TENSOR_MAP_ENCODES.get(lstm.KERNEL))
+
+    def reset():
+        KERNEL_LAUNCHES.reset()
+        HOST_TRANSFERS.reset()
+        lstm.TENSOR_MAP_ENCODES.reset()
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_fabric_")
+    try:
+        train._build = capture
+        try:
+            reset()
+            t0 = time.perf_counter()
+            m = train.train(cfg, env_factory, checkpoint_dir=ckdir,
+                            max_wall_seconds=FABRIC_WALL_S, verbose=False,
+                            log_sink=log_sink)
+            train_s = time.perf_counter() - t0
+            launches, old, acts, encodes = counts()
+            first = runs[0]
+            actor = first["actor"]
+            saved_steps = actor.actor_steps
+            saved_episode_steps = actor.episode_steps.copy()
+
+            # the fabric's checks
+            if first["act_net"].lstm_layers[0].impl != "pallas":
+                fail("the fabric's actors did not resolve the fused LSTM "
+                     "kernel")
+            lh = m["learnhealth"]
+            restarts = {k: h["restarts"] for k, h in m["health"].items()}
+            if (m["num_updates"] != cfg.training_steps
+                    or m["buffer_training_steps"] != m["num_updates"]
+                    or lh["loss_count"] != cfg.training_steps
+                    or lh["nonfinite"] or not np.isfinite(m["mean_loss"])):
+                fail(f"fabric: {m['num_updates']} updates, buffer "
+                     f"{m['buffer_training_steps']} feedbacks, learnhealth "
+                     f"{lh}")
+            if m["fabric_failed"] or any(restarts.values()):
+                fail(f"fabric threads: failed {m['fabric_failed']}, "
+                     f"restarts {restarts}")
+            if launches != cfg.lstm_layers * acts or not acts or old:
+                fail(f"lstm_infer launched {launches} times (CUDA-core "
+                     f"{old}) for {acts} actor acts, {cfg.lstm_layers} "
+                     "layers")
+            if "error" in probe or probe["healthz"][0] != 200:
+                fail(f"the run's exporter: {probe}")
+            health = json.loads(probe["healthz"][1])
+            if (health.get("status") != "ok" or probe["metrics"][0] != 200
+                    or "r2d2_replay_buffer_size" not in
+                    probe["metrics"][1]):
+                fail(f"/healthz {health}, /metrics status "
+                     f"{probe['metrics'][0]}")
+            runlog = os.path.join(ckdir, "telemetry", "run.jsonl")
+            ck = Checkpointer(ckdir)
+            if not os.path.exists(runlog) or cfg.training_steps not in (
+                    ck.replay_steps()):
+                fail(f"run log {os.path.exists(runlog)}, replay snapshots "
+                     f"{ck.replay_steps()}")
+            print(f"fabric on {card}: {m['num_updates']} updates in "
+                  f"{train_s:.2f} s, "
+                  f"buffer feedbacks {m['buffer_training_steps']}, mean loss "
+                  f"{m['mean_loss']:.5f}, losses finite "
+                  f"{lh['loss_count']}/{cfg.training_steps}; threads "
+                  f"{sorted(restarts)} restarts 0; /healthz "
+                  f"{health['status']}, /metrics "
+                  f"{len(probe['metrics'][1])} bytes; checkpoints "
+                  f"{ck.steps()}, replay snapshots {ck.replay_steps()}; "
+                  f"lstm_infer launches {launches} = {cfg.lstm_layers} x "
+                  f"{acts} actor acts, CUDA-core {old}; tensor-map encodes "
+                  f"{encodes} ({encodes / acts:.2f} per act)", flush=True)
+
+            # the fabric's timings (from the stamps, no synchronisation)
+            steps = first["steps"]
+            n_env = cfg.num_actors
+            t_start, a_start = first["start"]
+            fill_rate = (steps[0][1] - a_start) * n_env / (steps[0][0]
+                                                           - t_start)
+            train_rate = ((steps[-1][3] - steps[0][1]) * n_env
+                          / (steps[-1][2] - steps[0][0]))
+            exits = np.asarray([s[2] for s in steps])
+            gaps = np.diff(exits) * 1e3
+            print(f"fabric timings on {card}: env steps/s while filling "
+                  f"{fill_rate:.0f} ({steps[0][1] - a_start} iterations x "
+                  f"{n_env} envs), while training {train_rate:.0f}; "
+                  f"updates/s {(len(exits) - 1) / (exits[-1] - exits[0]):.3f}"
+                  f", update interval p50 {np.percentile(gaps, 50):.2f} ms "
+                  f"(min {gaps.min():.2f}, max {gaps.max():.2f}, "
+                  f"{len(gaps)} intervals); first update dispatched "
+                  f"{(steps[0][2] - steps[0][0]) * 1e3:.1f} ms", flush=True)
+            spans = m["trace"]
+            print(f"fabric spans on {card} (mean / p50 ms): " + ", ".join(
+                f"{k[5:-8]} {v:.2f} / {spans[k[:-8] + '.p50_ms']:.2f}"
+                for k, v in sorted(spans.items()) if k.endswith(".mean_ms")),
+                flush=True)
+
+            # where an update's and an actor iteration's time goes, the
+            # fabric stopped (both run on after the snapshot was saved)
+            learner, buffer = first["learner"], first["buffer"]
+
+            def one_update():
+                dev, _ = learner._stage(buffer.sample_batch())
+                _, loss, _ = first["step"](learner.state, dev)
+                return loss.item()
+
+            upd_events = profile_events(torch, one_update, 1)
+            upd_wall = wall_ms(torch, one_update, 2)
+            if upd_events is None:
+                fail("no device time in a learner update")
+            if any("lstm_step" in k for k, _, _ in upd_events):
+                fail("a learner update launched an lstm_infer kernel")
+            upd_dev = sum(ms for _, ms, _ in upd_events)
+            print(f"learner update at IMPALA-deep (sample, stage, step, "
+                  f"fetch; 1 profiled) on {card}: host wall {upd_wall:.2f} "
+                  f"ms, device {upd_dev:.3f} ms in "
+                  f"{sum(n for _, _, n in upd_events):.0f} device events, "
+                  f"device idle {1 - upd_dev / upd_wall:.1%}; top 5 device "
+                  "ops (ms per update, count): " + "; ".join(
+                      f"{short_kernel_name(k)} {ms:.3f} ({n:.0f})"
+                      for k, ms, n in upd_events[:5]), flush=True)
+            one_iter = lambda: first["run"](1)   # noqa: E731
+            act_events = profile_events(torch, one_iter, 10)
+            act_wall = wall_ms(torch, one_iter, 20)
+            if act_events is None:
+                fail("no device time in an actor iteration")
+            act_dev = sum(ms for _, ms, _ in act_events)
+            kern = [(ms, n) for k, ms, n in act_events if WGMMA_KERNEL in k]
+            if (not kern or kern[0][1] != cfg.lstm_layers
+                    or any(CUDACORE_KERNEL in k for k, _, _ in act_events)):
+                fail(f"an IMPALA-deep actor iteration ran {kern} "
+                     "tensor-core LSTM kernels")
+            print(f"actor iteration at IMPALA-deep (B={cfg.num_actors}) on "
+                  f"{card}: host wall {act_wall:.3f} ms, device "
+                  f"{act_dev:.4f} ms in "
+                  f"{sum(n for _, _, n in act_events):.0f} device events, "
+                  f"lstm_infer tensor-core kernel {kern[0][0]:.4f} ms in "
+                  f"{kern[0][1]:.0f} launches ({kern[0][0] / act_dev:.1%} of "
+                  f"the device time), device idle "
+                  f"{1 - act_dev / act_wall:.1%}", flush=True)
+
+            # resume warm: the replay ring and the actors come back
+            reset()
+            t0 = time.perf_counter()
+            m2 = train.train(cfg.replace(training_steps=FABRIC_RESUME_STEPS),
+                             env_factory, checkpoint_dir=ckdir, resume=True,
+                             max_wall_seconds=FABRIC_WALL_S, verbose=False)
+            resume_s = time.perf_counter() - t0
+            launches2, old2, acts2, encodes2 = counts()
+        finally:
+            train._build = real_build
+        second = runs[1]
+        entries = list(read_entries(runlog))
+        env_curve = [e["env_steps"] for e in entries]
+        upd_curve = [e["training_steps"] for e in entries]
+        if (not m2["restored_replay"]
+                or m2["num_updates"] != FABRIC_RESUME_STEPS
+                or m2["buffer_training_steps"] != FABRIC_RESUME_STEPS
+                or second["actor_steps0"] != saved_steps
+                or not np.array_equal(second["episode_steps0"],
+                                      saved_episode_steps)
+                or second["actor"].actor_steps <= saved_steps
+                or m2["env_steps"] < m["env_steps"]
+                or env_curve != sorted(env_curve)
+                or upd_curve != sorted(upd_curve)):
+            fail(f"resume: restored_replay {m2['restored_replay']}, "
+                 f"{m2['num_updates']} updates, feedbacks "
+                 f"{m2['buffer_training_steps']}, actor steps "
+                 f"{second['actor_steps0']} (saved {saved_steps}), env steps "
+                 f"{m['env_steps']} -> {m2['env_steps']}, run log env steps "
+                 f"{env_curve}, updates {upd_curve}")
+        if launches2 != cfg.lstm_layers * acts2 or not acts2 or old2:
+            fail(f"resumed: lstm_infer launched {launches2} times (CUDA-core "
+                 f"{old2}) for {acts2} actor acts")
+        print(f"fabric resume on {card}: restored_replay true, "
+              f"{m2['num_updates']} "
+              f"updates in {resume_s:.2f} s, actor iterations "
+              f"{saved_steps} -> {second['actor_steps0']} (restored) -> "
+              f"{second['actor'].actor_steps}, env steps {m['env_steps']} -> "
+              f"{m2['env_steps']}, run log {len(entries)} entries monotone; "
+              f"lstm_infer launches {launches2} = {cfg.lstm_layers} x "
+              f"{acts2} acts, CUDA-core {old2}", flush=True)
+        fabric_launches = launches + launches2
+
+        serve_launches = serve_checkpoint(torch, card, cfg, ckdir,
+                                          server_mod)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"phase 6 took {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+    return fabric_launches, serve_launches
+
+
+def serve_checkpoint(torch, card: str, cfg, ckdir: str, server_mod) -> int:
+    """Phase 6's serving half: ``run_server`` on the fabric's checkpoint in
+    a worker thread, a client process driving the sessions.  Returns the
+    kernel's launches under that traffic."""
+    from r2d2_tpu_torch.checkpoint import Checkpointer
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.utils.trace import KERNEL_LAUNCHES
+
+    t0 = time.perf_counter()
+    served, holder, result = [], {}, {}
+    done = threading.Event()
+    real_server = server_mod.SessionServer
+
+    class RecordingServer(real_server):
+        """The server run_server builds, with every served batch's inputs
+        and outputs recorded (host copies)."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            act = self.batcher.act
+
+            def recording_act(obs, last_action, last_reward, hidden):
+                q, new_hidden = act(obs, last_action, last_reward, hidden)
+                served.append(tuple(np.array(a) for a in (
+                    obs, last_action, last_reward, hidden, q, new_hidden)))
+                return q, new_hidden
+
+            self.batcher.act = recording_act
+            holder["server"] = self
+
+    def serve():
+        try:
+            result["stats"] = server_mod.run_server(
+                cfg, ckdir, action_dim=TRAIN_ACTIONS,
+                max_wall_seconds=FABRIC_WALL_S, verbose=False,
+                stop_fn=done.is_set)
+        except BaseException as e:  # reported by the main thread
+            result["error"] = f"{type(e).__name__}: {e}"
+
+    server_mod.SessionServer = RecordingServer
+    thread = threading.Thread(target=serve, name="run_server")
+    try:
+        thread.start()
+        deadline = time.monotonic() + 300
+        while not (holder.get("server") is not None
+                   and holder["server"]._started):
+            if "error" in result or time.monotonic() > deadline:
+                fail(f"run_server did not start: {result}")
+            time.sleep(0.05)
+        server = holder["server"]
+        if server.batcher.device.type != "cuda":
+            fail(f"run_server acts on {server.batcher.device}")
+        # the traffic only: warmup's launches are behind us
+        KERNEL_LAUNCHES.reset()
+        lstm.TENSOR_MAP_ENCODES.reset()
+        ctx = multiprocessing.get_context("spawn")
+        out = ctx.Queue()
+        child = ctx.Process(target=client_process,
+                            args=(server.host, server.port, out, "impala"))
+        child.start()
+        try:
+            reply = out.get(timeout=300)
+        except queue.Empty:
+            reply = ("error", "the client process sent nothing in 300 s")
+        finally:
+            child.join(timeout=30)
+            if child.is_alive():
+                child.terminate()
+                child.join(timeout=10)
+        launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
+        old = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
+        encodes = lstm.TENSOR_MAP_ENCODES.get(lstm.KERNEL)
+        batches = server.batches
+        spans = server.tracer.snapshot()
+    finally:
+        done.set()
+        thread.join(timeout=120)
+        server_mod.SessionServer = real_server
+    if thread.is_alive() or "error" in result:
+        fail(f"run_server did not end cleanly: {result}")
+    if reply[0] != "ok":
+        fail(reply[1])
+    _, replies, lat = reply
+    stats = result["stats"]
+    if len(replies) != FABRIC_SESSIONS * N_STEPS or not all(
+            q.shape == (TRAIN_ACTIONS,) and np.isfinite(q).all()
+            for q in replies.values()):
+        fail(f"{len(replies)} served replies, or a bad q")
+    if stats["step"] != FABRIC_RESUME_STEPS or stats["admitted"] != (
+            stats["completed"] + stats["reaped"] + stats["evicted"]
+            + stats["live"]) or stats["act_failures"]:
+        fail(f"run_server stats: {stats}")
+    if launches != cfg.lstm_layers * batches or not batches or old:
+        fail(f"the served checkpoint launched lstm_infer {launches} times "
+             f"(CUDA-core {old}) for {batches} batches")
+    snap = os.path.join(ckdir, "sessions.snap", "meta.json")
+    if not os.path.exists(snap):
+        fail("no session snapshot at shutdown")
+    with open(snap) as f:
+        snap_counters = json.load(f)["counters"]
+    want = {k: stats[k] for k in ("admitted", "completed", "reaped",
+                                  "evicted")}
+    if snap_counters != want:
+        fail(f"session snapshot counters {snap_counters}, server {want}")
+    state, _ = Checkpointer(ckdir).restore(FABRIC_RESUME_STEPS)
+    q_err, h_err = served_vs_plain(torch, cfg, TRAIN_ACTIONS, served,
+                                   state.params, server.batcher.bucket)
+    sizes = sorted(len(b[0]) for b in served)
+    print(f"served checkpoint step_{stats['step']} on {card}: {batches} "
+          f"batches, "
+          f"sizes {sizes}; q vs plain-LSTM act of the restored params "
+          f"max_abs_err {q_err:.3e} (tol {Q_TOL:.0e}), new hidden "
+          f"{h_err:.3e}; store {want} live {stats['live']}, session "
+          f"snapshot counters equal; lstm_infer launches {launches} = "
+          f"{cfg.lstm_layers} x {batches} batches, CUDA-core {old}; "
+          f"tensor-map encodes {encodes} ({encodes / batches:.2f} per "
+          f"batch)", flush=True)
+    if q_err > Q_TOL or h_err > Q_TOL:
+        fail("the served checkpoint disagrees with the plain-LSTM act")
+    p50, p99 = np.percentile(np.asarray(lat) * 1e3, [50, 99])
+    print(f"served checkpoint latency on {card}: serving.act p50 "
+          f"{spans['span.serving.act.p50_ms']:.3f} ms p99 "
+          f"{spans['span.serving.act.p99_ms']:.3f} ms; client round trip "
+          f"({len(lat)} requests) p50 {p50:.3f} ms p99 {p99:.3f} ms; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -1071,15 +1569,21 @@ def main() -> None:
     # phase 5: the training path at full width
     train_launches = phase_training(torch, card)
 
+    # phase 6: the IMPALA-deep fabric, resumed, and its checkpoint served
+    fabric_launches, serve_ckpt_launches = phase_fabric(torch, card)
+
     head = timings[(1, 256)]
     print(json.dumps({"kernels": [{
         "name": "lstm_infer",
         "route": "cuda",
         "source": "r2d2_tpu_torch/csrc/lstm_infer.cu",
         "replaces": "r2d2_tpu/ops/lstm.py:46",
-        "launches": serve_launches + train_launches,
+        "launches": (serve_launches + train_launches + fabric_launches
+                     + serve_ckpt_launches),
         "launches_by_path": {"serving": serve_launches,
-                             "training": train_launches},
+                             "training": train_launches,
+                             "fabric": fabric_launches,
+                             "serving_checkpoint": serve_ckpt_launches},
         "max_abs_err": errs["tensor_core"][0],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

@@ -5,8 +5,7 @@ Field names, defaults and validation are identical, so ``arch_meta`` and the
 checkpoint meta stay compatible between the two packages.  Two readings
 differ in the port: ``lstm_impl="pallas"`` selects the fused inference
 kernel (CUDA here, ``r2d2_tpu_torch/ops/lstm.py``), and ``act_device="auto"``
-acts on the CUDA device (``actor._resolve_act_device``).  ``chaos_spec`` is
-rejected until the chaos module is ported.
+acts on the CUDA device (``actor._resolve_act_device``).
 
 Immutable dataclass: values are captured at construction, derived
 quantities are validated, and presets mirror the benchmark configurations in
@@ -1063,10 +1062,11 @@ class Config:
                 dataclasses.replace(self, population_spec="",
                                     **m["overrides"])
         if self.chaos_spec:
-            # the chaos injector is not ported yet: refuse at construction
-            # rather than run without the faults the spec asked for
-            raise ValueError("chaos_spec is not supported by r2d2_tpu_torch "
-                             "yet (utils/chaos.py is not ported)")
+            # fail at construction, not mid-run: parse_spec raises on an
+            # unknown kind/param or a clause without a trigger
+            from r2d2_tpu_torch.utils.chaos import parse_spec
+
+            parse_spec(self.chaos_spec)
         # mesh axes are fixed (dp, fsdp, tp) — the sharding table resolves
         # against them
         validate_mesh_shape(self.mesh_shape)

@@ -1,8 +1,9 @@
 """Learner host loop: the drivetrain around the train step.
 
 Port of ``r2d2_tpu/learner/learner.py`` (``Learner.__init__``, ``_publish``,
-``_stage``, ``run`` and ``_save``; the device-ring drivetrain, the
-multi-host branches and the chaos hook wait for later slices).
+``_stage``, ``run``, ``_save``, the learning-health ``monitor`` hook and
+the ``poison_params`` chaos drill; the device-ring drivetrain and the
+multi-host branches wait for later slices).
 Capability-parity with the reference learner's ``run`` (worker.py:300-381):
 staged batch prefetch, periodic weight publication, periodic
 checkpointing.  Target-net sync happens inside the step, so the host loop
@@ -101,6 +102,9 @@ class Learner:
         self.env_steps = start_env_steps
         self.start_minutes = start_minutes
         self._saved_steps: set = set()  # steps THIS run saved (see _save)
+        # learnhealth plane (telemetry/learnhealth.py): the trainer
+        # attaches a LearnHealthMonitor that absorbs each harvested loss
+        self.monitor: Optional[Any] = None
         self.tracer = Tracer()
         self._step_fn = make_train_step(cfg, net)
         self.state = place_state(state, self.device)
@@ -116,6 +120,29 @@ class Learner:
     @property
     def num_updates(self) -> int:
         return self.state.step
+
+    def _note_results(self, losses_np: np.ndarray,
+                      strict: bool = True) -> None:
+        """Route harvested losses to the attached monitor.  Without a
+        monitor, ``strict`` fails fast on a non-finite loss; with one, the
+        monitor trips the fabric's clean stop and fires the ``nonfinite``
+        alert instead of crashing the learner thread."""
+        m = self.monitor
+        if m is not None:
+            m.note_losses(losses_np)
+            return
+        if strict:
+            assert np.isfinite(losses_np).all(), (
+                f"non-finite loss: {losses_np}")
+
+    def poison_params(self) -> None:
+        """Chaos drill hook (``poison_params`` site, utils/chaos.py):
+        overwrite the first param tensor with NaN so the next step's loss
+        and grads go non-finite — the learnhealth NaN-sentry drill.  Runs
+        on the learner thread, between steps."""
+        name = next(iter(self.state.params))
+        with torch.no_grad():
+            self.state.params[name].mul_(float("nan"))
 
     def _stage(self, batch: Dict[str, np.ndarray]
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
@@ -208,6 +235,7 @@ class Learner:
             with tracer.span("learner.result_sync"), \
                     HOST_TRANSFERS.allowed("learner.result_fetch"):
                 loss, priorities = result.fetch()
+            self._note_results(np.asarray([loss]), strict=False)
             losses.append(loss)
             self.env_steps = int(host.get("env_steps", self.env_steps))
             if priority_sink is not None:

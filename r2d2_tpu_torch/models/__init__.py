@@ -1,6 +1,7 @@
 from r2d2_tpu_torch.models.convert import params_from_flax
 from r2d2_tpu_torch.models.network import (
     DuelingHead,
+    ImpalaTorso,
     LSTMLayer,
     MlpTorso,
     NatureTorso,
@@ -12,6 +13,7 @@ from r2d2_tpu_torch.models.network import (
 
 __all__ = [
     "DuelingHead",
+    "ImpalaTorso",
     "LSTMLayer",
     "MlpTorso",
     "NatureTorso",

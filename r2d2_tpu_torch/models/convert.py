@@ -4,7 +4,11 @@
 The flax tree (``init_params`` / a checkpoint's ``params``), as numpy
 arrays, maps onto the port's modules by name:
 
-- ``torso/Conv_{0,1,2}`` → ``torso.conv{1,2,3}``: kernels HWIO → OIHW;
+- nature torso: ``torso/Conv_{0,1,2}`` → ``torso.conv{1,2,3}``: kernels
+  HWIO → OIHW;
+- impala torso: ``torso/Conv_0 … Conv_14`` (3 stages × (1 + 2 blocks × 2
+  convs), in flax's creation order) → ``torso.convs.{0 … 14}``, kernels
+  HWIO → OIHW;
 - ``torso/Dense_0`` → ``torso.dense``: kernel (in, out) → weight (out, in);
   its rows are already in NHWC flatten order, which the port's torso keeps;
 - ``lstm_i/{wi, wh, b}`` → ``lstm_layers.i.{wi, wh, b}`` as they are: one
@@ -32,21 +36,34 @@ def _leaf(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _torso_names(layers) -> Dict[str, str]:
+    """flax torso layer name → the port's module path under ``torso.``:
+    three convs are the nature torso's, more are the impala torso's."""
+    convs = sorted((n for n in layers if n.startswith("Conv_")),
+                   key=lambda n: int(n[5:]))
+    names = {"Dense_0": "dense"}
+    if len(convs) <= len(_CONVS):
+        names.update((n, _CONVS[n]) for n in convs)
+    else:
+        names.update((n, f"convs.{int(n[5:])}") for n in convs)
+    return names
+
+
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The port's state dict (float32 CPU tensors) from a flax param tree
     with or without its top-level ``"params"`` key."""
     p = tree.get("params", tree)
     out: Dict[str, torch.Tensor] = {}
+    names = _torso_names(p["torso"])
     for name, layer in p["torso"].items():
-        if name in _CONVS:
-            out[f"torso.{_CONVS[name]}.weight"] = _leaf(
-                layer["kernel"]).permute(3, 2, 0, 1).contiguous()
-        elif name == "Dense_0":
-            out["torso.dense.weight"] = _leaf(layer["kernel"]).T.contiguous()
-        else:
-            raise ValueError(f"unknown torso layer {name!r} (only the nature "
-                             "and mlp torsos are ported)")
-        out[f"torso.{_CONVS.get(name, 'dense')}.bias"] = _leaf(layer["bias"])
+        if name not in names:
+            raise ValueError(f"unknown torso layer {name!r} (the nature, "
+                             "impala and mlp torsos are ported)")
+        kernel = _leaf(layer["kernel"])
+        out[f"torso.{names[name]}.weight"] = (
+            kernel.T if name == "Dense_0"
+            else kernel.permute(3, 2, 0, 1)).contiguous()
+        out[f"torso.{names[name]}.bias"] = _leaf(layer["bias"])
     i = 0
     while f"lstm_{i}" in p:
         for k in ("wi", "wh", "b"):

@@ -18,7 +18,10 @@ JAX package's, so tests compare like with like:
   rounded to the compute dtype before ``+ b`` in float32, and the head
   runs in the compute dtype with ``q`` cast to float32.
 
-``ImpalaTorso`` waits for a later slice.
+Three torsos: ``nature`` (raw or space-to-depth folded), ``impala`` (the
+deep residual CNN of ``impala_deep_config``) and ``mlp``.  ``cfg.remat``
+checkpoints each step of the training scan, as the reference's
+``jax.checkpoint`` does: the same numbers for less saved activation.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from torch.utils.checkpoint import checkpoint
 
 from r2d2_tpu_torch.config import Config
 from r2d2_tpu_torch.ops.lstm import lstm_unroll_infer, lstm_unroll_reference
@@ -57,8 +62,9 @@ def _dense_layer(n_in: int, n_out: int,
 
 
 def _conv_layer(c_in: int, c_out: int, k: int, stride: int,
-                generator: Optional[torch.Generator]) -> nn.Conv2d:
-    layer = nn.Conv2d(c_in, c_out, k, stride=stride)
+                generator: Optional[torch.Generator],
+                padding: int = 0) -> nn.Conv2d:
+    layer = nn.Conv2d(c_in, c_out, k, stride=stride, padding=padding)
     with torch.no_grad():
         _lecun_normal_(layer.weight, c_in * k * k, generator)
         layer.bias.zero_()
@@ -72,8 +78,11 @@ def dense(x: torch.Tensor, layer: nn.Linear, cd: torch.dtype) -> torch.Tensor:
 
 
 def conv(x: torch.Tensor, layer: nn.Conv2d, cd: torch.dtype) -> torch.Tensor:
-    """flax ``Conv(dtype=cd, padding="VALID")`` on NCHW."""
-    y = F.conv2d(x.to(cd), layer.weight.to(cd), stride=layer.stride)
+    """flax ``Conv(dtype=cd)`` on NCHW: ``padding="VALID"`` for a layer
+    built without padding, ``"SAME"`` for a stride-1 3×3 layer built with
+    padding 1 (flax pads that one symmetrically)."""
+    y = F.conv2d(x.to(cd), layer.weight.to(cd), stride=layer.stride,
+                 padding=layer.padding)
     return y + layer.bias.to(cd)[:, None, None]
 
 
@@ -111,6 +120,68 @@ class NatureTorso(nn.Module):
         return F.relu(dense(x, self.dense, cd))
 
 
+def _same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
+    """(low, high) padding of a SAME window of ``k`` at stride ``s`` over
+    ``n`` positions, by ``lax.padtype_to_pads``'s rule: the output has
+    ceil(n / s) positions and the odd pad goes to the high side."""
+    out = -(-n // s)
+    total = max((out - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def max_pool_same(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
+    """flax ``max_pool(x, (k, k), strides=(s, s), padding="SAME")`` on
+    NCHW: padded with -inf, asymmetrically where the reference pads so
+    (84 → 42 pads (0, 1), 21 → 11 pads (1, 1))."""
+    top, bottom = _same_pads(x.shape[2], k, s)
+    left, right = _same_pads(x.shape[3], k, s)
+    x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
+    return F.max_pool2d(x, k, stride=s)
+
+
+class ImpalaTorso(nn.Module):
+    """IMPALA deep residual CNN: per stage of ``channels``, a 3×3 SAME
+    conv, a 3×3/2 SAME max-pool, then ``blocks_per_stage`` residual blocks
+    of relu → conv → relu → conv plus the skip (added in the compute
+    dtype); then relu, the NHWC flatten and a relu Dense.  ``convs`` holds
+    the convolutions in the order flax creates them (``Conv_0`` …), so the
+    converter maps them by index."""
+
+    def __init__(self, obs_shape: Tuple[int, int, int], out_dim: int,
+                 compute_dtype: torch.dtype,
+                 generator: Optional[torch.Generator] = None,
+                 channels: Tuple[int, ...] = (16, 32, 32),
+                 blocks_per_stage: int = 2):
+        super().__init__()
+        h, w, c = obs_shape
+        self.compute_dtype = compute_dtype
+        self.blocks_per_stage = blocks_per_stage
+        convs = []
+        for ch in channels:
+            convs.append(_conv_layer(c, ch, 3, 1, generator, padding=1))
+            convs += [_conv_layer(ch, ch, 3, 1, generator, padding=1)
+                      for _ in range(2 * blocks_per_stage)]
+            h, w, c = -(-h // 2), -(-w // 2), ch
+        self.convs = nn.ModuleList(convs)
+        self.dense = _dense_layer(h * w * c, out_dim, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # x: (N, H, W, C) in [0, 1], compute dtype
+        cd = self.compute_dtype
+        x = x.permute(0, 3, 1, 2)
+        convs = iter(self.convs)
+        for _ in range(len(self.convs) // (1 + 2 * self.blocks_per_stage)):
+            x = max_pool_same(conv(x, next(convs), cd))
+            for _ in range(self.blocks_per_stage):
+                skip = x
+                x = conv(F.relu(x), next(convs), cd)
+                x = conv(F.relu(x), next(convs), cd)
+                x = x + skip
+        x = F.relu(x)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return F.relu(dense(x, self.dense, cd))
+
+
 class MlpTorso(nn.Module):
     """Small flatten+dense torso for tests and non-image observations."""
 
@@ -143,11 +214,17 @@ class LSTMLayer(nn.Module):
       kernel on a CUDA device, its plain version on the CPU; no gradient;
     - ``"reference"``: that plain version on any device, used to hold the
       kernel's path against the plain one on the card.
+
+    ``remat`` runs each step of the scan under activation checkpointing
+    when autograd records it: its intermediates are recomputed in the
+    backward pass instead of kept (the reference's ``jax.checkpoint`` of
+    the scan step).
     """
 
     def __init__(self, in_dim: int, hidden_dim: int,
                  compute_dtype: torch.dtype, impl: str,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         if impl not in LSTM_IMPLS:
             raise ValueError(f"unknown LSTM impl {impl!r}")
@@ -155,6 +232,7 @@ class LSTMLayer(nn.Module):
         self.hidden_dim = H
         self.compute_dtype = compute_dtype
         self.impl = impl
+        self.remat = remat
         self.wi = nn.Parameter(torch.empty(in_dim, 4 * H))
         self.wh = nn.Parameter(torch.empty(H, 4 * H))
         self.b = nn.Parameter(torch.zeros(4 * H))
@@ -163,16 +241,23 @@ class LSTMLayer(nn.Module):
             nn.init.orthogonal_(self.wh, generator=generator)
             self.b[H:2 * H] = 1.0   # forget-gate bias
 
+    def _step(self, x_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+              wh: torch.Tensor):
+        gates = x_t + (h.to(self.compute_dtype) @ wh).float()
+        i, f, g, o = gates.split(self.hidden_dim, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c), c
+
     def _scan(self, xp: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
-        cd = self.compute_dtype
-        H = self.hidden_dim
-        wh = self.wh.to(cd)
+        wh = self.wh.to(self.compute_dtype)
+        remat = self.remat and torch.is_grad_enabled()
         hs = []
         for t in range(xp.shape[0]):
-            gates = xp[t] + (h.to(cd) @ wh).float()
-            i, f, g, o = gates.split(H, dim=-1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
+            if remat:
+                h, c = checkpoint(self._step, xp[t], h, c, wh,
+                                  use_reentrant=False)
+            else:
+                h, c = self._step(xp[t], h, c, wh)
             hs.append(h)
         return torch.stack(hs), h, c
 
@@ -239,9 +324,6 @@ class R2D2Network(nn.Module):
                  device="cuda", generator: Optional[torch.Generator] = None,
                  lstm_impl: Optional[str] = None):
         super().__init__()
-        if cfg.torso not in ("nature", "mlp"):
-            raise ValueError(f"torso {cfg.torso!r} is not ported yet "
-                             "(nature and mlp are)")
         self.cfg = cfg
         self.action_dim = action_dim
         cd = _dtype(cfg.compute_dtype)
@@ -253,12 +335,15 @@ class R2D2Network(nn.Module):
         if cfg.torso == "nature":
             self.torso = NatureTorso(obs_shape, H, cd, cfg.obs_space_to_depth,
                                      generator)
+        elif cfg.torso == "impala":
+            self.torso = ImpalaTorso(obs_shape, H, cd, generator)
         else:
             self.torso = MlpTorso(obs_shape, H, cd, generator)
         impl = lstm_impl or resolve_lstm_impl(cfg, device)
         self.lstm_layers = nn.ModuleList(
             [LSTMLayer(H + action_dim + 1 if i == 0 else H, H, cd, impl,
-                       generator) for i in range(cfg.lstm_layers)])
+                       generator, remat=cfg.remat)
+             for i in range(cfg.lstm_layers)])
         self.head = DuelingHead(H, action_dim, cd, generator)
         self.to(device)
 

@@ -30,11 +30,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Tuple
 
 import torch
 
-from r2d2_tpu_torch.utils.trace import KERNEL_LAUNCHES
+from r2d2_tpu_torch.utils.trace import KERNEL_LAUNCHES, TransferCounter
 
 Unroll = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -94,6 +95,25 @@ UNITS_PER_GATE = (8, 16)
 # KERNEL_LAUNCHES names: the tensor-core kernel counts under KERNEL, the
 # CUDA-core kernel under its own name
 CUDACORE_COUNTER = f"{KERNEL}_cudacore"
+
+# The C side keeps the last tensor map it encoded for ``wh``, one per
+# thread and kernel instantiation (n, ragged gates), keyed on wh's address
+# and H (``csrc/lstm_infer.cu:wh_tensor_map``).  This mirror of that rule
+# counts the encodes the tensor-core launches pay, under KERNEL: a stack
+# of layers acting in turn re-encodes on every launch.
+TENSOR_MAP_ENCODES = TransferCounter()
+_tensor_maps = threading.local()
+
+
+def _note_tensor_map(wh: torch.Tensor, n: int) -> None:
+    H = wh.shape[0]
+    cache = getattr(_tensor_maps, "last", None)
+    if cache is None:
+        cache = _tensor_maps.last = {}
+    key, entry = (n, H % 8 != 0), (wh.data_ptr(), H)
+    if cache.get(key) != entry:
+        cache[key] = entry
+        TENSOR_MAP_ENCODES.count(KERNEL)
 
 
 class LaunchPlan(NamedTuple):
@@ -232,6 +252,7 @@ def _launch_wgmma(xp: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
     _check_tma(wh)
     _on_one_card(xp, wh, h0, c0)
     T, B, H4 = xp.shape
+    _note_tensor_map(wh, plan.n)
 
     def call(lib, hs, c, stream):
         return lib.lstm_infer_wgmma(

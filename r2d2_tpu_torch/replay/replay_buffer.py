@@ -12,20 +12,22 @@ size/env-step/episode-return accounting.  Blocks live in preallocated
 contiguous ring arrays, so a batch is a handful of vectorised fancy-index
 gathers into fixed-shape ``(B, T, ...)`` arrays.
 
-Not ported yet (ROADMAP.md A, items 4-5): the device ring and its
-``sample_meta``, the sharded plane's ``serve_sample``, and the replay
-snapshot (``write_state``/``read_state``).
+The replay snapshot (``write_state``/``read_state``) keeps the reference's
+byte layout — ``slot_layout`` over the same spec, the same layout
+fingerprint and meta — so a snapshot written by either package restores
+in the other.  Not ported yet (ROADMAP.md A, items 5 and 8): the device
+ring and its ``sample_meta``, and the sharded plane's ``serve_sample``.
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
 from r2d2_tpu_torch.config import Config
-from r2d2_tpu_torch.replay.block import Block
+from r2d2_tpu_torch.replay.block import Block, slot_layout, slot_views
 from r2d2_tpu_torch.replay.sum_tree import SumTree
 from r2d2_tpu_torch.telemetry.tracing import EVENTS
 
@@ -92,6 +94,12 @@ def data_bytes(cfg: Config, action_dim: int) -> int:
     return _spec_bytes(_data_spec(cfg, action_dim))
 
 
+def _layout_fingerprint(spec) -> list:
+    """JSON-able (name, shape, dtype) list identifying a snapshot layout."""
+    return [[name, list(shape), np.dtype(dtype).name]
+            for name, shape, dtype in spec]
+
+
 def _available_host_bytes() -> Optional[int]:
     try:
         with open("/proc/meminfo") as f:
@@ -127,6 +135,10 @@ class ReplayBuffer:
 
         self.tree = SumTree(cfg.num_sequences, cfg.prio_exponent,
                             cfg.importance_sampling_exponent, rng=rng)
+        # data-health sidecar: the resident block's member id per slot and
+        # the sampled-row counts per member (not part of the snapshot)
+        self._slot_member = np.zeros(cfg.num_blocks, np.int32)
+        self.samples_per_member: Dict[int, int] = {}
         # block-lineage sidecar per slot: the resident block's cut/add
         # wall-clock stamps (the sampled rows' ages) and its capture id
         self._slot_cut_ts = np.zeros(cfg.num_blocks)
@@ -191,6 +203,7 @@ class ReplayBuffer:
             self._slot_add_ts[slot] = time.time()
             self._slot_trace[slot] = block.trace_id
             m = int(block.member_id)
+            self._slot_member[slot] = m
             self.blocks_per_member[m] = self.blocks_per_member.get(m, 0) + 1
             if episode_reward is not None:
                 self.episode_reward += episode_reward
@@ -217,6 +230,7 @@ class ReplayBuffer:
                     "sample_batch on an empty buffer; wait for add() (use "
                     "`ready` to gate on learning_starts)")
             idxes, is_weights = self.tree.sample(B)
+            self._note_sampled(idxes)
             batch = dict(
                 self._gather_rows(idxes),
                 is_weights=is_weights.astype(np.float32),
@@ -230,6 +244,16 @@ class ReplayBuffer:
                         self._slot_trace[idxes // self.cfg.seqs_per_block],
                         "t")
         return batch
+
+    def _note_sampled(self, idxes: np.ndarray) -> None:
+        """Count sampled rows per resident member (caller holds the
+        lock) — the per-member sample fractions of the data-health
+        surface."""
+        members = self._slot_member[idxes // self.cfg.seqs_per_block]
+        for m, c in zip(*np.unique(members, return_counts=True)):
+            m = int(m)
+            self.samples_per_member[m] = (
+                self.samples_per_member.get(m, 0) + int(c))
 
     def _row_ages(self, idxes: np.ndarray) -> np.ndarray:
         """(n, 2) float32 per-row block ages at gather time — seconds since
@@ -314,12 +338,118 @@ class ReplayBuffer:
         if traces is not None:
             _emit_flows("replay.priority_feedback", traces, "f")
 
+    def note_corrupt_block(self) -> None:
+        """A wire-format integrity check failed and the block was dropped:
+        count it so the log plane surfaces a garbling transport."""
+        with self.lock:
+            self.corrupt_blocks += 1
+
     def note_updates(self, n: int, loss_sum: float) -> None:
         """Learner-side update accounting for updates whose priority
         feedback never crosses the host, so ``stats()`` stays live."""
         with self.lock:
             self.training_steps += n
             self.sum_loss += float(loss_sum)
+
+    # ------------------------------------------------------------- snapshot
+    # scalar state that rides the replay snapshot's JSON meta (arrays ride
+    # the binary payload); order is the wire order of the restore loop
+    STATE_COUNTERS = ("block_ptr", "size", "env_steps", "num_episodes",
+                      "episode_reward", "training_steps", "sum_loss",
+                      "corrupt_blocks")
+
+    def state_spec(self):
+        """(name, shape, dtype) of the on-disk replay-snapshot payload: the
+        ring arrays (the block.py slot layout reused at whole-ring scale)
+        plus the PER leaf vector."""
+        return _ring_spec(self.cfg, self.action_dim) + (
+            ("tree_leaves", (self.tree.capacity,), np.float64),)
+
+    def write_state(self, path: str) -> Dict[str, Any]:
+        """Serialise the full replay state into ``path`` — one flat binary
+        laid out by :func:`~r2d2_tpu_torch.replay.block.slot_layout` over
+        :meth:`state_spec`.  Returns the JSON-able meta (counters, the
+        sampling RNG, the layout fingerprint) that :meth:`read_state`
+        validates against.  The lock covers only the copy into the page
+        cache; the flush to disk runs with it released."""
+        spec = self.state_spec()
+        nbytes, offsets = slot_layout(spec)
+        mm = np.memmap(path, np.uint8, "w+", shape=(nbytes,))
+        views = slot_views(mm, spec, offsets, nbytes, 0)
+        with self.lock:
+            for name, _, _ in spec:
+                views[name][:] = (self.tree.leaf_values()
+                                  if name == "tree_leaves"
+                                  else getattr(self, name))
+            meta = dict(
+                layout=_layout_fingerprint(spec),
+                nbytes=nbytes,
+                counters={k: getattr(self, k) for k in self.STATE_COUNTERS},
+                rng_state=self.tree.rng.bit_generator.state,
+                tree_total=self.tree.total,
+            )
+        del views
+        mm.flush()
+        del mm
+        return meta
+
+    def read_state(self, path: str, meta: Dict[str, Any]) -> None:
+        """Restore the state :meth:`write_state` captured.  Raises
+        ``ValueError`` when the snapshot was written under a different
+        buffer geometry (the caller warns and resumes cold instead of
+        ingesting a misaligned ring)."""
+        spec = self.state_spec()
+        nbytes, offsets = slot_layout(spec)
+        want = _layout_fingerprint(spec)
+        if meta.get("layout") != want:
+            raise ValueError(
+                "replay snapshot layout mismatch — written under a "
+                "different buffer geometry/config; resuming with a cold "
+                f"buffer (snapshot {meta.get('layout')} vs config {want})")
+        mm = np.memmap(path, np.uint8, "r", shape=(nbytes,))
+        views = slot_views(mm, spec, offsets, nbytes, 0)
+        with self.lock:
+            for name, _, _ in spec:
+                if name == "tree_leaves":
+                    self.tree.load_leaves(views[name])
+                else:
+                    getattr(self, name)[:] = views[name]
+            c = meta["counters"]
+            self.block_ptr = int(c["block_ptr"])
+            self.size = int(c["size"])
+            self.env_steps = int(c["env_steps"])
+            self.num_episodes = int(c["num_episodes"])
+            self.episode_reward = float(c["episode_reward"])
+            self.training_steps = int(c["training_steps"])
+            self.sum_loss = float(c["sum_loss"])
+            self.corrupt_blocks = int(c.get("corrupt_blocks", 0))
+            if meta.get("rng_state") is not None:
+                self.tree.rng.bit_generator.state = meta["rng_state"]
+        del views
+        del mm
+
+    # ---------------------------------------------------------- data health
+    def data_health(self) -> Dict[str, Any]:
+        """Learning-health view of the replay plane: the PER
+        distribution's effective sample size and fixed-bucket priority
+        histogram over the sum-tree leaves, the cumulative replay ratio
+        (samples consumed per transition inserted), and per-member
+        sampled-row counts."""
+        from r2d2_tpu_torch.telemetry.learnhealth import (
+            priority_health,
+            replay_ratio,
+        )
+
+        with self.lock:
+            leaves = self.tree.leaf_values()
+            training_steps = self.training_steps
+            env_steps = self.env_steps
+            samples = dict(self.samples_per_member)
+        return dict(
+            replay_ratio=replay_ratio(self.cfg, training_steps, env_steps),
+            samples_per_member=samples,
+            priorities=priority_health(leaves),
+        )
 
     # ---------------------------------------------------------------- stats
     def stats(self) -> Dict[str, float]:

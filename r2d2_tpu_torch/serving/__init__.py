@@ -3,7 +3,11 @@
 from r2d2_tpu_torch.serving.admission import AdmissionController, Request
 from r2d2_tpu_torch.serving.batcher import ContinuousBatcher, bucket_sizes
 from r2d2_tpu_torch.serving.client import SessionClient, SessionClientError
-from r2d2_tpu_torch.serving.server import SessionServer
+from r2d2_tpu_torch.serving.server import (
+    SessionServer,
+    follow_params_once,
+    run_server,
+)
 from r2d2_tpu_torch.serving.store import SessionStore
 
 __all__ = [
@@ -15,4 +19,6 @@ __all__ = [
     "SessionServer",
     "SessionStore",
     "bucket_sizes",
+    "follow_params_once",
+    "run_server",
 ]

@@ -92,6 +92,10 @@ class ContinuousBatcher:
         # the values (make_act_fn runs it through functional_call)
         self.net = create_network(cfg, action_dim, device=self.device)
         self._act = make_act_fn(self.net)
+        # the parity gate runs on follow mode's thread while the batch loop
+        # acts: it gets its own module (an act swaps the module's
+        # parameters while it runs), built at its first use
+        self._probe_act = None
         self._params: Optional[Dict[str, torch.Tensor]] = None
         self.version = 0
         self._scratch: Dict[int, _Bucket] = {}
@@ -156,8 +160,14 @@ class ContinuousBatcher:
         args = [torch.from_numpy(a).to(self.device)
                 for a in (obs, la, lr, hid)]
         params = self._on_device(params)
-        q_ref, _ = self._act(params, *args)
-        q_bf16, _ = self._act(self._quantize(params), *args)
+        if self._probe_act is None:
+            import copy
+
+            from r2d2_tpu_torch.actor import make_act_fn
+
+            self._probe_act = make_act_fn(copy.deepcopy(self.net))
+        q_ref, _ = self._probe_act(params, *args)
+        q_bf16, _ = self._probe_act(self._quantize(params), *args)
         return bool((q_ref.argmax(dim=1) == q_bf16.argmax(dim=1)).all())
 
     # ---------------------------------------------------------------- act

@@ -27,10 +27,14 @@ Telemetry: the ``serving.*`` namespace in a :class:`MetricsRegistry`
 ``serving.batch_size`` histograms, p50/p95/p99 latency gauges) and the
 ``serving.gather/act/scatter`` tracer spans.
 
-The params are published with :meth:`SessionServer.publish_params`.  The
-reference's checkpoint-backed ``run_server`` (restore, follow mode, the
-session snapshot) and its HTTP exporter wait for the checkpoint and
-telemetry slices.
+The params are published with :meth:`SessionServer.publish_params`, or
+by :func:`run_server` from the newest complete checkpoint of the port's
+``Checkpointer`` (``step_N/state.pt``): the architecture is checked
+against the checkpoint's meta first, follow mode republishes each new
+complete step behind the greedy-parity gate, and the live sessions are
+snapshotted at shutdown (``resume_sessions=True`` restores them).  An HTTP
+exporter (``/metrics``, ``/healthz``, ``/statusz``) serves the registry
+when ``cfg.telemetry_port`` is set.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ import socket
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -69,7 +73,7 @@ from r2d2_tpu_torch.serving.wire import (
     session_response_spec,
 )
 from r2d2_tpu_torch.telemetry.registry import MetricsRegistry
-from r2d2_tpu_torch.utils.resilience import CLOSED
+from r2d2_tpu_torch.utils.resilience import CLOSED, Deadline
 from r2d2_tpu_torch.utils.supervisor import Supervisor
 from r2d2_tpu_torch.utils.trace import Tracer
 
@@ -511,3 +515,253 @@ class SessionServer:
             mean_batch=round(self.requests / self.batches, 2)
             if self.batches else 0.0,
             param_version=self.batcher.version, **c, **a)
+
+    # ------------------------------------------------------------- snapshot
+    def save_sessions(self, ckpt) -> Optional[Dict[str, Any]]:
+        """Persist the live-session store through the Checkpointer's
+        atomic snapshot discipline — a restart (:meth:`restore_sessions`)
+        resumes every live episode bit-exact."""
+        state = self.store.state()
+
+        def writer(path: str) -> Dict[str, Any]:
+            with open(path, "wb") as f:
+                np.savez(f, sids=state["sids"], steps=state["steps"],
+                         hidden=state["hidden"])
+            return dict(counters=state["counters"],
+                        live=int(len(state["sids"])),
+                        param_version=self.batcher.version)
+
+        return ckpt.save_sessions(writer)
+
+    def restore_sessions(self, ckpt) -> bool:
+        """Load the latest session snapshot into the (empty) store.
+        False when none exists — the server starts cold."""
+        snap = ckpt.restore_sessions()
+        if snap is None:
+            return False
+        meta, payload_path = snap
+        with np.load(payload_path) as z:
+            self.store.load_state(dict(
+                sids=z["sids"], steps=z["steps"], hidden=z["hidden"],
+                counters=meta["counters"]))
+        log.info("serving: restored %d live session(s) from the snapshot",
+                 self.store.live())
+        return True
+
+    # ------------------------------------------------------------- exporter
+    def exporter_loops(self, metrics_port: int):
+        """``[(name, loop)]`` for an HTTP scrape endpoint over this
+        server's registry/health — the trainer's close-driven discipline
+        (telemetry/exporter.py).  Empty when disabled (0); -1 binds an
+        ephemeral port."""
+        from r2d2_tpu_torch.telemetry.exporter import TelemetryExporter
+
+        if metrics_port == 0:
+            return []
+        exporter = TelemetryExporter(
+            self.registry, self.healthz,
+            status_fn=lambda: dict(serving=self.stats()),
+            port=max(0, metrics_port))
+        self.exporter = exporter
+
+        def serving_telemetry_loop():
+            while not exporter.closed:
+                try:
+                    exporter.handle_once()
+                except (OSError, ValueError):
+                    return
+        return [("serving_telemetry", serving_telemetry_loop)]
+
+
+# --------------------------------------------------------------------------
+# standalone entry point
+# --------------------------------------------------------------------------
+
+def follow_params_once(server: SessionServer, ckpt, cfg: Config,
+                       followed: Dict[str, int]) -> bool:
+    """One poll of follow-mode serving: adjudicate the newest COMPLETE
+    checkpoint past ``followed["step"]`` — arch-compat-check, restore,
+    re-run the bf16 greedy-parity gate, republish through the batcher.
+    A failing gate or a torn/arch-drifted step is SKIPPED (serving stays
+    on the last good params; deterministic verdicts are never retried).
+    Returns True when a republish happened.  ``followed`` carries
+    ``step`` / ``republishes`` / ``parity_failures`` across polls."""
+    from r2d2_tpu_torch.checkpoint import check_arch_compat
+
+    s = ckpt.latest_step()
+    if s is None or s <= followed["step"]:
+        return False
+    try:
+        check_arch_compat(cfg, ckpt.peek_meta(s))
+        state, _ = ckpt.restore(step=s)
+    except Exception as e:  # arch drift / GC'd or torn under us
+        log.warning("serving: follow skipped step %d (%s)", s, e)
+        followed["step"] = s
+        return False
+    new_params = state.params
+    if not server.batcher.greedy_parity_ok(new_params):
+        followed["parity_failures"] += 1
+        followed["step"] = s
+        server.registry.inc("serving.follow_parity_failures")
+        log.error("serving: bf16 greedy-parity gate FAILED for step %d "
+                  "— serving stays on the last good params (version "
+                  "%d)", s, server.batcher.version)
+        return False
+    server.publish_params(new_params)
+    followed["step"] = s
+    followed["republishes"] += 1
+    server.registry.inc("serving.republishes")
+    server.registry.set_gauge("serving.followed_step", float(s))
+    log.info("serving: republished step %d (param version %d)", s,
+             server.batcher.version)
+    return True
+
+
+def run_server(cfg: Config, checkpoint_dir: str,
+               action_dim: Optional[int] = None,
+               resume_sessions: bool = False,
+               max_wall_seconds: Optional[float] = None,
+               verbose: bool = True,
+               follow: bool = False,
+               follow_poll: float = 2.0,
+               stop_fn: Optional[Callable[[], bool]] = None
+               ) -> Dict[str, Any]:
+    """Serve the newest complete checkpoint in ``checkpoint_dir`` until
+    SIGTERM/SIGINT (drain, snapshot the live sessions, exit) or the wall
+    budget.  Returns the final :meth:`SessionServer.stats` plus the bound
+    port, the step served and the health verdict it served with.
+
+    Acts on the CUDA device (``cfg.act_device="cpu"`` asks for the CPU;
+    without a card and without that, it raises).  ``stop_fn``, a
+    predicate polled by the wait loop, asks for the same drain-then-
+    snapshot exit as a signal — for callers that embed the server in a
+    thread, which signals never reach (``train()``'s ``stop_fn``).
+
+    ``follow=True`` is follow-mode serving: a supervised ``param_follow``
+    loop polls the Checkpointer every ``follow_poll`` seconds and
+    republishes each new COMPLETE step's params through the
+    ContinuousBatcher — arch-compat-checked, and under
+    ``serve_dtype="bfloat16"`` behind the greedy-parity gate
+    (:meth:`ContinuousBatcher.greedy_parity_ok`; a failing step is
+    skipped).  With no checkpoint on disk yet, follow mode waits (within
+    the wall budget) for the first one instead of failing."""
+    import signal
+
+    from r2d2_tpu_torch.checkpoint import Checkpointer, check_arch_compat
+
+    ckpt = Checkpointer(checkpoint_dir)
+    step = ckpt.latest_step()
+    if step is None and not follow:
+        raise FileNotFoundError(
+            f"no complete checkpoint under {checkpoint_dir} — train "
+            "first, then serve (or follow a live trainer)")
+    # follow-mode cold start: the wait gets its OWN bound — the serving
+    # wall budget starts after warmup, as in non-follow mode
+    wait = Deadline(max_wall_seconds if max_wall_seconds else 0.0)
+    while step is None:
+        if wait.expired:
+            raise FileNotFoundError(
+                f"no complete checkpoint appeared under {checkpoint_dir} "
+                "within the wall budget (follow mode waits for a live "
+                "trainer's first save)")
+        time.sleep(0.5)
+        step = ckpt.latest_step()
+
+    meta = ckpt.peek_meta(step)
+    check_arch_compat(cfg, meta)   # fail with a field list, not a shape
+    state, _ = ckpt.restore(step=step)  # error deep in load_state_dict
+    params = state.params
+    if action_dim is None:
+        from r2d2_tpu_torch.envs import create_env
+
+        env = create_env(cfg)
+        action_dim = int(env.action_space.n)
+        close = getattr(env, "close", None)
+        if callable(close):
+            close()
+
+    server = SessionServer(cfg, action_dim)
+    stop = threading.Event()
+    prev = {}
+    if threading.current_thread() is threading.main_thread():
+        def _on_signal(signum, frame):
+            log.warning("signal %d: draining the session tier, then "
+                        "snapshotting live sessions", signum)
+            stop.set()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev[sig] = signal.signal(sig, _on_signal)
+            except (ValueError, OSError):
+                pass
+    # follow-mode state: the last step adjudicated (published OR skipped
+    # by a parity failure — a deterministic gate is never retried)
+    followed = dict(step=int(step), republishes=0, parity_failures=0)
+
+    def param_follow():
+        while not (stop.is_set() or server._stop()):
+            time.sleep(follow_poll)
+            follow_params_once(server, ckpt, cfg, followed)
+
+    try:
+        server.publish_params(params)
+        server.warmup()
+        if resume_sessions:
+            server.restore_sessions(ckpt)
+        for name, loop in server.exporter_loops(cfg.telemetry_port):
+            server.supervisor.start(name, loop)
+        if follow:
+            server.supervisor.start("param_follow", param_follow)
+        server.start()
+        if verbose:
+            print(f"serving step_{step} on {server.host}:{server.port} "
+                  f"(device={server.batcher.device}, "
+                  f"dtype={cfg.serve_dtype}, "
+                  f"max_sessions={cfg.serve_max_sessions}, "
+                  f"max_batch={cfg.serve_max_batch}"
+                  + (", follow" if follow else "") + ")", flush=True)
+        deadline = (time.monotonic() + max_wall_seconds
+                    if max_wall_seconds else None)
+        last_line = 0.0
+        final_health = "failing"
+        while not (stop.is_set() or server.supervisor.any_failed):
+            # sampled pre-teardown: the summary must report the verdict
+            # the tier actually served with, not the stopped state
+            final_health = server.healthz()["status"]
+            if deadline is not None and time.monotonic() > deadline:
+                break
+            if stop_fn is not None and stop_fn():
+                break
+            time.sleep(0.2)
+            if verbose and time.monotonic() - last_line > cfg.log_interval:
+                last_line = time.monotonic()
+                s = server.stats()
+                print(f"sessions live={s['live']} admitted={s['admitted']}"
+                      f" completed={s['completed']} reaped={s['reaped']}"
+                      f" evicted={s['evicted']} rejected={s['rejected']}"
+                      f" batches={s['batches']} status="
+                      f"{server.healthz()['status']}", flush=True)
+    finally:
+        # drain first (stop + join every loop), snapshot second: an
+        # in-flight batch that scattered AFTER the snapshot would leave
+        # the client one reply ahead of the restored hidden
+        server.stop()
+        exporter = getattr(server, "exporter", None)
+        if exporter is not None:
+            exporter.close()
+        server.close()
+        try:
+            server.save_sessions(ckpt)
+        except Exception:
+            log.exception("session snapshot failed at shutdown")
+        for sig, handler in prev.items():
+            try:
+                signal.signal(sig, handler)
+            except (ValueError, OSError):
+                pass
+    out = dict(server.stats(), step=int(step), port=server.port,
+               health=final_health)
+    if follow:
+        out.update(followed_step=followed["step"],
+                   republishes=followed["republishes"],
+                   follow_parity_failures=followed["parity_failures"])
+    return out

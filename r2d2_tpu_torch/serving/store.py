@@ -19,8 +19,11 @@ that state for up to ``cfg.serve_max_sessions`` concurrent sessions:
   are reaped (abandoned clients must never pin hidden-state slots), and
   a disconnect reaps every session the connection owned immediately.
 
-Port of ``r2d2_tpu/serving/store.py``; its snapshot/restore through the
-checkpointer waits for the checkpoint slice.
+- **snapshot/restore**: the full store (pool rows + per-session meta +
+  the accounting counters) round-trips through ``Checkpointer
+  .save_sessions`` so a server restart resumes live episodes bit-exact.
+
+Port of ``r2d2_tpu/serving/store.py``.
 
 Accounting invariant: ``admitted == completed + reaped + evicted + live``
 — every admitted session leaves the store through exactly one of the
@@ -235,3 +238,53 @@ class SessionStore:
             return dict(admitted=self.admitted, completed=self.completed,
                         reaped=self.reaped, evicted=self.evicted,
                         live=len(self._sessions))
+
+    # ------------------------------------------------------------- snapshot
+    def state(self) -> Dict[str, object]:
+        """Everything a restart needs to resume live episodes bit-exact:
+        per-session (sid, steps) in LRU order, the hidden rows packed
+        densely in that order, and the lifetime counters (so the
+        accounting invariant survives the restart)."""
+        with self._lock:
+            sids = np.asarray(list(self._sessions), np.int64)
+            steps = np.asarray([s.steps for s in self._sessions.values()],
+                               np.int64)
+            slots = [s.slot for s in self._sessions.values()]
+            return dict(
+                sids=sids, steps=steps,
+                hidden=self.hidden[slots] if slots else
+                np.zeros((0, *self.hidden.shape[1:]), np.float32),
+                counters=dict(admitted=self.admitted,
+                              completed=self.completed,
+                              reaped=self.reaped, evicted=self.evicted))
+
+    def load_state(self, state: Dict[str, object]) -> None:
+        """Restore a :meth:`state` snapshot into an EMPTY store of the
+        same geometry.  Sessions come back owner-less (the connections
+        died with the old server) with a fresh idle clock — the first
+        act re-binds them (:meth:`adopt`); hidden rows are bit-exact."""
+        hidden = np.asarray(state["hidden"], np.float32)
+        if hidden.shape[1:] != self.hidden.shape[1:]:
+            raise ValueError(
+                f"session snapshot hidden {hidden.shape[1:]} does not "
+                f"match this store's {self.hidden.shape[1:]}")
+        now = time.monotonic()
+        with self._lock:
+            if self._sessions:
+                raise RuntimeError("load_state into a non-empty store")
+            if len(state["sids"]) > self.max_sessions:
+                raise ValueError(
+                    f"snapshot has {len(state['sids'])} sessions, budget "
+                    f"is {self.max_sessions}")
+            for sid, steps, row in zip(state["sids"], state["steps"],
+                                       hidden):
+                slot = self._free.pop()
+                self.hidden[slot] = row
+                s = _Session(int(sid), slot, None, now)
+                s.steps = int(steps)
+                self._sessions[int(sid)] = s
+            c = state["counters"]
+            self.admitted = int(c["admitted"])
+            self.completed = int(c["completed"])
+            self.reaped = int(c["reaped"])
+            self.evicted = int(c["evicted"])

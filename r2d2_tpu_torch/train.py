@@ -1,24 +1,46 @@
-"""Training: the deterministic single-thread trainer.
+"""Training: the threaded fabric and the deterministic single-thread trainer.
 
 Port of the single-device, thread-transport, host-ring subset of
-``r2d2_tpu/train.py``: ``_build`` (envs, network, train state with an
-optional resume, learner, replay buffer, ladder epsilons, vector actors)
-and ``train_sync``, the deterministic interleaving of the paper's learning
-loop — actors → local buffers cutting blocks with n-step returns →
-prioritized sequence replay → learner step (burn-in, double-Q n-step
-targets under value rescaling, IS-weighted loss, mixed priorities, Adam
-with clip 40, target sync) → priorities fed back.  The threaded
-``train()`` fabric, the device ring, meshes and the process planes are
-later slices (ROADMAP.md).
+``r2d2_tpu/train.py``:
+
+- ``_build``: envs, network, train state with an optional resume, learner,
+  replay buffer, ladder epsilons, vector actors, and the full-state resume
+  (a warm replay ring and the actors' RNG/env state from a replay
+  snapshot);
+- ``_HostScaffold``: the stop predicate, the SIGTERM/SIGINT drain-then-save
+  hooks, the learner heartbeat watchdog, the bounded log ring, the
+  telemetry plane (registry, JSONL run log, HTTP exporter) and the
+  learning-health monitor and alert engine;
+- ``train``: the concurrent system — actor fleet threads, a sample thread,
+  a priority-feedback thread, a log thread, the periodic snapshot thread
+  and the learner on the calling thread, all but the learner under the
+  supervisor — with drain-then-save and replay snapshots;
+- ``train_sync``: the deterministic interleaving of the same components
+  (the integration tests' and the debugger's loop).
 
 The learner runs on ``device`` (default: the CUDA device; raises without
 one).  Acting runs where ``cfg.act_device`` says (``actor.
 _resolve_act_device``): on the CUDA device for ``"auto"``, through the
-fused LSTM kernel.  On a machine without a card, pass ``device="cpu"``
-and ``act_device="cpu"`` in the config.
+fused LSTM kernel, one launch per LSTM layer per act.  On a machine without
+a card, pass ``device="cpu"`` and ``act_device="cpu"`` in the config.
+
+Every branch of the reference's ``train()`` that needs a module the port
+does not have yet raises ``ValueError`` naming its ROADMAP.md item
+(:func:`check_unported`); nothing falls back silently.  Threads share the
+card through PyTorch's default stream; each actor fleet acts through its
+own copy of the network module, because ``torch.func.functional_call``
+swaps a module's parameters in place while it runs.
 """
 from __future__ import annotations
 
+import collections
+import logging
+import os
+import queue
+import signal
+import threading
+import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -37,10 +59,43 @@ from r2d2_tpu_torch.learner.learner import Learner
 from r2d2_tpu_torch.learner.step import create_train_state
 from r2d2_tpu_torch.models.network import create_network
 from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+from r2d2_tpu_torch.telemetry.console import format_entry
+from r2d2_tpu_torch.telemetry.learnhealth import (
+    AlertEngine,
+    LearnHealthMonitor,
+)
+from r2d2_tpu_torch.telemetry.plane import Telemetry
 from r2d2_tpu_torch.utils.math import epsilon_ladder
 from r2d2_tpu_torch.utils.store import ParamStore
+from r2d2_tpu_torch.utils.supervisor import Heartbeat, Supervisor
+from r2d2_tpu_torch.utils.trace import Tracer, device_profile
+
+log = logging.getLogger(__name__)
 
 EnvFactory = Callable[[Config, int], Any]
+
+# chaos sites train() fires; every other kind belongs to a plane the port
+# has not ported yet, named here by its ROADMAP.md item
+CHAOS_SITES = ("truncate_ckpt", "freeze_learner", "poison_params")
+_UNPORTED_CHAOS = {
+    "wedge_dispatch": "item 6 (anakin)",
+    "kill_fleet": "item 8 (process planes)",
+    "garble_block": "item 8 (process planes)",
+    "freeze_service": "item 8 (process planes)",
+    "drop_act_response": "item 8 (process planes)",
+    "garble_act_response": "item 8 (process planes)",
+    "stall_pump": "item 8 (process planes)",
+    "kill_replay_shard": "item 8 (replay shards)",
+    "garble_sample_response": "item 8 (replay shards)",
+    "stall_shard": "item 8 (replay shards)",
+    "partition_shard_link": "item 8 (socket replay)",
+    "delay_shard_link": "item 8 (socket replay)",
+    "half_open_shard": "item 8 (socket replay)",
+    "garble_net_frame": "item 8 (socket replay)",
+    "kill_eval_sidecar": "item 9 (league)",
+    "kill_session_client": "item 11 (the session load generator)",
+    "slow_session_client": "item 11 (the session load generator)",
+}
 
 
 def _default_env_factory(cfg: Config, seed: int):
@@ -63,18 +118,75 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def check_unported(cfg: Config, use_mesh: bool = False) -> None:
+    """Raise ``ValueError`` for a ``train()`` configuration that needs a
+    module the port has not ported yet, naming its ROADMAP.md item."""
+    from r2d2_tpu_torch.utils.chaos import parse_spec
+
+    refusals = [
+        (bool(cfg.population_spec),
+         "population_spec (the population plane) waits for ROADMAP.md A "
+         "item 9"),
+        (cfg.actor_transport == "anakin",
+         "actor_transport='anakin' (the fused on-device loop) waits for "
+         "ROADMAP.md A item 6"),
+        (cfg.actor_transport == "process",
+         "actor_transport='process' (subprocess fleets) waits for "
+         "ROADMAP.md A item 8"),
+        (cfg.actor_inference == "serve",
+         "actor_inference='serve' (the inference service) waits for "
+         "ROADMAP.md A item 8"),
+        (cfg.replay_shards > 1,
+         "replay_shards > 1 (the sharded replay plane) waits for "
+         "ROADMAP.md A item 8"),
+        (cfg.replay_transport == "socket",
+         "replay_transport='socket' (the cross-host replay fabric) waits "
+         "for ROADMAP.md A item 8"),
+        (cfg.device_replay,
+         "device_replay (the device-resident ring) waits for ROADMAP.md A "
+         "item 5"),
+        (cfg.in_graph_per,
+         "in_graph_per (device priorities) waits for ROADMAP.md A item 5"),
+        (use_mesh, "use_mesh (the learner mesh) waits for ROADMAP.md A "
+                   "item 7"),
+        (cfg.league_eval,
+         "league_eval (the eval sidecar) waits for ROADMAP.md A item 9"),
+        (cfg.learnhealth_interval > 0,
+         "learnhealth_interval > 0 (the in-graph diagnostic vector) waits "
+         "for ROADMAP.md A item 10"),
+        (cfg.trace_steps > 0,
+         "trace_steps > 0 (the tracing slab and its capture controllers) "
+         "waits for ROADMAP.md A item 10"),
+    ]
+    for refused, why in refusals:
+        if refused:
+            raise ValueError(f"r2d2_tpu_torch.train: {why}")
+    for kind in parse_spec(cfg.chaos_spec):
+        if kind not in CHAOS_SITES:
+            raise ValueError(
+                f"r2d2_tpu_torch.train: chaos site {kind!r} belongs to "
+                f"ROADMAP.md A {_UNPORTED_CHAOS[kind]}, not ported; the "
+                f"port's train() fires {CHAOS_SITES}")
+
+
 def _build(cfg: Config, env_factory: EnvFactory,
            checkpoint_dir: Optional[str], resume: bool,
            device=None) -> Dict[str, Any]:
     """Common bring-up: envs, net, state (maybe restored), learner,
-    buffer, actors.  Parameters are drawn from a ``torch.Generator``
-    seeded with ``cfg.seed``."""
+    buffer, actors, and the full-state resume from the newest replay
+    snapshot.  Parameters are drawn from a ``torch.Generator`` seeded with
+    ``cfg.seed``."""
     device = resolve_device(device)
     act_device = _resolve_act_device(cfg.act_device)
     envs = [env_factory(cfg, cfg.seed + i) for i in range(cfg.num_actors)]
     action_dim = envs[0].action_space.n
-    net = create_network(cfg, action_dim, device=device,
-                         generator=torch.Generator().manual_seed(cfg.seed))
+
+    def network(dev):
+        return create_network(cfg, action_dim, device=dev,
+                              generator=torch.Generator().manual_seed(
+                                  cfg.seed))
+
+    net = network(device)
     state = create_train_state(cfg, net.state_dict())
 
     checkpointer = (Checkpointer(checkpoint_dir, keep=cfg.keep_checkpoints)
@@ -97,27 +209,203 @@ def _build(cfg: Config, env_factory: EnvFactory,
     buffer.env_steps = start_env_steps
     epsilons = [epsilon_ladder(i, cfg.num_actors, cfg.base_eps, cfg.eps_alpha)
                 for i in range(cfg.num_actors)]
-    # acting shares the learner's network when both run on one device;
-    # otherwise a twin on the acting device (same parameter names, the LSTM
-    # impl resolved for that device)
-    act_net = net if act_device == device else create_network(
-        cfg, action_dim, device=act_device,
-        generator=torch.Generator().manual_seed(cfg.seed))
-    act_fn = make_host_act_fn(act_net)
     # actor_fleets fleets over contiguous lane slices: the ladder epsilons
-    # stay GLOBAL, and each fleet gets its own RNG stream
+    # stay GLOBAL, and each fleet gets its own RNG stream.  Each fleet acts
+    # through its own network module (the act swaps the module's
+    # parameters for the published ones while it runs, so a module shared
+    # between threads would race); the learner's module is never one of
+    # them (same parameter names, the LSTM impl resolved for act_device)
     shards, fleet_workers = fleet_shards(cfg)
+    act_nets = [network(act_device) for _ in shards]
     actors = [
-        VectorActor(cfg, envs[lo:hi], epsilons[lo:hi], act_fn, param_store,
+        VectorActor(cfg, envs[lo:hi], epsilons[lo:hi],
+                    make_host_act_fn(act_nets[f]), param_store,
                     sink=buffer.add, env_workers=fleet_workers,
                     rng=np.random.default_rng(cfg.seed + 7919 + 104729 * f))
         for f, (lo, hi) in enumerate(shards)
     ]
+    # full-state resume: a warm replay ring + resumable actor state saved
+    # by a previous run's drain-then-save exit (checkpoint.save_replay).
+    # Loaded AFTER everything is built so a failure here degrades to the
+    # plain learner-state resume above instead of killing bring-up
+    restored_replay = False
+    if checkpointer is not None and resume:
+        rep = checkpointer.restore_replay()
+        if rep is not None:
+            meta_r, ring_path, actor_snaps = rep
+            try:
+                buffer.read_state(ring_path, meta_r)
+                restored_replay = True
+            except (ValueError, OSError) as e:
+                warnings.warn(f"replay snapshot not restored: {e}",
+                              stacklevel=2)
+            if restored_replay and actor_snaps:
+                for a, snap in zip(actors, actor_snaps):
+                    if snap is None:
+                        continue
+                    try:
+                        a.restore(snap)
+                    except ValueError as e:
+                        warnings.warn(f"actor snapshot skipped: {e}",
+                                      stacklevel=2)
     return dict(cfg=cfg, envs=envs, action_dim=action_dim, net=net,
-                act_net=act_net, learner=learner, buffer=buffer,
-                actors=actors, actor=actors[0], param_store=param_store,
-                checkpointer=checkpointer, host_bs=cfg.batch_size)
+                act_net=act_nets[0], learner=learner,
+                buffer=buffer, actors=actors, actor=actors[0],
+                param_store=param_store, checkpointer=checkpointer,
+                host_bs=cfg.batch_size, restored_replay=restored_replay)
 
+
+class _HostScaffold:
+    """Host-side scaffolding of the threaded trainer (the reference's
+    ``_HostScaffold`` without ``tracing_loops``: the tracing slab and its
+    ``/tracez``/``/profilez`` controllers are ROADMAP.md A item 10).
+
+    Owns the stop predicate (event + wall-clock deadline + supervisor
+    failure + a tripped learnhealth monitor + the caller's ``stop_fn``),
+    the SIGTERM/SIGINT drain-then-save handlers, the learner Heartbeat and
+    its stall-watchdog loop, the bounded in-memory log ring, the telemetry
+    plane with the supervisor's give-up stamping wired in, the alert
+    engine, and the quiesce/teardown order."""
+
+    def __init__(self, cfg: Config, checkpoint_dir: Optional[str],
+                 max_wall_seconds: Optional[float] = None,
+                 max_thread_restarts: int = 3,
+                 signal_msg: str = "draining fabric, then saving full state",
+                 watch_label: str = "learner",
+                 stop_fn: Optional[Callable[[], bool]] = None):
+        self.cfg = cfg
+        self._stop_fn = stop_fn
+        self.checkpoint_dir = checkpoint_dir
+        self.telemetry = Telemetry(cfg, checkpoint_dir)
+        self.alerts = AlertEngine(
+            cfg, self.telemetry.registry,
+            log_dir=(os.path.join(checkpoint_dir, "telemetry")
+                     if checkpoint_dir else None))
+        self.learnhealth = LearnHealthMonitor(cfg, engine=self.alerts)
+        self.routes: Dict[str, Any] = {"/alertz": self.alerts.route}
+        # a thread exhausting its restart budget is stamped straight into
+        # the registry by the supervisor itself — the log loop (the usual
+        # absorption path) may be the very thread that died
+        self.supervisor = Supervisor(
+            max_restarts=max_thread_restarts,
+            on_giveup=lambda name: self.telemetry.registry.inc(
+                "supervisor.gaveup", thread=name))
+        self.stop_event = threading.Event()
+        self.deadline = (time.time() + max_wall_seconds
+                         if max_wall_seconds else None)
+        # learner liveness: the learner beats through every stop poll
+        # (loop iterations AND queue waits), so a stale heartbeat means a
+        # genuinely frozen thread, not a slow batch
+        self.heartbeat = Heartbeat()
+        self.stall = {"stalled": False}
+        self.logs: collections.deque = collections.deque(
+            maxlen=cfg.log_history_cap)
+        self._signal_msg = signal_msg
+        self._watch_label = watch_label
+        self._prev_handlers: Dict[int, Any] = {}
+
+    def stop(self) -> bool:
+        return (self.stop_event.is_set() or self.supervisor.any_failed
+                or (self.deadline is not None
+                    and time.time() > self.deadline)
+                # non-finite loss: stop cleanly (drain-then-save) instead
+                # of training on through poisoned numerics
+                or self.learnhealth.tripped
+                or (self._stop_fn is not None and self._stop_fn()))
+
+    def record_learnhealth(self, entry: Dict[str, Any],
+                           replay_health: Optional[Dict[str, Any]] = None
+                           ) -> None:
+        """Stamp the monitor snapshot (+ replay data-health) into the
+        entry, then run the alert engine over it; the entry carries the
+        cumulative alert counts."""
+        entry["learnhealth"] = self.learnhealth.snapshot()
+        if replay_health is not None:
+            entry["replay_health"] = replay_health
+        self.alerts.evaluate(dict(
+            learnhealth=entry["learnhealth"], replay=replay_health,
+            training_steps=entry.get("training_steps", 0)))
+        entry["alerts"] = self.alerts.counts()
+
+    def install_signals(self) -> None:
+        """SIGTERM/SIGINT request a drain-then-save shutdown.  Signals
+        only reach the main thread; a trainer driven from a worker thread
+        skips the hook.  :meth:`close` restores the previous handlers."""
+        if threading.current_thread() is not threading.main_thread():
+            return
+
+        def _on_signal(signum, frame):
+            log.warning("signal %d: %s", signum, self._signal_msg)
+            self.stop_event.set()
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev_handlers[sig] = signal.signal(sig, _on_signal)
+            except (ValueError, OSError):  # exotic embedding: no signals
+                pass
+
+    def _learner_watch(self) -> None:
+        cfg = self.cfg
+        poll = min(0.05, cfg.learner_stall_timeout / 4)
+        while not self.stop():
+            time.sleep(poll)
+            if self.heartbeat.age() > cfg.learner_stall_timeout:
+                self.stall["stalled"] = True
+                log.error("%s heartbeat stale for %.1fs (budget %.1fs): "
+                          "declaring a stall and stopping the fabric",
+                          self._watch_label, self.heartbeat.age(),
+                          cfg.learner_stall_timeout)
+                self.stop_event.set()
+                return
+
+    def watch_loops(self) -> List[Any]:
+        """The heartbeat stall-watchdog loop (empty when disabled)."""
+        return ([("learner_watch", self._learner_watch)]
+                if self.cfg.learner_stall_timeout > 0 else [])
+
+    def exporter_loops(self, healthz: Callable[[], Dict[str, Any]]
+                       ) -> List[Any]:
+        """Arm the HTTP exporter around the trainer's healthz verdict.
+        The loop is close-driven, NOT stop-driven: a stalling or stopping
+        run must stay scrapeable; quiesce closes the exporter before
+        joining it."""
+        exporter = self.telemetry.serve(healthz, routes=self.routes)
+        if exporter is None:    # telemetry_port == 0
+            return []
+
+        def telemetry_loop():
+            while not exporter.closed:
+                try:
+                    exporter.handle_once()
+                except (OSError, ValueError):
+                    return        # server closed under a late poll
+
+        return [("telemetry", telemetry_loop)]
+
+    def start(self, loops) -> None:
+        for name, loop in loops:
+            self.supervisor.start(name, loop)
+
+    def quiesce(self) -> None:
+        """Stop, close the exporter BEFORE joining (its loop exits on
+        close), then reap the fabric threads."""
+        self.stop_event.set()
+        self.telemetry.close_exporter()
+        self.supervisor.join_all(timeout=5.0)
+
+    def close(self) -> None:
+        self.alerts.close()
+        self.telemetry.close()
+        for sig, handler in self._prev_handlers.items():
+            try:
+                signal.signal(sig, handler)
+            except (ValueError, OSError):
+                pass
+
+
+# --------------------------------------------------------------------------
+# deterministic single-thread trainer (integration-test / debug path)
+# --------------------------------------------------------------------------
 
 def train_sync(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                checkpoint_dir: Optional[str] = None, resume: bool = False,
@@ -168,3 +456,323 @@ def train_sync(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                    buffer_size=len(buffer),
                    final_params=learner.state.params)
     return metrics
+
+
+# --------------------------------------------------------------------------
+# threaded fabric trainer (the reference's process topology, thread-native)
+# --------------------------------------------------------------------------
+
+def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
+          checkpoint_dir: Optional[str] = None, resume: bool = False,
+          use_mesh: bool = False, max_wall_seconds: Optional[float] = None,
+          verbose: bool = True,
+          log_sink: Optional[Callable[[Dict[str, Any]], None]] = None,
+          tracer: Optional[Tracer] = None,
+          profile_dir: Optional[str] = None,
+          max_thread_restarts: int = 3,
+          stop_fn: Optional[Callable[[], bool]] = None,
+          device=None) -> Dict[str, Any]:
+    """The full concurrent system (the reference's ``train()`` for
+    ``actor_transport="thread"`` on the host ring, one device).
+
+    Threads and their reference analogues:
+      actor[0..F]  — the N actor processes, regrouped into
+                     ``cfg.actor_fleets`` lockstep fleet threads with
+                     batched inference on the card
+      sample       — ReplayBuffer.prepare_data: batch assembly
+      priority     — ReplayBuffer.update_data: priority feedback
+      log          — the stats loop: the JSONL run log, the registry, the
+                     alert engine, ``log_sink`` and the console line
+      snapshot     — periodic replay snapshots
+                     (``cfg.replay_snapshot_interval`` > 0)
+      learner_watch— the heartbeat stall watchdog
+                     (``cfg.learner_stall_timeout`` > 0)
+      telemetry    — the HTTP exporter (``cfg.telemetry_port``; -1 binds
+                     an ephemeral port): ``/metrics``, ``/healthz``,
+                     ``/statusz``, ``/alertz``
+      prefetch     — batch staging onto the device, inside Learner.run
+      caller       — the learner hot loop
+
+    Fabric threads run under a Supervisor (a crash is recorded and the
+    thread restarted up to ``max_thread_restarts``; an exhausted budget
+    stops the run).  SIGTERM/SIGINT (main thread only) and ``stop_fn``
+    trigger a drain-then-save shutdown: the learner checkpoints its final
+    state and, with ``cfg.replay_snapshot``, the replay ring, sum-tree,
+    counters and actor RNG/env state are snapshotted atomically so
+    ``resume=True`` restarts warm.  ``cfg.chaos_spec`` fires the
+    thread-transport fault sites (:data:`CHAOS_SITES`).  ``profile_dir``
+    captures a ``torch.profiler`` trace of the learner loop.
+
+    Returns the learner's metrics (``num_updates``, ``env_steps``,
+    ``minutes``, ``mean_loss``) plus the JAX package's fabric keys.
+    """
+    check_unported(cfg, use_mesh)
+    sys = _build(cfg, env_factory, checkpoint_dir, resume, device=device)
+    actors: List[VectorActor] = sys["actors"]
+    buffer: ReplayBuffer = sys["buffer"]
+    learner: Learner = sys["learner"]
+    checkpointer = sys["checkpointer"]
+    tracer = tracer or Tracer()
+    scaffold = _HostScaffold(cfg, checkpoint_dir,
+                             max_wall_seconds=max_wall_seconds,
+                             max_thread_restarts=max_thread_restarts,
+                             stop_fn=stop_fn)
+    telemetry, supervisor = scaffold.telemetry, scaffold.supervisor
+    heartbeat, stall, logs = (scaffold.heartbeat, scaffold.stall,
+                              scaffold.logs)
+    stop = scaffold.stop
+    # learnhealth: the learner's harvests feed the monitor; a non-finite
+    # loss fires the nonfinite alert and trips scaffold.stop
+    learner.monitor = scaffold.learnhealth
+
+    chaos = None
+    if cfg.chaos_spec:
+        from r2d2_tpu_torch.utils.chaos import ChaosInjector
+
+        chaos = ChaosInjector(cfg.chaos_spec, seed=cfg.seed)
+        if checkpointer is not None:
+            checkpointer.chaos = chaos
+
+    scaffold.install_signals()
+    want_full_save = checkpointer is not None and cfg.replay_snapshot
+
+    def learner_stop() -> bool:
+        if chaos is not None:
+            freeze = chaos.learner_freeze_seconds()
+            if freeze > 0:
+                time.sleep(freeze)
+            if chaos.poison_params_now():
+                # runs ON the learner thread (this predicate is only
+                # polled there), between steps
+                log.warning("chaos: poisoning learner params with NaN")
+                learner.poison_params()
+        heartbeat.beat()
+        return stop()
+
+    batch_queue: "queue.Queue" = queue.Queue(maxsize=8)
+    priority_queue: "queue.Queue" = queue.Queue(maxsize=8)
+    # sample→feedback latency pairing: batches and their feedback move
+    # through FIFO queues in order, so a deque of enqueue stamps pairs each
+    # feedback with its batch (bounded: a drained stop drops stragglers)
+    sample_ts: collections.deque = collections.deque(maxlen=64)
+
+    def make_actor_loop(a: VectorActor):
+        def actor_loop():
+            while not stop():
+                with tracer.span("actor.run256"):
+                    a.run(max_steps=256, stop=stop)
+        return actor_loop
+
+    def sample_loop():
+        registry = telemetry.registry
+        while not stop():
+            if not buffer.ready:
+                time.sleep(0.05)
+                continue
+            with tracer.span("buffer.sample_batch"):
+                batch = buffer.sample_batch(sys["host_bs"])
+            # block-lineage latency decomposition: per-row ages stamped in
+            # the ring, observed here where the registry lives
+            ages = batch.pop("ages", None)
+            if ages is not None:
+                ages = np.asarray(ages)
+                cut, add = ages[:, 0], ages[:, 1]
+                registry.observe_many("pipeline.block_age_at_train_s",
+                                      cut[cut >= 0])
+                registry.observe_many("pipeline.hop.ingest_to_sample_s",
+                                      add[add >= 0])
+            while not stop():
+                try:
+                    batch_queue.put(batch, timeout=0.1)
+                    sample_ts.append(time.perf_counter())
+                    break
+                except queue.Full:
+                    continue
+
+    def priority_loop():
+        registry = telemetry.registry
+        while not stop():
+            try:
+                idxes, priorities, old_ptr, loss = priority_queue.get(
+                    timeout=0.1)
+            except queue.Empty:
+                continue
+            if sample_ts:
+                try:
+                    registry.observe(
+                        "pipeline.hop.sample_to_feedback_s",
+                        time.perf_counter() - sample_ts.popleft())
+                except IndexError:
+                    pass   # raced the deque's bound — skip the sample
+            with tracer.span("buffer.update_priorities"):
+                buffer.update_priorities(idxes, priorities, old_ptr, loss)
+
+    def healthz() -> Dict[str, Any]:
+        """The /healthz verdict: ``ok``, ``degraded`` (HTTP 200; here only
+        the nonfinite learnhealth alert degrades) or ``failing`` (HTTP
+        503: a supervisor give-up or a heartbeat past its stall budget)."""
+        age = heartbeat.age()
+        stale = (cfg.learner_stall_timeout > 0
+                 and age > cfg.learner_stall_timeout)
+        out = dict(
+            ok=not (supervisor.any_failed or stall["stalled"] or stale),
+            learner_heartbeat_age=age,
+            learner_stalled=stall["stalled"] or stale,
+            threads=supervisor.health(),
+        )
+        degraded = scaffold.alerts.nonfinite_active
+        out["degraded"] = degraded and out["ok"]
+        out["status"] = ("failing" if not out["ok"]
+                         else "degraded" if degraded else "ok")
+        return out
+
+    def log_loop():
+        last_steps, last_time = 0, time.time()
+        while not stop():
+            time.sleep(min(cfg.log_interval, 0.5))
+            now = time.time()
+            if now - last_time < cfg.log_interval:
+                continue
+            s = buffer.stats()
+            dt = now - last_time
+            tracer.gauge("batch_queue_depth", batch_queue.qsize())
+            tracer.gauge("priority_queue_depth", priority_queue.qsize())
+            tracer.gauge("buffer_fill", s["size"])
+            entry = dict(
+                time=now, buffer_size=s["size"], env_steps=s["env_steps"],
+                training_steps=s["training_steps"],
+                updates_per_sec=(s["training_steps"] - last_steps) / dt,
+                mean_episode_return=(s["episode_reward"] / s["num_episodes"]
+                                     if s["num_episodes"] else float("nan")),
+                mean_loss=(s["sum_loss"]
+                           / max(1, s["training_steps"] - last_steps)),
+                interval_episodes=s["num_episodes"],
+                trace=tracer.snapshot(),
+                health=supervisor.health(),
+                learner_heartbeat_age=heartbeat.age(),
+                telemetry_port=telemetry.port,
+            )
+            if chaos is not None:
+                entry["chaos"] = chaos.counts()
+            entry["corrupt_blocks"] = s["corrupt_blocks"]
+            entry["shard_respawns"] = s.get("shard_respawns", 0)
+            try:
+                replay_health = buffer.data_health()
+            except Exception:   # telemetry must never kill the log loop
+                replay_health = None
+            scaffold.record_learnhealth(entry, replay_health)
+            logs.append(entry)
+            # registry absorption + the persistent JSONL record
+            telemetry.record(entry)
+            if log_sink is not None:
+                log_sink(entry)
+            if verbose:
+                print(format_entry(entry), flush=True)
+            last_steps, last_time = s["training_steps"], now
+
+    def snapshot_loop():
+        # periodic insurance against kill -9 (no drain possible): the
+        # buffer snapshot is lock-consistent; the actors' state is only
+        # captured by the quiesced shutdown save
+        last = time.time()
+        while not stop():
+            time.sleep(0.2)
+            if time.time() - last < cfg.replay_snapshot_interval:
+                continue
+            try:
+                checkpointer.save_replay(buffer.training_steps,
+                                         buffer.write_state)
+            except Exception as e:
+                # a snapshot is insurance, not the run: warn and retry
+                # next cadence instead of burning the restart budget
+                log.warning("periodic replay snapshot failed: %s", e)
+            last = time.time()
+
+    loops = [(f"actor{f}" if len(actors) > 1 else "actor",
+              make_actor_loop(a)) for f, a in enumerate(actors)]
+    loops += scaffold.watch_loops()
+    if want_full_save and cfg.replay_snapshot_interval > 0:
+        loops.append(("snapshot", snapshot_loop))
+    loops += [("sample", sample_loop), ("priority", priority_loop),
+              ("log", log_loop)]
+    loops += scaffold.exporter_loops(healthz)
+
+    # both run on the learner thread, so their waits poll learner_stop:
+    # the heartbeat keeps beating through a legitimately slow batch, and a
+    # chaos freeze bites wherever the learner happens to be waiting
+    def batch_source():
+        while not learner_stop():
+            try:
+                return batch_queue.get(timeout=0.1)
+            except queue.Empty:
+                continue
+        return None
+
+    def priority_sink(idxes, priorities, old_ptr, loss):
+        while not learner_stop():
+            try:
+                priority_queue.put((idxes, priorities, old_ptr, loss),
+                                   timeout=0.1)
+                return
+            except queue.Full:
+                continue
+        # stopped: the learner's exit drain still delivers its pipelined
+        # results through this sink, and the priority thread may already
+        # be gone — apply directly (lock-protected) instead of dropping
+        buffer.update_priorities(idxes, priorities, old_ptr, loss)
+
+    try:
+        try:
+            scaffold.start(loops)
+            with device_profile(profile_dir):
+                metrics = learner.run(batch_source, priority_sink,
+                                      stop=learner_stop, tracer=tracer)
+        finally:
+            # the run's final health verdict, sampled before the quiesce
+            # (post-quiesce the heartbeat stops beating)
+            try:
+                final_health = healthz()
+            except Exception:
+                final_health = {}
+            scaffold.quiesce()
+            for a in actors:
+                a.close()
+
+        # drain remaining priority feedback so buffer counters are final
+        while True:
+            try:
+                idxes, priorities, old_ptr, loss = priority_queue.get_nowait()
+            except queue.Empty:
+                break
+            buffer.update_priorities(idxes, priorities, old_ptr, loss)
+
+        # full-state snapshot, AFTER the drain so ring priorities/counters
+        # are final: the learner state was already saved by Learner.run's
+        # epilogue; this persists the warm replay ring + sum-tree + actor
+        # RNG/env state next to it, atomically
+        if want_full_save:
+            try:
+                checkpointer.save_replay(
+                    learner.num_updates, buffer.write_state,
+                    actors=[a.snapshot() for a in actors])
+            except Exception as e:  # never fail the run over snapshot I/O
+                log.warning("full-state replay snapshot failed: %s", e)
+
+        metrics.update(buffer_size=len(buffer), logs=list(logs),
+                       buffer_training_steps=buffer.training_steps,
+                       final_params=learner.state.params,
+                       restored_replay=sys["restored_replay"],
+                       learner_stalled=stall["stalled"],
+                       trace=tracer.snapshot(), health=supervisor.health(),
+                       telemetry_port=telemetry.port,
+                       fabric_failed=supervisor.any_failed,
+                       learnhealth=scaffold.learnhealth.snapshot(),
+                       alerts=scaffold.alerts.counts(),
+                       healthz=final_health)
+        if chaos is not None:
+            metrics["chaos"] = chaos.counts()
+        metrics["blocks_per_member"] = buffer.stats().get(
+            "blocks_per_member", {})
+        return metrics
+    finally:
+        scaffold.close()

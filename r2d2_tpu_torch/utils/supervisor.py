@@ -166,3 +166,20 @@ class Supervisor:
             t.stop()
         for t in self.threads.values():
             t.join(timeout)
+
+
+class Heartbeat:
+    """Liveness pulse for a loop that thread-alive checks can't supervise
+    (the learner runs on the caller's own thread): the loop calls
+    :meth:`beat` every iteration; a watchdog reads :meth:`age` and treats
+    a large value as a stall — frozen thread, wedged device call.  Plain
+    float assignment is GIL-atomic, so no lock."""
+
+    def __init__(self):
+        self._last = time.time()
+
+    def beat(self) -> None:
+        self._last = time.time()
+
+    def age(self) -> float:
+        return time.time() - self._last

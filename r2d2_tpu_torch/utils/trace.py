@@ -1,11 +1,14 @@
-"""Tracing instrumentation the session tier needs.  Port of the
-``Tracer`` and ``TransferCounter`` halves of ``r2d2_tpu/utils/trace.py``;
-``RetraceGuard`` and ``TransferGuard`` wait for the telemetry slice.
+"""Tracing and profiling instrumentation.  Port of the ``Tracer``,
+``TransferCounter`` and ``device_profile`` parts of
+``r2d2_tpu/utils/trace.py``; ``RetraceGuard`` and ``TransferGuard`` wait
+for the telemetry slice (ROADMAP.md A, item 10).
 
-- :class:`Tracer` — in-process stage timers.  Spans record
+- :class:`Tracer` — in-process stage timers and gauges.  Spans record
   wall-time per stage as exponential moving averages with counts AND a
   fixed log-bucket histogram per span (p50/p95/p99 surfaced in
   ``snapshot()``).
+- :func:`device_profile` — a context manager around ``torch.profiler``
+  that writes a Chrome trace of the CPU and CUDA timeline of a region.
 - :class:`TransferCounter` — named thread-safe counters.
   :data:`HOST_TRANSFERS` counts the device<->host crossings of the serving
   hot loop, so "the batcher puts once and fetches once per batch" is an
@@ -21,7 +24,8 @@ import bisect
 import contextlib
 import threading
 import time
-from typing import Dict, Iterator
+import os
+from typing import Dict, Iterator, Optional
 
 # fixed log-spaced span-duration buckets (seconds, 4 per decade from
 # 10 µs to 100 s): every span shares them, so the per-update cost is one
@@ -67,17 +71,19 @@ class _Stat:
 
 
 class Tracer:
-    """Stage timers.
+    """Stage timers + gauges.
 
     >>> tracer = Tracer()
     >>> with tracer.span("serving.act"):
     ...     ...
+    >>> tracer.gauge("batch_queue", 5)
     >>> tracer.snapshot()["span.serving.act.ewma_ms"]
     """
 
     def __init__(self, alpha: float = 0.05):
         self._alpha = alpha
         self._spans: Dict[str, _Stat] = {}
+        self._gauges: Dict[str, float] = {}
         self._lock = threading.Lock()
 
     @contextlib.contextmanager
@@ -93,10 +99,14 @@ class Tracer:
                     stat = self._spans[name] = _Stat()
                 stat.update(dt, self._alpha)
 
+    def gauge(self, name: str, value: float) -> None:
+        with self._lock:
+            self._gauges[name] = float(value)
+
     def snapshot(self) -> Dict[str, float]:
         """Flat dict: span.<name>.{ewma_ms,mean_ms,count,p50_ms,p95_ms,
-        p99_ms}.  The percentiles come from each span's fixed log-bucket
-        histogram, so no samples are kept."""
+        p99_ms}, gauge.<name>.  The percentiles come from
+        each span's fixed log-bucket histogram, so no samples are kept."""
         out: Dict[str, float] = {}
         with self._lock:
             for name, s in self._spans.items():
@@ -106,6 +116,8 @@ class Tracer:
                 out[f"span.{name}.p50_ms"] = s.percentile(0.50) * 1e3
                 out[f"span.{name}.p95_ms"] = s.percentile(0.95) * 1e3
                 out[f"span.{name}.p99_ms"] = s.percentile(0.99) * 1e3
+            for name, v in self._gauges.items():
+                out[f"gauge.{name}"] = v
         return out
 
 
@@ -127,6 +139,10 @@ class TransferCounter:
         self.count(name, n)
         yield
 
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
     def get(self, name: str) -> int:
         with self._lock:
             return self._counts.get(name, 0)
@@ -142,3 +158,24 @@ class TransferCounter:
 # launch call, so a run can show its hot path went through the kernels
 HOST_TRANSFERS = TransferCounter()
 KERNEL_LAUNCHES = TransferCounter()
+
+
+@contextlib.contextmanager
+def device_profile(log_dir: Optional[str]) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of the region (CPU ops, and CUDA
+    kernels when a card is visible) into ``log_dir/trace.json``, viewable
+    in Perfetto or ``chrome://tracing``.  No-op when ``log_dir`` is None,
+    so call sites can be unconditional."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -189,3 +189,40 @@ def test_training_path_acts_through_the_kernel_and_learns_without_it(cuda):
     torch.cuda.synchronize()
     assert KERNEL_LAUNCHES.get(KERNEL) == 0
     assert torch.isfinite(loss) and prios.shape == (8,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
+def test_impala_two_layer_act_through_the_kernel_matches_plain(cuda, B):
+    """The IMPALA-deep net (impala torso on raw 84×84 frames, two LSTM
+    layers of H = 512, bf16): an act launches the tensor-core kernel once
+    per layer and agrees with the plain LSTM's act, q within 2e-3 and the
+    new hidden of both layers within 2e-3 (layer 1's bf16 input carries
+    layer 0's last-bit differences)."""
+    from r2d2_tpu_torch.config import impala_deep_config
+    from r2d2_tpu_torch.models import create_network
+
+    cfg = impala_deep_config(game_name="Fake")
+    gen = torch.Generator().manual_seed(0)
+    net = create_network(cfg, 4, device=cuda, generator=gen)
+    assert [layer.impl for layer in net.lstm_layers] == ["pallas"] * 2
+    plain = create_network(cfg, 4, device=cuda, lstm_impl="reference")
+    plain.load_state_dict(net.state_dict())
+    rng = np.random.default_rng(B)
+    obs = torch.from_numpy(rng.integers(0, 256, (B, 84, 84, 1),
+                                        np.uint8)).to(cuda)
+    la = torch.zeros(B, 4, device=cuda)
+    la[:, 1] = 1.0
+    lr = torch.from_numpy(rng.normal(size=B).astype(np.float32)).to(cuda)
+    hid = torch.from_numpy((rng.normal(size=(B, 2, 2, 512)) * 0.5).astype(
+        np.float32)).to(cuda)
+    KERNEL_LAUNCHES.reset()
+    with torch.inference_mode():
+        q1, h1 = net.act(obs, la, lr, hid)
+        assert KERNEL_LAUNCHES.get(KERNEL) == 2
+        q2, h2 = plain.act(obs, la, lr, hid)
+    assert KERNEL_LAUNCHES.get(KERNEL) == 2
+    assert KERNEL_LAUNCHES.get(CUDACORE_COUNTER) == 0
+    assert torch.isfinite(q1).all() and q1.shape == (B, 4)
+    assert (h1 - h2).abs().max().item() <= 2e-3
+    assert (q1 - q2).abs().max().item() <= 2e-3

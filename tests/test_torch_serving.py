@@ -469,3 +469,259 @@ def test_port_sources_never_import_the_jax_package():
                 if pat.match(line):
                     bad.append(f"{os.path.relpath(path, REPO)}:{i}")
     assert not bad, bad
+
+
+# ------------------------------------------------ run_server on checkpoints
+
+def _save_checkpoint(ckdir, cfg, step, params, **meta):
+    """One complete port checkpoint of ``params`` at ``step``, with the
+    architecture meta the trainer writes (overridden by ``meta``)."""
+    from r2d2_tpu_torch.checkpoint import Checkpointer, arch_meta
+    from r2d2_tpu_torch.learner.step import create_train_state
+
+    state = create_train_state(cfg, {k: v.clone() for k, v in params.items()})
+    Checkpointer(ckdir).save(step, state,
+                             meta=dict(arch_meta(cfg), env_steps=0, **meta))
+
+
+@contextlib.contextmanager
+def _run_server(monkeypatch, cfg, ckdir, **kw):
+    """run_server in a worker thread (signals reach only the main one);
+    yields (the server it built, a dict that receives its summary), and
+    stops it through ``stop_fn`` on exit."""
+    import threading
+
+    from r2d2_tpu_torch.serving import server as server_mod
+
+    built, result = {}, {}
+    real = server_mod.SessionServer
+
+    class Recorded(real):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            built["server"] = self
+
+    monkeypatch.setattr(server_mod, "SessionServer", Recorded)
+    done = threading.Event()
+
+    def body():
+        try:
+            result.update(server_mod.run_server(
+                cfg, ckdir, action_dim=A, verbose=False, stop_fn=done.is_set,
+                max_wall_seconds=120, **kw))
+        except BaseException as e:
+            result["error"] = e
+
+    t = threading.Thread(target=body)
+    t.start()
+    deadline = time.time() + 60
+    while not ("error" in result or (built.get("server") is not None
+                                     and built["server"]._started)):
+        assert time.time() < deadline, "run_server did not start"
+        time.sleep(0.01)
+    try:
+        yield built.get("server"), result
+    finally:
+        done.set()
+        t.join(timeout=60)
+        assert not t.is_alive()
+
+
+def _act_steps(cl, sid, stream, lo, hi, la):
+    out = []
+    for t in range(lo, hi):
+        st, q = cl.act(sid, stream[t], la, 0.25 * t, reset=t == 0)
+        assert st == wire.STATUS_OK
+        out.append(np.array(q))
+        la = np.zeros(A, np.float32)
+        la[int(np.argmax(q))] = 1.0
+    return out, la
+
+
+def _local_qs(cfg, params, stream, steps):
+    """The client-side unroll of one session on the port network."""
+    act = make_act_fn(create_network(cfg, A, device="cpu"))
+    hid = torch.zeros(1, 2, cfg.lstm_layers, cfg.hidden_dim)
+    la, out = np.zeros(A, np.float32), []
+    for t in range(steps):
+        q, hid = act(params, torch.from_numpy(stream[t][None]),
+                     torch.from_numpy(la[None]), torch.tensor([0.25 * t]),
+                     hid)
+        out.append(q[0].numpy())
+        la = np.zeros(A, np.float32)
+        la[int(np.argmax(out[-1]))] = 1.0
+    return out
+
+
+def test_run_server_serves_a_port_checkpoint(monkeypatch, tmp_path):
+    """The newest complete step is restored and served: the served q
+    stream is the local act's on its params, bit for bit; at shutdown the
+    live sessions are snapshotted with the store's counters."""
+    cfg = _cfg(telemetry_port=-1, act_device="cpu")
+    ck = str(tmp_path / "ck")
+    old, params = _port_params(seed=1), _port_params(seed=2)
+    _save_checkpoint(ck, cfg, 3, old)
+    _save_checkpoint(ck, cfg, 6, params)
+    rng = np.random.default_rng(8)
+    stream = [rng.integers(0, 256, cfg.stored_obs_shape).astype(np.uint8)
+              for _ in range(4)]
+    with _run_server(monkeypatch, cfg, ck) as (srv, result):
+        assert srv.batcher.device.type == "cpu"
+        status, body = _http_get(srv.exporter.port, "/healthz")
+        assert status == 200 and '"ok"' in body
+        cl = SessionClient(cfg, A, srv.host, srv.port, timeout=30)
+        assert cl.open_session(11) == wire.STATUS_OK
+        assert cl.open_session(12) == wire.STATUS_OK
+        got, _ = _act_steps(cl, 11, stream, 0, 4, np.zeros(A, np.float32))
+        assert cl.close_session(12) == wire.STATUS_OK
+    # the client leaves after the server stopped: session 11 is live in
+    # the shutdown snapshot, not reaped as an abandoned one
+    cl.close()
+    assert "error" not in result, result.get("error")
+    assert srv.exporter.closed     # its loop ended with the server
+    assert result["step"] == 6 and result["health"] == "ok"
+    _assert_accounting(result)
+    for a, b in zip(got, _local_qs(cfg, params, stream, 4)):
+        np.testing.assert_array_equal(a, b)
+    from r2d2_tpu_torch.checkpoint import Checkpointer
+
+    meta, _ = Checkpointer(ck).restore_sessions()
+    assert meta["counters"] == {k: result[k] for k in (
+        "admitted", "completed", "reaped", "evicted")}
+    assert meta["live"] == result["live"] == 1
+
+
+def _http_get(port, path):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read().decode()
+    finally:
+        conn.close()
+
+
+def test_run_server_refuses_an_architecture_mismatch(tmp_path):
+    from r2d2_tpu_torch.serving import run_server
+
+    cfg = _cfg(act_device="cpu")
+    ck = str(tmp_path / "ck")
+    _save_checkpoint(ck, cfg, 2, _port_params(), hidden_dim=64,
+                     lstm_layers=2)
+    with pytest.raises(ValueError, match="architecture mismatch") as e:
+        run_server(cfg, ck, action_dim=A, verbose=False)
+    assert "hidden_dim" in str(e.value) and "lstm_layers" in str(e.value)
+
+
+def test_run_server_without_a_checkpoint_raises(tmp_path):
+    from r2d2_tpu_torch.serving import run_server
+
+    with pytest.raises(FileNotFoundError, match="no complete checkpoint"):
+        run_server(_cfg(act_device="cpu"), str(tmp_path), action_dim=A)
+    # follow mode waits for the first save, within the wall budget
+    with pytest.raises(FileNotFoundError, match="within the wall budget"):
+        run_server(_cfg(act_device="cpu"), str(tmp_path), action_dim=A,
+                   follow=True,
+                   max_wall_seconds=0.3)
+
+
+def test_run_server_acts_on_the_card_by_default(monkeypatch, tmp_path):
+    from r2d2_tpu_torch.serving import run_server
+
+    ck = str(tmp_path / "ck")
+    _save_checkpoint(ck, _cfg(), 1, _port_params())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_server(port_test_config(), ck, action_dim=A, verbose=False)
+
+
+def test_follow_republishes_new_steps_and_skips_a_failed_gate(tmp_path):
+    """follow_params_once: a new complete step is republished; a step
+    whose greedy-parity gate fails is skipped (serving stays on the last
+    good params) and never retried; an arch-drifted step is skipped; a
+    torn step (no sidecar) is not a candidate at all."""
+    from r2d2_tpu_torch.checkpoint import Checkpointer
+    from r2d2_tpu_torch.serving import follow_params_once
+
+    cfg = _cfg()
+    ck = str(tmp_path / "ck")
+    srv = SessionServer(cfg, A, device="cpu")
+    try:
+        srv.publish_params(_port_params(seed=0))
+        followed = dict(step=1, republishes=0, parity_failures=0)
+        ckpt = Checkpointer(ck)
+        assert not follow_params_once(srv, ckpt, cfg, followed)
+        _save_checkpoint(ck, cfg, 2, _port_params(seed=2))
+        assert follow_params_once(srv, ckpt, cfg, followed)
+        assert followed == dict(step=2, republishes=1, parity_failures=0)
+        assert srv.batcher.version == 2
+        v2 = {k: v.clone() for k, v in srv.batcher._params.items()}
+        srv.batcher.greedy_parity_ok = lambda params: False
+        _save_checkpoint(ck, cfg, 3, _port_params(seed=3))
+        assert not follow_params_once(srv, ckpt, cfg, followed)
+        assert followed == dict(step=3, republishes=1, parity_failures=1)
+        assert not follow_params_once(srv, ckpt, cfg, followed)
+        assert all(torch.equal(v2[k], srv.batcher._params[k]) for k in v2)
+        del srv.batcher.greedy_parity_ok
+        os.makedirs(os.path.join(ck, "step_9"))          # torn: no sidecar
+        _save_checkpoint(ck, cfg, 4, _port_params(seed=4), hidden_dim=99)
+        assert not follow_params_once(srv, ckpt, cfg, followed)
+        assert followed["step"] == 4 and srv.batcher.version == 2
+        assert srv.registry.get_counter("serving.republishes") == 1
+        assert srv.registry.get_counter(
+            "serving.follow_parity_failures") == 1
+    finally:
+        srv.close()
+
+
+def test_run_server_follow_mode_republishes(monkeypatch, tmp_path):
+    cfg = _cfg(act_device="cpu")
+    ck = str(tmp_path / "ck")
+    _save_checkpoint(ck, cfg, 1, _port_params(seed=1))
+    with _run_server(monkeypatch, cfg, ck, follow=True,
+                     follow_poll=0.05) as (srv, result):
+        _save_checkpoint(ck, cfg, 5, _port_params(seed=5))
+        deadline = time.time() + 30
+        while srv.batcher.version < 2:
+            assert time.time() < deadline, "step 5 was not republished"
+            time.sleep(0.02)
+    assert result["followed_step"] == 5 and result["republishes"] == 1
+    assert result["follow_parity_failures"] == 0
+
+
+def test_run_server_resume_sessions_restores_hidden_bit_exact(
+        monkeypatch, tmp_path):
+    """Serve two steps, shut down (the live session is snapshotted),
+    serve again with resume_sessions: the session continues by id, and its
+    q stream equals an uninterrupted unroll's, bit for bit."""
+    cfg = _cfg(act_device="cpu")
+    ck = str(tmp_path / "ck")
+    params = _port_params(seed=4)
+    _save_checkpoint(ck, cfg, 2, params)
+    rng = np.random.default_rng(3)
+    stream = [rng.integers(0, 256, cfg.stored_obs_shape).astype(np.uint8)
+              for _ in range(5)]
+    with _run_server(monkeypatch, cfg, ck) as (srv, result):
+        cl = SessionClient(cfg, A, srv.host, srv.port, timeout=30)
+        assert cl.open_session(7) == wire.STATUS_OK
+        got, la = _act_steps(cl, 7, stream, 0, 2, np.zeros(A, np.float32))
+    cl.close()
+    assert result["live"] == 1
+    hidden = srv.store.hidden[srv.store._sessions[7].slot].copy()
+    with _run_server(monkeypatch, cfg, ck, resume_sessions=True) as (
+            srv2, result2):
+        assert srv2.store.live() == 1
+        np.testing.assert_array_equal(
+            srv2.store.hidden[srv2.store._sessions[7].slot], hidden)
+        cl = SessionClient(cfg, A, srv2.host, srv2.port, timeout=30)
+        try:
+            more, _ = _act_steps(cl, 7, stream, 2, 5, la)
+            assert cl.close_session(7) == wire.STATUS_OK
+        finally:
+            cl.close()
+    assert result2["completed"] == 1 and result2["live"] == 0
+    _assert_accounting(result2)
+    for a, b in zip(got + more, _local_qs(cfg, params, stream, 5)):
+        np.testing.assert_array_equal(a, b)
