@@ -26,8 +26,8 @@ Phases (each exits non-zero on failure):
    bfloat16 (there a last-bit difference that crosses a bf16 rounding
    boundary of h moves the next operand by one bf16 ulp, and the
    recurrence carries it).  Then the tensor-core kernel's device time at
-   each tile width n, and at (T, B) = (1, 1), (1, 8), (1, 32), (1, 256),
-   (85, 64) in bf16, in ``ROUNDS`` rounds that take the designs in turns
+   each tile width n, and at (T, B) = (1, 1), (1, 8), (1, 32), (1, 64),
+   (1, 256), (85, 64) in bf16, in ``ROUNDS`` rounds that take the designs in turns
    (forward, then backward): time per call with the launch (CUDA events),
    device time (``torch.profiler``) and the host's time to issue a call, of
    both kernels and the plain version, and of the layer step (``x @ wi +
@@ -91,8 +91,35 @@ Phases (each exits non-zero on failure):
    update, an actor iteration's host/device time and the kernel's share,
    tensor-map encodes per act, the served act and client round trip
    p50/p99, and the phase's seconds;
-7. one ``{"kernels": [...]}`` JSON line;
-8. last line: ``{"ok": true, "device": {...}}``.
+7. the Pong preset from a device-resident replay ring:
+   ``pong_config(game_name="Fake")`` at full width (nature torso on
+   21×21×16 frames, one LSTM layer of H = 512, bf16, batch 64, burn-in 40
+   + learning 40 + forward 5, 64 actors with 8 env workers,
+   ``superstep_k=4``, ``superstep_pipeline=2``) with the full
+   2 000 000-transition ring (15.80 GB) on the card, cut only in warm-up
+   and run length (the ``reduced:`` line).  First, on the card: a ring of
+   a few blocks at the full slot shapes, filled like a host
+   ``ReplayBuffer``, gathers every ``sample_meta`` bundle bit for bit
+   like the host ring's ``_gather_rows``; the in-graph sampler over the
+   full ring's 50 000 leaves draws the same indices and ints as on the
+   CPU for the same uniforms, weights within 1e-6; one host-sampled
+   super-step equals k sequential train steps bit for bit (cuDNN
+   deterministic for that check only).  Then ``train()`` on the main
+   thread, 32 updates with ``in_graph_per=True`` and 16 with it off, under
+   a wall budget.  Checked: the ring built on the card (no fallback
+   warning, ``in_graph_per`` kept) with ``nbytes() == data_bytes``;
+   updates k per dispatch and every loss finite; one ``learner.
+   result_fetch`` per dispatch; dispatch puts under 10 KB per dispatch;
+   k priority feedbacks per dispatch (host-sampled); the scatter changing
+   only drawn leaves and every padding leaf still 0 (in-graph); the
+   kernel launched once per act (one layer), the CUDA-core one never, and
+   no LSTM kernel in a profiled super-step; the checkpoint at 16 written
+   and no replay snapshot.  Prints env steps/s while filling and while
+   training, the dispatch interval p50, the lock hold per in-graph
+   dispatch, a profiled super-step's host wall clock, device time, idle
+   share and top device ops, ring and peak GB, and the phase's seconds;
+8. one ``{"kernels": [...]}`` JSON line;
+9. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -122,9 +149,10 @@ BF16_TOL = 1e-4
 BF16_FREE_TOL = 1e-2
 Q_TOL = 2e-3
 # phase 3's shapes: B = 65 crosses a 64-row tile of the tensor-core kernel;
-# B = 8 is the flagship actor fleet's lockstep batch (phase 5)
+# B = 8 is the flagship actor fleet's lockstep batch (phase 5), B = 64 the
+# Pong preset's one 64-lane fleet (phase 7)
 CHECK_B = (1, 7, 8, 64, 65, 256)
-TIMED = ((1, 1), (1, 8), (1, 32), (1, 256), (85, 64))
+TIMED = ((1, 1), (1, 8), (1, 32), (1, 64), (1, 256), (85, 64))
 # rounds of the timing, each taking the designs in turns
 ROUNDS = 4
 # the flagship LSTM layer's input: torso features, last action, reward
@@ -169,6 +197,18 @@ FABRIC_RESUME_STEPS = 28
 FABRIC_WALL_S = 420
 FABRIC_SESSIONS = 16
 FABRIC_GROUPS = (1, 2, 5, 8)
+# phase 7: pong_config(game_name="Fake") with its full ring on the card,
+# cut only in warm-up (the first block of each of the 64 actors), run
+# length (two runs: in-graph PER, then host-sampled) and the cadences
+DEVICE_REDUCED = dict(learning_starts=25_600, target_net_update_interval=8,
+                      save_interval=16)
+DEVICE_RUNS = ((True, 32), (False, 16))    # (in_graph_per, updates)
+DEVICE_WALL_S = 240
+# a dispatch's H2D: the (k, B, 6) int32 bundle and (k, B) weights, 7 KB at
+# k=4, B=64 — far below one batch's 38 MB of observations
+DISPATCH_PUT_MAX_BYTES = 10_000
+SAMPLER_W_RTOL = 1e-6
+CHECK_RING_BLOCKS = 4
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -1527,6 +1567,428 @@ def serve_checkpoint(torch, card: str, cfg, ckdir: str, server_mod) -> int:
     return launches
 
 
+def scripted_blocks(cfg, n_blocks: int, seed: int = 0):
+    """``n_blocks`` well-formed blocks at ``cfg``'s shapes, cut by the
+    port's LocalBuffer from seeded random steps."""
+    from r2d2_tpu_torch.replay.block import LocalBuffer
+
+    rng = np.random.default_rng(seed)
+    local = LocalBuffer(cfg, TRAIN_ACTIONS)
+    local.reset(rng.integers(0, 256, cfg.stored_obs_shape, np.uint8))
+    out = []
+    while len(out) < n_blocks:
+        for _ in range(cfg.block_length):
+            local.add(int(rng.integers(TRAIN_ACTIONS)), float(rng.normal()),
+                      rng.integers(0, 256, cfg.stored_obs_shape, np.uint8),
+                      rng.normal(size=TRAIN_ACTIONS).astype(np.float32),
+                      (rng.normal(size=(2, cfg.lstm_layers, cfg.hidden_dim))
+                       * 0.5).astype(np.float32))
+        blk, prios, _ = local.finish(
+            rng.normal(size=TRAIN_ACTIONS).astype(np.float32))
+        out.append((blk, prios))
+    return out
+
+
+def device_ring_checks(torch, base) -> dict:
+    """Phase 7's checks on the card before the fabric runs: the device
+    gather against the host ring, the in-graph sampler against its CPU
+    run, and a super-step against k sequential train steps."""
+    from r2d2_tpu_torch.learner import step as step_mod
+    from r2d2_tpu_torch.models import create_network
+    from r2d2_tpu_torch.replay.device_ring import (
+        DeviceRing,
+        gather_batch,
+        to_device,
+    )
+    from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    k, B = base.superstep_k, base.batch_size
+    # a ring of a few blocks at the full slot shapes, wrapped once
+    cfg = base.replace(buffer_capacity=CHECK_RING_BLOCKS * base.block_length,
+                       learning_starts=base.block_length, in_graph_per=False)
+    host = ReplayBuffer(cfg.replace(device_replay=False), TRAIN_ACTIONS,
+                        rng=np.random.default_rng(3))
+    ring = DeviceRing(cfg, TRAIN_ACTIONS, device=cuda)
+    dev = ReplayBuffer(cfg, TRAIN_ACTIONS, rng=np.random.default_rng(3),
+                       device_ring=ring)
+    for blk, prios in scripted_blocks(cfg, CHECK_RING_BLOCKS + 2):
+        host.add(blk, prios, None)
+        dev.add(blk, prios, None)
+    meta = dev.sample_meta(k)
+    ints = to_device(meta["ints"], cuda)
+    weights = to_device(meta["is_weights"], cuda)
+    for j in range(k):
+        got = gather_batch(cfg, ring.snapshot(), ints[j], weights[j])
+        want = dict(host._gather_rows(meta["idxes"][j]),
+                    is_weights=meta["is_weights"][j])
+        for key, v in want.items():
+            if not np.array_equal(got[key].cpu().numpy(), v):
+                fail(f"device gather field {key} differs from the host "
+                     f"ring's _gather_rows (bundle {j})")
+    print(f"device gather on the card: {k} bundles x {B} rows from a "
+          f"{cfg.num_blocks}-block ring at the full slot shapes (obs "
+          f"{tuple(ring.arrays['obs'].shape[1:])}, hidden "
+          f"{tuple(ring.arrays['hidden'].shape[1:])}), every field bit for "
+          "bit equal to the host ring's _gather_rows", flush=True)
+
+    # the in-graph sampler over the full ring's leaf count, card vs CPU
+    rng = np.random.default_rng(11)
+    NB, K = base.num_blocks, base.seqs_per_block
+    prios = (rng.random(NB * K) * rng.exponential(1.0, NB * K)).astype(
+        np.float32)
+    prios[rng.random(NB * K) < 0.3] = 0.0
+    seq_meta = np.stack([rng.integers(0, base.burn_in_steps + 1, (NB, K)),
+                         rng.integers(1, base.learning_steps + 1, (NB, K)),
+                         rng.integers(1, base.forward_steps + 1, (NB, K))],
+                        axis=-1).astype(np.int32)
+    first = rng.integers(0, base.burn_in_steps + 1, NB).astype(np.int32)
+    u = rng.random((k, B)).astype(np.float32)
+    w_err = 0.0
+    for j in range(k):
+        leaves = [torch.from_numpy(a) for a in (prios, seq_meta, first)]
+        cpu = step_mod._in_graph_sample(base, torch.from_numpy(u[j]), *leaves)
+        card = step_mod._in_graph_sample(
+            base, torch.from_numpy(u[j]).to(cuda),
+            *(t.to(cuda) for t in leaves))
+        if not (torch.equal(card[0].cpu(), cpu[0])
+                and torch.equal(card[2].cpu(), cpu[2])):
+            fail("the in-graph sampler's indices or ints differ between the "
+                 "card and the CPU")
+        w_err = max(w_err, float(((card[1].cpu() - cpu[1]).abs()
+                                  / cpu[1]).max()))
+    if w_err > SAMPLER_W_RTOL:
+        fail(f"the in-graph sampler's weights: {w_err:.3e} relative")
+    print(f"in-graph sampler on the card vs the CPU over {NB * K} leaves "
+          f"(30% zero), {k} x {B} draws: indices and ints equal, weights "
+          f"max relative error {w_err:.3e} (tol {SAMPLER_W_RTOL:.0e})",
+          flush=True)
+
+    # one host-sampled super-step against k sequential train steps on the
+    # same bundles, bit for bit: cuDNN's conv weight gradients may
+    # otherwise pick algorithms with atomics, so deterministic for this
+    # check only
+    net = create_network(cfg, TRAIN_ACTIONS, device=cuda,
+                         generator=torch.Generator().manual_seed(5))
+    fused = step_mod.create_train_state(cfg, net.state_dict())
+    seq = step_mod.create_train_state(cfg, net.state_dict())
+    super_step = step_mod.make_super_step_fn(cfg, net, k)
+    train_step = step_mod.make_train_step(cfg, net)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fused, losses, fprios = super_step(fused, ring.snapshot(), ints,
+                                           weights)
+        seq_losses, seq_prios = [], []
+        for j in range(k):
+            seq, loss, p = train_step(seq, gather_batch(
+                cfg, ring.snapshot(), ints[j], weights[j]))
+            seq_losses.append(loss)
+            seq_prios.append(p)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = was
+    same = (torch.equal(losses, torch.stack(seq_losses))
+            and torch.equal(fprios, torch.stack(seq_prios))
+            and all(torch.equal(a[n], b[n])
+                    for a, b in ((fused.params, seq.params),
+                                 (fused.target_params, seq.target_params),
+                                 (fused.opt_state.mu, seq.opt_state.mu),
+                                 (fused.opt_state.nu, seq.opt_state.nu))
+                    for n in a))
+    if not (same and torch.isfinite(losses).all()):
+        fail(f"a super-step is not k sequential steps bit for bit (losses "
+             f"{losses.tolist()} vs {[x.item() for x in seq_losses]})")
+    print(f"super-step (k={k}) vs {k} sequential train steps on the card: "
+          f"losses {fmt_list(losses.tolist())}, priorities, params, target "
+          "params and Adam moments bit for bit equal (cuDNN deterministic)",
+          flush=True)
+    return dict(gather_bitwise=True, sampler_w_rel_err=w_err,
+                superstep_bitwise=True)
+
+
+def device_replay_run(torch, card: str, cfg, need: int) -> int:
+    """One of phase 7's ``train()`` runs on the full ring (in-graph PER or
+    host-sampled, as ``cfg.in_graph_per`` says), its checks, timings and a
+    profiled super-step.  Returns the kernel's launches in the run.  The
+    run's ring, learner and buffer are only referenced from this frame,
+    so they are freed when it returns."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.actor import ACTOR_ACT
+    from r2d2_tpu_torch.checkpoint import Checkpointer
+    from r2d2_tpu_torch.envs import FakeAtariEnv
+    from r2d2_tpu_torch.learner import step as step_mod
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.replay.device_ring import to_device
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+
+    in_graph, steps, k = cfg.in_graph_per, cfg.training_steps, cfg.superstep_k
+    real_build = train._build
+    real_sample = step_mod._in_graph_sample
+
+    def env_factory(c, seed):
+        return FakeAtariEnv(obs_shape=c.stored_obs_shape,
+                            action_dim=TRAIN_ACTIONS,
+                            episode_len=FAKE_EPISODE_LEN, seed=seed)
+
+    rec = dict(dispatches=[], start=None, leaves=[], drawn=[])
+
+    def capture(*args, **kw):
+        sys_ = real_build(*args, **kw)
+        actor, learner, ring = (sys_["actor"], sys_["learner"],
+                                sys_["ring"])
+        run, loop = actor.run, learner._superstep_loop
+        rec.update(sys_)
+
+        def timed_run(max_steps, stop=None):
+            if rec["start"] is None:
+                rec["start"] = (time.perf_counter(), actor.actor_steps)
+            run(max_steps, stop)
+
+        def stamped_loop(k_, target, t0, gate, sample, harvest,
+                         prepare=None, tracer=None):
+            # each dispatch stamped (entry, actor iterations, exit,
+            # actor iterations), without any synchronisation
+            def stamped():
+                t, a = time.perf_counter(), actor.actor_steps
+                out = sample()
+                rec["dispatches"].append(
+                    (t, a, time.perf_counter(), actor.actor_steps))
+                return out
+            return loop(k_, target, t0, gate, stamped, harvest,
+                        prepare, tracer)
+
+        actor.run, learner._superstep_loop = timed_run, stamped_loop
+        if ring is not None and ring.cfg.in_graph_per:
+            # the leaves just before and after each super-step, both
+            # copied on the card under the buffer lock (per_meta and
+            # put_prios run inside it)
+            per_meta, put_prios = ring.per_meta, ring.put_prios
+
+            def meta_before():
+                rec["leaves"].append([ring.take_prios().clone(), None,
+                                      len(rec["drawn"])])
+                return per_meta()
+
+            def prios_after(p):
+                rec["leaves"][-1][1] = p.clone()
+                put_prios(p)
+
+            ring.per_meta, ring.put_prios = meta_before, prios_after
+        return sys_
+
+    def drawing(*args, **kw):
+        out = real_sample(*args, **kw)
+        rec["drawn"].append(out[0])
+        return out
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_device_ring_")
+    try:
+        KERNEL_LAUNCHES.reset()
+        HOST_TRANSFERS.reset()
+        torch.cuda.reset_peak_memory_stats()
+        train._build = capture
+        step_mod._in_graph_sample = drawing
+        t0 = time.perf_counter()
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                m = train.train(cfg, env_factory, checkpoint_dir=ckdir,
+                                max_wall_seconds=DEVICE_WALL_S,
+                                verbose=False)
+        finally:
+            train._build = real_build
+            step_mod._in_graph_sample = real_sample
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
+        old = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
+        acts = HOST_TRANSFERS.get(ACTOR_ACT)
+        fetches = HOST_TRANSFERS.get("learner.result_fetch")
+        put_bytes = HOST_TRANSFERS.get("learner.dispatch_put_bytes")
+        ring, learner, buffer = rec["ring"], rec["learner"], rec["buffer"]
+        n_disp = len(rec["dispatches"])
+        mode = "in-graph PER" if in_graph else "host-sampled PER"
+
+        # the run's checks
+        fallback = [str(w.message) for w in caught
+                    if "falling back" in str(w.message)
+                    or "in_graph_per disabled" in str(w.message)]
+        if (fallback or ring is None
+                or rec["cfg"].in_graph_per != in_graph
+                or ring.arrays["obs"].device.type != "cuda"):
+            fail(f"{mode}: the ring was not built on the card "
+                 f"({fallback})")
+        if ring.nbytes() != need:
+            fail(f"ring nbytes {ring.nbytes()} != data_bytes {need}")
+        lh = m["learnhealth"]
+        restarts = {n: h["restarts"] for n, h in m["health"].items()}
+        if (m["num_updates"] != steps or n_disp * k != steps
+                or lh["loss_count"] != steps or lh["nonfinite"]
+                or not np.isfinite(m["mean_loss"])
+                or m["fabric_failed"] or any(restarts.values())):
+            fail(f"{mode}: {m['num_updates']} updates in {n_disp} "
+                 f"dispatches, learnhealth {lh}, failed "
+                 f"{m['fabric_failed']}, restarts {restarts}")
+        if fetches != n_disp:
+            fail(f"{mode}: {fetches} result fetches for {n_disp} "
+                 "dispatches")
+        if put_bytes / n_disp >= DISPATCH_PUT_MAX_BYTES:
+            fail(f"{mode}: {put_bytes} bytes put for {n_disp} dispatches")
+        if not in_graph and m["buffer_training_steps"] != k * n_disp:
+            fail(f"{mode}: {m['buffer_training_steps']} priority "
+                 f"feedbacks for {n_disp} dispatches")
+        if launches != cfg.lstm_layers * acts or not acts or old:
+            fail(f"{mode}: lstm_infer launched {launches} times "
+                 f"(CUDA-core {old}) for {acts} actor acts")
+        ck = Checkpointer(ckdir)
+        if 16 not in ck.steps() or ck.replay_steps():
+            fail(f"{mode}: checkpoints {ck.steps()}, replay snapshots "
+                 f"{ck.replay_steps()}")
+        scatter = ""
+        if in_graph:
+            drawn_n = changed_n = 0
+            for before, after, first in rec["leaves"][:n_disp]:
+                drawn = torch.zeros_like(before, dtype=torch.bool)
+                for idx in rec["drawn"][first:first + k]:
+                    drawn[idx] = True
+                changed = after != before
+                if (not changed.any() or (changed & ~drawn).any()
+                        or (before[drawn] <= 0).any()):
+                    fail("in-graph PER: the scatter changed leaves it "
+                         "did not draw, or drew a zero leaf")
+                drawn_n += int(drawn.sum())
+                changed_n += int(changed.sum())
+            padding = ring.per_meta()["seq_meta"][:, :, 1].reshape(-1) == 0
+            if (ring.take_prios()[padding] != 0).any():
+                fail("in-graph PER: a padding leaf became sampleable")
+            scatter = (f"; scatter changed {changed_n} of {drawn_n} "
+                       f"drawn leaves over {n_disp} dispatches, none "
+                       "undrawn; "
+                       f"{int(padding.sum())} padding/empty leaves all 0")
+        print(f"device replay, {mode}, on {card}: {m['num_updates']} "
+              f"updates in {n_disp} dispatches of k={k} in {run_s:.2f} s,"
+              f" losses finite {lh['loss_count']}/{steps}, mean loss "
+              f"{m['mean_loss']:.5f}; priority feedbacks "
+              f"{m['buffer_training_steps']}; result fetches {fetches}; "
+              f"dispatch puts {put_bytes} bytes "
+              f"({put_bytes / n_disp:.0f} per dispatch); lstm_infer "
+              f"launches {launches} = {cfg.lstm_layers} x {acts} acts, "
+              f"CUDA-core {old}; checkpoints {ck.steps()}, replay "
+              f"snapshots {ck.replay_steps()}{scatter}", flush=True)
+
+        # timings, from the stamps (no synchronisation added)
+        d = rec["dispatches"]
+        n_env = cfg.num_actors
+        t_start, a_start = rec["start"]
+        fill = (d[0][1] - a_start) * n_env / (d[0][0] - t_start)
+        training = ((d[-1][3] - d[0][1]) * n_env / (d[-1][2] - d[0][0]))
+        gaps = np.diff([x[0] for x in d]) * 1e3
+        issue = np.asarray([x[2] - x[0] for x in d]) * 1e3
+        spans = m["trace"]
+        hold = (f"; lock hold per dispatch (learner.dispatch_lock) p50 "
+                f"{spans['span.learner.dispatch_lock.p50_ms']:.2f} ms, "
+                f"mean {spans['span.learner.dispatch_lock.mean_ms']:.2f}"
+                if in_graph else
+                f"; gathers under the lock (learner.gather_dispatch) "
+                f"mean {spans['span.learner.gather_dispatch.mean_ms']:.2f}"
+                " ms")
+        print(f"device replay timings, {mode}, on {card}: env steps/s "
+              f"while filling {fill:.0f} ({d[0][1] - a_start} iterations"
+              f" x {n_env} envs), while training {training:.0f}; "
+              f"dispatch interval p50 {np.percentile(gaps, 50):.2f} ms "
+              f"({len(gaps)} intervals, min {gaps.min():.2f}, max "
+              f"{gaps.max():.2f}); dispatch issue p50 "
+              f"{np.percentile(issue, 50):.2f} ms, first "
+              f"{issue[0]:.2f}{hold}; ring {ring.nbytes() / 1e9:.2f} GB,"
+              f" peak allocated {peak / 1e9:.2f} GB", flush=True)
+
+        # one super-step profiled, the fabric stopped
+        if in_graph:
+            fn = step_mod.make_in_graph_per_super_step_fn(
+                cfg, learner.net, k)
+            gen = torch.Generator(device=learner.device).manual_seed(1)
+            per = ring.per_meta()
+
+            def one_super():
+                fn(learner.state, ring.snapshot(), ring.take_prios(),
+                   per["seq_meta"], per["first"], generator=gen)
+        else:
+            fn = step_mod.make_super_step_fn(cfg, learner.net, k)
+
+            def one_super():
+                meta = buffer.sample_meta(k)
+                fn(learner.state, ring.snapshot(),
+                   to_device(meta["ints"], learner.device),
+                   to_device(meta["is_weights"], learner.device))
+        events = profile_events(torch, one_super, 1)
+        wall = wall_ms(torch, one_super, 1)
+        if events is None:
+            fail(f"{mode}: no device time in a super-step")
+        if any("lstm_step" in name for name, _, _ in events):
+            fail(f"{mode}: a super-step launched an lstm_infer kernel")
+        dev_ms = sum(ms for _, ms, _ in events)
+        print(f"super-step ({mode}, k={k}, 1 profiled) on {card}: host "
+              f"wall {wall:.2f} ms, device {dev_ms:.3f} ms in "
+              f"{sum(n for _, _, n in events):.0f} device events, "
+              f"device idle {1 - dev_ms / wall:.1%}; no lstm_infer "
+              "kernel; top 5 device ops (ms per super-step, count): "
+              + "; ".join(f"{short_kernel_name(n)} {ms:.3f} ({c:.0f})"
+                          for n, ms, c in events[:5]), flush=True)
+        return launches
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def phase_device_replay(torch, card: str) -> int:
+    """Phase 7: the Pong preset trained by ``train()`` from its full replay
+    ring on the card, with in-graph PER and then host-sampled.  Returns
+    the kernel's launches over both runs."""
+    import gc
+
+    from r2d2_tpu_torch.config import pong_config
+    from r2d2_tpu_torch.replay.replay_buffer import data_bytes
+
+    t_phase = time.perf_counter()
+    base = pong_config(game_name="Fake")
+    literal = dict(torso="nature", stored_obs_shape=(21, 21, 16),
+                   hidden_dim=H, lstm_layers=1, compute_dtype="bfloat16",
+                   batch_size=64, burn_in_steps=40, learning_steps=40,
+                   forward_steps=5, block_length=400, num_actors=64,
+                   env_workers=8, device_replay=True, in_graph_per=True,
+                   superstep_k=4, superstep_pipeline=2,
+                   buffer_capacity=2_000_000)
+    got = {k: getattr(base, k) for k in literal}
+    if got != literal:
+        fail(f"pong_config(game_name='Fake') is not the Pong preset: {got}")
+    need = data_bytes(base, TRAIN_ACTIONS)
+    print("reduced: " + ", ".join(
+        f"{k} {getattr(base, k)} -> {v}" for k, v in DEVICE_REDUCED.items())
+        + ", training_steps " + " then ".join(
+            f"{n} (in_graph_per={igp})" for igp, n in DEVICE_RUNS)
+        + f"; the full ring on the card ({base.num_blocks} blocks of "
+        f"{base.block_length}, {need / 1e9:.2f} GB); fake env episodes of "
+        f"{FAKE_EPISODE_LEN} steps, {TRAIN_ACTIONS} actions", flush=True)
+    device_ring_checks(torch, base)
+    launches = 0
+    for in_graph, steps in DEVICE_RUNS:
+        launches += device_replay_run(
+            torch, card, base.replace(in_graph_per=in_graph,
+                                      training_steps=steps, **DEVICE_REDUCED),
+            need)
+        # the next run builds its own 15.8 GB ring; this one's went with
+        # the run's frame
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -1572,6 +2034,9 @@ def main() -> None:
     # phase 6: the IMPALA-deep fabric, resumed, and its checkpoint served
     fabric_launches, serve_ckpt_launches = phase_fabric(torch, card)
 
+    # phase 7: the Pong preset from its full replay ring on the card
+    device_replay_launches = phase_device_replay(torch, card)
+
     head = timings[(1, 256)]
     print(json.dumps({"kernels": [{
         "name": "lstm_infer",
@@ -1579,11 +2044,12 @@ def main() -> None:
         "source": "r2d2_tpu_torch/csrc/lstm_infer.cu",
         "replaces": "r2d2_tpu/ops/lstm.py:46",
         "launches": (serve_launches + train_launches + fabric_launches
-                     + serve_ckpt_launches),
+                     + serve_ckpt_launches + device_replay_launches),
         "launches_by_path": {"serving": serve_launches,
                              "training": train_launches,
                              "fabric": fabric_launches,
-                             "serving_checkpoint": serve_ckpt_launches},
+                             "serving_checkpoint": serve_ckpt_launches,
+                             "device_replay": device_replay_launches},
         "max_abs_err": errs["tensor_core"][0],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

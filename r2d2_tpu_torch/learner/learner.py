@@ -1,9 +1,11 @@
 """Learner host loop: the drivetrain around the train step.
 
-Port of ``r2d2_tpu/learner/learner.py`` (``Learner.__init__``, ``_publish``,
-``_stage``, ``run``, ``_save``, the learning-health ``monitor`` hook and
-the ``poison_params`` chaos drill; the device-ring drivetrain and the
-multi-host branches wait for later slices).
+Port of ``r2d2_tpu/learner/learner.py`` for one process (``Learner.
+__init__``, ``_publish``, ``_stage``, ``run``, the device-ring drivetrains
+``run_device`` and ``_run_device_in_graph_per`` with their
+``_superstep_loop``, ``_save``, the learning-health ``monitor`` hook and
+the ``poison_params`` chaos drill; the multi-host branches wait for
+ROADMAP.md A item 7).
 Capability-parity with the reference learner's ``run`` (worker.py:300-381):
 staged batch prefetch, periodic weight publication, periodic
 checkpointing.  Target-net sync happens inside the step, so the host loop
@@ -14,9 +16,10 @@ only drives data and cadences.
   batches onto the device ahead of compute (pinned host copies, copied
   without blocking).
 - Results are harvested behind up to ``cfg.superstep_pipeline`` in-flight
-  steps: each step's loss and priorities leave the device in ONE
-  non-blocking copy into pinned host memory, and an event marks when it
-  has landed, so the harvest usually finds the bytes already on the host.
+  steps (or super-steps): each dispatch's losses and priorities leave the
+  device in ONE non-blocking copy into pinned host memory, and an event
+  marks when it has landed, so the harvest usually finds the bytes already
+  on the host.
 - Weight publication is a versioned snapshot (ParamStore): a detached
   clone, because the step updates the parameters in place.
 """
@@ -33,8 +36,14 @@ import torch
 
 from r2d2_tpu_torch.checkpoint import Checkpointer, arch_meta
 from r2d2_tpu_torch.config import Config
-from r2d2_tpu_torch.learner.step import TrainState, make_train_step
+from r2d2_tpu_torch.learner.step import (
+    TrainState,
+    make_in_graph_per_super_step_fn,
+    make_super_step_fn,
+    make_train_step,
+)
 from r2d2_tpu_torch.models.network import R2D2Network
+from r2d2_tpu_torch.replay.device_ring import to_device
 from r2d2_tpu_torch.utils.store import ParamStore
 from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, Tracer
 
@@ -66,12 +75,14 @@ def place_state(state: TrainState, device: torch.device) -> TrainState:
 
 
 class _Result:
-    """One step's loss and priorities on their way to the host: on a CUDA
-    device a non-blocking copy into pinned memory and the event that marks
-    its end; on the CPU the tensor itself."""
+    """One dispatch's results (a step's loss and priorities, a super-step's
+    losses and priorities) on their way to the host, flattened into one
+    float32 vector: on a CUDA device a non-blocking copy into pinned
+    memory and the event that marks its end; on the CPU the tensor
+    itself."""
 
-    def __init__(self, loss: torch.Tensor, priorities: torch.Tensor):
-        flat = torch.cat([loss.reshape(1).float(), priorities.float()])
+    def __init__(self, *tensors: torch.Tensor):
+        flat = torch.cat([t.reshape(-1).float() for t in tensors])
         self._event = None
         if flat.device.type == "cuda":
             host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
@@ -81,11 +92,10 @@ class _Result:
             flat = host
         self._flat = flat
 
-    def fetch(self) -> Tuple[float, np.ndarray]:
+    def fetch(self) -> np.ndarray:
         if self._event is not None:
             self._event.synchronize()
-        flat = self._flat.numpy()
-        return float(flat[0]), flat[1:]
+        return self._flat.numpy()
 
 
 class Learner:
@@ -234,7 +244,8 @@ class Learner:
             host, result = pending_item
             with tracer.span("learner.result_sync"), \
                     HOST_TRANSFERS.allowed("learner.result_fetch"):
-                loss, priorities = result.fetch()
+                flat = result.fetch()
+            loss, priorities = float(flat[0]), flat[1:]
             self._note_results(np.asarray([loss]), strict=False)
             losses.append(loss)
             self.env_steps = int(host.get("env_steps", self.env_steps))
@@ -287,6 +298,223 @@ class Learner:
             minutes=self.start_minutes + (time.time() - t0) / 60.0,
             mean_loss=float(np.mean(losses)) if losses else float("nan"),
         )
+
+    # ------------------------------------------------ device-ring drivetrain
+    def run_device(self, buffer: Any, ring: Any,
+                   priority_sink: Optional[PrioritySink] = None,
+                   max_steps: Optional[int] = None,
+                   stop: Optional[Callable[[], bool]] = None,
+                   tracer: Optional[Tracer] = None) -> Dict[str, float]:
+        """Drive training from the device-resident replay ring
+        (replay/device_ring.py): ``superstep_k`` optimizer steps per
+        dispatch, batches gathered on the device, one small H2D (the index
+        bundle and its weights) and one small D2H (stacked losses and
+        priorities) per dispatch.  Replaces :meth:`run`'s host staging
+        when ``cfg.device_replay``: batch bytes never cross PCIe.
+
+        The update counter advances by k per dispatch, so the loop may
+        overshoot ``training_steps`` by up to k-1 updates.  Under
+        ``cfg.in_graph_per`` it hands over to
+        :meth:`_run_device_in_graph_per`.
+
+        The k gathers are enqueued under the buffer lock, as
+        ``sample_meta``'s ``dispatch`` callback, so they read the ring
+        before any later write lands (device_ring's contract); the k steps
+        are issued after the lock is released, since they read only the
+        gathered batches."""
+        cfg = self.cfg
+        tracer = tracer or self.tracer
+        k = cfg.superstep_k
+        t0 = time.time()
+        target = cfg.training_steps if max_steps is None else (
+            self.num_updates + max_steps)
+        if cfg.in_graph_per:
+            return self._run_device_in_graph_per(buffer, ring, k, target,
+                                                 t0, stop, tracer)
+        super_step = make_super_step_fn(cfg, self.net, k)
+        B = cfg.batch_size
+        losses_hist: deque = deque(maxlen=100)   # bounded, see run()
+
+        def dispatch(ints, weights):
+            with tracer.span("learner.gather_dispatch"):
+                # the dispatch's one declared H2D: the index rows and
+                # their weights (a few KB)
+                with HOST_TRANSFERS.allowed("learner.dispatch_put"):
+                    HOST_TRANSFERS.count("learner.dispatch_put_bytes",
+                                         ints.nbytes + weights.nbytes)
+                    d_ints = to_device(ints, self.device)
+                    d_w = to_device(weights, self.device)
+                return super_step.gather(ring.snapshot(), d_ints, d_w)
+
+        def sample():
+            with tracer.span("learner.sample_meta"):
+                meta = buffer.sample_meta(k, dispatch=dispatch)
+            with tracer.span("learner.step_dispatch"):
+                meta["dispatched"] = super_step.run(self.state,
+                                                    meta.pop("dispatched"))
+            return meta
+
+        def prepare(item):
+            # start the result's D2H now, so a harvest
+            # ``superstep_pipeline`` dispatches later finds it landed
+            meta, losses, priorities = item
+            return meta, _Result(losses, priorities)
+
+        def harvest(item) -> None:
+            meta, result = item
+            with tracer.span("learner.result_sync"), \
+                    HOST_TRANSFERS.allowed("learner.result_fetch"):
+                flat = result.fetch()
+            self._feed_back(meta, flat[:k], flat[k:].reshape(k, B),
+                            priority_sink, losses_hist)
+
+        self._superstep_loop(k, target, t0, self._ready_gate(buffer, stop),
+                             sample, harvest, prepare=prepare, tracer=tracer)
+        return self._finish_device_run(losses_hist, t0)
+
+    def _ready_gate(self, buffer, stop):
+        """The device drivetrains' gate(): stop-aware, waits for
+        ``learning_starts``."""
+        def gate() -> str:
+            if stop is not None and stop():
+                return "break"
+            return "go" if buffer.ready else "wait"
+        return gate
+
+    def _finish_device_run(self, losses_hist, t0: float) -> Dict[str, float]:
+        """The device drivetrains' epilogue: the final save and the
+        summary."""
+        if self.checkpointer is not None:
+            self._save(self.num_updates, t0)
+        return dict(
+            num_updates=self.num_updates,
+            env_steps=self.env_steps,
+            minutes=self.start_minutes + (time.time() - t0) / 60.0,
+            mean_loss=(float(np.mean(losses_hist))
+                       if losses_hist else float("nan")),
+        )
+
+    def _run_device_in_graph_per(self, buffer, ring, k: int, target: int,
+                                 t0: float, stop, tracer
+                                 ) -> Dict[str, float]:
+        """Device-PER drivetrain (``cfg.in_graph_per``): sampling, IS
+        weights and priority feedback all run inside the super-step
+        (learner/step.py:make_in_graph_per_super_step_fn), so a dispatch
+        puts nothing on the device and fetches one small D2H (the losses,
+        for logging); the k inner steps sample from the priorities the
+        previous inner step wrote.
+
+        The uniforms come from a ``torch.Generator`` on the learner's
+        device seeded with ``cfg.seed`` at the start of each run — JAX's
+        per-run ``fold_in(PRNGKey(seed), dispatch_idx)`` stream in
+        semantics, not in bits.
+
+        The buffer lock is held while the whole super-step is issued (the
+        ``learner.dispatch_lock`` span): step j+1 samples from priorities
+        step j scattered, so an actor's ``commit_per`` enqueued between
+        them could be overwritten by a stale scatter.  JAX issues the
+        super-step as one asynchronous dispatch, in microseconds; here
+        the host issues each inner step's kernels, and the hold is that
+        long (capturing the super-step in a CUDA graph would shrink it)."""
+        cfg = self.cfg
+        super_step = make_in_graph_per_super_step_fn(cfg, self.net, k)
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(cfg.seed)
+        losses_hist: deque = deque(maxlen=100)
+
+        def sample():
+            with tracer.span("learner.step_dispatch"):
+                with buffer.lock:
+                    with tracer.span("learner.dispatch_lock"):
+                        meta = ring.per_meta()
+                        state, prios, losses = super_step(
+                            self.state, ring.snapshot(), ring.take_prios(),
+                            meta["seq_meta"], meta["first"],
+                            generator=generator)
+                        ring.put_prios(prios)
+                        env_steps = buffer.env_steps
+            # the losses ride the pipeline; priorities never leave the
+            # device
+            return dict(dispatched=(state, losses, None),
+                        env_steps=env_steps)
+
+        def prepare(item):
+            meta, losses, _ = item
+            return meta, _Result(losses)
+
+        def harvest(item) -> None:
+            meta, result = item
+            with tracer.span("learner.result_sync"), \
+                    HOST_TRANSFERS.allowed("learner.result_fetch"):
+                losses_np = result.fetch()
+            self._note_results(losses_np)
+            self.env_steps = int(meta["env_steps"])
+            buffer.note_updates(losses_np.shape[0], losses_np.sum())
+            losses_hist.extend(losses_np.tolist())
+
+        self._superstep_loop(k, target, t0, self._ready_gate(buffer, stop),
+                             sample, harvest, prepare=prepare, tracer=tracer)
+        return self._finish_device_run(losses_hist, t0)
+
+    def _superstep_loop(self, k: int, target: int, t0: float,
+                        gate: Callable[[], str],
+                        sample: Callable[[], Dict[str, Any]],
+                        harvest: Callable[[Any], None],
+                        prepare: Callable[[Any], Any],
+                        tracer: Tracer) -> None:
+        """The pipelined super-step loop of both device drivetrains: keep
+        up to ``cfg.superstep_pipeline`` dispatches in flight beyond the
+        one being harvested.  ``prepare`` runs at enqueue time and starts
+        the result's D2H copy, so a harvest ``superstep_pipeline``
+        dispatches later finds the bytes on the host.  Priority feedback
+        lags ≤ (pipeline+1)·k updates.  Cadences fire on interval
+        crossings (updates advance by k per dispatch).
+
+        ``gate()`` → "break" | "wait" | "go" decides each iteration;
+        ``sample()`` returns a meta dict whose ``dispatched`` holds the
+        in-flight (state, losses, priorities)."""
+        cfg = self.cfg
+        updates = self.num_updates
+        pending: deque = deque()
+        while updates < target:
+            g = gate()
+            if g == "break":
+                break
+            if g == "wait":
+                time.sleep(0.02)
+                continue
+            meta = sample()
+            self.state, losses, priorities = meta["dispatched"]
+            pending.append(prepare((meta, losses, priorities)))
+            while len(pending) > cfg.superstep_pipeline:
+                harvest(pending.popleft())
+
+            prev, updates = updates, updates + k
+            if (self.param_store is not None
+                    and updates // cfg.weight_publish_interval
+                    > prev // cfg.weight_publish_interval):
+                with tracer.span("learner.publish"):
+                    self._publish()
+            if (self.checkpointer is not None
+                    and updates // cfg.save_interval
+                    > prev // cfg.save_interval):
+                with tracer.span("learner.checkpoint_save"):
+                    self._save(updates, t0)
+        while pending:
+            harvest(pending.popleft())
+
+    def _feed_back(self, meta, losses_np: np.ndarray, prios_np: np.ndarray,
+                   priority_sink: Optional[PrioritySink],
+                   losses_hist: deque) -> None:
+        """Route one harvested super-step's results to the host side: one
+        priority feedback per inner step."""
+        self._note_results(losses_np)
+        self.env_steps = int(meta["env_steps"])
+        if priority_sink is not None:
+            for j in range(losses_np.shape[0]):
+                priority_sink(meta["idxes"][j], prios_np[j],
+                              meta["block_ptr"], float(losses_np[j]))
+        losses_hist.extend(losses_np.tolist())
 
     def _save(self, updates: int, t0: float) -> None:
         if updates in self._saved_steps:

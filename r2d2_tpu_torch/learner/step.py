@@ -1,7 +1,7 @@
-"""The R2D2 train step.
+"""The R2D2 train step, and the k-fused super-steps over the device ring.
 
-Port of ``r2d2_tpu/learner/step.py:40-257`` (the learnhealth diagnostics
-wait for the telemetry slice).  Capability-parity with the reference
+Port of ``r2d2_tpu/learner/step.py`` (the learnhealth diagnostics wait for
+the telemetry slice, ROADMAP.md A item 10).  Capability-parity with the reference
 learner's gradient path (worker.py:318-390): burn-in + stored-state LSTM
 unroll, n-step **double-Q** targets under value rescaling,
 importance-weighted MSE over the learning window, grad-clip-40 Adam, mixed
@@ -19,18 +19,28 @@ clip scales by ``max_norm / norm`` with no ``+1e-6`` (unlike
 square root, ``eps_root = 0`` and bias correction on both moments.  The
 step updates the state's tensors in place; a caller that hands parameters
 to another thread publishes a copy (``learner.Learner._publish``).
+
+The super-steps (:class:`SuperStep`, :func:`make_in_graph_per_super_step_fn`)
+run k train steps on batches gathered on the device from the replay ring
+(replay/device_ring.py).  JAX fuses them into one ``lax.scan`` dispatch;
+here they are k calls of the same train step, issued back to back with no
+synchronisation, so the card still sees one stream of work per dispatch.
+The in-graph PER sampler draws its uniforms from an explicit
+``torch.Generator``: the same stratified scheme as JAX's
+``fold_in(PRNGKey(seed), dispatch)`` stream, not the same bits.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.func import functional_call, vmap
 
 from r2d2_tpu_torch.config import Config
 from r2d2_tpu_torch.models.network import R2D2Network
+from r2d2_tpu_torch.replay.device_ring import gather_batch
 
 Params = Dict[str, torch.Tensor]
 Batch = Dict[str, torch.Tensor]
@@ -251,3 +261,139 @@ def make_train_step(cfg: Config, net: R2D2Network):
         return state, loss.detach(), priorities
 
     return train_step
+
+
+class SuperStep:
+    """``k`` train steps on ``k`` batches gathered from the device ring —
+    the port of ``make_super_step_fn``.  One small H2D (the (k, B, 6) index
+    bundle and its weights) and one small D2H (losses and priorities, in
+    the learner) serve k optimizer steps, and batch bytes never cross PCIe.
+    The inner step is exactly :func:`make_train_step`'s: the step counter
+    and the target sync advance per inner step, so a super-step equals k
+    plain steps.
+
+    Callable as ``super_step(state, arrays, ints (k,B,6), is_weights (k,B))
+    -> (state, losses (k,), priorities (k,B))``.  The learner calls the two
+    halves apart: :meth:`gather` enqueues the k gathers under the buffer
+    lock (ordering them before any later ring write), :meth:`run` the k
+    steps after the lock is released."""
+
+    def __init__(self, cfg: Config, net: R2D2Network, k: int):
+        self.cfg, self.k = cfg, k
+        self._step = make_train_step(cfg, net)
+
+    def gather(self, arrays, ints: torch.Tensor,
+               is_weights: torch.Tensor) -> List[Batch]:
+        return [gather_batch(self.cfg, arrays, ints[j], is_weights[j])
+                for j in range(self.k)]
+
+    def run(self, state: TrainState, batches: List[Batch]):
+        losses, priorities = [], []
+        for batch in batches:
+            state, loss, p = self._step(state, batch)
+            losses.append(loss)
+            priorities.append(p)
+        return state, torch.stack(losses), torch.stack(priorities)
+
+    def __call__(self, state: TrainState, arrays, ints: torch.Tensor,
+                 is_weights: torch.Tensor):
+        return self.run(state, self.gather(arrays, ints, is_weights))
+
+
+def make_super_step_fn(cfg: Config, net: R2D2Network, k: int) -> SuperStep:
+    """The host-sampled super-step (see :class:`SuperStep`), by the JAX
+    package's name."""
+    return SuperStep(cfg, net, k)
+
+
+def _compensated_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Prefix sums of ``x`` (f32) at f64 accuracy, rounded to f32.
+
+    The host SumTree accumulates in float64 (replay/sum_tree.py); a plain
+    f32 cumsum over the ~50 000 leaves of the flagship ring drifts by
+    O(n·eps) and shifts stratum boundaries against the host tree's.  JAX
+    carries the rounding error in a second f32 lane (a double-float scan)
+    because TPUs lack f64; CUDA cards and CPUs have it, so the port sums
+    in f64 and rounds once."""
+    return torch.cumsum(x.double(), 0).float()
+
+
+def _in_graph_sample_raw(cfg: Config, u: torch.Tensor, prios: torch.Tensor,
+                         seq_meta: torch.Tensor, first_burn: torch.Tensor):
+    """``n = len(u)`` stratified proportional draws from the leaves, one
+    per uniform in ``u`` (n,) f32: (idx (n,) i64, q (n,) f32 inclusion
+    densities prio/mass, ints (n, 6) i32).  JAX's f32 order of operations
+    for the targets, ``searchsorted(side="right")``, the snap of a
+    zero-leaf hit to the first maximum and ``q``; the host twin is
+    ``SumTree.sample`` (same scheme, f64 descent)."""
+    K, L = cfg.seqs_per_block, cfg.learning_steps
+    n = u.shape[0]
+    cum = _compensated_cumsum(prios)
+    total = cum[-1]
+    targets = (torch.arange(n, dtype=torch.float32, device=u.device) + u) * (
+        total / n)
+    idx = torch.searchsorted(cum, targets, right=True)
+    idx = torch.clamp(idx, max=prios.shape[0] - 1)
+    idx = torch.where(prios[idx] > 0, idx, torch.argmax(prios))
+    block_idx = idx // K
+    seq_idx = idx % K
+    meta = seq_meta[block_idx, seq_idx]                         # (n, 3)
+    burn = meta[:, 0]
+    start = first_burn[block_idx] + (seq_idx * L).int()
+    ints = torch.stack([block_idx.int(), start - burn, seq_idx.int(), burn,
+                        meta[:, 1], meta[:, 2]], dim=1)
+    # an all-zero leaf vector (violates the ready gate) must not give NaN
+    # densities: clamp to 1.0; the gathered rows are zero padding whose
+    # loss the window masks bound anyway
+    q = torch.where(total > 0, prios[idx] / total, torch.ones_like(total))
+    return idx, q, ints
+
+
+def _in_graph_sample(cfg: Config, u: torch.Tensor, prios: torch.Tensor,
+                     seq_meta: torch.Tensor, first_burn: torch.Tensor):
+    """One prioritized batch draw on the device: (idx (B,), is_weights (B,)
+    f32, ints (B, 6) i32).  Stratified proportional sampling — the host
+    sum tree's joint scheme — as cumsum + searchsorted; zero leaves (empty
+    slots, block padding) are zero-width bins, unreachable with
+    ``right=True``.  IS weights are the reference's (p / min p)^-beta."""
+    idx, q, ints = _in_graph_sample_raw(cfg, u, prios, seq_meta, first_burn)
+    w = (q / q.min()) ** (-cfg.importance_sampling_exponent)
+    return idx, w.float(), ints
+
+
+def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int):
+    """``k`` steps with device-side PER: sample → gather → step → priority
+    scatter, k times, with no host round trip.  Step j+1 samples from the
+    priorities step j scattered.
+
+    Signature: ``super_step(state, arrays, prios (NB*K,) f32, seq_meta
+    (NB,K,3) i32, first_burn (NB,) i32, generator=None, uniforms=None) ->
+    (state, prios, losses (k,))``.  ``prios`` is updated in place
+    (``prios[idx] = new_p ** prio_exponent``; which write wins at a
+    duplicated index is unspecified, as with JAX's ``.at[idx].set``).  The
+    uniforms are ``uniforms`` (k, B) when given — the tests feed JAX's own
+    draws — else drawn from ``generator`` on ``prios``' device.  The caller
+    holds the buffer lock for the whole call, so no actor commit lands
+    between a step's draw and its scatter."""
+    step = make_train_step(cfg, net)
+    B = cfg.batch_size
+
+    def super_step(state: TrainState, arrays, prios: torch.Tensor,
+                   seq_meta: torch.Tensor, first_burn: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   uniforms: Optional[torch.Tensor] = None):
+        if uniforms is None:
+            uniforms = torch.rand((k, B), generator=generator,
+                                  device=prios.device)
+        losses = []
+        for j in range(k):
+            idx, w, ints = _in_graph_sample(cfg, uniforms[j], prios,
+                                            seq_meta, first_burn)
+            batch = gather_batch(cfg, arrays, ints, w)
+            state, loss, new_p = step(state, batch)
+            # feedback: the exponent the host tree applies (sum_tree.py)
+            prios[idx] = new_p ** cfg.prio_exponent
+            losses.append(loss)
+        return state, prios, torch.stack(losses)
+
+    return super_step

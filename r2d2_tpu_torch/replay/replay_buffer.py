@@ -15,8 +15,15 @@ gathers into fixed-shape ``(B, T, ...)`` arrays.
 The replay snapshot (``write_state``/``read_state``) keeps the reference's
 byte layout — ``slot_layout`` over the same spec, the same layout
 fingerprint and meta — so a snapshot written by either package restores
-in the other.  Not ported yet (ROADMAP.md A, items 5 and 8): the device
-ring and its ``sample_meta``, and the sharded plane's ``serve_sample``.
+in the other.
+
+With a :class:`~r2d2_tpu_torch.replay.device_ring.DeviceRing` the bulk
+data lives on the device: ``add`` stages each block outside the lock and
+commits it under it, ``sample_meta`` yields index bundles for the device
+gather, and under ``cfg.in_graph_per`` the PER leaves live on the device
+too.  The dp-sharded ring's slot groups (G > 1: ``_grouped_densities``,
+``_sample_grouped``, ``raw_densities``) wait for ROADMAP.md A item 7, the
+sharded plane's ``serve_sample`` for item 8.
 """
 from __future__ import annotations
 
@@ -115,10 +122,34 @@ class ReplayBuffer:
     """Synchronous core.  Thread-safe via one lock."""
 
     def __init__(self, cfg: Config, action_dim: int,
-                 rng: Optional[np.random.Generator] = None):
+                 rng: Optional[np.random.Generator] = None,
+                 device_ring: Optional[Any] = None):
+        """``device_ring`` (replay/device_ring.DeviceRing): when given, the
+        bulk experience arrays live on the device — ``add`` streams each
+        block there once, ``sample_meta`` yields index bundles for the
+        device gather, and the big host data arrays are not allocated
+        (``sample_batch`` then raises)."""
         self.cfg = cfg
         self.action_dim = action_dim
-        spec = _ring_spec(cfg, action_dim)
+        self.device_ring = device_ring
+        if cfg.in_graph_per and device_ring is None:
+            # fail here with the remedy, not in an actor thread at the
+            # first block commit: device PER cannot run on host replay
+            raise ValueError(
+                "in_graph_per requires a device ring, but none was built "
+                "— the ring did not fit the device budget (see the warning "
+                "above); shrink buffer_capacity or set in_graph_per=False")
+        # slot groups of a dp-sharded ring map the logical FIFO walk onto
+        # physical slots round-robin (_phys_block); with one group every
+        # mapping is the identity
+        self.G = device_ring.num_groups if device_ring is not None else 1
+        if self.G != 1:
+            raise ValueError(
+                "r2d2_tpu_torch: a device ring of several slot groups (the "
+                "dp layout) waits for ROADMAP.md A item 7")
+        self._blocks_per_group = cfg.num_blocks // self.G
+        spec = (_count_spec(cfg) if device_ring is not None
+                else _ring_spec(cfg, action_dim))
         # fail fast with an actionable message instead of letting the
         # allocator OOM partway through the allocation loop (or later, as
         # the lazily-committed pages fill); 10% headroom for the rest
@@ -159,8 +190,21 @@ class ReplayBuffer:
     def __len__(self) -> int:
         return self.size
 
+    def _phys_block(self, n):
+        """Logical ring position → physical slot (round-robin over the G
+        group slabs; the identity for G == 1)."""
+        return (n % self.G) * self._blocks_per_group + n // self.G
+
+    def _log_block(self, p):
+        """Physical slot → logical ring position (the inverse of
+        :meth:`_phys_block`)."""
+        return ((p % self._blocks_per_group) * self.G
+                + p // self._blocks_per_group)
+
     @property
     def ready(self) -> bool:
+        # with one slot group the in-graph PER gate is this one too: the
+        # sampler draws from the whole leaf vector
         return self.size >= self.cfg.learning_starts
 
     # ------------------------------------------------------------------ add
@@ -169,22 +213,53 @@ class ReplayBuffer:
         """Overwrite the ring slot at ``block_ptr`` (worker.py:141-161)."""
         cfg = self.cfg
         K = cfg.seqs_per_block
+        # stage the device copy OUTSIDE the lock: the zero-pad and the H2D
+        # copies are the slow part of a device-ring write, and the
+        # learner's sample+dispatch serialises on this lock; only the
+        # commit needs the ordering the lock gives
+        staged = (self.device_ring.stage(block)
+                  if self.device_ring is not None else None)
+        if cfg.in_graph_per:
+            # device-PER leaves: td**alpha; ``priorities`` arrives K long,
+            # zero past the block's real sequences, and 0**alpha keeps the
+            # padding unsampleable; the metadata is per real sequence
+            k_seq = block.num_sequences
+            prios_alpha = (np.asarray(priorities, np.float64)
+                           ** cfg.prio_exponent).astype(np.float32)
+            meta = np.zeros((K, 3), np.int32)
+            meta[:k_seq, 0] = block.burn_in_steps
+            meta[:k_seq, 1] = block.learning_steps
+            meta[:k_seq, 2] = block.forward_steps
         with self.lock:
-            slot = self.block_ptr
-            self.tree.update(np.arange(slot * K, (slot + 1) * K,
-                                       dtype=np.int64), priorities)
+            ptr = self.block_ptr
+            # every array and PER leaf is keyed by the PHYSICAL slot; the
+            # logical ptr only orders the FIFO walk
+            slot = self._phys_block(ptr)
+            if cfg.in_graph_per:
+                # the priorities live on the device; the host tree stays
+                # empty
+                self.device_ring.commit_per(slot, prios_alpha, meta,
+                                            int(block.burn_in_steps[0]))
+            else:
+                self.tree.update(np.arange(slot * K, (slot + 1) * K,
+                                           dtype=np.int64), priorities)
             self.size -= int(self.block_learning_total[slot])
 
             k = block.num_sequences
-            n_obs = block.obs.shape[0]
-            n_steps = block.action.shape[0]
-            self.obs[slot, :n_obs] = block.obs
-            self.last_action[slot, :n_obs] = block.last_action
-            self.last_reward[slot, :n_obs] = block.last_reward
-            self.action[slot, :n_steps] = block.action
-            self.n_step_reward[slot, :n_steps] = block.n_step_reward
-            self.n_step_gamma[slot, :n_steps] = block.n_step_gamma
-            self.hidden[slot, :k] = block.hidden
+            if staged is not None:
+                # the commit is enqueued under the lock the learner
+                # samples and gathers under (device_ring's contract)
+                self.device_ring.commit(staged, slot)
+            else:
+                n_obs = block.obs.shape[0]
+                n_steps = block.action.shape[0]
+                self.obs[slot, :n_obs] = block.obs
+                self.last_action[slot, :n_obs] = block.last_action
+                self.last_reward[slot, :n_obs] = block.last_reward
+                self.action[slot, :n_steps] = block.action
+                self.n_step_reward[slot, :n_steps] = block.n_step_reward
+                self.n_step_gamma[slot, :n_steps] = block.n_step_gamma
+                self.hidden[slot, :k] = block.hidden
             self.burn_in_steps[slot] = 0
             self.learning_steps[slot] = 0
             self.forward_steps[slot] = 0
@@ -198,7 +273,7 @@ class ReplayBuffer:
             self.size += total
             self.env_steps += total
 
-            self.block_ptr = (slot + 1) % cfg.num_blocks
+            self.block_ptr = (ptr + 1) % cfg.num_blocks
             self._slot_cut_ts[slot] = block.cut_ts
             self._slot_add_ts[slot] = time.time()
             self._slot_trace[slot] = block.trace_id
@@ -223,6 +298,10 @@ class ReplayBuffer:
         bookkeeping: idxes, block_ptr snapshot, env_steps, ages
         (worker.py:219-238).
         """
+        if self.device_ring is not None:
+            raise RuntimeError(
+                "sample_batch needs host data arrays; this buffer runs "
+                "device_replay — use sample_meta and the device gather")
         B = batch_size or self.cfg.batch_size
         with self.lock:
             if self.size == 0:
@@ -313,17 +392,80 @@ class ReplayBuffer:
             forward=forward.astype(np.int32),
         )
 
+    # ---------------------------------------------------------- sample (meta)
+    def sample_meta(self, k: int, batch_size: Optional[int] = None,
+                    dispatch=None, raw_densities: bool = False
+                    ) -> Dict[str, Any]:
+        """Sample ``k`` index bundles for the device gather
+        (replay/device_ring.gather_batch) — the index arithmetic of
+        :meth:`sample_batch` without touching any data array.
+
+        The k bundles are drawn without priority feedback between them,
+        like the prefetch depth of the queued host path (the reference
+        stages up to 8+4 batches ahead of the learner, worker.py:300-316).
+
+        ``dispatch``, when given, is called as ``dispatch(ints, weights)``
+        while the buffer lock is still held, and its result returned under
+        ``meta["dispatched"]``: this enqueues the gathers before any later
+        ring write (the device_ring concurrency contract).
+
+        ``raw_densities`` (the multi-host plane's per-row densities) waits
+        for ROADMAP.md A item 7.
+
+        Returns ints (k,B,6) i32 · is_weights (k,B) f32 · idxes (k,B) i64 ·
+        block_ptr · env_steps.
+        """
+        if raw_densities:
+            raise ValueError(
+                "r2d2_tpu_torch: sample_meta(raw_densities=True) (the "
+                "multi-host device-replay plane) waits for ROADMAP.md A "
+                "item 7")
+        cfg = self.cfg
+        B = batch_size or cfg.batch_size
+        K, L = cfg.seqs_per_block, cfg.learning_steps
+        ints = np.empty((k, B, 6), np.int32)
+        weights = np.empty((k, B), np.float32)
+        idxes = np.empty((k, B), np.int64)
+        with self.lock:
+            if self.size == 0:
+                raise RuntimeError(
+                    "sample_meta on an empty buffer; wait for add() (use "
+                    "`ready` to gate on learning_starts)")
+            for j in range(k):
+                idx, w = self.tree.sample(B)
+                block_idx = idx // K
+                seq_idx = idx % K
+                burn_in = self.burn_in_steps[block_idx, seq_idx].astype(
+                    np.int64)
+                start = self.first_burn_in[block_idx] + seq_idx * L
+                ints[j, :, 0] = block_idx
+                ints[j, :, 1] = start - burn_in          # t0, always >= 0
+                ints[j, :, 2] = seq_idx
+                ints[j, :, 3] = burn_in
+                ints[j, :, 4] = self.learning_steps[block_idx, seq_idx]
+                ints[j, :, 5] = self.forward_steps[block_idx, seq_idx]
+                weights[j] = w
+                idxes[j] = idx
+                self._note_sampled(idx)
+            meta = dict(ints=ints, is_weights=weights, idxes=idxes,
+                        block_ptr=self.block_ptr, env_steps=self.env_steps)
+            if dispatch is not None:
+                meta["dispatched"] = dispatch(ints, weights)
+        return meta
+
     # ------------------------------------------------------- priority update
     def update_priorities(self, idxes: np.ndarray, priorities: np.ndarray,
                           old_ptr: int, loss: float) -> None:
         """Write back learner priorities, discarding indices whose ring slots
         were overwritten since the batch was sampled: the interval
         [old_ptr, new_ptr) of the ring walk, with wraparound
-        (worker.py:242-261)."""
+        (worker.py:242-261).  Leaf indices are physical; they map back to
+        the logical walk through :meth:`_log_block` (the identity for
+        G == 1)."""
         K = self.cfg.seqs_per_block
         with self.lock:
             new_ptr = self.block_ptr
-            n = idxes // K
+            n = self._log_block(idxes // K)
             if new_ptr > old_ptr:
                 mask = (n < old_ptr) | (n >= new_ptr)
             elif new_ptr < old_ptr:
@@ -346,7 +488,9 @@ class ReplayBuffer:
 
     def note_updates(self, n: int, loss_sum: float) -> None:
         """Learner-side update accounting for updates whose priority
-        feedback never crosses the host, so ``stats()`` stays live."""
+        feedback never crosses the host (``cfg.in_graph_per``: the
+        super-step scatters it on the device), so ``stats()`` stays
+        live."""
         with self.lock:
             self.training_steps += n
             self.sum_loss += float(loss_sum)
@@ -371,7 +515,15 @@ class ReplayBuffer:
         :meth:`state_spec`.  Returns the JSON-able meta (counters, the
         sampling RNG, the layout fingerprint) that :meth:`read_state`
         validates against.  The lock covers only the copy into the page
-        cache; the flush to disk runs with it released."""
+        cache; the flush to disk runs with it released.
+
+        Host-ring buffers only: a device ring's bulk arrays (and under
+        ``in_graph_per`` its priorities) live on the device, and those runs
+        save learner state alone."""
+        if self.device_ring is not None:
+            raise RuntimeError(
+                "replay snapshot requires the host ring; device_replay "
+                "runs persist learner state only")
         spec = self.state_spec()
         nbytes, offsets = slot_layout(spec)
         mm = np.memmap(path, np.uint8, "w+", shape=(nbytes,))
@@ -434,21 +586,27 @@ class ReplayBuffer:
         distribution's effective sample size and fixed-bucket priority
         histogram over the sum-tree leaves, the cumulative replay ratio
         (samples consumed per transition inserted), and per-member
-        sampled-row counts."""
+        sampled-row counts.
+
+        Under ``in_graph_per`` the priority leaves live on the device (the
+        host tree stays empty): ``priorities`` is then None, since reading
+        the leaves every log interval would cost a D2H copy and a
+        synchronisation beside the learner's dispatches."""
         from r2d2_tpu_torch.telemetry.learnhealth import (
             priority_health,
             replay_ratio,
         )
 
+        in_graph = self.cfg.in_graph_per and self.device_ring is not None
         with self.lock:
-            leaves = self.tree.leaf_values()
+            leaves = None if in_graph else self.tree.leaf_values()
             training_steps = self.training_steps
             env_steps = self.env_steps
             samples = dict(self.samples_per_member)
         return dict(
             replay_ratio=replay_ratio(self.cfg, training_steps, env_steps),
             samples_per_member=samples,
-            priorities=priority_health(leaves),
+            priorities=None if leaves is None else priority_health(leaves),
         )
 
     # ---------------------------------------------------------------- stats

@@ -1,19 +1,21 @@
 """Training: the threaded fabric and the deterministic single-thread trainer.
 
-Port of the single-device, thread-transport, host-ring subset of
-``r2d2_tpu/train.py``:
+Port of the single-device, thread-transport subset of ``r2d2_tpu/train.py``:
 
-- ``_build``: envs, network, train state with an optional resume, learner,
-  replay buffer, ladder epsilons, vector actors, and the full-state resume
-  (a warm replay ring and the actors' RNG/env state from a replay
-  snapshot);
+- ``_build``: envs, network, train state with an optional resume, the
+  device-resident replay ring when ``cfg.device_replay`` (falling back to
+  host replay, and to host-sampled PER, when the ring does not fit the
+  card), learner, replay buffer, ladder epsilons, vector actors, and the
+  full-state resume (a warm replay ring and the actors' RNG/env state from
+  a replay snapshot; a device ring resumes cold);
 - ``_HostScaffold``: the stop predicate, the SIGTERM/SIGINT drain-then-save
   hooks, the learner heartbeat watchdog, the bounded log ring, the
   telemetry plane (registry, JSONL run log, HTTP exporter) and the
   learning-health monitor and alert engine;
-- ``train``: the concurrent system — actor fleet threads, a sample thread,
-  a priority-feedback thread, a log thread, the periodic snapshot thread
-  and the learner on the calling thread, all but the learner under the
+- ``train``: the concurrent system — actor fleet threads, a sample thread
+  (host ring only), a priority-feedback thread (not under in-graph PER),
+  a log thread, the periodic snapshot thread (host ring only) and the
+  learner on the calling thread, all but the learner under the
   supervisor — with drain-then-save and replay snapshots;
 - ``train_sync``: the deterministic interleaving of the same components
   (the integration tests' and the debugger's loop).
@@ -58,7 +60,11 @@ from r2d2_tpu_torch.envs import create_env
 from r2d2_tpu_torch.learner.learner import Learner
 from r2d2_tpu_torch.learner.step import create_train_state
 from r2d2_tpu_torch.models.network import create_network
-from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+from r2d2_tpu_torch.replay.replay_buffer import (
+    ReplayBuffer,
+    _available_host_bytes,
+    data_bytes,
+)
 from r2d2_tpu_torch.telemetry.console import format_entry
 from r2d2_tpu_torch.telemetry.learnhealth import (
     AlertEngine,
@@ -142,11 +148,6 @@ def check_unported(cfg: Config, use_mesh: bool = False) -> None:
         (cfg.replay_transport == "socket",
          "replay_transport='socket' (the cross-host replay fabric) waits "
          "for ROADMAP.md A item 8"),
-        (cfg.device_replay,
-         "device_replay (the device-resident ring) waits for ROADMAP.md A "
-         "item 5"),
-        (cfg.in_graph_per,
-         "in_graph_per (device priorities) waits for ROADMAP.md A item 5"),
         (use_mesh, "use_mesh (the learner mesh) waits for ROADMAP.md A "
                    "item 7"),
         (cfg.league_eval,
@@ -161,6 +162,10 @@ def check_unported(cfg: Config, use_mesh: bool = False) -> None:
     for refused, why in refusals:
         if refused:
             raise ValueError(f"r2d2_tpu_torch.train: {why}")
+    if cfg.device_replay:
+        from r2d2_tpu_torch.replay.device_ring import resolve_layout
+
+        resolve_layout(cfg)     # the dp layout waits for item 7
     for kind in parse_spec(cfg.chaos_spec):
         if kind not in CHAOS_SITES:
             raise ValueError(
@@ -172,10 +177,11 @@ def check_unported(cfg: Config, use_mesh: bool = False) -> None:
 def _build(cfg: Config, env_factory: EnvFactory,
            checkpoint_dir: Optional[str], resume: bool,
            device=None) -> Dict[str, Any]:
-    """Common bring-up: envs, net, state (maybe restored), learner,
-    buffer, actors, and the full-state resume from the newest replay
-    snapshot.  Parameters are drawn from a ``torch.Generator`` seeded with
-    ``cfg.seed``."""
+    """Common bring-up: envs, net, state (maybe restored), the device ring,
+    learner, buffer, actors, and the full-state resume from the newest
+    replay snapshot.  Parameters are drawn from a ``torch.Generator``
+    seeded with ``cfg.seed``.  The returned ``cfg`` is the effective one:
+    ``in_graph_per`` is off when no ring was built."""
     device = resolve_device(device)
     act_device = _resolve_act_device(cfg.act_device)
     envs = [env_factory(cfg, cfg.seed + i) for i in range(cfg.num_actors)]
@@ -200,12 +206,41 @@ def _build(cfg: Config, env_factory: EnvFactory,
         start_minutes = float(meta.get("minutes", 0.0))
 
     param_store = ParamStore()
+    ring = None
+    if cfg.device_replay:
+        from r2d2_tpu_torch.replay.device_ring import DeviceRing
+
+        need, dev_cap = data_bytes(cfg, action_dim), _device_memory_bytes(
+            device)
+        # on the CPU "device" memory IS host memory: the host guard applies
+        cap = dev_cap if dev_cap is not None else _available_host_bytes()
+        if cap is not None and need > 0.8 * cap:
+            warnings.warn(
+                f"device_replay ring needs {need / 1e9:.1f} GB per device "
+                f"(layout=replicated) but the device has {cap / 1e9:.1f} "
+                "GB; falling back to host replay — reduce buffer_capacity "
+                "to fit", stacklevel=2)
+        else:
+            ring = DeviceRing(cfg, action_dim, device=device)
+    if cfg.in_graph_per and ring is None:
+        # the ring fallback above degrades the PER plane with it: device
+        # PER cannot run on host replay (ReplayBuffer would fail fast),
+        # and the reference's behaviour here is host replay, not a crash
+        warnings.warn(
+            "in_graph_per disabled: no device ring was built (see the "
+            "fallback warning above) — continuing on host-sampled PER; "
+            "shrink buffer_capacity to restore the device-PER plane",
+            stacklevel=2)
+        cfg = cfg.replace(in_graph_per=False)
+    # the learner is built AFTER the ring/in_graph_per decisions so it, and
+    # everything below, sees the effective config
     learner = Learner(cfg, net, state, param_store=param_store,
                       checkpointer=checkpointer,
                       start_env_steps=start_env_steps,
                       start_minutes=start_minutes)
     buffer = ReplayBuffer(cfg, action_dim,
-                          rng=np.random.default_rng(cfg.seed))
+                          rng=np.random.default_rng(cfg.seed),
+                          device_ring=ring)
     buffer.env_steps = start_env_steps
     epsilons = [epsilon_ladder(i, cfg.num_actors, cfg.base_eps, cfg.eps_alpha)
                 for i in range(cfg.num_actors)]
@@ -231,7 +266,12 @@ def _build(cfg: Config, env_factory: EnvFactory,
     restored_replay = False
     if checkpointer is not None and resume:
         rep = checkpointer.restore_replay()
-        if rep is not None:
+        if rep is not None and ring is not None:
+            warnings.warn(
+                "a replay snapshot exists but this run uses device_replay "
+                "— replay state lives on the device and is not restored "
+                "(resuming with a cold ring)", stacklevel=2)
+        elif rep is not None:
             meta_r, ring_path, actor_snaps = rep
             try:
                 buffer.read_state(ring_path, meta_r)
@@ -252,7 +292,17 @@ def _build(cfg: Config, env_factory: EnvFactory,
                 act_net=act_nets[0], learner=learner,
                 buffer=buffer, actors=actors, actor=actors[0],
                 param_store=param_store, checkpointer=checkpointer,
-                host_bs=cfg.batch_size, restored_replay=restored_replay)
+                host_bs=cfg.batch_size, restored_replay=restored_replay,
+                ring=ring)
+
+
+def _device_memory_bytes(device: torch.device) -> Optional[int]:
+    """The learner device's total memory: the card's, from
+    ``torch.cuda.mem_get_info``; None on the CPU (the caller then applies
+    the host-RAM guard)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[1]
 
 
 class _HostScaffold:
@@ -475,11 +525,17 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     """The full concurrent system (the reference's ``train()`` for
     ``actor_transport="thread"`` on the host ring, one device).
 
+    With ``cfg.device_replay`` the replay data lives on the card and the
+    learner drives ``Learner.run_device``: it samples index bundles itself
+    and gathers batches on the device (no sample thread), and under
+    ``cfg.in_graph_per`` priority feedback never leaves the device (no
+    priority thread).
+
     Threads and their reference analogues:
       actor[0..F]  — the N actor processes, regrouped into
                      ``cfg.actor_fleets`` lockstep fleet threads with
                      batched inference on the card
-      sample       — ReplayBuffer.prepare_data: batch assembly
+      sample       — ReplayBuffer.prepare_data: batch assembly (host ring)
       priority     — ReplayBuffer.update_data: priority feedback
       log          — the stats loop: the JSONL run log, the registry, the
                      alert engine, ``log_sink`` and the console line
@@ -499,7 +555,8 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     trigger a drain-then-save shutdown: the learner checkpoints its final
     state and, with ``cfg.replay_snapshot``, the replay ring, sum-tree,
     counters and actor RNG/env state are snapshotted atomically so
-    ``resume=True`` restarts warm.  ``cfg.chaos_spec`` fires the
+    ``resume=True`` restarts warm (host ring only: a device ring's run
+    saves learner state alone, and resumes with a cold ring).  ``cfg.chaos_spec`` fires the
     thread-transport fault sites (:data:`CHAOS_SITES`).  ``profile_dir``
     captures a ``torch.profiler`` trace of the learner loop.
 
@@ -508,6 +565,7 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     """
     check_unported(cfg, use_mesh)
     sys = _build(cfg, env_factory, checkpoint_dir, resume, device=device)
+    cfg = sys["cfg"]     # the effective config (in_graph_per may be off)
     actors: List[VectorActor] = sys["actors"]
     buffer: ReplayBuffer = sys["buffer"]
     learner: Learner = sys["learner"]
@@ -534,7 +592,10 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
             checkpointer.chaos = chaos
 
     scaffold.install_signals()
-    want_full_save = checkpointer is not None and cfg.replay_snapshot
+    # full-state snapshots need the host ring (a device ring's state lives
+    # on the card)
+    want_full_save = (checkpointer is not None and cfg.replay_snapshot
+                      and sys["ring"] is None)
 
     def learner_stop() -> bool:
         if chaos is not None:
@@ -693,8 +754,15 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     loops += scaffold.watch_loops()
     if want_full_save and cfg.replay_snapshot_interval > 0:
         loops.append(("snapshot", snapshot_loop))
-    loops += [("sample", sample_loop), ("priority", priority_loop),
-              ("log", log_loop)]
+    if sys["ring"] is None:
+        # device replay: the learner samples index bundles itself, coupled
+        # to its dispatch — no batch-staging thread
+        loops.append(("sample", sample_loop))
+    if not cfg.in_graph_per:
+        # in-graph PER scatters the feedback on the device — nothing would
+        # ever feed this queue
+        loops.append(("priority", priority_loop))
+    loops.append(("log", log_loop))
     loops += scaffold.exporter_loops(healthz)
 
     # both run on the learner thread, so their waits poll learner_stop:
@@ -725,8 +793,14 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
         try:
             scaffold.start(loops)
             with device_profile(profile_dir):
-                metrics = learner.run(batch_source, priority_sink,
-                                      stop=learner_stop, tracer=tracer)
+                if sys["ring"] is not None:
+                    metrics = learner.run_device(buffer, sys["ring"],
+                                                 priority_sink,
+                                                 stop=learner_stop,
+                                                 tracer=tracer)
+                else:
+                    metrics = learner.run(batch_source, priority_sink,
+                                          stop=learner_stop, tracer=tracer)
         finally:
             # the run's final health verdict, sampled before the quiesce
             # (post-quiesce the heartbeat stops beating)

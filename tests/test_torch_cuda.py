@@ -226,3 +226,72 @@ def test_impala_two_layer_act_through_the_kernel_matches_plain(cuda, B):
     assert torch.isfinite(q1).all() and q1.shape == (B, 4)
     assert (h1 - h2).abs().max().item() <= 2e-3
     assert (q1 - q2).abs().max().item() <= 2e-3
+
+
+def _filled_ring_pair(cfg, device, n_blocks=6, seed=0):
+    """A host-ring buffer and a device-ring buffer on ``device`` fed the
+    same blocks (cut by the port's LocalBuffer), same sampler seeds."""
+    from r2d2_tpu_torch.replay.block import LocalBuffer
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing
+    from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+
+    host = ReplayBuffer(cfg.replace(device_replay=False, in_graph_per=False),
+                        4, rng=np.random.default_rng(9))
+    ring = DeviceRing(cfg, 4, device=device)
+    dev = ReplayBuffer(cfg, 4, rng=np.random.default_rng(9),
+                       device_ring=ring)
+    rng = np.random.default_rng(seed)
+    local = LocalBuffer(cfg, 4)
+    local.reset(rng.integers(0, 256, cfg.stored_obs_shape, np.uint8))
+    for _ in range(n_blocks):
+        for _ in range(cfg.block_length):
+            local.add(int(rng.integers(4)), float(rng.normal()),
+                      rng.integers(0, 256, cfg.stored_obs_shape, np.uint8),
+                      rng.normal(size=4).astype(np.float32),
+                      rng.normal(size=(2, cfg.lstm_layers, cfg.hidden_dim)
+                                 ).astype(np.float32))
+        blk, prios, _ = local.finish(rng.normal(size=4).astype(np.float32))
+        host.add(blk, prios, None)
+        dev.add(blk, prios, None)
+    return host, dev, ring
+
+
+@pytest.mark.cuda
+def test_device_gather_on_the_card_matches_the_host_gather(cuda):
+    """Blocks staged through pinned memory into a ring on the card, a
+    ``sample_meta`` bundle gathered there: every field equals the host
+    ring's ``_gather_rows`` of the same indices, bit for bit."""
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.replay.device_ring import gather_batch, to_device
+
+    cfg = test_config(device_replay=True)
+    host, dev, ring = _filled_ring_pair(cfg, cuda, n_blocks=24)
+    assert ring.arrays["obs"].device.type == cuda.type
+    meta = dev.sample_meta(k=2)
+    for j in range(2):
+        got = gather_batch(cfg, ring.snapshot(),
+                           to_device(meta["ints"][j], cuda),
+                           to_device(meta["is_weights"][j], cuda))
+        want = host._gather_rows(meta["idxes"][j])
+        for key, v in want.items():
+            np.testing.assert_array_equal(got[key].cpu().numpy(), v,
+                                          err_msg=key)
+
+
+@pytest.mark.cuda
+def test_in_graph_sampler_on_the_card_matches_the_cpu(cuda):
+    """The stratified sampler over the same leaves and uniforms on the card
+    and on the CPU: indices and ints bundles equal, weights within 1e-6."""
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.learner.step import _in_graph_sample
+
+    cfg = test_config(device_replay=True, in_graph_per=True)
+    _, _, ring = _filled_ring_pair(cfg, cuda)
+    meta = ring.per_meta()
+    leaves = (ring.take_prios(), meta["seq_meta"], meta["first"])
+    u = torch.rand(cfg.batch_size, generator=torch.Generator().manual_seed(1))
+    got = _in_graph_sample(cfg, u.to(cuda), *leaves)
+    want = _in_graph_sample(cfg, u, *(t.cpu() for t in leaves))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[2].cpu(), want[2])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-6, atol=0)

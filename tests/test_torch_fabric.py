@@ -123,8 +123,7 @@ REFUSALS = [
     (dict(actor_transport="process", actor_inference="serve"), "item 8"),
     (dict(replay_shards=2), "item 8"),
     (dict(replay_shards=2, replay_transport="socket"), "item 8"),
-    (dict(device_replay=True), "item 5"),
-    (dict(device_replay=True, in_graph_per=True), "item 5"),
+    (dict(device_replay=True, device_ring_layout="dp"), "item 7"),
     (dict(actor_transport="process", actor_fleets=2,
           population_spec='[{"name": "a"}, {"name": "b"}]'), "item 9"),
     (dict(league_eval=True), "item 9"),
