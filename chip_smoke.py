@@ -118,13 +118,41 @@ Phases (each exits non-zero on failure):
    training, the dispatch interval p50, the lock hold per in-graph
    dispatch, a profiled super-step's host wall clock, device time, idle
    share and top device ops, ring and peak GB, and the phase's seconds;
-8. one ``{"kernels": [...]}`` JSON line;
-9. last line: ``{"ok": true, "device": {...}}``.
+8. anakin, the fused env → act → cut → write → train loop: the README's
+   ``Config(game_name="Fake", actor_transport="anakin", anakin_env=
+   "grid")`` at full width (nature torso on 21×21×16 frames, H = 512,
+   bf16, batch 64, burn-in 40 + learning 40 + forward 5, 8 lanes,
+   ``superstep_k=8``, ``anakin_env_steps_per_update=4``, episodes of 32)
+   with the full 2 000 000-transition ring on the card, cut only in
+   warm-up, run length, eval cadence and the target/save intervals (the
+   ``reduced:`` line).  First: one 32-step fused rollout of the fake env
+   at ``base_eps = 1`` with seeded draws, bf16 on the card against f32 on
+   the CPU (bytes, actions, integer fields, ``n_step_gamma`` and PER
+   metadata identical; q, hiddens and priorities within 2e-2); then, on a
+   64-block ring with cuDNN deterministic, two identical super-steps
+   bitwise equal and snapshot → restore → dispatch bitwise equal to an
+   uninterrupted run.  Then ``train(cfg, device="cuda")`` for 6 dispatches
+   of k = 8, and ``resume=True`` for 2 more.  Checked: one
+   ``anakin.result_fetch`` per rollout and per dispatch and one
+   ``anakin.snapshot_fetch`` per snapshot; the third dispatch clean under
+   ``torch.cuda.set_sync_debug_mode("error")``; k finite losses per
+   dispatch; N eval episodes on each eval dispatch; ``fill`` equal to the
+   sum of ``block_learning_total``; the ring on the card at
+   ``data_bytes``; ``lstm_infer`` launched 0 times (the anakin actor acts
+   through the scan recurrence, as JAX's); the resume restoring the
+   counters, and them monotone.  Prints a profiled training dispatch and
+   rollout dispatch alone (host wall clock, device time, idle share,
+   events, top device ops), env frames/s while filling and training, the
+   dispatch interval p50, ring and peak GB, the snapshot's write and read
+   seconds, and the phase's seconds;
+9. one ``{"kernels": [...]}`` JSON line;
+10. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import faulthandler
 import json
 import multiprocessing
 import os
@@ -209,6 +237,24 @@ DEVICE_WALL_S = 240
 DISPATCH_PUT_MAX_BYTES = 10_000
 SAMPLER_W_RTOL = 1e-6
 CHECK_RING_BLOCKS = 4
+# phase 8: the README's anakin Config(game_name="Fake", actor_transport=
+# "anakin", anakin_env="grid") with its full ring on the card, cut only in
+# warm-up, run length (6 dispatches of k = 8, resumed for 2 more), the
+# eval cadence (so that the lane fires) and the target/save intervals; the
+# resumed run writes no second 15.8 GB snapshot
+ANAKIN_REDUCED = dict(learning_starts=4_096, anakin_eval_interval=2,
+                      target_net_update_interval=16, save_interval=24)
+ANAKIN_STEPS, ANAKIN_RESUME_STEPS = 48, 64
+ANAKIN_WALL_S = 300
+ANAKIN_WATCHDOG_S = 420
+# the card checks' own ring: 64 blocks at the full slot shapes (NB >= N)
+ANAKIN_CHECK_BLOCKS = 64
+# a fused rollout, bf16 on the card against f32 on the CPU: phase 5's
+# limit; a CPU rehearsal of the same comparison (bf16 CPU vs f32 CPU, 32
+# steps of 8 lanes, these shapes) measured 1.1e-3 on q, 1.9e-3 on the
+# hiddens and 3.3e-4 on the priorities
+ANAKIN_CARD_CPU_TOL = 2e-2
+ANAKIN_ROLL_STEPS = 32
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -1989,6 +2035,478 @@ def phase_device_replay(torch, card: str) -> int:
     return launches
 
 
+def anakin_draws(torch, n_lanes: int, steps: int, seed: int):
+    """Seeded exploration and reset draws for ``steps`` actor steps of
+    ``n_lanes`` lanes, and the initial reset's, as ``make_debug_rollout``
+    takes them: the card and the CPU walk one trajectory from them."""
+    rng = np.random.default_rng(seed)
+
+    def ints():
+        return torch.from_numpy(
+            rng.integers(0, TRAIN_ACTIONS, n_lanes).astype(np.int32))
+
+    draws = [dict(u=torch.from_numpy(rng.random(n_lanes).astype(np.float32)),
+                  rand_a=ints(), reset=dict(phase=ints()))
+             for _ in range(steps)]
+    return draws, dict(phase=ints())
+
+
+def anakin_card_vs_cpu(torch, base) -> dict:
+    """One fused rollout of the fake env at ``base_eps = 1`` (every action
+    an injected draw), bf16 on the card against f32 on the CPU from the
+    same state, params and draws, on a ring of 16 blocks at the full slot
+    shapes: bytes, actions, integer fields, ``n_step_gamma`` and the PER
+    metadata identical; q, hiddens and priorities within
+    ``ANAKIN_CARD_CPU_TOL``."""
+    from r2d2_tpu_torch.envs.anakin import make_anakin_env
+    from r2d2_tpu_torch.learner import anakin
+    from r2d2_tpu_torch.models import create_network
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing
+
+    cfg = base.replace(anakin_env="fake", base_eps=1.0,
+                       buffer_capacity=16 * base.block_length,
+                       learning_starts=base.block_length,
+                       device_replay=True, in_graph_per=True)
+    draws, init = anakin_draws(torch, cfg.num_actors, ANAKIN_ROLL_STEPS, 21)
+    params = create_network(cfg, TRAIN_ACTIONS, device="cpu",
+                            generator=torch.Generator().manual_seed(9)
+                            ).state_dict()
+    out = {}
+    for dev, dtype in (("cuda", "bfloat16"), ("cpu", "float32")):
+        c = cfg.replace(compute_dtype=dtype)
+
+        def on(d, dev=dev):
+            return {k: v.to(dev) for k, v in d.items()}
+
+        env = make_anakin_env(c, TRAIN_ACTIONS, device=dev)
+        ring = DeviceRing(c, TRAIN_ACTIONS, device=dev)
+        ast = anakin.make_anakin_state(c, TRAIN_ACTIONS, env, 77,
+                                       draws=on(init))
+        meta = ring.per_meta()
+        roll = anakin.make_debug_rollout(
+            c, create_network(c, TRAIN_ACTIONS, device=dev), env,
+            TRAIN_ACTIONS, ANAKIN_ROLL_STEPS)
+        (ast, arrays, prios, seq_meta, first), tr = roll(
+            on(params), ast, ring.snapshot(), ring.take_prios(),
+            meta["seq_meta"], meta["first"],
+            draws=[dict(u=d["u"].to(dev), rand_a=d["rand_a"].to(dev),
+                        reset=on(d["reset"])) for d in draws])
+        out[dev] = {**{f"state_{k}": v for k, v in ast.items()},
+                    **{f"ring_{k}": v for k, v in arrays.items()},
+                    **{f"trace_{k}": v for k, v in tr.items()},
+                    "per_prios": prios, "per_seq_meta": seq_meta,
+                    "per_first": first}
+        out[dev] = {k: v.cpu() for k, v in out[dev].items()}
+    card, cpu = out["cuda"], out["cpu"]
+    close = ("state_hidden", "state_buf_hidden", "state_buf_qval",
+             "ring_hidden", "trace_q", "trace_hidden", "per_prios")
+    errs, differ = {}, []
+    for k in cpu:
+        if k in ("state_env_key", "state_act_key") or k in close:
+            continue
+        if k == "ring_n_step_reward":
+            errs[k] = float((card[k] - cpu[k]).abs().max())
+        elif not torch.equal(card[k], cpu[k]):
+            differ.append(k)
+    for k in close:
+        errs[k] = float((card[k] - cpu[k]).abs().max())
+    blocks = int(cpu["state_blocks_d"])
+    print(f"anakin rollout, bf16 card vs f32 CPU ({ANAKIN_ROLL_STEPS} steps "
+          f"x {cfg.num_actors} lanes of the fake env, base_eps 1, the same "
+          f"draws; {blocks} blocks cut into a {cfg.num_blocks}-block ring "
+          "at the full slot shapes): obs bytes, actions, integer fields, "
+          "n_step_gamma and PER metadata equal; max-abs "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {ANAKIN_CARD_CPU_TOL:.0e}; n_step_reward 1e-6)",
+          flush=True)
+    if differ:
+        fail(f"anakin rollout: the card and the CPU differ in {differ}")
+    if (errs.pop("ring_n_step_reward") > 1e-6 or blocks < cfg.num_actors
+            or max(errs.values()) > ANAKIN_CARD_CPU_TOL):
+        fail(f"anakin rollout: card vs CPU {errs}, {blocks} blocks")
+    return errs
+
+
+def anakin_determinism(torch, base) -> dict:
+    """On a ring of ``ANAKIN_CHECK_BLOCKS`` blocks at the full slot shapes,
+    cuDNN deterministic: two identical super-steps give bitwise equal
+    params, and a snapshot → restore → dispatch gives params, optimizer
+    state and loop payload bitwise equal to an uninterrupted run."""
+    import shutil
+    import tempfile
+
+    from r2d2_tpu_torch.checkpoint import state_from_dict, state_to_dict
+    from r2d2_tpu_torch.learner.anakin import AnakinPlane
+    from r2d2_tpu_torch.learner.learner import Learner, place_state
+    from r2d2_tpu_torch.learner.step import create_train_state
+    from r2d2_tpu_torch.models import create_network
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    cfg = base.replace(
+        buffer_capacity=ANAKIN_CHECK_BLOCKS * base.block_length,
+        learning_starts=1_024, device_replay=True, in_graph_per=True)
+
+    def build(seed):
+        net = create_network(cfg, TRAIN_ACTIONS, device=cuda,
+                             generator=torch.Generator().manual_seed(seed))
+        plane = AnakinPlane(cfg, net, TRAIN_ACTIONS,
+                            DeviceRing(cfg, TRAIN_ACTIONS, device=cuda))
+        return plane, Learner(cfg, net, create_train_state(
+            cfg, net.state_dict()))
+
+    def drive(plane, learner, n):
+        while not plane.ready:
+            plane.rollout_step(learner.state.params)
+        for _ in range(n):
+            learner.state, result = plane.dispatch(learner.state)
+            plane.harvest(result)
+
+    def tensors(learner):
+        s = learner.state
+        return [t.clone() for d in (s.params, s.target_params,
+                                    s.opt_state.mu, s.opt_state.nu)
+                for _, t in sorted(d.items())]
+
+    def same(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_anakin_det_")
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        pa, la = build(5)
+        drive(pa, la, 1)
+        one_a = tensors(la)
+        drive(pa, la, 1)
+        two_a, pay_a = tensors(la), pa._payload()
+        del pa, la
+        pb, lb = build(5)
+        drive(pb, lb, 1)
+        repeat = same(one_a, tensors(lb))
+        meta = pb.write_state(os.path.join(d, "anakin.bin"))
+        saved = state_to_dict(lb.state)
+        del pb, lb
+        pc, lc = build(6)
+        pc.read_state(os.path.join(d, "anakin.bin"), meta)
+        lc.state = place_state(state_from_dict(saved), cuda)
+        drive(pc, lc, 1)
+        resumed = same(two_a, tensors(lc))
+        pay_c = pc._payload()
+        payload = sorted(pay_a) == sorted(pay_c) and all(
+            np.array_equal(pay_a[k], pay_c[k]) for k in pay_a)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = was
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"anakin determinism on the card (a {cfg.num_blocks}-block ring at "
+          f"the full slot shapes, cuDNN deterministic): two identical "
+          f"super-steps bitwise equal: {repeat}; snapshot -> restore -> "
+          f"dispatch equal to the uninterrupted run: params and optimizer "
+          f"state {resumed}, the loop's {len(pay_a)} payload arrays "
+          f"{payload}", flush=True)
+    if not (repeat and resumed and payload):
+        fail("anakin: super-steps are not deterministic, or a restored "
+             "snapshot does not continue bitwise")
+    return dict(repeat_bitwise=repeat, resume_bitwise=resumed and payload)
+
+
+def anakin_run(torch, card: str, cfg, ckdir: str, need: int,
+               resume: bool, prior=None) -> dict:
+    """One ``train()`` run of phase 8 on the full ring, its invariants and
+    timings; the first run also profiles a training dispatch and a
+    rollout dispatch alone.  Returns the counters and numbers; the run's
+    ring is only referenced from this frame, so it is freed when it
+    returns."""
+    from collections import deque
+
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.checkpoint import Checkpointer
+    from r2d2_tpu_torch.learner import anakin
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+
+    k, N = cfg.superstep_k, cfg.num_actors
+    fetches = "anakin.result_fetch"
+    real_loop = anakin.run_anakin_loop
+    rec = dict(rollouts=[], dispatches=[], harvests=[], bad=[],
+               sync_checked=None)
+
+    def loop(learner, plane, **kw):
+        rec.update(learner=learner, plane=plane, start={
+            f: getattr(plane, f) for f in plane._COUNTER_FIELDS})
+        roll, disp, harv = plane.rollout_step, plane.dispatch, plane.harvest
+        rec["real"] = (roll, disp, harv)
+        pending = deque()
+
+        def rollout_step(params):
+            f0, t = HOST_TRANSFERS.get(fetches), time.perf_counter()
+            roll(params)
+            rec["rollouts"].append((t, time.perf_counter()))
+            if HOST_TRANSFERS.get(fetches) - f0 != 1:
+                rec["bad"].append("a rollout did not fetch once")
+
+        def dispatch(state):
+            pending.append(plane.dispatch_no)
+            t = time.perf_counter()
+            if not resume and len(rec["dispatches"]) == 2:
+                # one training dispatch under the sync debug mode: any
+                # device->host synchronisation in it raises
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = disp(state)
+                except RuntimeError as e:
+                    rec["sync_checked"] = repr(e)
+                    raise
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                rec["sync_checked"] = "clean"
+            else:
+                out = disp(state)
+            rec["dispatches"].append((t, time.perf_counter()))
+            return out
+
+        def harvest(result):
+            f0, e0 = HOST_TRANSFERS.get(fetches), plane.eval_episodes_total
+            losses = harv(result)
+            idx = pending.popleft()
+            want = N if idx % cfg.anakin_eval_interval == 0 else 0
+            if HOST_TRANSFERS.get(fetches) - f0 != 1:
+                rec["bad"].append(f"dispatch {idx} did not fetch once")
+            if plane.eval_episodes_total - e0 != want:
+                rec["bad"].append(f"dispatch {idx}: eval episodes "
+                                  f"{plane.eval_episodes_total - e0} != "
+                                  f"{want}")
+            if len(losses) != k or not np.isfinite(losses).all():
+                rec["bad"].append(f"dispatch {idx}: losses {losses}")
+            rec["harvests"].append(time.perf_counter())
+            return losses
+
+        plane.rollout_step, plane.dispatch = rollout_step, dispatch
+        plane.harvest = harvest
+        return real_loop(learner, plane, **kw)
+
+    plane_cls = anakin.AnakinPlane
+    real_write, real_read = plane_cls.write_state, plane_cls.read_state
+
+    def timed(fn, key):
+        def run(self, *a):
+            t = time.perf_counter()
+            out = fn(self, *a)
+            rec[key] = time.perf_counter() - t
+            return out
+        return run
+
+    KERNEL_LAUNCHES.reset()
+    HOST_TRANSFERS.reset()
+    torch.cuda.reset_peak_memory_stats()
+    anakin.run_anakin_loop = loop
+    plane_cls.write_state = timed(real_write, "write_s")
+    plane_cls.read_state = timed(real_read, "read_s")
+    t0 = time.perf_counter()
+    try:
+        m = train.train(cfg, checkpoint_dir=ckdir, resume=resume,
+                        max_wall_seconds=ANAKIN_WALL_S, verbose=False,
+                        device="cuda")
+    except RuntimeError as e:
+        fail(f"anakin run: {e} (sync debug check: {rec['sync_checked']})")
+    finally:
+        anakin.run_anakin_loop = real_loop
+        plane_cls.write_state, plane_cls.read_state = real_write, real_read
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = (KERNEL_LAUNCHES.get(lstm.KERNEL)
+                + KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER))
+    plane, learner = rec["plane"], rec["learner"]
+    ring = plane.ring
+    n_roll, n_disp = len(rec["rollouts"]), len(rec["dispatches"])
+    snaps = 1 if cfg.replay_snapshot else 0
+    counters = {f: getattr(plane, f) for f in plane._COUNTER_FIELDS}
+    blt = int(plane.state["block_learning_total"].sum())
+    what = "resumed" if resume else "first"
+
+    # the run's checks
+    bad = list(rec["bad"])
+    start_updates = 0 if prior is None else prior["training_steps"]
+    if (m["num_updates"] != cfg.training_steps
+            or n_disp * k != cfg.training_steps - start_updates
+            or m["dispatch_wedged"] or m["fabric_failed"]
+            or m["healthz"].get("status") != "ok"):
+        bad.append(f"{m['num_updates']} updates in {n_disp} dispatches, "
+                   f"wedged {m['dispatch_wedged']}, failed "
+                   f"{m['fabric_failed']}, healthz {m['healthz']}")
+    if not resume and rec["sync_checked"] != "clean":
+        bad.append(f"sync debug check {rec['sync_checked']}")
+    if (HOST_TRANSFERS.get(fetches) != n_roll + n_disp
+            or HOST_TRANSFERS.get("anakin.snapshot_fetch") != snaps):
+        bad.append(f"transfers {HOST_TRANSFERS.snapshot()} for {n_roll} "
+                   f"rollouts, {n_disp} dispatches, {snaps} snapshots")
+    if plane.fill != blt or plane.fill < cfg.learning_starts:
+        bad.append(f"fill {plane.fill} != block_learning_total sum {blt}")
+    if (ring.arrays["obs"].device.type != "cuda"
+            or ring.nbytes() != need):
+        bad.append(f"ring {ring.nbytes()} bytes on "
+                   f"{ring.arrays['obs'].device} (data_bytes {need})")
+    if launches:
+        bad.append(f"lstm_infer launched {launches} times")
+    eval_disp = sum(1 for i in range(counters["dispatch_no"] - n_disp,
+                                     counters["dispatch_no"])
+                    if i % cfg.anakin_eval_interval == 0)
+    if not eval_disp:
+        bad.append("the eval lane never fired")
+    if prior is not None:
+        if not m["restored_replay"] or rec["start"] != prior:
+            bad.append(f"resume restored {m['restored_replay']}: counters "
+                       f"{rec['start']} != the snapshot's {prior}")
+        if any(counters[f] < prior[f] for f in prior) or not (
+                counters["env_steps"] > prior["env_steps"]):
+            bad.append(f"counters not monotone: {prior} -> {counters}")
+    ck = Checkpointer(ckdir)
+    if cfg.training_steps not in ck.steps() or (
+            snaps and ck.replay_steps()[-1:] != [cfg.training_steps]):
+        bad.append(f"checkpoints {ck.steps()}, snapshots "
+                   f"{ck.replay_steps()}")
+    if bad:
+        fail(f"anakin ({what} run): " + "; ".join(bad))
+
+    fpd = plane.roll_steps * N
+    r, d = rec["rollouts"], rec["dispatches"]
+    fill_fps = (n_roll * fpd / (r[-1][1] - r[0][0])) if n_roll else None
+    gaps = np.diff([x[0] for x in d]) * 1e3
+    train_fps = (n_disp - 1) * fpd / (d[-1][0] - d[0][0])
+    issue = np.asarray([x[1] - x[0] for x in d]) * 1e3
+    print(f"anakin {what} run on {card}: {m['num_updates']} updates in "
+          f"{n_disp} dispatches of k={k} x "
+          f"(E={cfg.anakin_env_steps_per_update} steps of {N} lanes + 1 "
+          f"train step) after {n_roll} "
+          f"rollouts, {run_s:.2f} s; result fetches "
+          f"{HOST_TRANSFERS.get(fetches)} = {n_roll} + {n_disp}, snapshot "
+          "fetches "
+          f"{HOST_TRANSFERS.get('anakin.snapshot_fetch')}; "
+          + ("" if resume else "dispatch 2 under set_sync_debug_mode("
+             "'error'): clean; ")
+          + f"losses finite {k}/dispatch, "
+          f"mean {m['mean_loss']:.5f}; eval episodes {N} on each of "
+          f"{eval_disp} eval dispatches (mean greedy return "
+          f"{m['mean_eval_return']:.3f}); fill {plane.fill} = sum of "
+          f"block_learning_total; env steps {counters['env_steps']}, "
+          f"episodes {counters['episodes_total']} (mean return "
+          f"{m['mean_episode_return']:.3f}); lstm_infer launches {launches}"
+          + ("" if prior is None else
+             f"; resumed from the snapshot's counters {prior}, monotone"),
+          flush=True)
+    print(f"anakin {what} run timings on {card}: env frames/s while "
+          f"filling {'none' if fill_fps is None else f'{fill_fps:.1f}'}, "
+          f"while training {train_fps:.1f}; dispatch interval p50 "
+          f"{np.percentile(gaps, 50):.2f} ms ({len(gaps)} intervals, min "
+          f"{gaps.min():.2f}, max {gaps.max():.2f}); dispatch issue p50 "
+          f"{np.percentile(issue, 50):.2f} ms, first {issue[0]:.2f}; ring "
+          f"{ring.nbytes() / 1e9:.2f} GB, peak allocated "
+          f"{peak / 1e9:.2f} GB; full-state snapshot "
+          + (f"read {rec['read_s']:.1f} s" if resume
+             else f"written {rec['write_s']:.1f} s"), flush=True)
+    out = dict(counters=counters, run_s=run_s, fill_fps=fill_fps,
+               snapshot_s=rec["read_s" if resume else "write_s"],
+               train_fps=train_fps, interval_p50=float(np.percentile(gaps,
+                                                                     50)),
+               peak_gb=peak / 1e9, launches=launches)
+    if not resume:
+        real_roll, real_disp, real_harv = rec["real"]
+
+        def one_dispatch():
+            learner.state, result = real_disp(learner.state)
+            real_harv(result)
+
+        for name, fn in (("training dispatch", one_dispatch),
+                         ("rollout dispatch",
+                          lambda: real_roll(learner.state.params))):
+            events = profile_events(torch, fn, 1)
+            wall = wall_ms(torch, fn, 1)
+            if events is None:
+                fail(f"anakin: no device time in a {name}")
+            if any("lstm_step" in e for e, _, _ in events):
+                fail(f"anakin: a {name} launched an lstm_infer kernel")
+            dev_ms = sum(ms for _, ms, _ in events)
+            n_ev = sum(c for _, _, c in events)
+            out[name] = dict(wall_ms=wall, device_ms=dev_ms, events=n_ev)
+            what_ = (f"k={k} train steps, " if "train" in name else "")
+            print(f"anakin {name} (1 profiled: {what_}{plane.roll_steps} "
+                  f"env steps of {N} lanes) on {card}: "
+                  f"host wall {wall:.2f} ms, device {dev_ms:.3f} ms in "
+                  f"{n_ev:.0f} device events, device idle "
+                  f"{1 - dev_ms / wall:.1%}; no lstm_infer kernel; top 5 "
+                  "device ops (ms per dispatch, count): "
+                  + "; ".join(f"{short_kernel_name(n)} {ms:.3f} ({c:.0f})"
+                              for n, ms, c in events[:5]), flush=True)
+    return out
+
+
+def phase_anakin(torch, card: str) -> int:
+    """Phase 8: the README's anakin config at full width, trained from its
+    full ring by ``train()``, resumed; before it, the fused rollout card
+    vs CPU and the determinism and snapshot checks.  Returns the kernel's
+    launches over the phase's main path (0: the anakin actor acts through
+    the scan recurrence, as JAX's does)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.replay.replay_buffer import data_bytes
+
+    t_phase = time.perf_counter()
+    # a stuck phase dumps every thread's stack to stderr before the
+    # caller's time limit cuts it
+    faulthandler.dump_traceback_later(ANAKIN_WATCHDOG_S)
+    base = Config(game_name="Fake", actor_transport="anakin",
+                  anakin_env="grid")
+    literal = dict(torso="nature", stored_obs_shape=(21, 21, 16),
+                   hidden_dim=H, lstm_layers=1, compute_dtype="bfloat16",
+                   batch_size=64, burn_in_steps=40, learning_steps=40,
+                   forward_steps=5, block_length=400, num_actors=8,
+                   superstep_k=8, anakin_env_steps_per_update=4,
+                   anakin_episode_len=32, superstep_pipeline=1,
+                   buffer_capacity=2_000_000)
+    got = {k: getattr(base, k) for k in literal}
+    if got != literal:
+        fail(f"the README's anakin Config is not the flagship: {got}")
+    need = data_bytes(base.replace(device_replay=True, in_graph_per=True),
+                      TRAIN_ACTIONS)
+    print("reduced: " + ", ".join(
+        f"{k} {getattr(base, k)} -> {v}" for k, v in ANAKIN_REDUCED.items())
+        + f", training_steps {base.training_steps} -> {ANAKIN_STEPS} (6 "
+        f"dispatches), resumed to {ANAKIN_RESUME_STEPS} with replay_snapshot"
+        f" off (no second snapshot); the full ring on the card "
+        f"({base.num_blocks} blocks of {base.block_length}, "
+        f"{need / 1e9:.2f} GB); grid env episodes of "
+        f"{base.anakin_episode_len} steps, {TRAIN_ACTIONS} actions",
+        flush=True)
+    anakin_card_vs_cpu(torch, base)
+    anakin_determinism(torch, base)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_anakin_")
+    try:
+        first = anakin_run(torch, card, base.replace(
+            training_steps=ANAKIN_STEPS, **ANAKIN_REDUCED), ckdir, need,
+            resume=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        second = anakin_run(torch, card, base.replace(
+            training_steps=ANAKIN_RESUME_STEPS, replay_snapshot=False,
+            **ANAKIN_REDUCED), ckdir, need, resume=True,
+            prior=first["counters"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    faulthandler.cancel_dump_traceback_later()
+    print(f"phase 8 took {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+    return first["launches"] + second["launches"]
+
+
 def main() -> None:
     try:
         import torch
@@ -2037,6 +2555,9 @@ def main() -> None:
     # phase 7: the Pong preset from its full replay ring on the card
     device_replay_launches = phase_device_replay(torch, card)
 
+    # phase 8: anakin, the fused loop, from its full ring on the card
+    anakin_launches = phase_anakin(torch, card)
+
     head = timings[(1, 256)]
     print(json.dumps({"kernels": [{
         "name": "lstm_infer",
@@ -2044,12 +2565,14 @@ def main() -> None:
         "source": "r2d2_tpu_torch/csrc/lstm_infer.cu",
         "replaces": "r2d2_tpu/ops/lstm.py:46",
         "launches": (serve_launches + train_launches + fabric_launches
-                     + serve_ckpt_launches + device_replay_launches),
+                     + serve_ckpt_launches + device_replay_launches
+                     + anakin_launches),
         "launches_by_path": {"serving": serve_launches,
                              "training": train_launches,
                              "fabric": fabric_launches,
                              "serving_checkpoint": serve_ckpt_launches,
-                             "device_replay": device_replay_launches},
+                             "device_replay": device_replay_launches,
+                             "anakin": anakin_launches},
         "max_abs_err": errs["tensor_core"][0],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

@@ -9,9 +9,11 @@ passes ``device="cpu"``.
 Ported so far: the session-serving path (``serving/``) over the R2D2
 network (``models/``) with the fused LSTM inference unroll as a
 hand-written Hopper kernel (``ops/lstm.py``, ``csrc/lstm_infer.cu``), and
-the training path (``train.train_sync``: actors, replay, learner,
-checkpoints, evaluation), whose actors act through that kernel.
-ROADMAP.md lists what comes next.
+the training path (``train.train_sync`` and the threaded ``train.train``:
+actors, replay on the host or on the device, learner, checkpoints,
+evaluation), whose actors act through that kernel, and anakin, the fused
+on-device loop on a batched device env (``actor_transport="anakin"``,
+``learner/anakin.py``).  ROADMAP.md lists what comes next.
 """
 from r2d2_tpu_torch.config import Config, test_config
 

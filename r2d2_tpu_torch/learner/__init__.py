@@ -1,2 +1,2 @@
-"""The learner: the train step (``step.py``) and its host loop
-(``learner.py``)."""
+"""The learner: the train step (``step.py``), its host loop
+(``learner.py``) and the fused on-device anakin loop (``anakin.py``)."""

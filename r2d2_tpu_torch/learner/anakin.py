@@ -1,0 +1,1135 @@
+"""Anakin: the fused on-device training loop (``actor_transport="anakin"``).
+
+Port of ``r2d2_tpu/learner/anakin.py`` for one device (the mesh hooks
+wait for ROADMAP.md A item 7).  When the environment is itself tensor ops
+(``envs/anakin.py``), the actor/replay/learner split collapses: env step →
+act → block cut → replay write → train step all run on the device, and
+the host only issues the work and reads a few scalars back:
+
+- the env is a batched device env (``cfg.anakin_env`` →
+  :func:`~r2d2_tpu_torch.envs.anakin.make_anakin_env`);
+- the actor is the device twin of ``VectorActor``'s hot loop — per-lane
+  ladder epsilons, LSTM carry, deferred block-boundary cuts with bootstrap
+  Q, episode lifecycle — over a device twin of ``VectorLocalBuffer``,
+  acting through the scan recurrence (``_loss_net``), as JAX's does, so
+  the anakin path launches no ``lstm_infer`` kernel;
+- block cutting reproduces ``replay.block.assemble_block``'s math
+  (windows, stored-hidden selection, n-step targets, actor-side initial
+  priorities) as masked static-shape tensor ops, and writes finished
+  blocks straight into the :class:`~r2d2_tpu_torch.replay.device_ring.
+  DeviceRing` arrays and its ``in_graph_per`` leaves and metadata;
+- training is the unchanged ``make_train_step`` fed by the unchanged
+  in-graph PER sampler (``_in_graph_sample`` + ``gather_batch``).
+
+JAX compiles a dispatch — ``k × (E env/actor steps + 1 train step)``,
+E = ``cfg.anakin_env_steps_per_update`` — into one program.  Here Python
+issues the same work op by op on one stream, with no host
+synchronisation inside a dispatch: no ``.item()``, no tensor truth value,
+no ``nonzero`` or boolean-mask indexing.  What leaves the device per
+dispatch is one small float vector (k losses, the :data:`STATS_FIELDS`
+deltas, then the :data:`EVAL_FIELDS` pair when the eval lane is on), in
+one non-blocking copy into pinned memory, ticked as
+``anakin.result_fetch`` on ``HOST_TRANSFERS``; nothing goes up (the
+dispatch index enters the kernels as an argument).
+
+Where JAX needs constructs eager torch has not:
+
+- JAX can skip a step's block emit behind ``lax.cond(any(cut))``; here
+  that test would be a device→host sync per env step, so every step
+  emits, as JAX's ``cut_cond=False`` path does (JAX pins it bit-exact
+  against the cond path).
+- JAX scatters non-cut lanes to a dropped out-of-bounds slot.  Here every
+  lane writes a distinct slot — cut lanes ``(ptr + rank among cut lanes)
+  % NB``, the others ``(ptr + n_cut + rank among the rest) % NB``, distinct
+  because ``num_blocks >= num_actors`` — and a non-cut lane writes back
+  the bytes its slot held.  The ring keeps its shape and layout.
+- JAX donates the ring and the carry; here the ring, the PER leaves and
+  metadata and the local buffers are written in place, on one stream from
+  one thread, so the device runs the writes in issue order.
+
+Numerics against the host block cutter and JAX (tests/test_torch_
+anakin.py): integer fields, observation bytes, gamma tails (host f32
+power tables) and stored hiddens bit-exact; n-step returns and priorities
+to f32 round-off (the host sums in float64; the n-step sum keeps JAX's
+static order).  Unlike the host ring writer, slots keep whatever bytes
+the lane's stream buffer held past the used window instead of zeros: the
+sampling clamp invariant already keeps those positions loss-masked.
+"""
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from r2d2_tpu_torch.config import Config
+from r2d2_tpu_torch.envs.anakin import (
+    advance,
+    derive,
+    lane_keys,
+    make_anakin_env,
+    mix32,
+    randint,
+    stream_bits,
+    uniform,
+)
+from r2d2_tpu_torch.learner.learner import _Result
+from r2d2_tpu_torch.learner.step import (
+    TrainState,
+    _in_graph_sample,
+    _loss_net,
+    make_train_step,
+    scatter_last,
+)
+from r2d2_tpu_torch.models.network import R2D2Network
+from r2d2_tpu_torch.replay.device_ring import gather_batch
+from r2d2_tpu_torch.utils.math import epsilon_ladder
+from r2d2_tpu_torch.utils.resilience import Deadline
+from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, Tracer
+
+log = logging.getLogger(__name__)
+
+# host-facing stats appended to the losses in the per-dispatch result
+# vector, in this order (all float32; the deltas are per-dispatch)
+STATS_FIELDS = ("env_steps", "fill", "episodes", "reward_sum", "blocks")
+
+# the greedy eval lane's fields, appended after STATS_FIELDS when
+# cfg.anakin_eval_interval > 0 (zeros on off-cadence dispatches)
+EVAL_FIELDS = ("eval_episodes", "eval_return_sum")
+
+# stream salts: the plane's env/exploration root, the eval lane's root,
+# the PER sampler's uniforms (JAX's fold_in constants where it has them)
+_PLANE_SALT, _EVAL_SALT, _SAMPLE_SALT = 0x414B, 0x45564C, 0x504552
+
+
+def _act(net: R2D2Network, params, obs, last_action, last_reward, hidden):
+    with torch.no_grad():
+        return functional_call(net, params,
+                               (obs, last_action, last_reward, hidden))
+
+
+def _gamma_tables(cfg: Config):
+    """Host-precomputed float32 discount constants, bit-identical to
+    ``utils.math.n_step_gamma_tail``'s values: ``tail[e]`` is numpy's
+    float32 ``gamma ** e`` (the tail entries), ``interior`` is the python
+    ``gamma ** n`` cast to f32 (the interior fill), ``kernel[i]`` is the
+    f32-rounded f64 ``gamma ** i`` for the n-step return sum."""
+    n, g = cfg.forward_steps, cfg.gamma
+    tail = g ** np.arange(0, n + 1, dtype=np.float32)
+    interior = np.float32(g ** n)
+    kernel = (g ** np.arange(0, n, dtype=np.float64)).astype(np.float32)
+    return tail, interior, kernel
+
+
+def sample_uniforms(seed: int, dispatch_idx: int, k: int, B: int,
+                    device) -> torch.Tensor:
+    """(k, B) float32 PER uniforms for one dispatch: a counter-based
+    stream of (seed, dispatch index), so a resumed run draws what an
+    uninterrupted one would (JAX: ``split(fold_in(PRNGKey(seed),
+    dispatch), k)``; the same scheme, not the same bits)."""
+    root = derive(seed, _SAMPLE_SALT, dispatch_idx)
+    pos = torch.arange(k * B, dtype=torch.int64, device=device)
+    return uniform(mix32(mix32(pos + 0x9E3779B9) ^ root)).reshape(k, B)
+
+
+def _make_assemble(cfg: Config, action_dim: int, done: bool, device):
+    """Block assembly for every lane at once: the tensor twin of
+    ``replay.block.assemble_block`` over the lanes' stream/window buffers,
+    every per-sequence quantity computed at the static maximum K and
+    masked past ``num_sequences``.
+
+    ``done`` is static: the two call sites are terminal (episode-end cuts)
+    or bootstrapped (boundary cuts), like the host actor's two ``finish``
+    calls."""
+    N, A = cfg.num_actors, action_dim
+    BL, L, n = cfg.block_length, cfg.learning_steps, cfg.forward_steps
+    K, cap = cfg.seqs_per_block, cfg.max_block_steps
+    burn_max = cfg.burn_in_steps
+    seq_start_mode = cfg.stored_hidden_mode == "seq_start"
+    tail, interior, kernel = _gamma_tables(cfg)
+    tail_t = torch.from_numpy(tail).to(device)
+    interior = float(interior)
+    kernel = [float(x) for x in kernel]
+    t = torch.arange(BL, dtype=torch.int32, device=device)[None, :]
+    q_rows = torch.arange(BL + 1, dtype=torch.int32, device=device)
+    seq = torch.arange(K, dtype=torch.int32, device=device)[None, :]
+    lidx = torch.arange(L, dtype=torch.int32, device=device)
+    lanes = torch.arange(N, device=device)[:, None]
+    r_pad = torch.zeros((N, n - 1), dtype=torch.float32, device=device)
+
+    def assemble(bufs: Dict[str, torch.Tensor], prefix, size, last_q):
+        s, c = size[:, None], prefix[:, None]                  # (N, 1)
+        # the bootstrap Q (zeros for a terminal cut) lands in row ``size``
+        # of each lane's window
+        boot = 0.0 if done else last_q[:, None, :]
+        qv = torch.where((q_rows[None, :] == s)[:, :, None], boot,
+                         bufs["qval"])
+
+        tmask = t < s                                          # (N, BL)
+        r = torch.where(tmask, bufs["reward"], 0.0)
+
+        # n-step returns: sum_{i<n} gamma^i * r[t+i], JAX's static order
+        r_ext = torch.cat([r, r_pad], dim=1) if n > 1 else r
+        nstep = torch.zeros_like(r)
+        for i in range(n):
+            nstep = nstep + kernel[i] * r_ext[:, i:i + BL]
+
+        # bootstrap discount tail (utils.math n_step_gamma_tail, exact:
+        # table lookups of the host's own f32 values)
+        steps_left = s - t                       # >= 1 wherever tmask
+        if done:
+            gtail = torch.where(steps_left > n, interior, 0.0)
+        else:
+            e = torch.clamp(steps_left, 0, n).long()
+            gtail = torch.where(steps_left > n, interior, tail_t[e])
+        gtail = torch.where(tmask, gtail, 0.0)
+
+        # per-sequence windows (worker.py:471-474 invariants)
+        num_seq = (s + L - 1) // L
+        valid = seq < num_seq                                  # (N, K)
+        zero = torch.zeros_like(seq)
+        burn = torch.where(valid, torch.clamp(seq * L + c, max=burn_max),
+                           zero)
+        learn = torch.where(valid, torch.clamp(s - seq * L, max=L), zero)
+        fwd = torch.where(valid, torch.clamp(
+            s + 1 - torch.cumsum(learn, dim=1, dtype=torch.int32), max=n),
+            zero)
+
+        # stored recurrent state at each sequence's burn-in start (or the
+        # reference's seq-start indexing under the compat switch)
+        hidx = (seq * L).expand(N, K) if seq_start_mode \
+            else c + seq * L - burn
+        hidx = torch.clamp(hidx, 0, cap - 1).long()
+        hiddens = torch.where(valid[:, :, None, None, None],
+                              bufs["hidden"][lanes, hidx], 0.0)
+
+        # actor-side initial priorities (block.py: plain max-Q n-step TD,
+        # replicating the reference's asymmetry vs the learner)
+        qmax = qv.max(dim=2).values                            # (N, BL+1)
+        mf = torch.clamp(s, max=n)
+        maxq_t = torch.gather(qmax, 1, torch.minimum(t + mf, s).long())
+        q_taken = torch.gather(qv[:, :BL], 2,
+                               bufs["action"].long()[:, :, None])[:, :, 0]
+        td = torch.abs(nstep + gtail * maxq_t - q_taken)
+        td = torch.where(tmask, td, 0.0).reshape(N, K, L)
+        lmask = lidx[None, None, :] < learn[:, :, None]
+        td = torch.where(lmask, td, 0.0)
+        seg_max = td.max(dim=2).values
+        seg_mean = td.sum(dim=2) / torch.clamp(learn, min=1)
+        prios = torch.where(valid, 0.9 * seg_max + 0.1 * seg_mean, 0.0)
+
+        return dict(
+            slot=dict(obs=bufs["obs"], last_action=bufs["last_action"],
+                      last_reward=bufs["last_reward"],
+                      action=bufs["action"], n_step_reward=nstep,
+                      n_step_gamma=gtail, hidden=hiddens),
+            priorities=prios,
+            meta=torch.stack([burn, learn, fwd], dim=2),
+            first_burn=burn[:, 0],
+            learning_total=learn.sum(dim=1, dtype=torch.int32),
+        )
+
+    return assemble
+
+
+def _make_emit(cfg: Config, action_dim: int, done: bool, device):
+    """Batched cut-and-write: assemble every lane's candidate block, then
+    write the ``cut`` lanes' blocks into ring slots ``ptr..`` (cut lanes
+    take consecutive slots in lane order, the order the host actor's
+    per-lane sink calls would land) and every other lane's slot back with
+    the bytes it held (module docstring).  Updates the ring arrays, the
+    PER leaves, ``seq_meta``, ``first`` and ``block_learning_total`` in
+    place; returns the carry with ``ptr``, ``fill`` and the deltas
+    advanced."""
+    NB, K, N = cfg.num_blocks, cfg.seqs_per_block, cfg.num_actors
+    alpha = cfg.prio_exponent
+    assemble = _make_assemble(cfg, action_dim, done, device)
+    kk = torch.arange(K, device=device)[None, :]
+
+    def put(dst: torch.Tensor, slot: torch.Tensor, cut: torch.Tensor,
+            new: torch.Tensor) -> torch.Tensor:
+        """``dst[slot] = where(cut, new, dst[slot])``; returns the old
+        rows."""
+        old = dst.index_select(0, slot)
+        m = cut.reshape((-1,) + (1,) * (new.dim() - 1))
+        dst.index_copy_(0, slot, torch.where(m, new.to(dst.dtype), old))
+        return old
+
+    def emit(ast, arrays, prios, seq_meta, first, cut, last_q):
+        bufs = dict(obs=ast["buf_obs"], last_action=ast["buf_last_action"],
+                    last_reward=ast["buf_last_reward"],
+                    hidden=ast["buf_hidden"], action=ast["buf_action"],
+                    reward=ast["buf_reward"], qval=ast["buf_qval"])
+        blocks = assemble(bufs, ast["prefix"], ast["size"], last_q)
+
+        cut_i = cut.int()
+        rest_i = 1 - cut_i
+        n_cut = cut_i.sum(dtype=torch.int32)
+        rank_cut = torch.cumsum(cut_i, 0, dtype=torch.int32) - cut_i
+        rank_rest = torch.cumsum(rest_i, 0, dtype=torch.int32) - rest_i
+        ptr = ast["ptr"]
+        slot = torch.where(cut, (ptr + rank_cut) % NB,
+                           (ptr + n_cut + rank_rest) % NB).long()
+
+        for key, dst in arrays.items():
+            put(dst, slot, cut, blocks["slot"][key])
+        leaf = (slot[:, None] * K + kk).reshape(-1)
+        put(prios, leaf, cut[:, None].expand(N, K).reshape(-1),
+            (blocks["priorities"] ** alpha).reshape(-1))
+        put(seq_meta, slot, cut, blocks["meta"])
+        put(first, slot, cut, blocks["first_burn"])
+
+        # fill accounting mirrors ReplayBuffer.add: subtract the
+        # overwritten slot's learning total, add the new one
+        new_tot = blocks["learning_total"]
+        old_tot = put(ast["block_learning_total"], slot, cut, new_tot)
+        new_tot = torch.where(cut, new_tot, 0)
+        old_tot = torch.where(cut, old_tot, 0)
+        return {**ast,
+                "ptr": (ptr + n_cut) % NB,
+                "fill": ast["fill"] + (new_tot - old_tot).sum(
+                    dtype=torch.int32),
+                "env_steps_d": ast["env_steps_d"]
+                + new_tot.sum(dtype=torch.int32),
+                "blocks_d": ast["blocks_d"] + n_cut}
+
+    return emit
+
+
+def _retain_prefix(cfg: Config, ast: dict, cut: torch.Tensor,
+                   j: torch.Tensor, rows: torch.Tensor) -> dict:
+    """Post-boundary-cut retention: keep the trailing ``burn_in + 1``
+    stream entries in place as the next block's warm prefix
+    (VectorLocalBuffer.finish), as a per-lane index-shift gather applied
+    only to cut lanes.  ``j`` is ``arange(max_block_steps)``, ``rows``
+    ``arange(N)[:, None]``."""
+    N = ast["size"].shape[0]
+    entries = ast["prefix"] + ast["size"] + 1
+    keep = torch.clamp(entries, max=cfg.burn_in_steps + 1)
+    lo = entries - keep
+    src = torch.where(j[None, :] < keep[:, None], j[None, :] + lo[:, None],
+                      j[None, :]).long()                          # (N, cap)
+
+    def shift(name):
+        arr = ast[name]
+        return torch.where(cut.reshape((N, 1) + (1,) * (arr.dim() - 2)),
+                           arr[rows, src], arr)
+
+    return {**ast,
+            "buf_obs": shift("buf_obs"),
+            "buf_last_action": shift("buf_last_action"),
+            "buf_last_reward": shift("buf_last_reward"),
+            "buf_hidden": shift("buf_hidden"),
+            "prefix": torch.where(cut, keep - 1, ast["prefix"]),
+            "size": torch.where(cut, 0, ast["size"])}
+
+
+def _make_actor_step(cfg: Config, net: R2D2Network, env: Any,
+                     action_dim: int):
+    """One env/actor step for the whole fleet — the twin of one
+    ``VectorActor.run`` iteration, same sub-step order (boundary cuts with
+    this step's bootstrap Q first, then act/step/record, then episode-end
+    cuts and lane resets).  Returns ``actor_step(params, ast, arrays,
+    prios, seq_meta, first, draws=None) -> (ast', trace)``; the ring, PER
+    state and ``block_learning_total`` are written in place.
+
+    ``draws`` (the parity tests' hook) replaces the step's random values:
+    ``u`` (N,) f32 and ``rand_a`` (N,) for exploration, ``reset`` for
+    ``env.reset_lanes``."""
+    N, A, BL = cfg.num_actors, action_dim, cfg.block_length
+    device = env.device
+    eps = torch.tensor([epsilon_ladder(i, N, cfg.base_eps, cfg.eps_alpha)
+                        for i in range(N)], dtype=torch.float32,
+                       device=device)
+    act_net = _loss_net(net)   # the scan recurrence, as JAX's actor
+    emit_boundary = _make_emit(cfg, A, False, device)
+    emit_done = _make_emit(cfg, A, True, device)
+    env_keys = tuple(env.STATE_KEYS)
+    lanes = torch.arange(N, device=device)
+    rows = lanes[:, None]
+    actions_a = torch.arange(A, device=device)
+    j = torch.arange(cfg.max_block_steps, dtype=torch.int32, device=device)
+    noop = (actions_a == 0)[None, :].expand(N, A)
+    zero_q = torch.zeros((N, A), dtype=torch.float32, device=device)
+
+    def actor_step(params, ast, arrays, prios, seq_meta, first,
+                   draws: Optional[dict] = None):
+        q, new_hidden = _act(act_net, params, ast["obs"], ast["last_action"],
+                             ast["last_reward"], ast["hidden"])
+
+        # 1) deferred block-boundary cuts: this step's Q at the new state
+        #    is the bootstrap (worker.py:550-554 semantics, no 2nd forward)
+        pend = ast["finish_pending"]
+        ast = emit_boundary(ast, arrays, prios, seq_meta, first, pend, q)
+        ast = _retain_prefix(cfg, ast, pend, j, rows)
+
+        # 2) ladder-epsilon exploration
+        key = ast["act_key"]
+        if draws is None:
+            u = uniform(stream_bits(key, 0))
+            rand_a = randint(stream_bits(key, 1), A)
+        else:
+            u, rand_a = draws["u"], draws["rand_a"].int()
+        actions = torch.where(u < eps, rand_a, q.argmax(dim=1).int())
+
+        # 3) env step (no auto-reset: the post-step obs is recorded first)
+        env_state = {k: ast["env_" + k] for k in env_keys}
+        env_state, reward, truncated = env.step(env_state, actions)
+        obs_step = env.observe(env_state)
+
+        # 4) batched local-buffer add (VectorLocalBuffer.add_batch), in
+        #    place on the buffers the retention above made
+        one_hot = actions[:, None] == actions_a
+        p = (ast["prefix"] + ast["size"] + 1).long()
+        s = ast["size"].long()
+        ast["buf_obs"][lanes, p] = obs_step
+        ast["buf_last_action"][lanes, p] = one_hot
+        ast["buf_last_reward"][lanes, p] = reward
+        ast["buf_hidden"][lanes, p] = new_hidden
+        ast["buf_action"][lanes, s] = actions.to(torch.uint8)
+        ast["buf_reward"][lanes, s] = reward
+        ast["buf_qval"][lanes, s] = q
+        ast = {**ast,
+               "obs": obs_step,
+               "last_action": one_hot.float(),
+               "last_reward": reward,
+               "hidden": new_hidden,
+               "size": ast["size"] + 1,
+               "sum_reward": ast["sum_reward"] + reward,
+               "episode_steps": ast["episode_steps"] + 1,
+               "act_key": advance(key),
+               **{f"env_{k}": env_state[k] for k in env_keys}}
+
+        # 5) episode-end cuts (terminal: zero bootstrap)
+        ast = emit_done(ast, arrays, prios, seq_meta, first, truncated,
+                        zero_q)
+
+        # 6) episode accounting, env reset, lane reset (VectorActor
+        #    ._reset_lane: fresh obs, zero agent state, vbuf.reset_lane)
+        tr = truncated
+        ast = {**ast,
+               "episodes_d": ast["episodes_d"] + tr.sum(dtype=torch.int32),
+               "reward_d": ast["reward_d"]
+               + torch.where(tr, ast["sum_reward"], 0.0).sum()}
+        env_state = env.reset_lanes(
+            env_state, tr, None if draws is None else draws.get("reset"))
+        obs_reset = env.observe(env_state)
+        tr_obs = tr.reshape((N,) + (1,) * (obs_step.dim() - 1))
+        tr_h = tr[:, None, None, None]
+        obs_next = torch.where(tr_obs, obs_reset, obs_step)
+        ast["buf_obs"][:, 0] = torch.where(tr_obs, obs_reset,
+                                           ast["buf_obs"][:, 0])
+        ast["buf_last_action"][:, 0] = torch.where(
+            tr[:, None], noop, ast["buf_last_action"][:, 0])
+        ast["buf_last_reward"][:, 0] = torch.where(
+            tr, 0.0, ast["buf_last_reward"][:, 0])
+        ast["buf_hidden"][:, 0] = torch.where(tr_h, 0.0,
+                                              ast["buf_hidden"][:, 0])
+        ast = {**ast,
+               "obs": obs_next,
+               "last_action": torch.where(tr[:, None], 0.0,
+                                          ast["last_action"]),
+               "last_reward": torch.where(tr, 0.0, ast["last_reward"]),
+               "hidden": torch.where(tr_h, 0.0, ast["hidden"]),
+               "episode_steps": torch.where(tr, 0, ast["episode_steps"]),
+               "sum_reward": torch.where(tr, 0.0, ast["sum_reward"]),
+               "prefix": torch.where(tr, 0, ast["prefix"]),
+               "size": torch.where(tr, 0, ast["size"]),
+               **{f"env_{k}": env_state[k] for k in env_keys}}
+
+        # 7) deferred boundary cut next step (worker.py block-cut rule)
+        ast["finish_pending"] = ((ast["size"] == BL) & ~tr
+                                 & (ast["episode_steps"]
+                                    < cfg.max_episode_steps))
+
+        trace = dict(pending=pend, q=q, hidden=new_hidden, actions=actions,
+                     reward=reward, truncated=tr, obs_step=obs_step,
+                     obs_next=obs_next)
+        return ast, trace
+
+    return actor_step
+
+
+def _zero_deltas(ast: dict) -> dict:
+    """Per-dispatch counters start at zero, so the returned values ARE the
+    dispatch's deltas — the host accumulates them in Python ints (no
+    device counter can wrap)."""
+    dev = ast["fill"].device
+    return {**ast,
+            "env_steps_d": torch.zeros((), dtype=torch.int32, device=dev),
+            "episodes_d": torch.zeros((), dtype=torch.int32, device=dev),
+            "reward_d": torch.zeros((), dtype=torch.float32, device=dev),
+            "blocks_d": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _stats_vec(ast: dict) -> torch.Tensor:
+    """(5,) float32, ordered as :data:`STATS_FIELDS`."""
+    return torch.stack([ast["env_steps_d"].float(), ast["fill"].float(),
+                        ast["episodes_d"].float(), ast["reward_d"],
+                        ast["blocks_d"].float()])
+
+
+def make_anakin_state(cfg: Config, action_dim: int, env: Any, root: int,
+                      draws: Optional[dict] = None) -> dict:
+    """The fused loop's full device-resident carry, on ``env.device``: the
+    env state (``env.STATE_KEYS``), the batched agent state, the
+    VectorLocalBuffer twin, ring pointer/accounting, and the exploration
+    streams (``act_key`` (N, 2) int64, one stream per lane).  ``root``
+    (a python int) seeds the env and exploration streams; ``draws`` goes
+    to the env's initial reset."""
+    N, A, BL = cfg.num_actors, action_dim, cfg.block_length
+    cap, dev = cfg.max_block_steps, env.device
+    layers, H = cfg.lstm_layers, cfg.hidden_dim
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    env_state = env.init_state(derive(root, 0), draws)
+    obs0 = env.observe(env_state)
+    buf_obs = zeros(N, cap, *cfg.stored_obs_shape, dtype=torch.uint8)
+    buf_obs[:, 0] = obs0
+    buf_la = zeros(N, cap, A, dtype=torch.bool)
+    buf_la[:, 0, 0] = True                    # noop one-hot at stream start
+    ast = dict(
+        **{f"env_{k}": env_state[k] for k in env.STATE_KEYS},
+        obs=obs0,
+        last_action=zeros(N, A),
+        last_reward=zeros(N),
+        hidden=zeros(N, 2, layers, H),
+        buf_obs=buf_obs,
+        buf_last_action=buf_la,
+        buf_last_reward=zeros(N, cap),
+        buf_hidden=zeros(N, cap, 2, layers, H),
+        buf_action=zeros(N, BL, dtype=torch.uint8),
+        buf_reward=zeros(N, BL),
+        buf_qval=zeros(N, BL + 1, A),
+        prefix=zeros(N, dtype=torch.int32),
+        size=zeros(N, dtype=torch.int32),
+        sum_reward=zeros(N),
+        episode_steps=zeros(N, dtype=torch.int32),
+        finish_pending=zeros(N, dtype=torch.bool),
+        act_key=lane_keys(derive(root, 1), N, dev),
+        ptr=zeros(dtype=torch.int32),
+        block_learning_total=zeros(cfg.num_blocks, dtype=torch.int32),
+        fill=zeros(dtype=torch.int32),
+    )
+    return _zero_deltas(ast)
+
+
+def _make_eval_lane(cfg: Config, net: R2D2Network, env: Any,
+                    action_dim: int):
+    """The greedy eval lane: on every ``cfg.anakin_eval_interval``-th
+    dispatch, ONE truncation-length episode per lane with epsilon = 0 from
+    a fresh env state (its stream derived from the dispatch index, so eval
+    episodes are reproducible and never touch the training streams);
+    returns ``(2,)`` f32 ``[episodes, return_sum]`` for the dispatch's
+    result vector — zeros off cadence.  The cadence test is a host-side
+    ``if`` on the python dispatch index (JAX: ``lax.cond``)."""
+    N, A = cfg.num_actors, action_dim
+    layers, H = cfg.lstm_layers, cfg.hidden_dim
+    act_net = _loss_net(net)
+    interval, steps = cfg.anakin_eval_interval, cfg.anakin_episode_len
+    dev = env.device
+    actions_a = torch.arange(A, device=dev)
+
+    def eval_rollout(params, dispatch_idx: int) -> torch.Tensor:
+        est = env.init_state(derive(cfg.seed, _EVAL_SALT, dispatch_idx))
+        obs = env.observe(est)
+        la = torch.zeros((N, A), dtype=torch.float32, device=dev)
+        lr = torch.zeros(N, dtype=torch.float32, device=dev)
+        hidden = torch.zeros((N, 2, layers, H), dtype=torch.float32,
+                             device=dev)
+        ret = torch.zeros(N, dtype=torch.float32, device=dev)
+        done = torch.zeros(N, dtype=torch.bool, device=dev)
+        for _ in range(steps):
+            q, hidden = _act(act_net, params, obs, la, lr, hidden)
+            a = q.argmax(dim=1).int()
+            est, reward, trunc = env.step(est, a)
+            # the truncating step's reward still counts (it ends the
+            # episode); anything after a lane's done flag does not
+            ret = ret + torch.where(done, 0.0, reward)
+            done = done | trunc
+            la = (a[:, None] == actions_a).float()
+            lr = reward
+            obs = env.observe(est)
+        return torch.stack([done.sum().float(), ret.sum()])
+
+    def eval_lane(params, dispatch_idx: int) -> torch.Tensor:
+        if dispatch_idx % interval == 0:
+            return eval_rollout(params, dispatch_idx)
+        return torch.zeros(2, dtype=torch.float32, device=dev)
+
+    return eval_lane
+
+
+def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
+                           action_dim: int):
+    """The fused dispatch: ``k × (E env/actor steps + 1 train step)``.
+    Signature::
+
+        super_step(train_state, ast, arrays, prios, seq_meta, first,
+                   dispatch_idx: int, uniforms=None, draws=None)
+          -> (train_state', ast', arrays, prios, seq_meta, first, flat)
+
+    The ring arrays, ``prios``, ``seq_meta`` and ``first`` are updated in
+    place and returned; the train state's tensors too.  ``flat`` is the
+    k losses, the :data:`STATS_FIELDS` deltas, then the
+    :data:`EVAL_FIELDS` pair when ``cfg.anakin_eval_interval > 0`` — the
+    dispatch's only device→host payload.  The PER uniforms are
+    :func:`sample_uniforms` of (``cfg.seed``, ``dispatch_idx``) unless
+    ``uniforms`` (k, B) is given; ``draws`` (a list of k·E per-step
+    dicts, see :func:`_make_actor_step`) replaces the actor's draws.  The
+    priority feedback is :func:`~r2d2_tpu_torch.learner.step.
+    scatter_last` of ``new_p ** prio_exponent``, as in the in-graph PER
+    super-step."""
+    k, E, B = cfg.superstep_k, cfg.anakin_env_steps_per_update, \
+        cfg.batch_size
+    step = make_train_step(cfg, net)
+    actor_step = _make_actor_step(cfg, net, env, action_dim)
+    eval_lane = (_make_eval_lane(cfg, net, env, action_dim)
+                 if cfg.anakin_eval_interval > 0 else None)
+
+    def super_step(train_state: TrainState, ast, arrays, prios, seq_meta,
+                   first, dispatch_idx: int,
+                   uniforms: Optional[torch.Tensor] = None,
+                   draws: Optional[List[dict]] = None):
+        ast = _zero_deltas(ast)
+        if uniforms is None:
+            uniforms = sample_uniforms(cfg.seed, dispatch_idx, k, B,
+                                       prios.device)
+        losses = []
+        for i in range(k):
+            for e in range(E):
+                ast, _ = actor_step(train_state.params, ast, arrays, prios,
+                                    seq_meta, first,
+                                    None if draws is None
+                                    else draws[i * E + e])
+            idx, w, ints = _in_graph_sample(cfg, uniforms[i], prios,
+                                            seq_meta, first)
+            train_state, loss, new_p = step(
+                train_state, gather_batch(cfg, arrays, ints, w))
+            scatter_last(prios, idx, new_p ** cfg.prio_exponent)
+            losses.append(loss)
+        parts = [torch.stack(losses), _stats_vec(ast)]
+        if eval_lane is not None:
+            parts.append(eval_lane(train_state.params, dispatch_idx))
+        return (train_state, ast, arrays, prios, seq_meta, first,
+                torch.cat(parts))
+
+    return super_step
+
+
+def make_anakin_rollout(cfg: Config, net: R2D2Network, env: Any,
+                        action_dim: int, steps: int):
+    """The warm-up dispatch: ``steps`` env/actor steps with ring/PER
+    writes but NO train step — dispatched until the fill counter reaches
+    ``learning_starts``.  ``rollout(params, ast, arrays, prios, seq_meta,
+    first) -> (ast', arrays, prios, seq_meta, first, stats (5,))``."""
+    actor_step = _make_actor_step(cfg, net, env, action_dim)
+
+    def rollout(params, ast, arrays, prios, seq_meta, first):
+        ast = _zero_deltas(ast)
+        for _ in range(steps):
+            ast, _ = actor_step(params, ast, arrays, prios, seq_meta, first)
+        return ast, arrays, prios, seq_meta, first, _stats_vec(ast)
+
+    return rollout
+
+
+def make_debug_rollout(cfg: Config, net: R2D2Network, env: Any,
+                       action_dim: int, steps: int):
+    """Parity-test harness: like :func:`make_anakin_rollout` but keeps the
+    per-step trace (q, hidden, actions, rewards, cut masks, observations),
+    stacked over the steps, so tests can replay the exact trajectory into
+    the host LocalBuffer oracle, and takes ``draws`` (a list of ``steps``
+    per-step dicts).  ``rollout(params, ast, arrays, prios, seq_meta,
+    first, draws=None) -> ((ast', arrays, prios, seq_meta, first),
+    trace)``."""
+    actor_step = _make_actor_step(cfg, net, env, action_dim)
+
+    def rollout(params, ast, arrays, prios, seq_meta, first, draws=None):
+        traces = []
+        for i in range(steps):
+            ast, tr = actor_step(params, ast, arrays, prios, seq_meta, first,
+                                 None if draws is None else draws[i])
+            traces.append(tr)
+        trace = {key: torch.stack([tr[key] for tr in traces])
+                 for key in traces[0]}
+        return (ast, arrays, prios, seq_meta, first), trace
+
+    return rollout
+
+
+# --------------------------------------------------------------------------
+# the host side: dispatch, harvest, snapshots
+# --------------------------------------------------------------------------
+
+def _np_dtype(t: torch.Tensor) -> np.dtype:
+    return torch.empty(0, dtype=t.dtype).numpy().dtype
+
+
+class AnakinPlane:
+    """Owns the fused loop's device state and its dispatch/harvest cycle.
+
+    The host's job: issue the dispatches, read back the small result
+    vector, and keep Python-int mirrors of the counters.  Every
+    device→host crossing ticks ``HOST_TRANSFERS`` (``anakin.result_fetch``
+    once per dispatch and per rollout; ``anakin.snapshot_fetch`` per
+    full-state snapshot), so the "one fetch per dispatch" claim is an
+    assertable invariant.
+
+    The ring lives in the :class:`DeviceRing` passed in: the fused loop
+    writes its arrays and PER state in place, and the plane stores the
+    handles back after every dispatch (``put_prios``/``put_per_meta``),
+    so the ring object stays the single owner.  Everything runs on one
+    stream from one thread; a snapshot runs only with no dispatch in
+    flight (``run_anakin_loop`` drains first)."""
+
+    def __init__(self, cfg: Config, net: R2D2Network, action_dim: int,
+                 ring: Any, start_env_steps: int = 0):
+        if not getattr(cfg, "in_graph_per", False):
+            raise ValueError("the anakin plane requires in_graph_per=True "
+                             "(train._train_anakin flips it on)")
+        if cfg.num_blocks < cfg.num_actors:
+            raise ValueError(
+                f"anakin needs num_blocks ({cfg.num_blocks}) >= num_actors "
+                f"({cfg.num_actors}): every lane may cut a block in the "
+                "same step, and every lane writes a distinct slot")
+        if cfg.anakin_episode_len > cfg.max_episode_steps:
+            raise ValueError(
+                f"anakin_episode_len ({cfg.anakin_episode_len}) must be "
+                f"<= max_episode_steps ({cfg.max_episode_steps}): the "
+                "fused loop relies on truncation firing before the "
+                "episode-step cap (the cap path needs a second forward "
+                "the fused loop does not run)")
+        self.cfg = cfg
+        self.ring = ring
+        self.action_dim = action_dim
+        self._eval = cfg.anakin_eval_interval > 0
+        self.monitor = None
+        self.env = make_anakin_env(cfg, action_dim, device=ring.device)
+        # the env/exploration root: two salts, a derivation distinct from
+        # the PER sampler's and the eval lane's (JAX: a double fold_in)
+        self.state = make_anakin_state(
+            cfg, action_dim, self.env, derive(cfg.seed, _PLANE_SALT, 1))
+        self.super_step = make_anakin_super_step(cfg, net, self.env,
+                                                 action_dim)
+        self.roll_steps = cfg.superstep_k * cfg.anakin_env_steps_per_update
+        self.rollout = make_anakin_rollout(cfg, net, self.env, action_dim,
+                                           steps=self.roll_steps)
+        self._frames_per_dispatch = self.roll_steps * cfg.num_actors
+
+        # host-int counter mirrors (absolute; deltas arrive per dispatch).
+        # The lock covers them: the dispatch thread folds deltas in while
+        # the log thread's stats() reads and resets the interval
+        # accumulators (ReplayBuffer.stats' contract)
+        self._stats_lock = threading.Lock()
+        self.env_steps = int(start_env_steps)
+        self.fill = 0
+        self.frames = 0
+        self.super_steps = 0
+        self.blocks = 0
+        self.episodes_total = 0
+        self.reward_total = 0.0
+        self.training_steps = 0
+        self.dispatch_no = 0
+        # the greedy eval lane: totals accumulate across resumes,
+        # last_eval_return is the latest eval dispatch's mean return
+        self.eval_episodes_total = 0
+        self.eval_return_total = 0.0
+        self.last_eval_return = float("nan")
+        self._interval_episodes = 0
+        self._interval_reward = 0.0
+        self._interval_loss = 0.0
+        self._interval_eval_episodes = 0
+
+    # ----------------------------------------------------------- dispatch
+    def _handles(self):
+        meta = self.ring.per_meta()
+        return (self.ring.snapshot(), self.ring.take_prios(),
+                meta["seq_meta"], meta["first"])
+
+    def _store(self, arrays, prios, seq_meta, first) -> None:
+        self.ring.arrays = arrays
+        self.ring.put_prios(prios)
+        self.ring.put_per_meta(seq_meta, first)
+
+    def rollout_step(self, params) -> None:
+        """One warm-up dispatch (env/actor/ring-write only), harvested at
+        once — the fill counter gates the switch to training."""
+        ast, arrays, prios, seq_meta, first, stats = self.rollout(
+            params, self.state, *self._handles())
+        self.state = ast
+        self._store(arrays, prios, seq_meta, first)
+        with self._stats_lock:
+            self.frames += self._frames_per_dispatch
+        result = _Result(stats)
+        with HOST_TRANSFERS.allowed("anakin.result_fetch"):
+            stats_np = result.fetch()
+        self._absorb(stats_np)
+
+    def dispatch(self, train_state: TrainState):
+        """One fused super-step dispatch.  Returns ``(train_state',
+        result)``, the result's device→host copy already started — harvest
+        it later (pipelined) with :meth:`harvest`."""
+        idx = self.dispatch_no & 0xFFFFFFFF
+        self.dispatch_no += 1
+        train_state, ast, arrays, prios, seq_meta, first, flat = (
+            self.super_step(train_state, self.state, *self._handles(), idx))
+        self.state = ast
+        self._store(arrays, prios, seq_meta, first)
+        with self._stats_lock:
+            self.frames += self._frames_per_dispatch
+            self.super_steps += 1
+        return train_state, _Result(flat)
+
+    def harvest(self, result: _Result) -> np.ndarray:
+        """Fetch one dispatch's result vector — the loop's only recurring
+        device→host crossing — and fold its deltas into the host
+        counters.  Returns the k inner-step losses."""
+        with HOST_TRANSFERS.allowed("anakin.result_fetch"):
+            v = result.fetch()
+        k = self.cfg.superstep_k
+        losses = v[:k]
+        stats = v[k:k + len(STATS_FIELDS)]
+        off = k + len(STATS_FIELDS)
+        if self._eval:
+            ep, rsum = float(v[off]), float(v[off + 1])
+            if ep > 0:
+                with self._stats_lock:
+                    self.eval_episodes_total += int(ep)
+                    self.eval_return_total += rsum
+                    self.last_eval_return = rsum / ep
+                    self._interval_eval_episodes += int(ep)
+        if self.monitor is not None:
+            # the monitor owns non-finite handling (a clean fabric stop
+            # and the nonfinite alert)
+            self.monitor.note_losses(losses)
+        else:
+            assert np.isfinite(losses).all(), (
+                f"non-finite loss in anakin super-step: {losses}")
+        self._absorb(stats)
+        with self._stats_lock:
+            self.training_steps += k
+            self._interval_loss += float(losses.sum())
+        return losses
+
+    def _absorb(self, s: np.ndarray) -> None:
+        d = dict(zip(STATS_FIELDS, s.tolist()))
+        with self._stats_lock:
+            self.env_steps += int(d["env_steps"])
+            self.fill = int(d["fill"])
+            self.blocks += int(d["blocks"])
+            self.episodes_total += int(d["episodes"])
+            self.reward_total += float(d["reward_sum"])
+            self._interval_episodes += int(d["episodes"])
+            self._interval_reward += float(d["reward_sum"])
+
+    @property
+    def ready(self) -> bool:
+        return self.fill >= self.cfg.learning_starts
+
+    def stats(self) -> Dict[str, float]:
+        """ReplayBuffer.stats()-shaped snapshot for the log loop (the
+        interval accumulators reset on read, like the buffer's)."""
+        with self._stats_lock:
+            out = dict(size=self.fill, env_steps=self.env_steps,
+                       training_steps=self.training_steps,
+                       num_episodes=self._interval_episodes,
+                       episode_reward=self._interval_reward,
+                       sum_loss=self._interval_loss,
+                       frames=self.frames, super_steps=self.super_steps,
+                       blocks=self.blocks,
+                       episodes_total=self.episodes_total,
+                       eval_episodes=self.eval_episodes_total,
+                       interval_eval_episodes=self._interval_eval_episodes,
+                       eval_return=self.last_eval_return)
+            self._interval_episodes = 0
+            self._interval_reward = 0.0
+            self._interval_loss = 0.0
+            self._interval_eval_episodes = 0
+        return out
+
+    # ----------------------------------------------------------- snapshot
+    _COUNTER_FIELDS = ("env_steps", "fill", "frames", "super_steps",
+                       "blocks", "episodes_total", "reward_total",
+                       "training_steps", "dispatch_no",
+                       "eval_episodes_total", "eval_return_total")
+
+    def _payload_tensors(self) -> Dict[str, torch.Tensor]:
+        arrays, prios, seq_meta, first = self._handles()
+        out = {f"state_{k}": v for k, v in self.state.items()}
+        out.update({f"ring_{k}": v for k, v in arrays.items()})
+        out.update(per_prios=prios, per_seq_meta=seq_meta, per_first=first)
+        return out
+
+    def _payload(self) -> Dict[str, np.ndarray]:
+        """Host copies of the ENTIRE on-device loop state — the anakin
+        carry (env state and streams, agent obs/LSTM carry, local
+        buffers), the ring arrays and the PER leaves and metadata — under
+        the JAX package's names.  Call only with no dispatch in flight."""
+        with HOST_TRANSFERS.allowed("anakin.snapshot_fetch"):
+            return {k: v.cpu().numpy()
+                    for k, v in self._payload_tensors().items()}
+
+    def write_state(self, path: str) -> Dict[str, Any]:
+        """Serialise the full loop state into ``path`` (the
+        ``Checkpointer.save_replay`` writer contract).  Returns the
+        JSON-able meta :meth:`read_state` validates against."""
+        flat = self._payload()
+        with open(path, "wb") as f:  # file handle: savez must not append .npz
+            np.savez(f, **flat)
+        return dict(
+            kind="anakin",
+            layout=[[k, list(v.shape), v.dtype.name]
+                    for k, v in sorted(flat.items())],
+            counters={k: getattr(self, k) for k in self._COUNTER_FIELDS},
+        )
+
+    def read_state(self, path: str, meta: Dict[str, Any]) -> None:
+        """Restore the state :meth:`write_state` captured.  Raises
+        ``ValueError`` on a geometry or layout mismatch — another config,
+        or a snapshot the JAX package wrote (its stream keys are uint32,
+        these int64) — and the caller warns and resumes cold.  The ring
+        arrays are overwritten in place (never reallocated)."""
+        if meta.get("kind") != "anakin":
+            raise ValueError("snapshot is not an anakin loop snapshot")
+        with np.load(path) as z:
+            flat = {k: z[k] for k in z.files}
+        want = [[k, list(v.shape), v.dtype.name]
+                for k, v in sorted(flat.items())]
+        have = [[k, list(v.shape), _np_dtype(v).name]
+                for k, v in sorted(self._payload_tensors().items())]
+        if want != have:
+            raise ValueError(
+                "anakin snapshot layout mismatch — written under a "
+                "different config geometry (or by another package); "
+                "resuming cold")
+        dev = self.ring.device
+        self.state = {k[len("state_"):]: torch.from_numpy(v).to(dev)
+                      for k, v in flat.items() if k.startswith("state_")}
+        with torch.no_grad():
+            for k, v in flat.items():
+                if k.startswith("ring_"):
+                    self.ring.arrays[k[len("ring_"):]].copy_(
+                        torch.from_numpy(v))
+        self.ring.put_prios(torch.from_numpy(flat["per_prios"]).to(dev))
+        self.ring.put_per_meta(
+            torch.from_numpy(flat["per_seq_meta"]).to(dev),
+            torch.from_numpy(flat["per_first"]).to(dev))
+        c = meta.get("counters", {})
+        for k in self._COUNTER_FIELDS:
+            if k in c:
+                setattr(self, k, type(getattr(self, k))(c[k]))
+
+
+def run_anakin_loop(learner: Any, plane: AnakinPlane,
+                    stop: Optional[Any] = None, tracer: Optional[Any] = None,
+                    max_steps: Optional[int] = None,
+                    snapshot_fn: Optional[Any] = None,
+                    chaos: Optional[Any] = None) -> Dict[str, Any]:
+    """The anakin drivetrain: warm-up rollouts until the ring fill passes
+    ``learning_starts``, then pipelined fused super-steps (up to
+    ``cfg.superstep_pipeline`` in flight beyond the one harvested) with
+    the device drivetrains' checkpoint cadence (updates advance by k per
+    dispatch).  ``snapshot_fn(step)``, when given, is called at
+    ``cfg.replay_snapshot_interval``-second crossings ON this thread,
+    after draining the pipeline (a snapshot needs no dispatch in flight).
+    Returns summary metrics incl. the full per-update loss curve.
+
+    ``cfg.dispatch_deadline`` (> 0) bounds each harvest — the loop's one
+    blocking device wait — by fetching on a helper thread with a bounded
+    join, so a device wait that never returns cannot hang the loop.  Two
+    wedge grades, both ending in a clean abort
+    (``metrics["dispatch_wedged"]``):
+
+    - *slow* (the fetch completed but blew the budget; it gets one extra
+      budget of grace): drain the pipeline, write a full resumable
+      snapshot via ``snapshot_fn``, abort;
+    - *hard* (the fetch did not return within twice the budget; the chaos
+      ``wedge_dispatch`` site drills this by stalling the fetch thread):
+      abandon the fetch thread, skip the drain (it would block on the
+      same device), attempt the snapshot on a BOUNDED helper thread, and
+      abort; if even that times out, the last periodic snapshot remains
+      the resume point."""
+    cfg = learner.cfg
+    tracer = tracer or Tracer()
+    k = cfg.superstep_k
+    t0 = time.time()
+    updates = learner.num_updates
+    target = cfg.training_steps if max_steps is None else updates + max_steps
+    losses_all: list = []
+    pending: deque = deque()
+    last_snap = time.time()
+    wedged = False
+    hard_wedged = False
+    abandoned = threading.Event()   # set when a hard wedge walks away
+
+    def harvest_one() -> None:
+        nonlocal wedged, hard_wedged
+        result = pending.popleft()
+
+        def fetch():
+            # the chaos stall lives INSIDE the fetch, so the drill runs
+            # the real hard-wedge path: a device wait that does not come
+            # back within the budget
+            if chaos is not None:
+                stall = chaos.dispatch_wedge_seconds()
+                if stall > 0:
+                    log.warning("chaos: wedging the anakin dispatch "
+                                "harvest for %.1fs", stall)
+                    time.sleep(stall)
+            if abandoned.is_set():
+                # the loop declared a hard wedge and may be mid-snapshot:
+                # a late harvest would fold this dispatch's counters into
+                # state the snapshot thread is reading
+                return None
+            return plane.harvest(result)
+
+        if cfg.dispatch_deadline <= 0:           # unbounded: fetch inline
+            losses_all.extend(fetch().tolist())
+            return
+        budget = Deadline(cfg.dispatch_deadline)
+        box: list = []
+
+        def run():
+            try:
+                box.append(("ok", fetch()))
+            except BaseException as e:           # re-raised on the loop
+                box.append(("err", e))
+
+        # a bounded-join fetch, abandoned on a hard wedge by design: a
+        # supervised restart would block on the same dead device again
+        t = threading.Thread(target=run, name="anakin-harvest", daemon=True)
+        t.start()
+        t.join(budget.remaining())
+        if t.is_alive():
+            # over budget: one extra budget of grace, so that a slow but
+            # completing fetch lands in the slow grade below
+            t.join(cfg.dispatch_deadline)
+        if t.is_alive():
+            log.error(
+                "anakin dispatch harvest exceeded its %.1fs budget and "
+                "has not returned after as much grace — treating the "
+                "device as hard-wedged: abandoning the fetch, "
+                "best-effort snapshot, aborting cleanly (resume with "
+                "--resume)", cfg.dispatch_deadline)
+            abandoned.set()
+            wedged = hard_wedged = True
+            return
+        tag, val = box[0]
+        if tag == "err":
+            raise val
+        losses_all.extend(val.tolist())
+        if budget.expired:
+            log.error(
+                "anakin dispatch harvest took %.1fs (budget %.1fs) — "
+                "treating the device as wedged: draining, snapshotting "
+                "and aborting cleanly (resume with --resume)",
+                budget.elapsed(), cfg.dispatch_deadline)
+            wedged = True
+
+    while updates < target and not wedged:
+        if stop is not None and stop():
+            break
+        if not plane.ready:
+            with tracer.span("anakin.rollout_dispatch"):
+                plane.rollout_step(learner.state.params)
+            continue
+        with tracer.span("learner.step_dispatch"):
+            learner.state, result = plane.dispatch(learner.state)
+        pending.append(result)
+        while len(pending) > cfg.superstep_pipeline and not wedged:
+            with tracer.span("learner.result_sync"):
+                harvest_one()
+
+        prev, updates = updates, updates + k
+        if (learner.checkpointer is not None
+                and updates // cfg.save_interval
+                > prev // cfg.save_interval):
+            learner.env_steps = plane.env_steps
+            with tracer.span("learner.checkpoint_save"):
+                learner._save(updates, t0)
+        if (snapshot_fn is not None
+                and cfg.replay_snapshot_interval > 0
+                and time.time() - last_snap
+                > cfg.replay_snapshot_interval):
+            while pending and not hard_wedged:
+                harvest_one()   # snapshots need no dispatch in flight
+            if not hard_wedged:
+                snapshot_fn(updates)
+                last_snap = time.time()
+    while pending and not hard_wedged:
+        harvest_one()
+    if wedged and snapshot_fn is not None:
+        # the clean abort's resumable artifact.  On a HARD wedge the
+        # snapshot reads device handles and can block on the same dead
+        # device: bound the attempt (if it times out, the last periodic
+        # snapshot stays the resume point)
+        if not hard_wedged:
+            snapshot_fn(updates)
+        else:
+            _bounded(lambda: snapshot_fn(updates), "anakin-wedge-snap",
+                     max(10.0, 10.0 * cfg.dispatch_deadline),
+                     "hard-wedge snapshot")
+
+    learner.env_steps = plane.env_steps
+    if hard_wedged:
+        # the epilogue's final checkpoint save reads params from the same
+        # wedged device: bounded like the snapshot above
+        box: dict = {}
+
+        def fin():
+            box["metrics"] = learner._finish_device_run(losses_all[-100:],
+                                                        t0)
+
+        _bounded(fin, "anakin-wedge-fin",
+                 max(10.0, 10.0 * cfg.dispatch_deadline),
+                 "hard-wedge final save")
+        metrics = box.get("metrics") or dict(
+            num_updates=learner.num_updates,
+            env_steps=learner.env_steps,
+            minutes=learner.start_minutes + (time.time() - t0) / 60.0,
+            mean_loss=(float(np.mean(losses_all[-100:]))
+                       if losses_all else float("nan")))
+    else:
+        metrics = learner._finish_device_run(losses_all[-100:], t0)
+    metrics["losses"] = losses_all
+    metrics["dispatch_wedged"] = wedged
+    metrics["env_steps"] = plane.env_steps
+    metrics["anakin_frames"] = plane.frames
+    metrics["anakin_super_steps"] = plane.super_steps
+    metrics["episodes"] = plane.episodes_total
+    metrics["mean_episode_return"] = (
+        plane.reward_total / plane.episodes_total
+        if plane.episodes_total else float("nan"))
+    metrics["eval_episodes"] = plane.eval_episodes_total
+    metrics["mean_eval_return"] = (
+        plane.eval_return_total / plane.eval_episodes_total
+        if plane.eval_episodes_total else float("nan"))
+    return metrics
+
+
+def _bounded(fn, name: str, seconds: float, what: str) -> None:
+    """Run ``fn`` on a daemon thread and wait at most ``seconds`` — one
+    best-effort step of a hard-wedge abort, with nothing to supervise
+    after it."""
+    done = threading.Event()
+
+    def run():
+        try:
+            fn()
+            done.set()
+        except Exception:
+            log.exception("%s failed", what)
+
+    t = threading.Thread(target=run, name=name, daemon=True)
+    t.start()
+    t.join(seconds)
+    if not done.is_set():
+        log.error("%s did not complete in time — aborting without it", what)

@@ -361,6 +361,19 @@ def _in_graph_sample(cfg: Config, u: torch.Tensor, prios: torch.Tensor,
     return idx, w.float(), ints
 
 
+def scatter_last(leaves: torch.Tensor, idx: torch.Tensor,
+                 vals: torch.Tensor) -> None:
+    """``leaves[idx] = vals`` in place, where an index drawn more than once
+    takes the value of its last occurrence.  Every write to one leaf then
+    carries the same value, so the result does not depend on which of the
+    card's threads lands last: the scatter is deterministic, and equal to
+    the sequential (CPU) order."""
+    same = idx[:, None] == idx[None, :]
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    last = torch.where(same, pos[None, :], -1).amax(dim=1)
+    leaves[idx] = vals[last]
+
+
 def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int):
     """``k`` steps with device-side PER: sample → gather → step → priority
     scatter, k times, with no host round trip.  Step j+1 samples from the
@@ -369,8 +382,9 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int):
     Signature: ``super_step(state, arrays, prios (NB*K,) f32, seq_meta
     (NB,K,3) i32, first_burn (NB,) i32, generator=None, uniforms=None) ->
     (state, prios, losses (k,))``.  ``prios`` is updated in place
-    (``prios[idx] = new_p ** prio_exponent``; which write wins at a
-    duplicated index is unspecified, as with JAX's ``.at[idx].set``).  The
+    (``prios[idx] = new_p ** prio_exponent``; at a duplicated index the
+    last write wins, :func:`scatter_last` — JAX's ``.at[idx].set`` leaves
+    it unspecified).  The
     uniforms are ``uniforms`` (k, B) when given — the tests feed JAX's own
     draws — else drawn from ``generator`` on ``prios``' device.  The caller
     holds the buffer lock for the whole call, so no actor commit lands
@@ -392,7 +406,7 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int):
             batch = gather_batch(cfg, arrays, ints, w)
             state, loss, new_p = step(state, batch)
             # feedback: the exponent the host tree applies (sum_tree.py)
-            prios[idx] = new_p ** cfg.prio_exponent
+            scatter_last(prios, idx, new_p ** cfg.prio_exponent)
             losses.append(loss)
         return state, prios, torch.stack(losses)
 

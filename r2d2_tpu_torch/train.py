@@ -1,6 +1,7 @@
 """Training: the threaded fabric and the deterministic single-thread trainer.
 
-Port of the single-device, thread-transport subset of ``r2d2_tpu/train.py``:
+Port of the single-device, thread- and anakin-transport subset of
+``r2d2_tpu/train.py``:
 
 - ``_build``: envs, network, train state with an optional resume, the
   device-resident replay ring when ``cfg.device_replay`` (falling back to
@@ -18,7 +19,9 @@ Port of the single-device, thread-transport subset of ``r2d2_tpu/train.py``:
   learner on the calling thread, all but the learner under the
   supervisor — with drain-then-save and replay snapshots;
 - ``train_sync``: the deterministic interleaving of the same components
-  (the integration tests' and the debugger's loop).
+  (the integration tests' and the debugger's loop);
+- ``_train_anakin``: ``actor_transport="anakin"``, the fused on-device
+  loop (learner/anakin.py) on the same scaffold, with full-state resume.
 
 The learner runs on ``device`` (default: the CUDA device; raises without
 one).  Acting runs where ``cfg.act_device`` says (``actor.
@@ -80,11 +83,12 @@ log = logging.getLogger(__name__)
 
 EnvFactory = Callable[[Config, int], Any]
 
-# chaos sites train() fires; every other kind belongs to a plane the port
-# has not ported yet, named here by its ROADMAP.md item
-CHAOS_SITES = ("truncate_ckpt", "freeze_learner", "poison_params")
+# chaos sites train() fires (wedge_dispatch only in the anakin transport);
+# every other kind belongs to a plane the port has not ported yet, named
+# here by its ROADMAP.md item
+CHAOS_SITES = ("truncate_ckpt", "freeze_learner", "poison_params",
+               "wedge_dispatch")
 _UNPORTED_CHAOS = {
-    "wedge_dispatch": "item 6 (anakin)",
     "kill_fleet": "item 8 (process planes)",
     "garble_block": "item 8 (process planes)",
     "freeze_service": "item 8 (process planes)",
@@ -133,9 +137,6 @@ def check_unported(cfg: Config, use_mesh: bool = False) -> None:
         (bool(cfg.population_spec),
          "population_spec (the population plane) waits for ROADMAP.md A "
          "item 9"),
-        (cfg.actor_transport == "anakin",
-         "actor_transport='anakin' (the fused on-device loop) waits for "
-         "ROADMAP.md A item 6"),
         (cfg.actor_transport == "process",
          "actor_transport='process' (subprocess fleets) waits for "
          "ROADMAP.md A item 8"),
@@ -509,6 +510,234 @@ def train_sync(cfg: Config, env_factory: EnvFactory = _default_env_factory,
 
 
 # --------------------------------------------------------------------------
+# anakin trainer: the fused on-device loop (learner/anakin.py)
+# --------------------------------------------------------------------------
+
+def _train_anakin(cfg: Config, checkpoint_dir: Optional[str] = None,
+                  resume: bool = False,
+                  max_wall_seconds: Optional[float] = None,
+                  verbose: bool = True,
+                  log_sink: Optional[Callable[[Dict[str, Any]], None]] = None,
+                  tracer: Optional[Tracer] = None,
+                  profile_dir: Optional[str] = None,
+                  stop_fn: Optional[Callable[[], bool]] = None,
+                  device=None) -> Dict[str, Any]:
+    """``actor_transport="anakin"``: the whole training loop — batched
+    device env, device actor, device replay writes, train steps — runs on
+    the device, issued dispatch by dispatch from this thread
+    (learner/anakin.py).  The host reads a (k + 5)-float result vector
+    back per dispatch; there are no actor, sample or priority threads.
+
+    What carries over from the threaded fabric: the telemetry plane (the
+    registry, the JSONL run log, the HTTP exporter and the console line),
+    SIGTERM/SIGINT drain-then-save with full-state resume (the snapshot
+    holds the ENTIRE on-device loop state: ring, PER leaves, env state
+    and streams, the agents' LSTM carry, the local buffers — ``resume``
+    continues bit-exact), the heartbeat watchdog, ``/healthz`` and the
+    checkpoint cadence.  Chaos: the ``wedge_dispatch`` site stalls one
+    dispatch's harvest, and ``cfg.dispatch_deadline`` (> 0) turns a
+    dispatch that blows its budget into a snapshot-then-clean-abort
+    (``metrics["dispatch_wedged"]``).  The mesh waits for ROADMAP.md A
+    item 7 (:func:`check_unported`)."""
+    from r2d2_tpu_torch.learner.anakin import AnakinPlane, run_anakin_loop
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing
+
+    if cfg.game_name != "Fake":
+        warnings.warn(
+            f"anakin transport needs a device env; substituting the "
+            f"{cfg.anakin_env!r} device env for {cfg.game_name!r} "
+            "(cfg.anakin_env selects it)", stacklevel=3)
+    # the fused loop IS device replay with in-graph PER: flip the flags
+    # so the ring/PER state and the train step build as the in_graph_per
+    # drivetrain's (the effective-config pattern)
+    cfg = cfg.replace(device_replay=True, in_graph_per=True)
+    device = resolve_device(device)
+    action_dim = 4  # both anakin envs' action set (envs/anakin.py)
+    net = create_network(cfg, action_dim, device=device,
+                         generator=torch.Generator().manual_seed(cfg.seed))
+    state = create_train_state(cfg, net.state_dict())
+    checkpointer = (Checkpointer(checkpoint_dir, keep=cfg.keep_checkpoints)
+                    if checkpoint_dir else None)
+    start_env_steps, start_minutes = 0, 0.0
+    if (checkpointer is not None and resume
+            and checkpointer.latest_step() is not None):
+        check_arch_compat(cfg, checkpointer.peek_meta())
+        state, meta = checkpointer.restore()
+        start_env_steps = int(meta.get("env_steps", 0))
+        start_minutes = float(meta.get("minutes", 0.0))
+
+    ring = DeviceRing(cfg, action_dim, device=device)
+    # no ParamStore: the fused loop acts on the current params on the
+    # device, and nothing else reads published snapshots in this mode
+    learner = Learner(cfg, net, state, checkpointer=checkpointer,
+                      start_env_steps=start_env_steps,
+                      start_minutes=start_minutes)
+    plane = AnakinPlane(cfg, net, action_dim, ring,
+                        start_env_steps=start_env_steps)
+
+    restored_anakin = False
+    if checkpointer is not None and resume:
+        rep = checkpointer.restore_replay()
+        if rep is not None:
+            meta_r, ring_path, _ = rep
+            if meta_r.get("kind") == "anakin":
+                try:
+                    plane.read_state(ring_path, meta_r)
+                    restored_anakin = True
+                except (ValueError, OSError) as e:
+                    warnings.warn(f"anakin snapshot not restored: {e}",
+                                  stacklevel=3)
+            else:
+                warnings.warn(
+                    "a replay snapshot exists but it is not an anakin "
+                    "loop snapshot (different transport) — resuming with "
+                    "a cold ring", stacklevel=3)
+
+    tracer = tracer or Tracer()
+    scaffold = _HostScaffold(
+        cfg, checkpoint_dir, max_wall_seconds=max_wall_seconds,
+        signal_msg="draining the anakin loop, then saving full "
+                   "on-device state",
+        watch_label="anakin loop", stop_fn=stop_fn)
+    telemetry, supervisor = scaffold.telemetry, scaffold.supervisor
+    heartbeat, stall, logs = (scaffold.heartbeat, scaffold.stall,
+                              scaffold.logs)
+    stop = scaffold.stop
+    # learnhealth: the plane's harvests feed the monitor; a non-finite
+    # loss fires the nonfinite alert and trips scaffold.stop
+    plane.monitor = scaffold.learnhealth
+    chaos = None
+    if cfg.chaos_spec:
+        from r2d2_tpu_torch.utils.chaos import ChaosInjector
+
+        # wedge_dispatch and truncate_ckpt fire here; the other armed
+        # kinds never reach an opportunity in this transport
+        chaos = ChaosInjector(cfg.chaos_spec, seed=cfg.seed)
+        if checkpointer is not None:
+            checkpointer.chaos = chaos
+    scaffold.install_signals()
+
+    def learner_stop() -> bool:
+        heartbeat.beat()
+        return stop()
+
+    def healthz() -> Dict[str, Any]:
+        age = heartbeat.age()
+        stale = (cfg.learner_stall_timeout > 0
+                 and age > cfg.learner_stall_timeout)
+        ok = not (supervisor.any_failed or stall["stalled"] or stale)
+        # the nonfinite alert is the one learnhealth signal that degrades
+        # /healthz: the checkpoint stream is numerically suspect
+        degraded = ok and scaffold.alerts.nonfinite_active
+        return dict(ok=ok, degraded=degraded,
+                    status=("failing" if not ok
+                            else "degraded" if degraded else "ok"),
+                    learner_heartbeat_age=age,
+                    learner_stalled=stall["stalled"] or stale,
+                    threads=supervisor.health())
+
+    def log_loop():
+        last_steps, last_frames, last_time = 0, 0, time.time()
+        while not stop():
+            time.sleep(min(cfg.log_interval, 0.5))
+            now = time.time()
+            if now - last_time < cfg.log_interval:
+                continue
+            s = plane.stats()
+            dt = now - last_time
+            entry = dict(
+                time=now, buffer_size=s["size"], env_steps=s["env_steps"],
+                training_steps=s["training_steps"],
+                updates_per_sec=(s["training_steps"] - last_steps) / dt,
+                mean_episode_return=(s["episode_reward"] / s["num_episodes"]
+                                     if s["num_episodes"] else float("nan")),
+                mean_loss=(s["sum_loss"]
+                           / max(1, s["training_steps"] - last_steps)),
+                interval_episodes=s["num_episodes"],
+                trace=tracer.snapshot(),
+                health=supervisor.health(),
+                learner_heartbeat_age=heartbeat.age(),
+                telemetry_port=telemetry.port,
+                anakin=dict(super_steps=s["super_steps"],
+                            frames=s["frames"],
+                            frames_per_sec=(s["frames"] - last_frames) / dt,
+                            blocks=s["blocks"],
+                            episodes_total=s["episodes_total"],
+                            eval_episodes=s["eval_episodes"],
+                            eval_return=s["eval_return"]),
+            )
+            if chaos is not None:
+                entry["chaos"] = chaos.counts()
+            # the anakin PER leaves live on the device (no host tree to
+            # walk), so no replay data-health here
+            scaffold.record_learnhealth(entry)
+            logs.append(entry)
+            telemetry.record(entry)
+            if log_sink is not None:
+                log_sink(entry)
+            if verbose:
+                print(format_entry(entry), flush=True)
+            last_steps, last_frames, last_time = (
+                s["training_steps"], s["frames"], now)
+
+    want_full_save = checkpointer is not None and cfg.replay_snapshot
+
+    def save_anakin_snapshot(step: int) -> None:
+        """Persist the ENTIRE on-device loop state through the atomic
+        replay-snapshot machinery — what ``resume`` restores through
+        ``plane.read_state``."""
+        try:
+            checkpointer.save_replay(step, plane.write_state)
+        except Exception as e:  # never fail the run over snapshot I/O
+            log.warning("anakin full-state snapshot failed: %s", e)
+
+    loops = ([("log", log_loop)] + scaffold.watch_loops()
+             + scaffold.exporter_loops(healthz))
+    try:
+        try:
+            scaffold.start(loops)
+            with device_profile(profile_dir):
+                metrics = run_anakin_loop(
+                    learner, plane, stop=learner_stop, tracer=tracer,
+                    snapshot_fn=(save_anakin_snapshot if want_full_save
+                                 else None), chaos=chaos)
+        finally:
+            # the final health verdict BEFORE the quiesce (post-quiesce
+            # the heartbeat stops, and the epilogue snapshot below can
+            # outlast the stall budget)
+            try:
+                final_health = healthz()
+            except Exception:
+                final_health = {}
+            scaffold.quiesce()
+
+        # drain-then-save: the learner state was saved by the loop's
+        # epilogue; persist the on-device loop state next to it.  A
+        # wedged abort already parked its snapshot inside the loop
+        # (bounded, on a hard wedge) — saving again here would read the
+        # wedged device unbounded on this thread
+        if want_full_save and not metrics.get("dispatch_wedged"):
+            save_anakin_snapshot(learner.num_updates)
+
+        metrics.update(buffer_size=plane.fill, logs=list(logs),
+                       buffer_training_steps=plane.training_steps,
+                       final_params=learner.state.params,
+                       restored_replay=restored_anakin,
+                       learner_stalled=stall["stalled"],
+                       trace=tracer.snapshot(), health=supervisor.health(),
+                       telemetry_port=telemetry.port,
+                       fabric_failed=supervisor.any_failed,
+                       learnhealth=scaffold.learnhealth.snapshot(),
+                       alerts=scaffold.alerts.counts(),
+                       healthz=final_health)
+        if chaos is not None:
+            metrics["chaos"] = chaos.counts()
+        return metrics
+    finally:
+        scaffold.close()
+
+
+# --------------------------------------------------------------------------
 # threaded fabric trainer (the reference's process topology, thread-native)
 # --------------------------------------------------------------------------
 
@@ -523,7 +752,9 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
           stop_fn: Optional[Callable[[], bool]] = None,
           device=None) -> Dict[str, Any]:
     """The full concurrent system (the reference's ``train()`` for
-    ``actor_transport="thread"`` on the host ring, one device).
+    ``actor_transport="thread"`` on the host ring, one device), or, for
+    ``actor_transport="anakin"``, the fused on-device loop
+    (:func:`_train_anakin`).
 
     With ``cfg.device_replay`` the replay data lives on the card and the
     learner drives ``Learner.run_device``: it samples index bundles itself
@@ -564,6 +795,26 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     ``minutes``, ``mean_loss``) plus the JAX package's fabric keys.
     """
     check_unported(cfg, use_mesh)
+    if cfg.actor_transport == "anakin":
+        # the fused on-device loop (learner/anakin.py): env, actor, replay
+        # and learner run on the device — none of the thread fabric below
+        # applies
+        if env_factory is not _default_env_factory:
+            # a hard error, not a warning: host env factories cannot run
+            # inside the fused loop, and a silent fallback would hide it
+            raise ValueError(
+                "anakin transport cannot run a host env_factory — the env "
+                "must be batched device ops.  Select one with "
+                "cfg.anakin_env ('fake' or 'grid'), or implement the "
+                "envs/anakin.py four-method surface "
+                "(init_state/observe/step/reset_lanes + STATE_KEYS) and "
+                "register it in make_anakin_env")
+        return _train_anakin(cfg, checkpoint_dir=checkpoint_dir,
+                             resume=resume,
+                             max_wall_seconds=max_wall_seconds,
+                             verbose=verbose, log_sink=log_sink,
+                             tracer=tracer, profile_dir=profile_dir,
+                             stop_fn=stop_fn, device=device)
     sys = _build(cfg, env_factory, checkpoint_dir, resume, device=device)
     cfg = sys["cfg"]     # the effective config (in_graph_per may be off)
     actors: List[VectorActor] = sys["actors"]

@@ -45,6 +45,15 @@ class Deadline:
     def expired(self) -> bool:
         return self.budget > 0 and time.monotonic() - self._t0 > self.budget
 
+    def elapsed(self) -> float:
+        return time.monotonic() - self._t0
+
+    def remaining(self, default: float = float("inf")) -> float:
+        """Seconds left (0 once expired); ``default`` when unbounded."""
+        if self.budget <= 0:
+            return default
+        return max(0.0, self.budget - (time.monotonic() - self._t0))
+
 
 class CircuitBreaker:
     """closed → open → half-open failure gate (module docstring).

@@ -5,11 +5,15 @@ are numpy copies of ``r2d2_tpu``'s; the same inputs and the same rng
 seeds must give identical arrays.  Mirrors tests/test_math.py,
 test_sum_tree.py, test_local_buffer.py and test_replay_buffer.py.
 """
+import warnings
+
 import numpy as np
 import pytest
 
+from r2d2_tpu.config import Config as JaxConfig
 from r2d2_tpu.config import test_config as jax_test_config
 from r2d2_tpu.envs import FakeAtariEnv as JaxFakeEnv
+from r2d2_tpu.envs.atari import create_env as jax_create_env
 from r2d2_tpu.envs.atari import SpaceToDepth as JaxSpaceToDepth
 from r2d2_tpu.replay import block as jblock
 from r2d2_tpu.replay.replay_buffer import ReplayBuffer as JaxReplayBuffer
@@ -18,7 +22,12 @@ from r2d2_tpu.utils import math as jmath
 from r2d2_tpu_torch import native
 from r2d2_tpu_torch.config import Config
 from r2d2_tpu_torch.config import test_config as port_test_config
-from r2d2_tpu_torch.envs import FakeAtariEnv, SpaceToDepth, create_env
+from r2d2_tpu_torch.envs import (
+    FakeAtariEnv,
+    SpaceToDepth,
+    atari_available,
+    create_env,
+)
 from r2d2_tpu_torch.replay import block as tblock
 from r2d2_tpu_torch.replay import replay_buffer as trb
 from r2d2_tpu_torch.replay.sum_tree import SumTree
@@ -367,11 +376,21 @@ def test_fake_env_matches_jax_with_state_round_trip():
 
 
 def test_create_env_fake_at_flagship_width_and_ale_refused():
+    """The fake env at the flagship width; and the reference divergence of
+    ROADMAP.md C6: without ALE the reference warns and trains on the fake
+    env under a real game's name (r2d2_tpu/envs/atari.py:173-181), the
+    port refuses, naming the missing ale_py."""
     env = create_env(Config(game_name="Fake"), seed=3)
     obs, _ = env.reset()
     assert obs.shape == (21, 21, 16) and obs.dtype == np.uint8
     assert env.action_space.n == 4
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    assert not atari_available()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        ref = jax_create_env(JaxConfig(game_name="MsPacman"))
+    assert type(ref).__name__ == "FakeAtariEnv"
+    assert any("substituting FakeAtariEnv" in str(x.message) for x in w)
+    with pytest.raises(RuntimeError, match="ale_py is not installed"):
         create_env(Config(game_name="MsPacman"))
 
 
