@@ -42,14 +42,17 @@ Phases (each exits non-zero on failure):
    resets) in groups of 1, 2, 5, 8, 16 and 32 sessions so that batches of
    different sizes form.  Checked: every reply is OK with finite q; each
    batch's rows are the sessions' requests and carry each session's
-   hidden from its previous step (zeros after the reset); each batch's q
-   matches a direct ``R2D2Network.act`` on the same card and params, with
-   the plain LSTM in place of the kernel, to 2e-3 max-abs (the new hidden
-   to 1e-4); the store's ``admitted == completed + reaped + evicted +
-   live``; and the tensor-core kernel was launched once per batch and
-   layer, the CUDA-core one never (counts reset just before the traffic).
-   Prints the client-side p50/p99 act latency, and per act alone at n in
-   {1, 32, 256} the host wall clock against the device time, in which the
+   hidden from its previous step (zeros after the reset); each batch's new
+   hidden matches a direct ``R2D2Network.act`` on the same card and params,
+   with the plain LSTM in place of the kernel, to 1e-4 max-abs, and its q
+   the plain dueling head of that served hidden to 2e-3 (the q of the
+   plain act end to end is printed, max-abs and in bf16 ulps: both ends
+   round in the bf16 head, so it may differ by one ulp); the store's
+   ``admitted == completed + reaped + evicted + live``; and the
+   tensor-core kernel was launched once per batch and layer, the
+   CUDA-core one never (counts reset just before the traffic).  Prints
+   the client-side p50/p99 act latency, and per act alone at n in {1, 32,
+   256} the host wall clock against the device time, in which the
    profiler must find the tensor-core kernel and not the CUDA-core one;
 5. full-width training: ``train_sync(cfg, device="cuda")`` on the flagship
    ``Config(game_name="Fake")`` (nature torso on 21×21×16 frames, H=512,
@@ -82,13 +85,14 @@ Phases (each exits non-zero on failure):
    CUDA-core one never; ``/healthz`` (``ok``) and ``/metrics`` answered on
    the run's ephemeral port; the JSONL run log and a complete ``step_24``
    replay snapshot on disk; the resume restores the replay and the actors
-   (counters monotone) and ends at 28 updates; every served q within 2e-3
-   of the plain-LSTM act of the same restored params; the store's
-   accounting quadruple exact; two launches per served batch; the
-   shutdown session snapshot's counters equal to the server's.  Prints env
-   steps/s while filling and while training, updates/s and the update
-   interval p50, the device time, idle share and top ops of one profiled
-   update, an actor iteration's host/device time and the kernel's share,
+   (counters monotone) and ends at 28 updates; every served new hidden
+   within 2e-3 of the plain-LSTM act of the same restored params and every
+   served q within 2e-3 of their plain head of that hidden (as phase 4);
+   the store's accounting quadruple exact; two launches per served batch;
+   the shutdown session snapshot's counters equal to the server's.
+   Prints env steps/s while filling and while training, updates/s and the
+   update interval p50, the device time, idle share and top ops of one
+   profiled update, an actor iteration's host/device time and the kernel's share,
    tensor-map encodes per act, the served act and client round trip
    p50/p99, and the phase's seconds;
 7. the Pong preset from a device-resident replay ring:
@@ -145,8 +149,40 @@ Phases (each exits non-zero on failure):
    events, top device ops), env frames/s while filling and training, the
    dispatch interval p50, ring and peak GB, the snapshot's write and read
    seconds, and the phase's seconds;
-9. one ``{"kernels": [...]}`` JSON line;
-10. last line: ``{"ok": true, "device": {...}}``.
+9. process fleets: ``pong_config(game_name="Fake", actor_transport=
+   "process", actor_fleets=8)`` — phase 7's preset with its 64 actors in 8
+   spawned subprocess fleets of 8 lanes — with the full ring on the card,
+   cut as phase 7 is, trained by ``train()`` for 32 updates in serve mode
+   (every env step an act RPC to the trainer's ``InferenceService``, which
+   acts through the kernel at the 64-lane batch) and then 32 in local mode
+   (each fleet acts through its f32 CPU twin on pumped weights).  First,
+   ``/dev/shm`` must have room for the fleets' slabs.  Checked, both modes:
+   32 updates in 8 dispatches, every loss finite and k priority feedbacks
+   a dispatch; the buffer's transitions equal the ingested blocks'; 0
+   corrupt blocks, 0 fleet restarts, every circuit closed with 0 opens and
+   0 local-twin acts, ``/healthz`` ok; each fleet's report (asked for while
+   it runs) shows no CUDA context and no JAX, and ``nvidia-smi
+   --query-compute-apps`` lists no fleet's pid; the ring on the card at
+   ``data_bytes``.  Serve mode: ``lstm_infer`` launched lstm_layers x
+   (served batches + the one warm-up act of ``InferenceService.start``)
+   times, the CUDA-core kernel never; one ``serve.act_fetch`` per batch
+   and one ``serve.act_put`` per act; the lanes served equal to the fleets'
+   env steps from the stats slab, but for at most one iteration a fleet
+   whose last served act the drain cut short; then one 64-lane batch
+   through the service's card act (bf16, the kernel) against the fleets'
+   f32 CPU twin, q within ``SERVE_CPU_TOL``.  Local mode: no ``lstm_infer``
+   launch in the trainer, and every fleet's pumped version past the first.
+   Prints, per mode: the dispatch interval p50, the lock hold p50, env
+   steps/s while filling and while training (from the fleets' own act
+   times), the fleets' act (RPC round trip, or CPU act) p50/p99, in serve
+   mode ``serve.act`` p50/p99, mean lanes per batch and partial batches
+   (and those at steady state: after the first full batch, a missing
+   fleet's request following no block cut), the learner thread's, the
+   trainer's and the fleets' CPU cores, peak GB; then each run's interval
+   against phase 7's lone super-step beside phase 7's in-graph run, and
+   the phase's seconds;
+10. one ``{"kernels": [...]}`` JSON line;
+11. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -255,10 +291,32 @@ ANAKIN_CHECK_BLOCKS = 64
 # hiddens and 3.3e-4 on the priorities
 ANAKIN_CARD_CPU_TOL = 2e-2
 ANAKIN_ROLL_STEPS = 32
+# phase 9: pong_config(game_name="Fake", actor_transport="process",
+# actor_fleets=8) with its full ring on the card, cut as phase 7 is
+# (warm-up, run length, cadences); one run per inference mode
+PROCESS_FLEETS = 8
+PROCESS_STEPS = 32
+PROCESS_MODES = ("serve", "local")
+PROCESS_WALL_S = 240
+PROCESS_WATCHDOG_S = 420
+# the served act (bf16 on the card, the kernel) against the fleets' f32
+# CPU twin on one 64-lane batch: phase 8's card-vs-CPU limit
+SERVE_CPU_TOL = 2e-2
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def env_factory(c, seed: int):
+    """The fake env of phases 5-9 (episodes of ``FAKE_EPISODE_LEN``,
+    ``TRAIN_ACTIONS`` actions): module-level, so that a spawned fleet
+    unpickles it by name."""
+    from r2d2_tpu_torch.envs import FakeAtariEnv
+
+    return FakeAtariEnv(obs_shape=c.stored_obs_shape,
+                        action_dim=TRAIN_ACTIONS,
+                        episode_len=FAKE_EPISODE_LEN, seed=seed)
 
 
 def fail(msg: str) -> None:
@@ -677,7 +735,6 @@ def client_process(host: str, port: int, out, kind: str = "flagship"
 
 def phase_serving(torch, card: str):
     """Phase 4: the flagship net served over the session tier."""
-    from r2d2_tpu_torch.actor import make_act_fn
     from r2d2_tpu_torch.config import Config
     from r2d2_tpu_torch.models import create_network
     from r2d2_tpu_torch.ops import lstm
@@ -781,37 +838,22 @@ def phase_serving(torch, card: str):
         if not np.array_equal(q, replies[(s, t)]):
             fail(f"session {s} step {t}: the reply is not the batch's q")
 
-    # the same batches through a direct act with the plain LSTM
-    plain = create_network(cfg, ACTION_DIM, device="cuda",
-                           lstm_impl="reference")
-    plain_act = make_act_fn(plain)
-    gparams = {k: v.to("cuda") for k, v in params.items()}
-    q_err = h_err = 0.0
-    for b_obs, b_la, b_lr, b_hid, b_q, b_new in served:
-        n = len(b_obs)
-        pad = server.batcher.bucket(n)
-
-        def padded(a):
-            out = np.zeros((pad, *a.shape[1:]), a.dtype)
-            out[:n] = a
-            return torch.from_numpy(out).to("cuda")
-
-        q, new_hidden = plain_act(gparams, padded(b_obs), padded(b_la),
-                                  padded(b_lr), padded(b_hid))
-        q_err = max(q_err, float(np.abs(q[:n].cpu().numpy() - b_q).max()))
-        h_err = max(h_err, float(np.abs(new_hidden[:n].cpu().numpy()
-                                        - b_new).max()))
+    # the same batches through the plain LSTM act and the plain head
+    err = served_vs_plain(torch, cfg, ACTION_DIM, served, params,
+                          server.batcher.bucket)
     sizes = sorted(len(b[0]) for b in served)
     spans = server.tracer.snapshot()
     print("serving spans (ms): " + ", ".join(
         f"{k[5:]}={v:.3f}" for k, v in sorted(spans.items())
         if k.endswith(("p50_ms", "p99_ms", "mean_ms"))), flush=True)
     print(f"serving: {stats['batches']} batches, sizes {sizes}; "
-          f"lstm_infer launches {launches}; q vs plain-LSTM act max_abs_err "
-          f"{q_err:.3e} (tol {Q_TOL:.0e}), new hidden {h_err:.3e} "
-          f"(tol {BF16_TOL:.0e}); store {counts}", flush=True)
-    if q_err > Q_TOL or h_err > BF16_TOL:
-        fail("served q or hidden disagrees with the plain-LSTM act")
+          f"lstm_infer launches {launches}; new hidden vs plain-LSTM act "
+          f"max_abs_err {err['hidden']:.3e} (tol {BF16_TOL:.0e}), q vs the "
+          f"plain head of the served hidden {err['q']:.3e} (tol "
+          f"{Q_TOL:.0e}); q vs plain-LSTM act end to end {err['act']:.3e} "
+          f"({err['act_ulps']:.2f} bf16 ulps); store {counts}", flush=True)
+    if err["q"] > Q_TOL or err["hidden"] > BF16_TOL:
+        fail("served q or hidden disagrees with the plain version")
     p50, p99 = np.percentile(np.asarray(lat) * 1e3, [50, 99])
     print(f"serving act latency (client round trip, {len(lat)} requests) "
           f"p50 {p50:.3f} ms p99 {p99:.3f} ms on {card}", flush=True)
@@ -961,7 +1003,6 @@ def phase_training(torch, card: str) -> int:
     from r2d2_tpu_torch.actor import ACTOR_ACT
     from r2d2_tpu_torch.checkpoint import Checkpointer
     from r2d2_tpu_torch.config import Config
-    from r2d2_tpu_torch.envs import FakeAtariEnv
     from r2d2_tpu_torch.evaluate import EVAL_ACT, evaluate_params
     from r2d2_tpu_torch.learner.learner import Learner
     from r2d2_tpu_torch.ops import lstm
@@ -983,11 +1024,6 @@ def phase_training(torch, card: str) -> int:
         + f" (host ring {cfg.num_blocks} blocks of {cfg.block_length}); "
         f"fake env episodes of {FAKE_EPISODE_LEN} steps, {TRAIN_ACTIONS} "
         "actions", flush=True)
-
-    def env_factory(c, seed):
-        return FakeAtariEnv(obs_shape=c.stored_obs_shape,
-                            action_dim=TRAIN_ACTIONS,
-                            episode_len=FAKE_EPISODE_LEN, seed=seed)
 
     # the run's parts, captured as train_sync builds them, so that the
     # checks below can read the buffer, the actor and the learner; the
@@ -1177,10 +1213,26 @@ def http_get(port: int, path: str):
         conn.close()
 
 
-def served_vs_plain(torch, cfg, action_dim, served, params, bucket):
-    """Max-abs error of every served batch's (q, new hidden) against a
-    direct act with the plain LSTM on the same card, params and padded
-    rows."""
+def bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bfloat16 ulp at each ``|x|`` (8 significant bits)."""
+    a = np.maximum(np.abs(x), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(a)) - 7)
+
+
+def served_vs_plain(torch, cfg, action_dim, served, params, bucket) -> dict:
+    """Every served batch held against the plain version on the same card,
+    params and padded rows:
+
+    - ``hidden``: the served new hidden against a direct act with the
+      plain LSTM in place of the kernel, which is what the kernel computes;
+    - ``q``: the served q against the plain dueling head of the served new
+      hidden (its top layer's h is the head's input), the same arithmetic
+      at the same shapes, so any difference is the server's;
+    - ``act`` and ``act_ulps``: the served q against the plain act's q end
+      to end, max-abs and in bf16 ulps of the plain q.  Both ends round in
+      the bf16 head, so a q beside a rounding boundary differs by one ulp
+      (3.906e-03 at |q| >= 0.5) however small ``hidden`` is: these two are
+      printed, and the two above are the checks."""
     from r2d2_tpu_torch.actor import make_act_fn
     from r2d2_tpu_torch.models import create_network
 
@@ -1188,7 +1240,9 @@ def served_vs_plain(torch, cfg, action_dim, served, params, bucket):
                            lstm_impl="reference")
     plain_act = make_act_fn(plain)
     gparams = {k: v.to("cuda") for k, v in params.items()}
-    q_err = h_err = 0.0
+    head = {k[len("head."):]: v for k, v in gparams.items()
+            if k.startswith("head.")}
+    err = dict(q=0.0, hidden=0.0, act=0.0, act_ulps=0.0)
     for b_obs, b_la, b_lr, b_hid, b_q, b_new in served:
         n = len(b_obs)
         pad = bucket(n)
@@ -1200,10 +1254,18 @@ def served_vs_plain(torch, cfg, action_dim, served, params, bucket):
 
         q, new_hidden = plain_act(gparams, padded(b_obs), padded(b_la),
                                   padded(b_lr), padded(b_hid))
-        q_err = max(q_err, float(np.abs(q[:n].cpu().numpy() - b_q).max()))
-        h_err = max(h_err, float(np.abs(new_hidden[:n].cpu().numpy()
-                                        - b_new).max()))
-    return q_err, h_err
+        with torch.inference_mode():
+            q_head = torch.func.functional_call(
+                plain.head, head, (padded(b_new)[:, 0, -1],))
+        q = q[:n].cpu().numpy()
+        d = np.abs(q - b_q)
+        err["act"] = max(err["act"], float(d.max()))
+        err["act_ulps"] = max(err["act_ulps"], float((d / bf16_ulp(q)).max()))
+        err["q"] = max(err["q"], float(np.abs(
+            q_head[:n].cpu().numpy() - b_q).max()))
+        err["hidden"] = max(err["hidden"], float(np.abs(
+            new_hidden[:n].cpu().numpy() - b_new).max()))
+    return err
 
 
 def phase_fabric(torch, card: str):
@@ -1217,7 +1279,6 @@ def phase_fabric(torch, card: str):
     from r2d2_tpu_torch.actor import ACTOR_ACT
     from r2d2_tpu_torch.checkpoint import Checkpointer
     from r2d2_tpu_torch.config import impala_deep_config
-    from r2d2_tpu_torch.envs import FakeAtariEnv
     from r2d2_tpu_torch.ops import lstm
     from r2d2_tpu_torch.replay.replay_buffer import data_bytes
     from r2d2_tpu_torch.serving import server as server_mod
@@ -1242,11 +1303,6 @@ def phase_fabric(torch, card: str):
         + f" (host ring {cfg.num_blocks} blocks of {cfg.block_length}, "
         f"{data_bytes(cfg, TRAIN_ACTIONS) / 1e9:.3f} GB); fake env episodes "
         f"of {FAKE_EPISODE_LEN} steps, {TRAIN_ACTIONS} actions", flush=True)
-
-    def env_factory(c, seed):
-        return FakeAtariEnv(obs_shape=c.stored_obs_shape,
-                            action_dim=TRAIN_ACTIONS,
-                            episode_len=FAKE_EPISODE_LEN, seed=seed)
 
     # each run's parts, captured as train() builds them: the learner's
     # steps are stamped (entry, exit, actor iterations so far) without any
@@ -1590,20 +1646,23 @@ def serve_checkpoint(torch, card: str, cfg, ckdir: str, server_mod) -> int:
     if snap_counters != want:
         fail(f"session snapshot counters {snap_counters}, server {want}")
     state, _ = Checkpointer(ckdir).restore(FABRIC_RESUME_STEPS)
-    q_err, h_err = served_vs_plain(torch, cfg, TRAIN_ACTIONS, served,
-                                   state.params, server.batcher.bucket)
+    err = served_vs_plain(torch, cfg, TRAIN_ACTIONS, served, state.params,
+                          server.batcher.bucket)
     sizes = sorted(len(b[0]) for b in served)
     print(f"served checkpoint step_{stats['step']} on {card}: {batches} "
           f"batches, "
-          f"sizes {sizes}; q vs plain-LSTM act of the restored params "
-          f"max_abs_err {q_err:.3e} (tol {Q_TOL:.0e}), new hidden "
-          f"{h_err:.3e}; store {want} live {stats['live']}, session "
+          f"sizes {sizes}; against the restored params: new hidden vs "
+          f"plain-LSTM act max_abs_err {err['hidden']:.3e} (tol "
+          f"{Q_TOL:.0e}), q vs the plain head of the served hidden "
+          f"{err['q']:.3e} (tol {Q_TOL:.0e}), q vs plain-LSTM act end to "
+          f"end {err['act']:.3e} ({err['act_ulps']:.2f} bf16 ulps); store "
+          f"{want} live {stats['live']}, session "
           f"snapshot counters equal; lstm_infer launches {launches} = "
           f"{cfg.lstm_layers} x {batches} batches, CUDA-core {old}; "
           f"tensor-map encodes {encodes} ({encodes / batches:.2f} per "
           f"batch)", flush=True)
-    if q_err > Q_TOL or h_err > Q_TOL:
-        fail("the served checkpoint disagrees with the plain-LSTM act")
+    if err["q"] > Q_TOL or err["hidden"] > Q_TOL:
+        fail("the served checkpoint disagrees with the plain version")
     p50, p99 = np.percentile(np.asarray(lat) * 1e3, [50, 99])
     print(f"served checkpoint latency on {card}: serving.act p50 "
           f"{spans['span.serving.act.p50_ms']:.3f} ms p99 "
@@ -1753,12 +1812,13 @@ def device_ring_checks(torch, base) -> dict:
                 superstep_bitwise=True)
 
 
-def device_replay_run(torch, card: str, cfg, need: int) -> int:
+def device_replay_run(torch, card: str, cfg, need: int) -> tuple:
     """One of phase 7's ``train()`` runs on the full ring (in-graph PER or
     host-sampled, as ``cfg.in_graph_per`` says), its checks, timings and a
-    profiled super-step.  Returns the kernel's launches in the run.  The
-    run's ring, learner and buffer are only referenced from this frame,
-    so they are freed when it returns."""
+    profiled super-step.  Returns the kernel's launches in the run and the
+    run's timings (for phase 9's comparison).  The run's ring, learner and
+    buffer are only referenced from this frame, so they are freed when it
+    returns."""
     import shutil
     import tempfile
     import warnings
@@ -1766,7 +1826,6 @@ def device_replay_run(torch, card: str, cfg, need: int) -> int:
     from r2d2_tpu_torch import train
     from r2d2_tpu_torch.actor import ACTOR_ACT
     from r2d2_tpu_torch.checkpoint import Checkpointer
-    from r2d2_tpu_torch.envs import FakeAtariEnv
     from r2d2_tpu_torch.learner import step as step_mod
     from r2d2_tpu_torch.ops import lstm
     from r2d2_tpu_torch.replay.device_ring import to_device
@@ -1775,11 +1834,6 @@ def device_replay_run(torch, card: str, cfg, need: int) -> int:
     in_graph, steps, k = cfg.in_graph_per, cfg.training_steps, cfg.superstep_k
     real_build = train._build
     real_sample = step_mod._in_graph_sample
-
-    def env_factory(c, seed):
-        return FakeAtariEnv(obs_shape=c.stored_obs_shape,
-                            action_dim=TRAIN_ACTIONS,
-                            episode_len=FAKE_EPISODE_LEN, seed=seed)
 
     rec = dict(dispatches=[], start=None, leaves=[], drawn=[])
 
@@ -1800,10 +1854,11 @@ def device_replay_run(torch, card: str, cfg, need: int) -> int:
             # each dispatch stamped (entry, actor iterations, exit,
             # actor iterations), without any synchronisation
             def stamped():
-                t, a = time.perf_counter(), actor.actor_steps
+                t, a, c = time.perf_counter(), actor.actor_steps, host_cpu()
                 out = sample()
                 rec["dispatches"].append(
-                    (t, a, time.perf_counter(), actor.actor_steps))
+                    (t, a, time.perf_counter(), actor.actor_steps,
+                     host_cpu(), c))
                 return out
             return loop(k_, target, t0, gate, stamped, harvest,
                         prepare, tracer)
@@ -1973,27 +2028,55 @@ def device_replay_run(torch, card: str, cfg, need: int) -> int:
                    to_device(meta["is_weights"], learner.device))
         events = profile_events(torch, one_super, 1)
         wall = wall_ms(torch, one_super, 1)
+        # the issue alone (no synchronisation inside): its wall clock and
+        # the CPU time of the issuing thread
+        t0, c0 = time.perf_counter(), time.thread_time()
+        one_super()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        issue_cpu_ms = (time.thread_time() - c0) * 1e3
+        torch.cuda.synchronize()
         if events is None:
             fail(f"{mode}: no device time in a super-step")
         if any("lstm_step" in name for name, _, _ in events):
             fail(f"{mode}: a super-step launched an lstm_infer kernel")
         dev_ms = sum(ms for _, ms, _ in events)
         print(f"super-step ({mode}, k={k}, 1 profiled) on {card}: host "
-              f"wall {wall:.2f} ms, device {dev_ms:.3f} ms in "
-              f"{sum(n for _, _, n in events):.0f} device events, "
+              f"wall {wall:.2f} ms (its issue {issue_ms:.2f} ms, of which "
+              f"{issue_cpu_ms:.2f} ms on the CPU), device {dev_ms:.3f} ms "
+              f"in {sum(n for _, _, n in events):.0f} device events, "
               f"device idle {1 - dev_ms / wall:.1%}; no lstm_infer "
               "kernel; top 5 device ops (ms per super-step, count): "
               + "; ".join(f"{short_kernel_name(n)} {ms:.3f} ({c:.0f})"
                           for n, ms, c in events[:5]), flush=True)
-        return launches
+        (l0, p0), (l1, p1) = d[0][4], d[-1][4]
+        span = max(d[-1][2] - d[0][0], 1e-9)
+        issue_cpu = np.asarray([x[4][0] - x[5][0] for x in d]) * 1e3
+        print(f"learner CPU, {mode}, on {card}: a dispatch's issue p50 "
+              f"{np.percentile(issue, 50):.2f} ms wall, "
+              f"{np.percentile(issue_cpu, 50):.2f} ms of the learner "
+              f"thread's CPU (alone: {issue_ms:.2f} ms wall, "
+              f"{issue_cpu_ms:.2f} ms CPU); while training the learner "
+              f"thread {(l1 - l0) / span:.2f} cores, the process "
+              f"{(p1 - p0) / span:.2f}", flush=True)
+        return launches, dict(
+            issue_ms=issue_ms, issue_cpu_ms=issue_cpu_ms,
+            issue_p50=float(np.percentile(issue, 50)),
+            issue_cpu_p50=float(np.percentile(issue_cpu, 50)),
+            interval_p50=float(np.percentile(gaps, 50)),
+            hold_p50=(spans["span.learner.dispatch_lock.p50_ms"]
+                      if in_graph else None),
+            fill=fill, training=training, super_ms=wall,
+            peak_gb=peak / 1e9, seconds=run_s,
+            learner_cores=(l1 - l0) / span, trainer_cores=(p1 - p0) / span,
+            children_cores=None)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
 
 
-def phase_device_replay(torch, card: str) -> int:
+def phase_device_replay(torch, card: str) -> tuple:
     """Phase 7: the Pong preset trained by ``train()`` from its full replay
     ring on the card, with in-graph PER and then host-sampled.  Returns
-    the kernel's launches over both runs."""
+    the kernel's launches over both runs and the in-graph run's timings."""
     import gc
 
     from r2d2_tpu_torch.config import pong_config
@@ -2020,19 +2103,20 @@ def phase_device_replay(torch, card: str) -> int:
         f"{base.block_length}, {need / 1e9:.2f} GB); fake env episodes of "
         f"{FAKE_EPISODE_LEN} steps, {TRAIN_ACTIONS} actions", flush=True)
     device_ring_checks(torch, base)
-    launches = 0
+    launches, timings = 0, {}
     for in_graph, steps in DEVICE_RUNS:
-        launches += device_replay_run(
+        n, timings[in_graph] = device_replay_run(
             torch, card, base.replace(in_graph_per=in_graph,
                                       training_steps=steps, **DEVICE_REDUCED),
             need)
+        launches += n
         # the next run builds its own 15.8 GB ring; this one's went with
         # the run's frame
         gc.collect()
         torch.cuda.empty_cache()
     print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s on {card}",
           flush=True)
-    return launches
+    return launches, timings[True]
 
 
 def anakin_draws(torch, n_lanes: int, steps: int, seed: int):
@@ -2507,6 +2591,424 @@ def phase_anakin(torch, card: str) -> int:
     return first["launches"] + second["launches"]
 
 
+def unsteady_request(i: int, cfg) -> bool:
+    """Whether a fleet's ``i``-th act request (1-based) is its first (the
+    fleets come up seconds apart) or follows an iteration in which its
+    lanes cut blocks: all its lanes run in step, so all of them cut at a
+    block boundary (the cut is deferred to the next iteration) and at an
+    episode's end, and the fleet writes every block into its 4 slots —
+    waiting for the trainer's ingest — before it posts the next request.
+    One request of slack after each."""
+    t = (i - 1) % FAKE_EPISODE_LEN
+    return (i == 1 or (t in (0, 1) and i > 2)
+            or (t >= cfg.block_length and t % cfg.block_length in (1, 2)))
+
+
+def host_cpu() -> tuple:
+    """CPU seconds of the calling thread (the learner's, in a dispatch
+    stamp) and of this process over all its threads."""
+    return time.thread_time(), time.process_time()
+
+
+def pct(xs, q) -> float:
+    return float(np.percentile(xs, q)) if len(xs) else float("nan")
+
+
+def process_run(torch, card: str, cfg, need: int) -> dict:
+    """One of phase 9's ``train()`` runs (the inference mode is
+    ``cfg.actor_inference``): the plane's checks and timings.  Returns the
+    kernel's launches in the run and its timings.  The run's ring and
+    plane are freed when it returns."""
+    import shutil
+    import tempfile
+
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+
+    mode, steps, k = cfg.actor_inference, cfg.training_steps, cfg.superstep_k
+    real_build = train._build
+    rec = dict(dispatches=[], acts=[], probe=None, smi=None)
+    done = threading.Event()
+
+    def probe(plane):
+        # fleet reports (pid, CUDA context, JAX, threads, RPC round trips)
+        # and the card's compute processes, while the fleets run; a fleet
+        # answers between its bursts, or in its shutdown handshake
+        pids = [p.pid for p in plane.procs]
+        asked = threading.Thread(target=lambda: rec.__setitem__(
+            "probe", plane.probe_fleets(timeout=120)), daemon=True)
+        asked.start()
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        rec["smi"] = (smi.returncode, smi.stdout.split(), pids)
+        asked.join(130)
+
+    def sampler(sys_):
+        # the probe, two dispatches before the run's end
+        plane, learner = sys_["plane"], sys_["learner"]
+        prober = None
+        while not done.is_set():
+            if prober is None and learner.num_updates >= steps - 2 * k:
+                prober = threading.Thread(target=probe, args=(plane,),
+                                          daemon=True)
+                prober.start()
+            time.sleep(0.05)
+        if prober is not None:
+            prober.join(150)
+
+    def capture(*args, **kw):
+        sys_ = real_build(*args, **kw)
+        learner, plane = sys_["learner"], sys_["plane"]
+        rec.update(sys_)
+        loop = learner._superstep_loop
+
+        def stamped_loop(k_, target, t0, gate, sample, harvest,
+                         prepare=None, tracer=None):
+            def stamped():
+                t, c = time.perf_counter(), host_cpu()
+                out = sample()
+                rec["dispatches"].append((t, time.perf_counter(),
+                                          host_cpu(), c))
+                return out
+            return loop(k_, target, t0, gate, stamped, harvest, prepare,
+                        tracer)
+
+        learner._superstep_loop = stamped_loop
+        svc = plane.service
+        if svc is not None:
+            act = svc._act_batch
+
+            def timed_act(hidden_in, name):
+                # the batch's fleets and the act's host time (H2D, act,
+                # D2H: the serve.act span), without any added sync
+                pend = sorted(svc._pending)
+                t = time.perf_counter()
+                out = act(hidden_in, name)
+                rec["acts"].append((t, time.perf_counter() - t, pend))
+                return out
+
+            svc._act_batch = timed_act
+        t = threading.Thread(target=sampler, args=(sys_,), daemon=True)
+        t.start()
+        rec["sampler"] = t
+        return sys_
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_fleets_")
+    try:
+        KERNEL_LAUNCHES.reset()
+        HOST_TRANSFERS.reset()
+        torch.cuda.reset_peak_memory_stats()
+        train._build = capture
+        t0 = time.perf_counter()
+        try:
+            m = train.train(cfg, env_factory, checkpoint_dir=ckdir,
+                            max_wall_seconds=PROCESS_WALL_S, verbose=False)
+        finally:
+            train._build = real_build
+            done.set()
+            if "sampler" in rec:
+                rec["sampler"].join(160)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
+        old = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
+        transfers = HOST_TRANSFERS.snapshot()
+        plane, ring, buffer = rec["plane"], rec["ring"], rec["buffer"]
+        svc = plane.service
+        fleet = m["fleet_health"]
+        n_disp = len(rec["dispatches"])
+        F = plane.num_fleets
+
+        # the run's checks, both modes
+        if (ring is None or not rec["cfg"].in_graph_per
+                or ring.arrays["obs"].device.type != "cuda"
+                or ring.nbytes() != need):
+            fail(f"{mode}: the ring was not built on the card at "
+                 f"data_bytes {need}")
+        lh = m["learnhealth"]
+        restarts = {n: h["restarts"] for n, h in m["health"].items()}
+        if (m["num_updates"] != steps or n_disp * k != steps
+                or lh["loss_count"] != steps or lh["nonfinite"]
+                or not np.isfinite(m["mean_loss"])
+                or m["buffer_training_steps"] != k * n_disp
+                or m["fabric_failed"] or any(restarts.values())):
+            fail(f"{mode}: {m['num_updates']} updates in {n_disp} "
+                 f"dispatches, {m['buffer_training_steps']} priority "
+                 f"feedbacks, learnhealth {lh}, failed "
+                 f"{m['fabric_failed']}, thread restarts {restarts}")
+        wrapped = plane.blocks_ingested > cfg.num_blocks
+        if (buffer.env_steps != plane.frames_ingested
+                or (not wrapped and len(buffer) != plane.frames_ingested)
+                or buffer.blocks_per_member.get(0) != plane.blocks_ingested):
+            fail(f"{mode}: fill {len(buffer)}, {buffer.env_steps} added, "
+                 f"for {plane.frames_ingested} transitions in "
+                 f"{plane.blocks_ingested} ingested blocks")
+        res = fleet["resilience"]
+        if (plane.blocks_corrupt or buffer.corrupt_blocks
+                or any(fleet["restarts"]) or res["circuits_open"]
+                or res["circuit_opens"] or res["local_acts"]
+                or res["degraded"]):
+            fail(f"{mode}: corrupt blocks {plane.blocks_corrupt}, fleet "
+                 f"restarts {fleet['restarts']}, resilience {res}")
+        hz = m["healthz"]
+        if hz.get("status") != "ok" or hz["fleet"]["alive"] != F:
+            fail(f"{mode}: /healthz {hz.get('status')}, fleet "
+                 f"{hz.get('fleet')}")
+        reports = rec["probe"] or []
+        if (len(reports) != F or any(r is None for r in reports)
+                or any(r["cuda_initialized"] or r["jax_loaded"]
+                       or r["r2d2_tpu_loaded"] or not len(r["act_times"])
+                       for r in reports)):
+            fail(f"{mode}: fleet reports {reports}")
+        smi_rc, smi_pids, child_pids = rec["smi"]
+        if smi_rc != 0 or len(smi_pids) > 1 or (
+                set(smi_pids) & {str(p) for p in child_pids}):
+            fail(f"{mode}: nvidia-smi compute apps {smi_pids} (rc "
+                 f"{smi_rc}); trainer {os.getpid()}, fleets {child_pids}")
+        rows = fleet["stats"]["per_fleet"]
+        env_steps = sum(r["env_steps"] for r in rows)
+        versions = [int(r["param_version"]) for r in rows]
+        if mode == "serve":
+            h = svc.health()
+            want = cfg.lstm_layers * (h["batches"] + h["warmups"])
+            drain = h["lanes_served"] - env_steps
+            if (launches != want or old
+                    or transfers.get("serve.act_fetch") != h["batches"]
+                    or transfers.get("serve.act_put")
+                    != h["batches"] + h["warmups"]
+                    or not 0 <= drain <= cfg.num_actors
+                    or h["requests_corrupt"] or h["resyncs"]):
+                fail(f"serve: lstm_infer launched {launches} times "
+                     f"(CUDA-core {old}) for {h['batches']} batches + "
+                     f"{h['warmups']} warm-up x {cfg.lstm_layers} layer; "
+                     f"transfers {transfers}; {h['lanes_served']} lanes "
+                     f"served for {env_steps:.0f} env steps; service {h}")
+        else:
+            drain = None
+            if launches or old or min(versions) < 2:
+                fail(f"local: lstm_infer launched {launches} times "
+                     f"(CUDA-core {old}) in the trainer; fleets' pumped "
+                     f"versions {versions}")
+        threads = sorted({r["num_threads"] for r in reports})
+        print(f"process fleets, {mode} mode, on {card}: {m['num_updates']} "
+              f"updates in {n_disp} dispatches of k={k} in {run_s:.2f} s, "
+              f"losses finite {lh['loss_count']}/{steps}, mean loss "
+              f"{m['mean_loss']:.5f}; priority feedbacks "
+              f"{m['buffer_training_steps']}; fill {len(buffer)} = "
+              f"{plane.frames_ingested} transitions in "
+              f"{plane.blocks_ingested} blocks; corrupt 0, fleet restarts "
+              f"{fleet['restarts']}, circuits {res['circuit_states']}, "
+              f"opens 0, local acts 0, /healthz ok; fleets' pumped "
+              f"versions {versions}; children: no CUDA context, no JAX, "
+              f"{threads} torch threads each of os.cpu_count() "
+              f"{reports[0]['cpu_count']}; nvidia-smi compute apps "
+              f"{smi_pids} (trainer pid {os.getpid()}); ring "
+              f"{ring.nbytes() / 1e9:.2f} GB on the card", flush=True)
+        if mode == "serve":
+            print(f"serve mode launches on {card}: lstm_infer {launches} = "
+                  f"{cfg.lstm_layers} x ({h['batches']} batches + "
+                  f"{h['warmups']} warm-up), CUDA-core {old}; serve."
+                  f"act_fetch {transfers.get('serve.act_fetch')}, serve."
+                  f"act_put {transfers.get('serve.act_put')}; lanes served "
+                  f"{h['lanes_served']} = the fleets' env steps "
+                  f"{env_steps:.0f} + {drain:.0f} served in the drain; "
+                  f"peeks {h['peeks']}, stale {h['stale_requests']}",
+                  flush=True)
+
+        # timings, from the stamps (no synchronisation added): the
+        # dispatches', the service's acts and each fleet's own acts, which
+        # its report carries as (wall-clock end, seconds) rows
+        d = rec["dispatches"]
+        wall = time.time() - time.perf_counter()
+        t_first, t_last = d[0][0] + wall, d[-1][1] + wall
+        gaps = np.diff([x[0] for x in d]) * 1e3
+        issue = np.asarray([x[1] - x[0] for x in d]) * 1e3
+        spans = m["trace"]
+        lanes = cfg.num_actors // F
+        times = [r["act_times"] for r in reports]
+        # filling from when the last fleet came up (each fleet's first act)
+        t_up = max(float(a[0, 0]) for a in times)
+        windows = dict(filling=(t_up, t_first), training=(t_first, t_last))
+        parts = {}
+        for name, (lo, hi) in windows.items():
+            acts = np.concatenate(times)
+            acts = acts[(acts[:, 0] >= lo) & (acts[:, 0] < hi)]
+            parts[name] = dict(rate=len(acts) * lanes / max(hi - lo, 1e-9),
+                               act_p50=pct(acts[:, 1] * 1e3, 50),
+                               act_p99=pct(acts[:, 1] * 1e3, 99),
+                               acts=len(acts))
+        out = dict(mode=mode, launches=launches,
+                   interval_p50=float(np.percentile(gaps, 50)),
+                   hold_p50=spans["span.learner.dispatch_lock.p50_ms"],
+                   fill=parts["filling"]["rate"],
+                   training=parts["training"]["rate"], peak_gb=peak / 1e9,
+                   seconds=run_s, parts=parts)
+        what = ("act RPC round trip" if mode == "serve"
+                else "CPU act (f32 twin)")
+        line = (f"process fleets timings, {mode} mode, on {card}: "
+                f"dispatch interval p50 {out['interval_p50']:.2f} ms ("
+                f"{len(gaps)} intervals, min {gaps.min():.2f}, max "
+                f"{gaps.max():.2f}); dispatch issue p50 "
+                f"{np.percentile(issue, 50):.2f} ms; lock hold per dispatch "
+                f"(learner.dispatch_lock) p50 {out['hold_p50']:.2f} ms; "
+                f"peak allocated {peak / 1e9:.2f} GB")
+        for name, p in parts.items():
+            line += (f"; {name} ({windows[name][1] - windows[name][0]:.2f}"
+                     f" s): env steps/s {p['rate']:.0f}, the fleets' {what}"
+                     f" p50 {p['act_p50']:.3f} ms, p99 {p['act_p99']:.3f} "
+                     f"ms over {p['acts']} acts")
+        if mode == "serve":
+            for name, (lo, hi) in windows.items():
+                lo, hi = lo - wall, hi - wall
+                sel = [(dt, p) for t, dt, p in rec["acts"] if lo <= t < hi]
+                ms = [dt * 1e3 for dt, _ in sel]
+                part = sum(1 for _, p in sel if len(p) < F)
+                mean = (float(np.mean([lanes * len(p) for _, p in sel]))
+                        if sel else float("nan"))
+                parts[name].update(serve_p50=pct(ms, 50),
+                                   serve_p99=pct(ms, 99), batches=len(ms),
+                                   mean_lanes=mean, partial=part)
+                line += (f"; {name}: serve.act p50 {pct(ms, 50):.3f} ms, "
+                         f"p99 {pct(ms, 99):.3f} ms over {len(ms)} batches,"
+                         f" mean lanes per batch {mean:.2f}, partial "
+                         f"batches {part}")
+            # a partial batch at steady state: one after the first batch
+            # of every fleet that misses a fleet whose next request
+            # follows no block cut
+            seen, steady, unexplained = [0] * F, False, []
+            for b, (t, _, pend) in enumerate(rec["acts"]):
+                steady = steady or len(pend) == F
+                miss = [(f, seen[f] + 1) for f in range(F) if f not in pend
+                        and not unsteady_request(seen[f] + 1, cfg)]
+                if steady and miss:
+                    unexplained.append((b, t >= rec["dispatches"][0][0],
+                                        miss))
+                for f in pend:
+                    seen[f] += 1
+            out["unexplained"] = len(unexplained)
+            line += (f"; steady-state partial batches (after the first "
+                     f"full batch, the missing fleet's request following "
+                     f"no block cut): {len(unexplained)}, "
+                     f"{sum(1 for _, tr, _ in unexplained if tr)} while "
+                     f"training; first: {unexplained[:6]}")
+        (l0, p0), (l1, p1) = d[0][2], d[-1][2]
+        span = max(d[-1][1] - d[0][0], 1e-9)
+        issue_cpu = np.asarray([x[2][0] - x[3][0] for x in d]) * 1e3
+        out.update(issue_p50=float(np.percentile(issue, 50)),
+                   issue_cpu_p50=float(np.percentile(issue_cpu, 50)),
+                   learner_cores=(l1 - l0) / span,
+                   trainer_cores=(p1 - p0) / span,
+                   children_cores=sum(r["cpu_seconds"] / r["alive_seconds"]
+                                      for r in reports))
+        line += (f"; a dispatch's issue p50 {out['issue_p50']:.2f} ms wall,"
+                 f" {out['issue_cpu_p50']:.2f} ms of the learner thread's "
+                 f"CPU; CPU while training: the learner thread "
+                 f"{out['learner_cores']:.2f} cores, the trainer process "
+                 f"{out['trainer_cores']:.2f}; the {F} fleets over their "
+                 f"lives {out['children_cores']:.2f} of the host's "
+                 f"{os.cpu_count()}")
+        print(line, flush=True)
+        if mode == "serve":
+            out["twin"] = served_vs_twin(torch, card, cfg, svc)
+        return out
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def served_vs_twin(torch, card: str, cfg, svc) -> tuple:
+    """One full 64-lane batch through the service's act on the card (bf16,
+    the kernel) and through the fleets' f32 CPU twin, on the same inputs
+    and the params the service last served with."""
+    from r2d2_tpu_torch.actor import make_host_act_fn
+    from r2d2_tpu_torch.parallel.actor_procs import fleet_act_net
+
+    rng = np.random.default_rng(9)
+    N, A = cfg.num_actors, TRAIN_ACTIONS
+    svc.obs[:] = rng.integers(0, 256, svc.obs.shape, dtype=np.uint8)
+    svc.last_action[:] = np.eye(A, dtype=np.float32)[rng.integers(A, size=N)]
+    svc.last_reward[:] = rng.normal(size=N).astype(np.float32)
+    hidden = (rng.normal(size=svc.hidden.shape) * 0.5).astype(np.float32)
+    inputs = (svc.obs.copy(), svc.last_action.copy(),
+              svc.last_reward.copy(), hidden)
+    q_card, h_card = svc._act_batch(hidden, "smoke.twin_fetch")
+    params = {k_: v.detach().float().cpu() for k_, v in svc._params.items()}
+    q_cpu, h_cpu = make_host_act_fn(fleet_act_net(cfg, A))(params, *inputs)
+    err_q = float(np.abs(q_card - q_cpu).max())
+    err_h = float(np.abs(h_card - h_cpu).max())
+    if not err_q <= SERVE_CPU_TOL or not np.isfinite(q_card).all():
+        fail(f"served act vs the f32 CPU twin: q max-abs {err_q:.3e} > "
+             f"{SERVE_CPU_TOL}")
+    print(f"served act (bf16, lstm_infer, on {card}) vs the fleets' f32 "
+          f"CPU twin, one {N}-lane batch: q max-abs {err_q:.3e} (limit "
+          f"{SERVE_CPU_TOL}), new hidden max-abs {err_h:.3e}", flush=True)
+    return err_q, err_h
+
+
+def phase_process_fleets(torch, card: str, thread: dict) -> int:
+    """Phase 9: the Pong preset with its 64 actors in 8 subprocess fleets,
+    trained by ``train()`` from its full ring on the card, first in serve
+    mode (every act an RPC to the trainer's service, which acts through
+    the kernel) and then in local mode (each fleet acts on its CPU).
+    ``thread`` is phase 7's in-graph run, printed beside.  Returns the
+    kernel's launches by mode."""
+    import gc
+    import shutil
+
+    from r2d2_tpu_torch.config import pong_config
+    from r2d2_tpu_torch.parallel.actor_procs import shm_bytes
+    from r2d2_tpu_torch.replay.replay_buffer import data_bytes
+
+    t_phase = time.perf_counter()
+    faulthandler.dump_traceback_later(PROCESS_WATCHDOG_S)
+    base = pong_config(game_name="Fake", actor_transport="process",
+                       actor_fleets=PROCESS_FLEETS)
+    need = data_bytes(base, TRAIN_ACTIONS)
+    shm_free = shutil.disk_usage("/dev/shm").free
+    shm_need = max(shm_bytes(base.replace(actor_inference=m),
+                             TRAIN_ACTIONS) for m in PROCESS_MODES)
+    if shm_free < shm_need:
+        fail(f"/dev/shm has {shm_free} bytes free; the fleets map "
+             f"{shm_need}")
+    print("reduced: " + ", ".join(
+        f"{k} {getattr(base, k)} -> {v}" for k, v in DEVICE_REDUCED.items())
+        + f", training_steps {base.training_steps} -> {PROCESS_STEPS} per "
+        f"mode; {base.num_actors} actors in {PROCESS_FLEETS} subprocess "
+        f"fleets of {base.num_actors // PROCESS_FLEETS}; the full ring on "
+        f"the card ({need / 1e9:.2f} GB); os.cpu_count() {os.cpu_count()};"
+        f" /dev/shm {shm_free} bytes free for {shm_need}", flush=True)
+    runs = {}
+    for mode in PROCESS_MODES:
+        runs[mode] = process_run(torch, card, base.replace(
+            actor_inference=mode, training_steps=PROCESS_STEPS,
+            **DEVICE_REDUCED), need)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = [("thread (phase 7, in-graph)", thread)] + [
+        (f"process, {m}", runs[m]) for m in PROCESS_MODES]
+    print(f"fabric interval against the lone super-step ({thread['super_ms']:.2f}"
+          f" ms, phase 7) on {card}: " + "; ".join(
+              f"{name}: interval p50 {r['interval_p50']:.2f} ms = "
+              f"{r['interval_p50'] / thread['super_ms']:.2f}x, lock hold "
+              f"p50 {r['hold_p50']:.2f} ms, env steps/s {r['fill']:.0f} "
+              f"filling / {r['training']:.0f} training, issue p50 "
+              f"{r['issue_p50']:.2f} ms wall / {r['issue_cpu_p50']:.2f} ms "
+              f"learner CPU (alone {thread['issue_ms']:.2f} / "
+              f"{thread['issue_cpu_ms']:.2f}), CPU cores: "
+              f"learner {r['learner_cores']:.2f}, trainer "
+              f"{r['trainer_cores']:.2f}, fleets "
+              + ("-" if r["children_cores"] is None
+                 else f"{r['children_cores']:.2f}") + ", peak "
+              f"{r['peak_gb']:.2f} GB, {r['seconds']:.1f} s"
+              for name, r in rows), flush=True)
+    faulthandler.cancel_dump_traceback_later()
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+    return {m: runs[m]["launches"] for m in PROCESS_MODES}
+
+
 def main() -> None:
     try:
         import torch
@@ -2553,10 +3055,14 @@ def main() -> None:
     fabric_launches, serve_ckpt_launches = phase_fabric(torch, card)
 
     # phase 7: the Pong preset from its full replay ring on the card
-    device_replay_launches = phase_device_replay(torch, card)
+    device_replay_launches, thread_timings = phase_device_replay(torch, card)
 
     # phase 8: anakin, the fused loop, from its full ring on the card
     anakin_launches = phase_anakin(torch, card)
+
+    # phase 9: the Pong preset's actors in subprocess fleets, serve and
+    # local inference
+    fleet_launches = phase_process_fleets(torch, card, thread_timings)
 
     head = timings[(1, 256)]
     print(json.dumps({"kernels": [{
@@ -2566,13 +3072,16 @@ def main() -> None:
         "replaces": "r2d2_tpu/ops/lstm.py:46",
         "launches": (serve_launches + train_launches + fabric_launches
                      + serve_ckpt_launches + device_replay_launches
-                     + anakin_launches),
+                     + anakin_launches + fleet_launches["serve"]
+                     + fleet_launches["local"]),
         "launches_by_path": {"serving": serve_launches,
                              "training": train_launches,
                              "fabric": fabric_launches,
                              "serving_checkpoint": serve_ckpt_launches,
                              "device_replay": device_replay_launches,
-                             "anakin": anakin_launches},
+                             "anakin": anakin_launches,
+                             "process_serve": fleet_launches["serve"],
+                             "process_local": fleet_launches["local"]},
         "max_abs_err": errs["tensor_core"][0],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

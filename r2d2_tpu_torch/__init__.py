@@ -11,9 +11,11 @@ network (``models/``) with the fused LSTM inference unroll as a
 hand-written Hopper kernel (``ops/lstm.py``, ``csrc/lstm_infer.cu``), and
 the training path (``train.train_sync`` and the threaded ``train.train``:
 actors, replay on the host or on the device, learner, checkpoints,
-evaluation), whose actors act through that kernel, and anakin, the fused
+evaluation), whose actors act through that kernel, anakin, the fused
 on-device loop on a batched device env (``actor_transport="anakin"``,
-``learner/anakin.py``).  ROADMAP.md lists what comes next.
+``learner/anakin.py``), and the process fleets with the centralized
+inference service (``actor_transport="process"``, ``parallel/``).
+ROADMAP.md lists what comes next.
 """
 from r2d2_tpu_torch.config import Config, test_config
 

@@ -2,8 +2,11 @@
 
 Port of ``r2d2_tpu/actor.py``: ``AgentState``, ``fleet_shards``,
 ``make_act_fn``, ``_resolve_act_device`` and the lockstep ``VectorActor``
-with ``snapshot``/``restore``.  The serve-mode remote act client waits for
-the process planes.
+with ``snapshot``/``restore``.  Under serve mode the act function is a
+:class:`~r2d2_tpu_torch.parallel.inference_service.RemoteActClient`
+(duck-typed here): the actor notes lane resets to it, takes the
+episode-step-cap bootstrap through its no-commit ``peek``, and keeps no
+weights of its own.
 
 One deliberate difference from the reference: there, ``act_device="auto"``
 moves acting to the host CPU whenever an accelerator is present and acts
@@ -165,6 +168,13 @@ class VectorActor:
         self.envs = list(envs)
         self.epsilons = np.asarray(epsilons, np.float64)
         self.act_fn = act_fn
+        # serve mode (parallel/inference_service.RemoteActClient): params
+        # and recurrent state live in the trainer's service, so lane resets
+        # must reach it, and the episode-step-cap bootstrap must not
+        # advance its state (``peek``); local act fns are pure, so the
+        # plain call doubles as the peek
+        self._act_client = act_fn if hasattr(act_fn, "note_reset") else None
+        self._peek_fn = getattr(act_fn, "peek", act_fn)
         self.param_store = param_store
         self.sink = sink
         self.rng = rng or np.random.default_rng(cfg.seed)
@@ -217,8 +227,12 @@ class VectorActor:
         self.episode_steps[i] = 0
         self.finish_pending[i] = False
         self._block_start[i] = time.perf_counter()
+        if self._act_client is not None:
+            self._act_client.note_reset(i)
 
     def _refresh_params(self) -> None:
+        if self._act_client is not None:
+            return  # serve mode: weights never leave the trainer
         # the placed copy is cached per published version and device, so
         # fleets acting on one device share one copy
         version, params = self.param_store.get_placed(self.act_device)
@@ -260,6 +274,10 @@ class VectorActor:
             raise ValueError(
                 f"actor snapshot has {snap['num_lanes']} lanes, this actor "
                 f"has {self.N} — resuming cold")
+        if self._act_client is not None:
+            # lanes resuming mid-episode must not zero the server hidden the
+            # snapshot restored; non-resumable lanes re-note via their reset
+            self._act_client.clear_reset_notes()
         self.rng.bit_generator.state = snap["rng"]
         self.actor_steps = int(snap["actor_steps"])
         self.episode_steps[:] = snap["episode_steps"]
@@ -314,7 +332,8 @@ class VectorActor:
         """Run ``max_steps`` lockstep iterations (= per-actor env steps)."""
         cfg = self.cfg
         self._refresh_params()
-        assert self._params is not None, "ParamStore must hold initial params"
+        assert self._params is not None or self._act_client is not None, \
+            "ParamStore must hold initial params"
 
         for _ in range(max_steps):
             if stop is not None and stop():
@@ -378,10 +397,10 @@ class VectorActor:
             if capped.size:
                 # episode-step cap (rare): the bootstrap must be Q at the
                 # post-step state; one extra batched forward covers all
-                # capped lanes
-                q_fresh, _ = self.act_fn(self._params, self.obs,
-                                         self.last_action, self.last_reward,
-                                         self.hidden)
+                # capped lanes (serve mode: a peek, no state advance)
+                q_fresh, _ = self._peek_fn(self._params, self.obs,
+                                           self.last_action,
+                                           self.last_reward, self.hidden)
                 for i in capped:
                     item = self.vbuf.finish(i, q_fresh[i])
                     self._note_cut(i, item[0])

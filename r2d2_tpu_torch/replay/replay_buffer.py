@@ -23,7 +23,7 @@ commits it under it, ``sample_meta`` yields index bundles for the device
 gather, and under ``cfg.in_graph_per`` the PER leaves live on the device
 too.  The dp-sharded ring's slot groups (G > 1: ``_grouped_densities``,
 ``_sample_grouped``, ``raw_densities``) wait for ROADMAP.md A item 7, the
-sharded plane's ``serve_sample`` for item 8.
+sharded plane's ``serve_sample`` for item 8b.
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
 """Training: the threaded fabric and the deterministic single-thread trainer.
 
-Port of the single-device, thread- and anakin-transport subset of
-``r2d2_tpu/train.py``:
+Port of the single-device, thread-, process- and anakin-transport subset
+of ``r2d2_tpu/train.py``:
 
-- ``_build``: envs, network, train state with an optional resume, the
+- ``_build``: envs (or, for the process transport, one probe env and the
+  fleet plane, ``parallel/actor_procs.py``), network, train state with an
+  optional resume, the
   device-resident replay ring when ``cfg.device_replay`` (falling back to
   host replay, and to host-sampled PER, when the ring does not fit the
   card), learner, replay buffer, ladder epsilons, vector actors, and the
@@ -13,11 +15,14 @@ Port of the single-device, thread- and anakin-transport subset of
   hooks, the learner heartbeat watchdog, the bounded log ring, the
   telemetry plane (registry, JSONL run log, HTTP exporter) and the
   learning-health monitor and alert engine;
-- ``train``: the concurrent system — actor fleet threads, a sample thread
-  (host ring only), a priority-feedback thread (not under in-graph PER),
-  a log thread, the periodic snapshot thread (host ring only) and the
-  learner on the calling thread, all but the learner under the
-  supervisor — with drain-then-save and replay snapshots;
+- ``train``: the concurrent system — actor fleet threads (or, with
+  ``actor_transport="process"``, fleet subprocesses and the plane's
+  ingest, pump, watchdog and, under ``actor_inference="serve"``, inference
+  service threads), a sample thread (host ring only), a priority-feedback
+  thread (not under in-graph PER), a log thread, the periodic snapshot
+  thread (host ring only) and the learner on the calling thread, all but
+  the learner under the supervisor — with drain-then-save and replay
+  snapshots;
 - ``train_sync``: the deterministic interleaving of the same components
   (the integration tests' and the debugger's loop);
 - ``_train_anakin``: ``actor_transport="anakin"``, the fused on-device
@@ -83,25 +88,22 @@ log = logging.getLogger(__name__)
 
 EnvFactory = Callable[[Config, int], Any]
 
-# chaos sites train() fires (wedge_dispatch only in the anakin transport);
-# every other kind belongs to a plane the port has not ported yet, named
-# here by its ROADMAP.md item
+# chaos sites train() fires (wedge_dispatch only in the anakin transport,
+# the six fleet and service sites only in the process transport); every
+# other kind belongs to a plane the port has not ported yet, named here by
+# its ROADMAP.md item
 CHAOS_SITES = ("truncate_ckpt", "freeze_learner", "poison_params",
-               "wedge_dispatch")
+               "wedge_dispatch", "kill_fleet", "garble_block",
+               "freeze_service", "drop_act_response", "garble_act_response",
+               "stall_pump")
 _UNPORTED_CHAOS = {
-    "kill_fleet": "item 8 (process planes)",
-    "garble_block": "item 8 (process planes)",
-    "freeze_service": "item 8 (process planes)",
-    "drop_act_response": "item 8 (process planes)",
-    "garble_act_response": "item 8 (process planes)",
-    "stall_pump": "item 8 (process planes)",
-    "kill_replay_shard": "item 8 (replay shards)",
-    "garble_sample_response": "item 8 (replay shards)",
-    "stall_shard": "item 8 (replay shards)",
-    "partition_shard_link": "item 8 (socket replay)",
-    "delay_shard_link": "item 8 (socket replay)",
-    "half_open_shard": "item 8 (socket replay)",
-    "garble_net_frame": "item 8 (socket replay)",
+    "kill_replay_shard": "item 8b (replay shards)",
+    "garble_sample_response": "item 8b (replay shards)",
+    "stall_shard": "item 8b (replay shards)",
+    "partition_shard_link": "item 8b (socket replay)",
+    "delay_shard_link": "item 8b (socket replay)",
+    "half_open_shard": "item 8b (socket replay)",
+    "garble_net_frame": "item 8b (socket replay)",
     "kill_eval_sidecar": "item 9 (league)",
     "kill_session_client": "item 11 (the session load generator)",
     "slow_session_client": "item 11 (the session load generator)",
@@ -137,18 +139,12 @@ def check_unported(cfg: Config, use_mesh: bool = False) -> None:
         (bool(cfg.population_spec),
          "population_spec (the population plane) waits for ROADMAP.md A "
          "item 9"),
-        (cfg.actor_transport == "process",
-         "actor_transport='process' (subprocess fleets) waits for "
-         "ROADMAP.md A item 8"),
-        (cfg.actor_inference == "serve",
-         "actor_inference='serve' (the inference service) waits for "
-         "ROADMAP.md A item 8"),
         (cfg.replay_shards > 1,
          "replay_shards > 1 (the sharded replay plane) waits for "
-         "ROADMAP.md A item 8"),
+         "ROADMAP.md A item 8b"),
         (cfg.replay_transport == "socket",
          "replay_transport='socket' (the cross-host replay fabric) waits "
-         "for ROADMAP.md A item 8"),
+         "for ROADMAP.md A item 8b"),
         (use_mesh, "use_mesh (the learner mesh) waits for ROADMAP.md A "
                    "item 7"),
         (cfg.league_eval,
@@ -184,9 +180,21 @@ def _build(cfg: Config, env_factory: EnvFactory,
     seeded with ``cfg.seed``.  The returned ``cfg`` is the effective one:
     ``in_graph_per`` is off when no ring was built."""
     device = resolve_device(device)
-    act_device = _resolve_act_device(cfg.act_device)
-    envs = [env_factory(cfg, cfg.seed + i) for i in range(cfg.num_actors)]
-    action_dim = envs[0].action_space.n
+    process = cfg.actor_transport == "process"
+    if process:
+        # the fleets own the envs in their subprocesses; the trainer only
+        # needs the action space to size the network and replay layouts
+        probe = env_factory(cfg, cfg.seed)
+        action_dim = probe.action_space.n
+        close = getattr(probe, "close", None)
+        if callable(close):
+            close()
+        envs = []
+    else:
+        act_device = _resolve_act_device(cfg.act_device)
+        envs = [env_factory(cfg, cfg.seed + i)
+                for i in range(cfg.num_actors)]
+        action_dim = envs[0].action_space.n
 
     def network(dev):
         return create_network(cfg, action_dim, device=dev,
@@ -251,15 +259,28 @@ def _build(cfg: Config, env_factory: EnvFactory,
     # parameters for the published ones while it runs, so a module shared
     # between threads would race); the learner's module is never one of
     # them (same parameter names, the LSTM impl resolved for act_device)
-    shards, fleet_workers = fleet_shards(cfg)
-    act_nets = [network(act_device) for _ in shards]
-    actors = [
-        VectorActor(cfg, envs[lo:hi], epsilons[lo:hi],
-                    make_host_act_fn(act_nets[f]), param_store,
-                    sink=buffer.add, env_workers=fleet_workers,
-                    rng=np.random.default_rng(cfg.seed + 7919 + 104729 * f))
-        for f, (lo, hi) in enumerate(shards)
-    ]
+    plane, act_nets = None, [None]
+    actors: List[VectorActor] = []
+    if process:
+        # subprocess fleets (parallel/actor_procs.py): constructed here,
+        # spawned by train() once the fabric is up; serve mode acts on the
+        # learner's device
+        from r2d2_tpu_torch.parallel.actor_procs import ProcessFleetPlane
+
+        plane = ProcessFleetPlane(cfg, action_dim, env_factory, epsilons,
+                                  device=(device if cfg.act_device != "cpu"
+                                          else None))
+    else:
+        shards, fleet_workers = fleet_shards(cfg)
+        act_nets = [network(act_device) for _ in shards]
+        actors = [
+            VectorActor(cfg, envs[lo:hi], epsilons[lo:hi],
+                        make_host_act_fn(act_nets[f]), param_store,
+                        sink=buffer.add, env_workers=fleet_workers,
+                        rng=np.random.default_rng(
+                            cfg.seed + 7919 + 104729 * f))
+            for f, (lo, hi) in enumerate(shards)
+        ]
     # full-state resume: a warm replay ring + resumable actor state saved
     # by a previous run's drain-then-save exit (checkpoint.save_replay).
     # Loaded AFTER everything is built so a failure here degrades to the
@@ -280,7 +301,9 @@ def _build(cfg: Config, env_factory: EnvFactory,
             except (ValueError, OSError) as e:
                 warnings.warn(f"replay snapshot not restored: {e}",
                               stacklevel=2)
-            if restored_replay and actor_snaps:
+            if restored_replay and actor_snaps and plane is not None:
+                plane.set_restore_snapshots(actor_snaps)
+            elif restored_replay and actor_snaps:
                 for a, snap in zip(actors, actor_snaps):
                     if snap is None:
                         continue
@@ -291,7 +314,8 @@ def _build(cfg: Config, env_factory: EnvFactory,
                                       stacklevel=2)
     return dict(cfg=cfg, envs=envs, action_dim=action_dim, net=net,
                 act_net=act_nets[0], learner=learner,
-                buffer=buffer, actors=actors, actor=actors[0],
+                buffer=buffer, actors=actors,
+                actor=actors[0] if actors else None, plane=plane,
                 param_store=param_store, checkpointer=checkpointer,
                 host_bs=cfg.batch_size, restored_replay=restored_replay,
                 ring=ring)
@@ -752,7 +776,7 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
           stop_fn: Optional[Callable[[], bool]] = None,
           device=None) -> Dict[str, Any]:
     """The full concurrent system (the reference's ``train()`` for
-    ``actor_transport="thread"`` on the host ring, one device), or, for
+    ``actor_transport="thread"`` and ``"process"``, one device), or, for
     ``actor_transport="anakin"``, the fused on-device loop
     (:func:`_train_anakin`).
 
@@ -765,11 +789,18 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     Threads and their reference analogues:
       actor[0..F]  — the N actor processes, regrouped into
                      ``cfg.actor_fleets`` lockstep fleet threads with
-                     batched inference on the card
+                     batched inference on the card; with
+                     ``actor_transport="process"`` the fleets are
+                     subprocesses (parallel/actor_procs.py), and these
+                     threads become the plane's ``fleet_ingest``,
+                     ``param_pump``, ``fleet_watch`` and, under
+                     ``actor_inference="serve"``, ``inference_serve``
       sample       — ReplayBuffer.prepare_data: batch assembly (host ring)
       priority     — ReplayBuffer.update_data: priority feedback
       log          — the stats loop: the JSONL run log, the registry, the
                      alert engine, ``log_sink`` and the console line
+      chaos        — the fleet plane's ``kill_fleet``/``garble_block``
+                     sites (process transport, when armed)
       snapshot     — periodic replay snapshots
                      (``cfg.replay_snapshot_interval`` > 0)
       learner_watch— the heartbeat stall watchdog
@@ -787,8 +818,9 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     state and, with ``cfg.replay_snapshot``, the replay ring, sum-tree,
     counters and actor RNG/env state are snapshotted atomically so
     ``resume=True`` restarts warm (host ring only: a device ring's run
-    saves learner state alone, and resumes with a cold ring).  ``cfg.chaos_spec`` fires the
-    thread-transport fault sites (:data:`CHAOS_SITES`).  ``profile_dir``
+    saves learner state alone, and resumes with a cold ring); the process
+    fleets hand their actor snapshots over in their shutdown handshake.
+    ``cfg.chaos_spec`` fires the fault sites of :data:`CHAOS_SITES`.  ``profile_dir``
     captures a ``torch.profiler`` trace of the learner loop.
 
     Returns the learner's metrics (``num_updates``, ``env_steps``,
@@ -821,6 +853,7 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     buffer: ReplayBuffer = sys["buffer"]
     learner: Learner = sys["learner"]
     checkpointer = sys["checkpointer"]
+    plane = sys["plane"]
     tracer = tracer or Tracer()
     scaffold = _HostScaffold(cfg, checkpoint_dir,
                              max_wall_seconds=max_wall_seconds,
@@ -841,6 +874,19 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
         chaos = ChaosInjector(cfg.chaos_spec, seed=cfg.seed)
         if checkpointer is not None:
             checkpointer.chaos = chaos
+
+    if plane is not None:
+        # CRC-failed blocks dropped at ingest surface in buffer.stats()
+        plane.on_corrupt = buffer.note_corrupt_block
+        # the plane's counters (respawns, ingest histogram, serve shard
+        # resets, slab-merged actor stats) land in the run's namespace
+        plane.set_registry(telemetry.registry)
+        # fault sites of the plane's loops (freeze_service, stall_pump)
+        # and the service's scatter (drop/garble response)
+        plane.chaos = chaos
+        if plane.service is not None:
+            plane.service.tracer = tracer
+            plane.service.chaos = chaos
 
     scaffold.install_signals()
     # full-state snapshots need the host ring (a device ring's state lives
@@ -920,19 +966,29 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                 buffer.update_priorities(idxes, priorities, old_ptr, loss)
 
     def healthz() -> Dict[str, Any]:
-        """The /healthz verdict: ``ok``, ``degraded`` (HTTP 200; here only
-        the nonfinite learnhealth alert degrades) or ``failing`` (HTTP
-        503: a supervisor give-up or a heartbeat past its stall budget)."""
+        """The /healthz verdict: ``ok``, ``degraded`` (HTTP 200: a fleet's
+        act circuit open, a fleet's params stale past the budget, or the
+        nonfinite learnhealth alert) or ``failing`` (HTTP 503: a supervisor
+        give-up, a failed fleet plane, or a heartbeat past its stall
+        budget)."""
         age = heartbeat.age()
         stale = (cfg.learner_stall_timeout > 0
                  and age > cfg.learner_stall_timeout)
         out = dict(
-            ok=not (supervisor.any_failed or stall["stalled"] or stale),
+            ok=not (supervisor.any_failed or stall["stalled"] or stale
+                    or (plane is not None and plane.failed)),
             learner_heartbeat_age=age,
             learner_stalled=stall["stalled"] or stale,
             threads=supervisor.health(),
         )
-        degraded = scaffold.alerts.nonfinite_active
+        degraded = False
+        if plane is not None:
+            h = plane.health()
+            out["fleet"] = dict(fleets=h["fleets"], alive=h["alive"],
+                                restarts=h["restarts"], failed=h["failed"],
+                                resilience=h["resilience"])
+            degraded = bool(h["resilience"].get("degraded"))
+        degraded = degraded or scaffold.alerts.nonfinite_active
         out["degraded"] = degraded and out["ok"]
         out["status"] = ("failing" if not out["ok"]
                          else "degraded" if degraded else "ok")
@@ -966,6 +1022,8 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
             )
             if chaos is not None:
                 entry["chaos"] = chaos.counts()
+            if plane is not None:
+                entry["fleet"] = plane.health()
             entry["corrupt_blocks"] = s["corrupt_blocks"]
             entry["shard_respawns"] = s.get("shard_respawns", 0)
             try:
@@ -981,6 +1039,16 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
             if verbose:
                 print(format_entry(entry), flush=True)
             last_steps, last_time = s["training_steps"], now
+
+    def chaos_loop():
+        # the fleet plane's fault sites (fleet kill, slab garbling); the
+        # learner freeze fires from learner_stop, checkpoint truncation
+        # from the Checkpointer, the service and pump sites from the
+        # plane's own loops
+        while not stop():
+            time.sleep(0.05)
+            chaos.maybe_kill_fleet(plane)
+            chaos.maybe_garble_block(plane)
 
     def snapshot_loop():
         # periodic insurance against kill -9 (no drain possible): the
@@ -1003,8 +1071,17 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     loops = [(f"actor{f}" if len(actors) > 1 else "actor",
               make_actor_loop(a)) for f, a in enumerate(actors)]
     loops += scaffold.watch_loops()
+    if (chaos is not None and plane is not None
+            and (chaos.enabled("kill_fleet")
+                 or chaos.enabled("garble_block"))):
+        loops.append(("chaos", chaos_loop))
     if want_full_save and cfg.replay_snapshot_interval > 0:
         loops.append(("snapshot", snapshot_loop))
+    if plane is not None:
+        # process transport: the fleets' trainer-side plumbing (block
+        # ingest, act server, weight pump, watchdog) runs as supervised
+        # fabric threads
+        loops += plane.make_loops(stop, buffer.add)
     if sys["ring"] is None:
         # device replay: the learner samples index bundles itself, coupled
         # to its dispatch — no batch-staging thread
@@ -1040,8 +1117,15 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
         # be gone — apply directly (lock-protected) instead of dropping
         buffer.update_priorities(idxes, priorities, old_ptr, loss)
 
+    # everything that launches concurrent machinery (fleet subprocesses,
+    # fabric threads) lives inside the try: a failure anywhere in bring-up
+    # still reaches the teardown, so no process or /dev/shm slab outlives
+    # the call
     try:
+        fleet_snaps = None
         try:
+            if plane is not None:
+                plane.start(sys["param_store"])
             scaffold.start(loops)
             with device_profile(profile_dir):
                 if sys["ring"] is not None:
@@ -1053,13 +1137,18 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                     metrics = learner.run(batch_source, priority_sink,
                                           stop=learner_stop, tracer=tracer)
         finally:
-            # the run's final health verdict, sampled before the quiesce
-            # (post-quiesce the heartbeat stops beating)
+            # the run's final health verdict, sampled while every plane
+            # still exists (post-quiesce the heartbeat stops beating, and
+            # a shut-down plane reports no live fleet)
             try:
                 final_health = healthz()
             except Exception:
                 final_health = {}
             scaffold.quiesce()
+            if plane is not None:
+                # drain-then-save: resumable actor snapshots from the dying
+                # fleets, answered by their shutdown handshake
+                fleet_snaps = plane.shutdown(snapshot=want_full_save)
             for a in actors:
                 a.close()
 
@@ -1079,7 +1168,8 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
             try:
                 checkpointer.save_replay(
                     learner.num_updates, buffer.write_state,
-                    actors=[a.snapshot() for a in actors])
+                    actors=(fleet_snaps if plane is not None
+                            else [a.snapshot() for a in actors]))
             except Exception as e:  # never fail the run over snapshot I/O
                 log.warning("full-state replay snapshot failed: %s", e)
 
@@ -1090,12 +1180,15 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                        learner_stalled=stall["stalled"],
                        trace=tracer.snapshot(), health=supervisor.health(),
                        telemetry_port=telemetry.port,
-                       fabric_failed=supervisor.any_failed,
+                       fabric_failed=(supervisor.any_failed
+                                      or (plane is not None and plane.failed)),
                        learnhealth=scaffold.learnhealth.snapshot(),
                        alerts=scaffold.alerts.counts(),
                        healthz=final_health)
         if chaos is not None:
             metrics["chaos"] = chaos.counts()
+        if plane is not None:
+            metrics["fleet_health"] = plane.health()
         metrics["blocks_per_member"] = buffer.stats().get(
             "blocks_per_member", {})
         return metrics

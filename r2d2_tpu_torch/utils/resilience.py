@@ -1,11 +1,14 @@
-"""Degraded-mode primitives the session tier needs: deadlines and the
-circuit breaker.  Port of ``r2d2_tpu/utils/resilience.py`` (``CLOSED``,
-``Deadline``, ``CircuitBreaker``); its ``RetryPolicy`` and
-``bounded_event_set`` serve the process planes and wait for their slice.
+"""Degraded-mode primitives: deadlines, retries, circuit breakers.
+Port of ``r2d2_tpu/utils/resilience.py``, whole.
 
+- :func:`bounded_event_set` — a ``multiprocessing.Event.set()`` that a
+  SIGKILLed child holding the event's lock cannot wedge.
 - :class:`Deadline` — a monotonic time budget that composes (``remaining``
   feeds the next wait's timeout), replacing ad-hoc ``time.time() + X``
   arithmetic at every bounded-wait site.
+- :class:`RetryPolicy` — jittered exponential backoff with a bounded
+  attempt count.  Deterministic given its seed (the same numpy generator
+  as the reference, so the delays are bitwise its delays).
 - :class:`CircuitBreaker` — the classic closed → open → half-open state
   machine.  ``record_failure`` past the threshold opens the circuit;
   while open, callers take their local fallback path instead of waiting
@@ -16,9 +19,14 @@ circuit breaker.  Port of ``r2d2_tpu/utils/resilience.py`` (``CLOSED``,
 """
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import Callable, Optional
+
+import numpy as np
+
+log = logging.getLogger(__name__)
 
 # CircuitBreaker states (gauge-friendly integer codes: the slab publishes
 # the state as a float and the registry renders it as a gauge)
@@ -27,6 +35,31 @@ OPEN = 1
 HALF_OPEN = 2
 
 STATE_NAMES = {CLOSED: "closed", OPEN: "open", HALF_OPEN: "half_open"}
+
+
+def bounded_event_set(event, timeout: float = 2.0, name: str = "") -> bool:
+    """Best-effort ``multiprocessing.Event.set()`` with a hard bound.
+
+    A SIGKILLed subprocess can die while holding the event's internal
+    condition lock, after which a plain ``set()`` blocks its caller
+    forever.  The set therefore runs on a daemon thread that is abandoned
+    on timeout.  Returns False when the lock never came free; callers fall
+    through to their terminate/join path, which reaps the children
+    regardless.  The trainer never *reads* a child-shared event (it
+    mirrors the flag in a plain bool); this bounds the one write a
+    graceful drain needs."""
+    t = threading.Thread(target=event.set, daemon=True,
+                         name=f"event-set-{name}" if name else "event-set")
+    t.start()
+    t.join(timeout)
+    if t.is_alive():
+        log.warning(
+            "event.set()%s did not complete within %.1fs — a killed "
+            "subprocess likely died holding the event's lock; "
+            "abandoning the set and relying on terminate/join to reap "
+            "the children", f" ({name})" if name else "", timeout)
+        return False
+    return True
 
 
 class Deadline:
@@ -53,6 +86,43 @@ class Deadline:
         if self.budget <= 0:
             return default
         return max(0.0, self.budget - (time.monotonic() - self._t0))
+
+    def poll_timeout(self, step: float) -> float:
+        """A wait-step that never overshoots the budget: ``min(step,
+        remaining)``, floored at a millisecond so a just-expired deadline
+        still gets one non-busy poll before the caller sees ``expired``."""
+        return max(0.001, min(step, self.remaining(step)))
+
+
+class RetryPolicy:
+    """Bounded retries with jittered exponential backoff.
+
+    ``attempts`` counts TOTAL tries (1 = no retry at all).  Delay before
+    retry ``i`` (1-based) is ``base * 2**(i-1)``, capped at ``max_delay``,
+    with multiplicative jitter in ``[1-jitter, 1+jitter]`` drawn from a
+    seeded generator — deterministic per policy instance, so a chaos soak
+    replays.  Call sites own their retry loops and take :meth:`backoff`
+    for the sleep schedule.
+    """
+
+    def __init__(self, attempts: int = 3, base: float = 0.05,
+                 max_delay: float = 2.0, jitter: float = 0.2,
+                 seed: int = 0):
+        if attempts < 1:
+            raise ValueError(f"attempts must be >= 1, got {attempts}")
+        self.attempts = int(attempts)
+        self.base = float(base)
+        self.max_delay = float(max_delay)
+        self.jitter = float(jitter)
+        self._rng = np.random.default_rng([seed, 0x5E51])
+
+    def backoff(self, attempt: int) -> float:
+        """Sleep before retry ``attempt`` (1-based: the delay after the
+        ``attempt``-th failure)."""
+        d = min(self.max_delay, self.base * (2.0 ** max(0, attempt - 1)))
+        if self.jitter > 0:
+            d *= 1.0 + self.jitter * float(self._rng.uniform(-1.0, 1.0))
+        return max(0.0, d)
 
 
 class CircuitBreaker:
@@ -184,3 +254,14 @@ class CircuitBreaker:
                 cbs.append(cb)
         for cb in cbs:
             cb()
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            s = self._effective_state()
+            cbs = self._drain()
+            snap = dict(state=s, state_name=STATE_NAMES[s],
+                        opens=self.opens, probes=self.probes,
+                        failures=self._failures)
+        for cb in cbs:
+            cb()
+        return snap

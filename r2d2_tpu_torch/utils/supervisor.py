@@ -149,7 +149,9 @@ class Supervisor:
 
     def health(self) -> Dict[str, Dict[str, object]]:
         out: Dict[str, Dict[str, object]] = {}
-        for name, t in self.threads.items():
+        # a snapshot of the registry: an exporter thread reads health while
+        # the fabric is still starting threads
+        for name, t in list(self.threads.items()):
             with t._lock:
                 last = t.errors[-1] if t.errors else None
                 out[name] = dict(
@@ -162,9 +164,10 @@ class Supervisor:
     def join_all(self, timeout: float) -> None:
         """Stop supervision (no further restarts, pending backoff timers
         cancelled), then join every live thread."""
-        for t in self.threads.values():
+        threads = list(self.threads.values())
+        for t in threads:
             t.stop()
-        for t in self.threads.values():
+        for t in threads:
             t.join(timeout)
 
 

@@ -295,3 +295,60 @@ def test_in_graph_sampler_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[2].cpu(), want[2])
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_inference_service_on_the_card_answers_a_spawned_cpu_fleet(cuda):
+    """The serve-mode service builds its network on the card, warms the
+    kernel with one full-batch act in ``start``, and answers the act RPCs
+    of a spawned fleet that acts nowhere itself and holds no CUDA context:
+    one kernel launch per layer per served batch."""
+    import threading
+    import time
+
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.models.network import create_network
+    from r2d2_tpu_torch.parallel.actor_procs import ProcessFleetPlane
+    from r2d2_tpu_torch.train import _default_env_factory
+    from r2d2_tpu_torch.utils.store import ParamStore
+
+    cfg = Config(game_name="Fake", torso="mlp", hidden_dim=64, num_actors=8,
+                 burn_in_steps=4, learning_steps=4, forward_steps=2,
+                 block_length=8, buffer_capacity=160, learning_starts=16,
+                 batch_size=8, actor_transport="process",
+                 actor_inference="serve")
+    A = 4   # the fake env's actions
+    net = create_network(cfg, A, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    store = ParamStore({k: v.detach().clone()
+                        for k, v in net.state_dict().items()})
+    plane = ProcessFleetPlane(cfg, A, _default_env_factory,
+                              [0.4] * cfg.num_actors)
+    svc = plane.service
+    KERNEL_LAUNCHES.reset()
+    try:
+        plane.start(store)
+        assert svc.net.lstm_layers[0].impl == "pallas"
+        assert svc.warmups == 1
+        assert KERNEL_LAUNCHES.get(KERNEL) == cfg.lstm_layers
+        reports = []
+        t = threading.Thread(
+            target=lambda: reports.extend(plane.probe_fleets(120)))
+        t.start()
+        deadline = time.time() + 120
+        while (t.is_alive() or svc.batches < 3) and time.time() < deadline:
+            svc.serve_once(idle_sleep=0.0)
+            plane.ingest_once(lambda *item: None, timeout=0.0)
+        t.join(10)
+        assert svc.batches >= 3 and svc.requests_corrupt == 0
+        assert reports and reports[0] is not None
+        assert not reports[0]["cuda_initialized"]
+        assert not reports[0]["jax_loaded"]
+        assert KERNEL_LAUNCHES.get(KERNEL) == cfg.lstm_layers * (
+            svc.batches + svc.warmups)
+        assert KERNEL_LAUNCHES.get(CUDACORE_COUNTER) == 0
+        assert svc.lanes_served == svc.batches * cfg.num_actors
+        stats = plane.poll_fleet_stats()["per_fleet"][0]
+        assert stats["circuit_state"] == 0 and stats["local_acts"] == 0
+    finally:
+        plane.shutdown()

@@ -232,6 +232,43 @@ def test_actor_that_raises_once_is_restarted():
     assert np.isfinite(m["mean_loss"])
 
 
+def test_supervisor_health_while_threads_start():
+    """``health()`` read from another thread while the supervisor starts
+    threads (an exporter answering /healthz during the fabric's start-up)
+    never trips over the growing registry."""
+    import sys
+
+    from r2d2_tpu_torch.utils.supervisor import Supervisor
+
+    sup, release, errors = Supervisor(), threading.Event(), []
+    started = threading.Event()
+
+    def reader():
+        started.set()
+        while not release.is_set():
+            try:
+                sup.health()
+            except RuntimeError as e:
+                errors.append(e)
+                return
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    t = threading.Thread(target=reader)
+    try:
+        t.start()
+        started.wait(5)
+        for i in range(300):
+            sup.start(f"t{i}", lambda: release.wait(10))
+    finally:
+        sys.setswitchinterval(switch)
+        release.set()
+        t.join(10)
+        sup.join_all(timeout=5.0)
+    assert not t.is_alive() and not errors, errors
+    assert len(sup.health()) == 300
+
+
 def test_stop_fn_drains_saves_and_resumes_warm(tmp_path):
     """A programmatic stop mid-run drains and saves the learner state and
     the full replay snapshot; the resumed run restores both (the ring, the
