@@ -181,8 +181,44 @@ Phases (each exits non-zero on failure):
    trainer's and the fleets' CPU cores, peak GB; then each run's interval
    against phase 7's lone super-step beside phase 7's in-graph run, and
    the phase's seconds;
-10. one ``{"kernels": [...]}`` JSON line;
-11. last line: ``{"ok": true, "device": {...}}``.
+10. the sharded replay plane: the README's flagship ``Config(game_name=
+    "Fake", replay_shards=4)`` at full width (nature torso on 21×21×16
+    frames, H = 512, bf16, batch 64, burn-in 40 + learning 40 + forward 5,
+    8 thread actors acting through the kernel at B = 8) with the full
+    5 000-block host ring (1 250 blocks a shard), cut only in warm-up (16
+    blocks, 4 a shard) and run length (the ``reduced:`` line).  First,
+    ``/dev/shm`` must hold the shards' slabs and MemAvailable the ring.
+    Then 16 scripted blocks go into both transports at K = 4 and into a
+    K = 1 oracle buffer: every row a plane returns must equal the
+    oracle's gather at the same global index bit for bit, each IS weight
+    the oracle's leaves' weight, and the summed shard mass the oracle's
+    tree total to 1e-12 relative, over three draws with priority feedback
+    between them.  Then ``train(cfg, device="cuda")`` three times: K = 1
+    (the in-process ring, 16 updates), K = 4 over shm (16 updates, ending
+    with the drain-then-save per-shard snapshot, read back into a fresh
+    plane mass-exact, its bytes and seconds printed) and K = 4 over
+    managed loopback sockets (8 updates).  Checked in each run: every
+    loss finite and every priority feedback in the plane; ``lstm_infer``
+    launched lstm_layers x (actor + evaluator acts) times, the CUDA-core
+    kernel never, and none by an update alone; one batch copy to the card
+    per staged batch from a plane (one per field from the in-process
+    ring); /healthz ok.  In the shard runs: the shards' summed size equal
+    to the ingested blocks' transitions; 0 corrupt blocks, respawns,
+    dropped blocks and stale feedback, and 0 redraws, sample timeouts and
+    garbled responses at the last update (the stop then cuts the draw in
+    flight, which the plane counts as timed out); over sockets every
+    circuit closed and 0 epoch drops; the
+    /statusz and /healthz ``replay_shards`` blocks present; each shard's
+    process (read from ``/proc``) maps no CUDA driver and no JAX, and
+    ``nvidia-smi --query-compute-apps`` lists no shard.  Prints per run
+    the update interval p50, env steps/s while filling and training, the
+    plane's sample call p50/p99 on the learner's side and batches/s, the
+    shards' CPU cores and the peak GB; then each shard run's interval
+    against K = 1's, beside the plane's sample call alone (5 back-to-back
+    calls after the parity check, no other thread), and the phase's
+    seconds;
+11. one ``{"kernels": [...]}`` JSON line;
+12. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -302,6 +338,26 @@ PROCESS_WATCHDOG_S = 420
 # the served act (bf16 on the card, the kernel) against the fleets' f32
 # CPU twin on one 64-lane batch: phase 8's card-vs-CPU limit
 SERVE_CPU_TOL = 2e-2
+# phase 10: the README's flagship Config(game_name="Fake",
+# replay_shards=4) with the full 5 000-block host ring, cut only in
+# warm-up (16 blocks, 4 a shard) and run length; three runs: the
+# in-process ring (K = 1, the same configuration otherwise), four shm
+# shards, four managed loopback socket shard servers
+REPLAY_SHARDS = 4
+REPLAY_REDUCED = dict(learning_starts=6_400, telemetry_port=-1,
+                      log_interval=1.0)
+REPLAY_RUNS = (("k1", dict(replay_shards=1), 16), ("shm", {}, 16),
+               ("socket", dict(replay_transport="socket"), 8))
+REPLAY_WALL_S = 300
+REPLAY_WATCHDOG_S = 900
+# the scripted-block parity check before the runs: 16 blocks (4 a
+# shard), 3 draws of the full batch with priority feedback between them;
+# the shard masses sum in another order than the oracle's tree, so they
+# agree to rounding, not bit for bit
+REPLAY_CHECK_BLOCKS = 16
+REPLAY_CHECK_DRAWS = 3
+REPLAY_ALONE_DRAWS = 5
+REPLAY_MASS_RTOL = 1e-12
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -309,7 +365,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def env_factory(c, seed: int):
-    """The fake env of phases 5-9 (episodes of ``FAKE_EPISODE_LEN``,
+    """The fake env of phases 5-10 (episodes of ``FAKE_EPISODE_LEN``,
     ``TRAIN_ACTIONS`` actions): module-level, so that a spawned fleet
     unpickles it by name."""
     from r2d2_tpu_torch.envs import FakeAtariEnv
@@ -3009,6 +3065,552 @@ def phase_process_fleets(torch, card: str, thread: dict) -> int:
     return {m: runs[m]["launches"] for m in PROCESS_MODES}
 
 
+def replay_shm_bytes(cfg, action_dim: int) -> int:
+    """Bytes one sharded plane maps in /dev/shm: per shard, its ingest
+    slots and its sample slab (``parallel/replay_shards._ShardChannels``),
+    plus the stats slab — computed from the specs the plane allocates."""
+    from r2d2_tpu_torch.parallel.replay_shards import (
+        SHARD_STAT_FIELDS,
+        _ShardChannels,
+    )
+    from r2d2_tpu_torch.replay.block import (
+        batch_slot_spec,
+        block_slot_spec,
+        slot_layout,
+    )
+
+    shard = cfg.replace(buffer_capacity=cfg.buffer_capacity
+                        // cfg.replay_shards, replay_shards=1)
+    block, _ = slot_layout(block_slot_spec(shard, action_dim))
+    sample, _ = slot_layout(batch_slot_spec(shard, action_dim,
+                                            cfg.batch_size))
+    stats = 8 * (len(SHARD_STAT_FIELDS) + 2)
+    return cfg.replay_shards * (_ShardChannels.INGEST_SLOTS * block + sample
+                                + stats)
+
+
+def mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def proc_report(pid: int) -> dict:
+    """What a child process holds, read from the outside: a CUDA context
+    maps the driver library (``libcuda``), JAX maps ``xla_extension`` or
+    ``jaxlib``, torch ``libtorch``; and its CPU seconds so far."""
+    with open(f"/proc/{pid}/maps") as f:
+        maps = f.read()
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    cpu = (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+    return dict(pid=pid, cuda="libcuda" in maps,
+                jax="xla_extension" in maps or "jaxlib" in maps,
+                torch="libtorch" in maps, cpu_s=cpu)
+
+
+def oracle_leaf(cfg, idxes):
+    """Global sharded leaf index → the K = 1 oracle's leaf with the same
+    content (block n routes to shard n % K, local slot n // K)."""
+    K, kseq = cfg.replay_shards, cfg.seqs_per_block
+    lps = cfg.num_sequences // K
+    shard, local = idxes // lps, idxes % lps
+    return ((local // kseq) * K + shard) * kseq + local % kseq
+
+
+def replay_parity(base) -> dict:
+    """Phase 10's check on scripted blocks, before the runs: both
+    transports at K = 4 and a K = 1 oracle buffer, at the flagship's full
+    geometry, fed the same blocks; every returned row bitwise equal to the
+    oracle's gather at the same global index (and each IS weight to the
+    oracle's leaves' weight), the summed shard mass equal to the oracle's
+    tree total to 1e-12 relative, before and after priority feedback."""
+    from r2d2_tpu_torch.parallel.replay_net import NetShardedReplayPlane
+    from r2d2_tpu_torch.parallel.replay_shards import ShardedReplayPlane
+    from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+
+    A, B = TRAIN_ACTIONS, base.batch_size
+    blocks = scripted_blocks(base, REPLAY_CHECK_BLOCKS, seed=5)
+    steps = sum(int(b.learning_steps.sum()) for b, _ in blocks)
+    rows = ("obs", "last_action", "last_reward", "hidden", "action",
+            "n_step_reward", "n_step_gamma", "burn_in", "learning",
+            "forward")
+    out = {}
+    for label, cls, cfg in (
+            ("shm", ShardedReplayPlane, base),
+            ("socket", NetShardedReplayPlane,
+             base.replace(replay_transport="socket"))):
+        oracle_t = ReplayBuffer(base.replace(replay_shards=1), A,
+                                rng=np.random.default_rng(0))
+        for blk, prios in blocks:
+            oracle_t.add(blk, prios, None)
+        plane = cls(cfg, A, rng=np.random.default_rng(1))
+        t0 = time.perf_counter()
+        try:
+            plane.start()
+            for blk, prios in blocks:
+                plane.add(blk, prios, None)
+            deadline = time.time() + 120
+            while (plane.poll_shard_stats()["size_total"] < steps
+                   and time.time() < deadline):
+                time.sleep(0.02)
+            rel = []
+            fed = 0
+            # the socket plane issues each next draw before the current
+            # batch returns (the pipeline): its shards serve that draw
+            # before the batch's feedback lands, so its rows carry the
+            # priorities from before that feedback
+            at_issue = oracle_t.tree.leaf_values()
+            for rnd in range(REPLAY_CHECK_DRAWS):
+                st = plane.poll_shard_stats()
+                rel.append(abs(st["mass_total"] - oracle_t.tree.total)
+                           / oracle_t.tree.total)
+                batch = plane.sample_batch(B)
+                if batch is None:
+                    fail(f"replay parity ({label}): no batch")
+                oidx = oracle_leaf(cfg, batch["idxes"])
+                with oracle_t.lock:
+                    want = oracle_t._gather_rows(oidx)
+                    now = oracle_t.tree.leaf_values()
+                leaves = (at_issue if label == "socket" else now)[oidx]
+                at_issue = now
+                for name in rows:
+                    if not np.array_equal(batch[name], want[name]):
+                        fail(f"replay parity ({label}): field {name} of "
+                             f"draw {rnd} differs from the oracle's gather")
+                pos = leaves[leaves > 0]
+                p = np.maximum(leaves, pos.min())
+                w = ((p / pos.min()) ** (-cfg.importance_sampling_exponent)
+                     ).astype(np.float32)
+                if not np.array_equal(batch["is_weights"], w):
+                    fail(f"replay parity ({label}): IS weights of draw "
+                         f"{rnd} differ from the oracle's leaves'")
+                new = np.linspace(0.1, 2.0 + rnd, B)
+                plane.update_priorities(batch["idxes"], new,
+                                        batch["block_ptr"], 0.0)
+                oracle_t.update_priorities(oidx, new, oracle_t.block_ptr,
+                                           0.0)
+                fed += len(batch["block_ptr"])
+                deadline = time.time() + 60
+                while (plane.poll_shard_stats()["totals"].get(
+                        "prio_updates", 0) < fed
+                       and time.time() < deadline):
+                    time.sleep(0.01)
+            st = plane.poll_shard_stats()
+            rel.append(abs(st["mass_total"] - oracle_t.tree.total)
+                       / oracle_t.tree.total)
+            # the sample call alone: back to back, as the fabric's sample
+            # thread calls it, with no other thread in the process
+            calls = []
+            for _ in range(REPLAY_ALONE_DRAWS):
+                t_call = time.perf_counter()
+                if plane.sample_batch(B) is None:
+                    fail(f"replay parity ({label}): no batch")
+                calls.append((time.perf_counter() - t_call) * 1e3)
+            if max(rel) > REPLAY_MASS_RTOL:
+                fail(f"replay parity ({label}): shard mass against the "
+                     f"oracle's tree total, relative {rel}")
+        finally:
+            plane.shutdown()
+        out[label] = dict(mass_rel=max(rel), calls_ms=calls,
+                          seconds=time.perf_counter() - t0)
+    print(f"replay parity at the flagship geometry (K = 4, "
+          f"{REPLAY_CHECK_BLOCKS} scripted blocks, {REPLAY_CHECK_DRAWS} "
+          f"draws of {B} with priority feedback): every row bitwise equal "
+          f"to the K = 1 oracle's gather and every IS weight to its "
+          f"leaves', over shm and over sockets; shard mass vs the oracle's "
+          f"tree total, max relative " + ", ".join(
+              f"{k} {v['mass_rel']:.2e} ({v['seconds']:.1f} s)"
+              for k, v in out.items()) + f" (limit {REPLAY_MASS_RTOL}); "
+          f"the plane's sample call alone, back to back, p50 " + ", ".join(
+              f"{k} {np.percentile(v['calls_ms'], 50):.2f} ms (of "
+              + " / ".join(f"{ms:.2f}" for ms in v["calls_ms"]) + ")"
+              for k, v in out.items()), flush=True)
+    return out
+
+
+def replay_run(torch, card: str, cfg, label: str, ckdir) -> dict:
+    """One of phase 10's ``train()`` runs: its checks and timings.
+    ``ckdir`` (or None) is where the run saves; the run with a replay
+    plane and a ``ckdir`` ends with the drain-then-save per-shard
+    snapshot, read back here into a fresh plane."""
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.actor import ACTOR_ACT
+    from r2d2_tpu_torch.evaluate import EVAL_ACT
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+
+    steps = cfg.training_steps
+    real_build = train._build
+    rec = dict(steps=[], samples=[], stages=0, probe=None, start=None,
+               cpu=[], last_batch=None, write_s=None, settle=None)
+    probe = {}
+
+    def read_procs(plane):
+        return [proc_report(p.pid) for p in plane.procs]
+
+    def capture(*args, **kw):
+        sys_ = real_build(*args, **kw)
+        rec.update(sys_)
+        actor, learner, buffer = (sys_["actor"], sys_["learner"],
+                                  sys_["buffer"])
+        plane = sys_["replay_plane"]
+        run, step, stage = actor.run, learner._step_fn, learner._stage
+        sample = buffer.sample_batch
+
+        def timed_run(max_steps, stop=None):
+            if rec["start"] is None:
+                rec["start"] = (time.perf_counter(), actor.actor_steps)
+            run(max_steps, stop)
+
+        def timed_step(state, batch):
+            t0, a0 = time.perf_counter(), actor.actor_steps
+            out = step(state, batch)
+            rec["steps"].append((t0, a0, time.perf_counter(),
+                                 actor.actor_steps))
+            n = len(rec["steps"])
+            if plane is not None and n in (1, steps):
+                # the shards' maps and CPU seconds, read from /proc while
+                # they serve the run
+                rec["cpu"].append((time.perf_counter(), read_procs(plane)))
+            if plane is not None and n == steps:
+                # the plane's fault counters as training ends: the stop
+                # then cuts the sample thread's draw in flight, which the
+                # plane counts as timed out (JAX's accounting)
+                rec["at_end"] = dict(
+                    timeouts=plane.sample_timeouts, redraws=plane.redraws,
+                    garbled=plane.garbled_responses,
+                    retries=plane.sample_retries)
+            return out
+
+        def counted_stage(batch):
+            rec["stages"] += 1
+            return stage(batch)
+
+        def timed_sample(*a, **k):
+            t0 = time.perf_counter()
+            batch = sample(*a, **k)
+            rec["samples"].append((t0, time.perf_counter()))
+            if batch is not None:
+                rec["last_batch"] = batch
+            return batch
+
+        actor.run, learner._step_fn = timed_run, timed_step
+        learner._stage, buffer.sample_batch = counted_stage, timed_sample
+        if plane is not None:
+            write, shutdown = plane.write_state, plane.shutdown
+
+            def timed_write(path):
+                t0 = time.perf_counter()
+                meta = write(path)
+                rec["write_s"] = time.perf_counter() - t0
+                return meta
+
+            def settled_shutdown(*a, **k):
+                # the card's compute processes while the shards still run,
+                # asked after training so that it adds nothing to the
+                # measured window
+                smi = subprocess.run(
+                    ["nvidia-smi", "--query-compute-apps=pid",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True, timeout=60)
+                rec["probe"] = (smi.returncode, smi.stdout.split())
+                # the last routed blocks reach their shards within a few
+                # polls of the fabric's stop; read the plane settled
+                deadline = time.time() + 30
+                while (plane.poll_shard_stats()["size_total"]
+                       != plane.env_steps and time.time() < deadline):
+                    time.sleep(0.02)
+                st = plane.poll_shard_stats()
+                rec["settle"] = dict(size=st["size_total"],
+                                     masses=st["masses"].copy(),
+                                     health=plane.health())
+                return shutdown(*a, **k)
+
+            plane.write_state, plane.shutdown = timed_write, settled_shutdown
+        return sys_
+
+    def log_sink(entry):
+        if probe:
+            return
+        try:
+            port = entry["telemetry_port"]
+            probe["healthz"] = http_get(port, "/healthz")
+            probe["statusz"] = http_get(port, "/statusz")
+        except Exception as e:  # checked below, after the run
+            probe["error"] = f"{type(e).__name__}: {e}"
+
+    KERNEL_LAUNCHES.reset()
+    HOST_TRANSFERS.reset()
+    torch.cuda.reset_peak_memory_stats()
+    train._build = capture
+    t0 = time.perf_counter()
+    try:
+        m = train.train(cfg, env_factory, checkpoint_dir=ckdir,
+                        max_wall_seconds=REPLAY_WALL_S, verbose=False,
+                        log_sink=log_sink)
+    finally:
+        train._build = real_build
+    run_s = time.perf_counter() - t0
+    # the run's stamps (the check below steps the learner once more)
+    st = list(rec["steps"])
+    peak = torch.cuda.max_memory_allocated()
+    launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
+    old = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
+    acts = HOST_TRANSFERS.get(ACTOR_ACT) + HOST_TRANSFERS.get(EVAL_ACT)
+    h2d = HOST_TRANSFERS.get("learner.batch_h2d")
+    plane, learner = rec["replay_plane"], rec["learner"]
+    K = cfg.replay_shards
+
+    # the run's checks
+    lh = m["learnhealth"]
+    restarts = {n: h["restarts"] for n, h in m["health"].items()}
+    if (m["num_updates"] != steps or lh["loss_count"] != steps
+            or lh["nonfinite"] or not np.isfinite(m["mean_loss"])
+            or m["buffer_training_steps"] != steps
+            or m["fabric_failed"] or any(restarts.values())):
+        fail(f"{label}: {m['num_updates']} updates, learnhealth {lh}, "
+             f"feedbacks {m['buffer_training_steps']}, failed "
+             f"{m['fabric_failed']}, thread restarts {restarts}")
+    if launches != cfg.lstm_layers * acts or not acts or old:
+        fail(f"{label}: lstm_infer launched {launches} times (CUDA-core "
+             f"{old}) for {acts} acts, {cfg.lstm_layers} layer")
+    per_stage = 1 if plane is not None else 11
+    stages = rec["stages"]
+    if h2d != per_stage * stages:
+        fail(f"{label}: {h2d} batch copies to the card for {stages} "
+             f"staged batches (want {per_stage} each)")
+    # an update alone launches no lstm_infer kernel
+    KERNEL_LAUNCHES.reset()
+    dev, _ = learner._stage(rec["last_batch"])
+    _, loss, _ = learner._step_fn(learner.state, dev)
+    torch.cuda.synchronize()
+    upd_launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
+    if upd_launches or not np.isfinite(loss.item()):
+        fail(f"{label}: an update alone launched {upd_launches} lstm_infer "
+             f"kernels, loss {loss.item()}")
+    if "error" in probe or probe.get("healthz", (0,))[0] != 200:
+        fail(f"{label}: the run's exporter: {probe}")
+    health = json.loads(probe["healthz"][1])
+    status = json.loads(probe["statusz"][1])
+    if health.get("status") != "ok" or m["healthz"].get("status") != "ok":
+        fail(f"{label}: /healthz {health}, final {m['healthz']}")
+    out = dict(label=label, launches=launches, acts=acts,
+               peak_gb=peak / 1e9, seconds=run_s, h2d=h2d, stages=stages)
+    line = (f"replay {label} on {card}: {m['num_updates']} updates in "
+            f"{run_s:.2f} s, losses finite {lh['loss_count']}/{steps}, "
+            f"mean loss {m['mean_loss']:.5f}, priority feedbacks "
+            f"{m['buffer_training_steps']}; lstm_infer launches {launches} "
+            f"= {cfg.lstm_layers} x {acts} acts, CUDA-core {old}, 0 in an "
+            f"update alone; batch copies to the card {h2d} for "
+            f"{stages} staged batches; /healthz ok")
+    if plane is None:
+        buffer = rec["buffer"]
+        if len(buffer) != buffer.env_steps:
+            fail(f"{label}: fill {len(buffer)} for {buffer.env_steps} "
+                 "ingested transitions")
+        line += f"; fill {len(buffer)} = the ingested transitions"
+    else:
+        settle = rec["settle"]
+        rh = settle["health"]
+        bad = dict(corrupt=rh["corrupt_blocks"], respawns=rh["respawns"],
+                   dropped=rh["dropped_blocks"],
+                   stale=rh["stale_feedback"], **rec["at_end"])
+        if (settle["size"] != plane.env_steps or rh["alive"] != K
+                or any(bad["respawns"]) or any(
+                    v for k_, v in bad.items() if k_ != "respawns")):
+            fail(f"{label}: shards' size {settle['size']} for "
+                 f"{plane.env_steps} ingested transitions; {bad}; alive "
+                 f"{rh['alive']}")
+        net = rh.get("net")
+        if net is not None:
+            circuits = [row["circuit"] for row in net["links"]]
+            if (circuits != ["closed"] * K or net["epoch_drops"]
+                    or net["connected"] != K):
+                fail(f"{label}: circuits {circuits}, epoch drops "
+                     f"{net['epoch_drops']}, connected {net['connected']}")
+        if "replay_shards" not in (status.get("last_entry") or {}) or (
+                "replay_shards" not in health):
+            fail(f"{label}: /statusz or /healthz has no replay_shards "
+                 "block")
+        reports = rec["cpu"][-1][1]
+        smi_rc, smi_pids = rec["probe"]
+        pids = [r["pid"] for r in reports]
+        if (len(reports) != K or any(r["cuda"] or r["jax"]
+                                     for _, rs in rec["cpu"] for r in rs)
+                or smi_rc != 0 or set(smi_pids) & {str(p) for p in pids}):
+            fail(f"{label}: shard reports {reports}; nvidia-smi compute "
+                 f"apps {smi_pids} (rc {smi_rc})")
+        (t_a, first), (t_b, last) = rec["cpu"][0], rec["cpu"][-1]
+        cores = [(b["cpu_s"] - a["cpu_s"]) / max(t_b - t_a, 1e-9)
+                 for a, b in zip(first, last)]
+        out.update(shard_cores=cores, masses=settle["masses"])
+        line += (f"; shards' size {settle['size']} = the ingested "
+                 f"transitions ({rh['blocks_routed']} blocks routed), "
+                 f"sizes {rh['sizes']}; corrupt 0, respawns 0, dropped 0, "
+                 f"stale feedback 0; while training redraws 0, timeouts 0, "
+                 f"garbled 0 (at the end, with the stop's cut of the draw "
+                 f"in flight: timeouts {rh['sample_timeouts']}, redraws "
+                 f"{rh['redraws']})"
+                 + (f"; circuits {['closed'] * K}, epoch drops 0, "
+                    f"reconnects {net['reconnects']}" if net else "")
+                 + f"; /statusz replay_shards {health['replay_shards']}; "
+                 f"shards: no CUDA context, no JAX, torch "
+                 f"{sorted({r['torch'] for r in reports})}; nvidia-smi "
+                 f"compute apps {smi_pids} (trainer {os.getpid()}, shards "
+                 f"{pids})")
+    print(line, flush=True)
+
+    # timings, from the stamps (no synchronisation added)
+    t_start, a_start = rec["start"]
+    n_env = cfg.num_actors
+    fill = (st[0][1] - a_start) * n_env / (st[0][0] - t_start)
+    training = ((st[-1][3] - st[0][1]) * n_env / (st[-1][2] - st[0][0]))
+    exits = np.asarray([s[2] for s in st])
+    gaps = np.diff(exits) * 1e3
+    calls = [(a, b) for a, b in rec["samples"]]
+    ms = np.asarray([b - a for a, b in calls]) * 1e3
+    in_train = [(a, b) for a, b in calls if st[0][0] <= a <= st[-1][2]]
+    rate = len(in_train) / max(st[-1][2] - st[0][0], 1e-9)
+    slow = np.argsort(gaps)[::-1][:3]
+    out.update(interval_p50=float(np.percentile(gaps, 50)), fill=fill,
+               training=training, sample_p50=pct(ms, 50),
+               sample_p99=pct(ms, 99), batches_s=rate,
+               capacity=1e3 / float(np.mean(ms)))
+    line = (f"replay {label} timings on {card}: update interval p50 "
+            f"{out['interval_p50']:.2f} ms (min {gaps.min():.2f}, max "
+            f"{gaps.max():.2f}, {len(gaps)} intervals, the longest after "
+            f"updates {[int(i) + 1 for i in slow]}); env steps/s while "
+            f"filling {fill:.0f}, while training {training:.0f}; the "
+            f"plane's sample call on the learner's side p50 "
+            f"{out['sample_p50']:.2f} ms, p99 {out['sample_p99']:.2f} ms "
+            f"over {len(ms)} calls, {rate:.2f} batches/s while training "
+            f"({out['capacity']:.2f}/s at the mean call); peak allocated "
+            f"{peak / 1e9:.2f} GB")
+    if plane is not None:
+        line += ("; the shards' CPU cores while training "
+                 + ", ".join(f"{c:.2f}" for c in out["shard_cores"])
+                 + f" of the host's {os.cpu_count()}")
+    print(line, flush=True)
+
+    if plane is not None and ckdir is not None:
+        # the drain-then-save per-shard snapshot, read back into a fresh
+        # plane, mass-exact
+        from r2d2_tpu_torch.checkpoint import Checkpointer
+        from r2d2_tpu_torch.parallel.replay_shards import ShardedReplayPlane
+
+        meta, ring, _ = Checkpointer(ckdir).restore_replay()
+        nbytes = sum(os.path.getsize(f"{ring}.shard{s}") for s in range(K))
+        saved = [sm["tree_total"] for sm in meta["shard_metas"]]
+        if (meta["kind"] != "sharded" or meta["shards"] != K
+                or not np.array_equal(saved, out["masses"])):
+            fail(f"{label}: snapshot meta {meta['kind']}/{meta['shards']}, "
+                 f"masses {saved} against the live {out['masses']}")
+        fresh = ShardedReplayPlane(cfg, TRAIN_ACTIONS)
+        t0 = time.perf_counter()
+        try:
+            fresh.read_state(ring, meta)
+            fresh.start()
+            deadline = time.time() + 300
+            while (not np.array_equal(fresh.poll_shard_stats()["masses"],
+                                      saved) and time.time() < deadline):
+                time.sleep(0.05)
+            got = fresh.poll_shard_stats()
+        finally:
+            read_s = time.perf_counter() - t0
+            fresh.shutdown()
+        if not np.array_equal(got["masses"], saved) or (
+                got["size_total"] != rec["settle"]["size"]):
+            fail(f"{label}: snapshot read back to masses {got['masses']} "
+                 f"(saved {saved}), size {got['size_total']}")
+        out.update(snapshot_bytes=nbytes, write_s=rec["write_s"],
+                   read_s=read_s)
+        print(f"replay {label} snapshot on {card}: drain-then-save of "
+              f"{K} shards, {nbytes} bytes in {rec['write_s']:.2f} s; read "
+              f"back into a fresh plane in {read_s:.2f} s, masses equal "
+              f"bit for bit ({[float(x) for x in saved]}), size "
+              f"{got['size_total']}", flush=True)
+    return out
+
+
+def flagship_replay_config():
+    """The README's ``Config(game_name="Fake", replay_shards=4)``, checked
+    against the flagship's published widths."""
+    from r2d2_tpu_torch.config import Config
+
+    base = Config(game_name="Fake", replay_shards=REPLAY_SHARDS)
+    literal = dict(torso="nature", stored_obs_shape=(21, 21, 16),
+                   hidden_dim=H, lstm_layers=1, compute_dtype="bfloat16",
+                   batch_size=64, burn_in_steps=40, learning_steps=40,
+                   forward_steps=5, num_actors=8,
+                   buffer_capacity=2_000_000, block_length=400)
+    got = {k: getattr(base, k) for k in literal}
+    if got != literal:
+        fail(f"Config(game_name='Fake') is not the flagship: {got}")
+    return base
+
+
+def phase_replay_shards(torch, card: str, base) -> tuple:
+    """Phase 10: the flagship ``base`` trained by ``train()`` from the
+    in-process ring (K = 1), from four shm replay shards and from four
+    loopback socket shard servers, after the scripted-block parity check.
+    Returns the kernel's launches by run and the parity check's result."""
+    import gc
+    import shutil
+    import tempfile
+
+    from r2d2_tpu_torch.replay.replay_buffer import data_bytes
+
+    t_phase = time.perf_counter()
+    faulthandler.dump_traceback_later(REPLAY_WATCHDOG_S)
+    need = data_bytes(base, TRAIN_ACTIONS)
+    shm_need = replay_shm_bytes(base, TRAIN_ACTIONS)
+    vfs = os.statvfs("/dev/shm")
+    shm_free = vfs.f_bavail * vfs.f_frsize
+    mem = mem_available()
+    if shm_free < shm_need:
+        fail(f"/dev/shm has {shm_free} bytes free; {base.replay_shards} "
+             f"shards map {shm_need}")
+    if mem < 1.2 * need:
+        fail(f"MemAvailable {mem} bytes; the host ring needs {need}")
+    print("reduced: " + ", ".join(
+        f"{k} {getattr(base, k)} -> {v}" for k, v in REPLAY_REDUCED.items())
+        + ", training_steps " + ", ".join(
+            f"{lbl} {n}" for lbl, _, n in REPLAY_RUNS) + f" (from "
+        f"{base.training_steps}); the full host ring, {base.num_blocks} "
+        f"blocks ({need / 1e9:.2f} GB, "
+        f"{base.num_blocks // base.replay_shards} a shard); /dev/shm {shm_free} bytes free for {shm_need}; "
+        f"MemAvailable {mem}; os.cpu_count() {os.cpu_count()}", flush=True)
+    parity = replay_parity(base)
+    runs = {}
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_replay_")
+    try:
+        for label, kw, n in REPLAY_RUNS:
+            cfg = base.replace(training_steps=n, **REPLAY_REDUCED, **kw)
+            runs[label] = replay_run(torch, card, cfg, label,
+                                     ckdir if label == "shm" else None)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    one = runs["k1"]
+    print(f"replay planes against the in-process ring on {card}: " + "; ".join(
+        f"{lbl}: interval p50 {r['interval_p50']:.2f} ms = "
+        f"{r['interval_p50'] / one['interval_p50']:.2f}x K = 1's "
+        f"{one['interval_p50']:.2f}, sample call p50 {r['sample_p50']:.2f}"
+        f" ms (K = 1 {one['sample_p50']:.2f}; alone "
+        f"{np.percentile(parity[lbl]['calls_ms'], 50):.2f}), env steps/s "
+        f"{r['fill']:.0f} filling / {r['training']:.0f} training, peak "
+        f"{r['peak_gb']:.2f} GB" for lbl, r in runs.items() if lbl != "k1"),
+        flush=True)
+    faulthandler.cancel_dump_traceback_later()
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+    return {lbl: r["launches"] for lbl, r in runs.items()}, parity
+
+
 def main() -> None:
     try:
         import torch
@@ -3064,6 +3666,10 @@ def main() -> None:
     # local inference
     fleet_launches = phase_process_fleets(torch, card, thread_timings)
 
+    # phase 10: the flagship from K replay shards, over shm and sockets
+    replay_launches, _ = phase_replay_shards(torch, card,
+                                             flagship_replay_config())
+
     head = timings[(1, 256)]
     print(json.dumps({"kernels": [{
         "name": "lstm_infer",
@@ -3073,7 +3679,8 @@ def main() -> None:
         "launches": (serve_launches + train_launches + fabric_launches
                      + serve_ckpt_launches + device_replay_launches
                      + anakin_launches + fleet_launches["serve"]
-                     + fleet_launches["local"]),
+                     + fleet_launches["local"]
+                     + sum(replay_launches.values())),
         "launches_by_path": {"serving": serve_launches,
                              "training": train_launches,
                              "fabric": fabric_launches,
@@ -3081,7 +3688,10 @@ def main() -> None:
                              "device_replay": device_replay_launches,
                              "anakin": anakin_launches,
                              "process_serve": fleet_launches["serve"],
-                             "process_local": fleet_launches["local"]},
+                             "process_local": fleet_launches["local"],
+                             "replay_k1": replay_launches["k1"],
+                             "replay_shm": replay_launches["shm"],
+                             "replay_socket": replay_launches["socket"]},
         "max_abs_err": errs["tensor_core"][0],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

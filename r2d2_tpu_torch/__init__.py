@@ -13,9 +13,11 @@ the training path (``train.train_sync`` and the threaded ``train.train``:
 actors, replay on the host or on the device, learner, checkpoints,
 evaluation), whose actors act through that kernel, anakin, the fused
 on-device loop on a batched device env (``actor_transport="anakin"``,
-``learner/anakin.py``), and the process fleets with the centralized
-inference service (``actor_transport="process"``, ``parallel/``).
-ROADMAP.md lists what comes next.
+``learner/anakin.py``), the process fleets with the centralized
+inference service (``actor_transport="process"``, ``parallel/``), and the
+sharded replay plane over shared memory or TCP (``replay_shards > 1``,
+``replay_transport="socket"``, ``parallel/replay_shards.py``,
+``parallel/replay_net.py``).  ROADMAP.md lists what comes next.
 """
 from r2d2_tpu_torch.config import Config, test_config
 

@@ -55,6 +55,39 @@ DEVICE_BATCH_KEYS = (
     "is_weights",
 )
 
+# the key of a packed batch's one host buffer (:func:`packed_batch`)
+PACKED_KEY = "_packed"
+
+
+def packed_batch(spec, pin: bool) -> Dict[str, Any]:
+    """Numpy views, one per ``(name, shape, dtype)`` of ``spec``, into ONE
+    host buffer (pinned when ``pin``), plus that buffer under
+    :data:`PACKED_KEY`.  A batch assembled into these views reaches the
+    device in one copy (:meth:`Learner._stage`) instead of one pinned
+    staging copy and one transfer per field — the sharded replay planes
+    assemble their batches so."""
+    from r2d2_tpu_torch.replay.block import slot_layout, slot_views
+
+    nbytes, offsets = slot_layout(spec)
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+    views = slot_views(host.numpy(), spec, offsets, nbytes, 0)
+    views[PACKED_KEY] = (host, tuple(
+        (name, offsets[name], tuple(shape), np.dtype(dtype))
+        for name, shape, dtype in spec))
+    return views
+
+
+def _unpack(buf: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
+    """Typed views of a packed batch's device copy (8-byte aligned fields,
+    ``slot_layout``)."""
+    out = {}
+    for name, off, shape, dtype in layout:
+        n = int(np.prod(shape)) * dtype.itemsize
+        tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        out[name] = buf[off:off + n].view(tdtype).view(shape)
+    return out
+
+
 # batch_source() -> host batch dict (blocking); returns None to stop early.
 BatchSource = Callable[[], Optional[Dict[str, np.ndarray]]]
 # priority_sink(idxes, priorities, old_ptr, loss)
@@ -157,14 +190,24 @@ class Learner:
     def _stage(self, batch: Dict[str, np.ndarray]
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         """Split host bookkeeping from device fields and start the H2D
-        copies (from pinned memory without blocking, on a CUDA device)."""
-        host = {k: batch[k] for k in batch if k not in DEVICE_BATCH_KEYS}
+        copies (from pinned memory without blocking, on a CUDA device):
+        one copy of the whole buffer for a :func:`packed_batch`, else one
+        per field.  Each copy ticks ``learner.batch_h2d``."""
+        host = {k: batch[k] for k in batch
+                if k not in DEVICE_BATCH_KEYS and k != PACKED_KEY}
         cuda = self.device.type == "cuda"
+        packed = batch.get(PACKED_KEY)
+        if packed is not None:
+            buf, layout = packed
+            HOST_TRANSFERS.count("learner.batch_h2d")
+            dev = _unpack(buf.to(self.device, non_blocking=cuda), layout)
+            return {k: dev[k] for k in DEVICE_BATCH_KEYS}, host
         dev = {}
         for k in DEVICE_BATCH_KEYS:
             t = torch.from_numpy(np.ascontiguousarray(batch[k]))
             if cuda:
                 t = t.pin_memory()
+            HOST_TRANSFERS.count("learner.batch_h2d")
             dev[k] = t.to(self.device, non_blocking=cuda)
         return dev, host
 

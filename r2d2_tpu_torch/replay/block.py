@@ -1,8 +1,8 @@
 """Block wire format: the actor → replay unit of experience.
 
 Port of ``r2d2_tpu/replay/block.py`` (numpy throughout, so a block the port
-cuts is the block the JAX package cuts, bit for bit).  The sharded replay
-plane's ``batch_slot_spec`` waits for its plane.
+cuts is the block the JAX package cuts, bit for bit), with the sharded
+replay plane's sample-slab layout (``batch_slot_spec``).
 
 Capability-parity with the reference's ``Block`` dataclass (worker.py:23-36)
 and ``LocalBuffer`` (worker.py:395-497): an episode is cut into blocks of up
@@ -187,10 +187,74 @@ def block_slot_spec(cfg: Config, action_dim: int):
         ("crc32", (1,), np.uint32),)
 
 
+def batch_slot_spec(cfg: Config, action_dim: int, batch_size: int):
+    """(name, shape, dtype) of ONE preassembled sample-batch RPC slot —
+    the wire format of the sharded replay plane's stratified sample RPC
+    (parallel/replay_shards.py): request words in, a preassembled batch
+    back, over one preallocated shared-memory slab per shard.
+
+    The row fields mirror — by name, shape and dtype — the batch
+    ``ReplayBuffer.sample_batch`` assembles, so the trainer-side
+    concatenation of K shard responses is byte-compatible with the
+    in-process K=1 batch and the learner never special-cases the
+    transport.  ``prios`` travel RAW (``td**alpha`` leaf values, f64)
+    instead of IS weights: normalisation by the minimum sampled priority
+    happens across ALL shards' rows at once (the K=1 scheme), and
+    ``idxes`` are shard-LOCAL leaf indices the trainer offsets into the
+    global leaf space.  Rows are sized for the full ``batch_size`` —
+    under skewed priority mass one shard can legitimately serve the
+    whole batch.
+
+    Request region (trainer-written): ``req_n`` rows wanted, ``req_seq``
+    (a retry supersedes older tokens), ``req_crc`` written last.
+    Response region (shard-written): the rows above plus ``rsp_n`` rows
+    actually served (< req_n only when the shard drained empty under a
+    stale mass vector), the shard's local FIFO ``rsp_block_ptr`` (the
+    priority-feedback stale mask), ``rsp_env_steps``, ``rsp_seq`` and
+    ``rsp_crc`` — written LAST, the block channel's torn-write
+    discipline."""
+    B, T, L = batch_size, cfg.seq_len, cfg.learning_steps
+    return (
+        ("obs", (B, T, *cfg.stored_obs_shape), np.uint8),
+        ("last_action", (B, T, action_dim), np.float32),
+        ("last_reward", (B, T), np.float32),
+        ("hidden", (B, 2, cfg.lstm_layers, cfg.hidden_dim), np.float32),
+        ("action", (B, L), np.int32),
+        ("n_step_reward", (B, L), np.float32),
+        ("n_step_gamma", (B, L), np.float32),
+        ("burn_in", (B,), np.int32),
+        ("learning", (B,), np.int32),
+        ("forward", (B,), np.int32),
+        ("prios", (B,), np.float64),
+        ("idxes", (B,), np.int64),
+        # block-lineage ages per served row (seconds since cut / since
+        # ring add, measured shard-side at gather time — the shard owns
+        # the stamps; telemetry/tracing.py).  Outside BATCH_ROW_FIELDS,
+        # hence outside the response CRC: telemetry, not experience
+        ("ages", (B, 2), np.float32),
+        ("req_n", (1,), np.int64),
+        ("req_seq", (1,), np.int64),
+        ("req_crc", (1,), np.uint32),
+        ("rsp_n", (1,), np.int64),
+        ("rsp_block_ptr", (1,), np.int64),
+        ("rsp_env_steps", (1,), np.int64),
+        ("rsp_seq", (1,), np.int64),
+        ("rsp_crc", (1,), np.uint32),
+    )
+
+
+# the response-payload fields a sample-RPC CRC covers, in slot order —
+# shared by the shard-side writer and the trainer-side verifier
+# (parallel/replay_shards.py) so the two can never drift
+BATCH_ROW_FIELDS = ("obs", "last_action", "last_reward", "hidden",
+                    "action", "n_step_reward", "n_step_gamma", "burn_in",
+                    "learning", "forward", "prios", "idxes")
+
+
 # The ONE CRC convention every channel shares: int64 header words first,
 # then the payload arrays in their declared order, masked to 32 bits.
-# The transport modules (here, serving/wire.py) import it rather than
-# restate it.
+# The transport modules (here, serving/wire.py, replay/netwire.py and
+# parallel/replay_shards.py) import it rather than restate it.
 CRC_MASK = 0xFFFFFFFF
 
 
@@ -204,10 +268,16 @@ def payload_crc32(header, arrays) -> int:
     copies the whole payload first — at the sharded replay plane's
     batch-response scale (tens of MB per RPC) that copy cost as much
     as the hash itself.  Non-contiguous views still pay one compaction
-    copy (``ascontiguousarray``)."""
+    copy (``ascontiguousarray``).
+
+    An empty array adds no bytes and is skipped: a memoryview of a
+    zero-row array cannot be cast, and the reference raises there, which
+    kills a replay shard that answers an empty sample (ROADMAP.md C 9).
+    The CRC of every input the reference accepts is unchanged."""
     c = zlib.crc32(np.asarray(list(header), np.int64).tobytes())
     for a in arrays:
-        c = zlib.crc32(memoryview(np.ascontiguousarray(a)).cast("B"), c)
+        if a.size:
+            c = zlib.crc32(memoryview(np.ascontiguousarray(a)).cast("B"), c)
     return c & CRC_MASK
 
 

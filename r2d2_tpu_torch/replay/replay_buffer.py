@@ -22,8 +22,9 @@ data lives on the device: ``add`` stages each block outside the lock and
 commits it under it, ``sample_meta`` yields index bundles for the device
 gather, and under ``cfg.in_graph_per`` the PER leaves live on the device
 too.  The dp-sharded ring's slot groups (G > 1: ``_grouped_densities``,
-``_sample_grouped``, ``raw_densities``) wait for ROADMAP.md A item 7, the
-sharded plane's ``serve_sample`` for item 8b.
+``_sample_grouped``, ``raw_densities``) wait for ROADMAP.md A item 7.
+:meth:`ReplayBuffer.serve_sample` is the sharded replay plane's shard-side
+draw (parallel/replay_shards.py, parallel/replay_net.py).
 """
 from __future__ import annotations
 
@@ -346,9 +347,17 @@ class ReplayBuffer:
         ages[:, 1] = np.where(add > 0, np.maximum(0.0, now - add), -1.0)
         return ages
 
-    def _gather_rows(self, idxes: np.ndarray) -> Dict[str, np.ndarray]:
+    def _gather_rows(self, idxes: np.ndarray,
+                     out: Optional[Dict[str, np.ndarray]] = None
+                     ) -> Dict[str, np.ndarray]:
         """The vectorised fancy-index gather of the per-row batch fields
-        for leaf ``idxes``.  Caller holds the lock.
+        for leaf ``idxes`` — shared by :meth:`sample_batch` and
+        :meth:`serve_sample`.  Caller holds the lock.
+
+        ``out``: destination views (a sharded plane's response slab, each
+        already sliced to ``len(idxes)`` rows) — the dominant ``obs``
+        gather then runs as one ``np.take(..., out=)`` pass straight into
+        the slab instead of through a batch-sized intermediate.
 
         INVARIANT (load-bearing): the clamp below pads short sequences
         with whatever bytes previously occupied the ring slot.  This is
@@ -379,18 +388,72 @@ class ReplayBuffer:
         bcol = block_idx[:, None]
         widx = np.minimum(seq_idx[:, None] * L + np.arange(L),
                           cfg.block_length - 1)
-        return dict(
-            obs=self.obs[bcol, time_idx],
-            last_action=self.last_action[bcol, time_idx].astype(np.float32),
-            last_reward=self.last_reward[bcol, time_idx],
-            hidden=self.hidden[block_idx, seq_idx],
-            action=self.action[bcol, widx].astype(np.int32),
-            n_step_reward=self.n_step_reward[bcol, widx],
-            n_step_gamma=self.n_step_gamma[bcol, widx],
-            burn_in=burn_in.astype(np.int32),
-            learning=learning.astype(np.int32),
-            forward=forward.astype(np.int32),
-        )
+        if out is None:
+            return dict(
+                obs=self.obs[bcol, time_idx],
+                last_action=self.last_action[bcol, time_idx].astype(
+                    np.float32),
+                last_reward=self.last_reward[bcol, time_idx],
+                hidden=self.hidden[block_idx, seq_idx],
+                action=self.action[bcol, widx].astype(np.int32),
+                n_step_reward=self.n_step_reward[bcol, widx],
+                n_step_gamma=self.n_step_gamma[bcol, widx],
+                burn_in=burn_in.astype(np.int32),
+                learning=learning.astype(np.int32),
+                forward=forward.astype(np.int32),
+            )
+        n = idxes.shape[0]
+        # obs dominates the batch bytes: one flat-index take straight
+        # into the destination (same [block, time] pairs as the fancy
+        # gather above — bit-identical rows, one fewer full pass)
+        flat_t = (block_idx[:, None] * cfg.max_block_steps
+                  + time_idx).ravel()
+        np.take(self.obs.reshape(cfg.num_blocks * cfg.max_block_steps, -1),
+                flat_t, axis=0, out=out["obs"].reshape(n * T, -1))
+        # the rest is small relative to obs: plain gathers/casts into out
+        out["last_action"][...] = self.last_action[bcol, time_idx]
+        out["last_reward"][...] = self.last_reward[bcol, time_idx]
+        out["hidden"][...] = self.hidden[block_idx, seq_idx]
+        out["action"][...] = self.action[bcol, widx]
+        out["n_step_reward"][...] = self.n_step_reward[bcol, widx]
+        out["n_step_gamma"][...] = self.n_step_gamma[bcol, widx]
+        out["burn_in"][...] = burn_in
+        out["learning"][...] = learning
+        out["forward"][...] = forward
+        return out
+
+    def serve_sample(self, n: int,
+                     out: Optional[Dict[str, np.ndarray]] = None):
+        """One shard-side sample service call (the sharded replay plane's
+        owner processes, parallel/replay_shards.py): a stratified draw of
+        ``n`` rows over THIS buffer's own tree plus the gathered row
+        fields.  Returns ``(rows, idxes, raw_prios, block_ptr,
+        env_steps)`` — priorities travel RAW (no zero-clamp, no IS
+        normalisation) because the trainer-side coordinator normalises by
+        the min across ALL shards' rows at once, preserving the K=1
+        min-of-the-whole-batch scheme; ``block_ptr`` is this buffer's
+        local FIFO pointer, which the shard's own
+        :meth:`update_priorities` stale-mask needs at feedback time.
+        ``out``: response-slab destination views (already sliced to
+        ``n`` rows) the gather writes straight into.  The trailing
+        ``ages`` element is the :meth:`_row_ages` lineage decomposition
+        the trainer-side coordinator feeds into the ``pipeline.*``
+        histograms (the shard process has no registry of its own)."""
+        with self.lock:
+            if self.size == 0 or self.tree.total <= 0:
+                # the coordinator's mass vector can be one publish stale —
+                # answer empty instead of raising so the trainer
+                # redistributes the rows over the shards that have mass
+                return None
+            idxes, prios = self.tree.sample(n, raw=True)
+            self._note_sampled(idxes)
+            rows = self._gather_rows(idxes, out=out)
+            ages = self._row_ages(idxes)
+        if EVENTS.armed:
+            _emit_flows("replay.sample",
+                        self._slot_trace[idxes // self.cfg.seqs_per_block],
+                        "t")
+        return rows, idxes, prios, self.block_ptr, self.env_steps, ages
 
     # ---------------------------------------------------------- sample (meta)
     def sample_meta(self, k: int, batch_size: Optional[int] = None,

@@ -8,7 +8,10 @@ of ``r2d2_tpu/train.py``:
   optional resume, the
   device-resident replay ring when ``cfg.device_replay`` (falling back to
   host replay, and to host-sampled PER, when the ring does not fit the
-  card), learner, replay buffer, ladder epsilons, vector actors, and the
+  card), learner, replay buffer (or, with ``replay_shards > 1`` or
+  ``replay_transport="socket"``, the sharded replay plane over shm or TCP,
+  ``parallel/replay_shards.py``, ``parallel/replay_net.py``), ladder
+  epsilons, vector actors, and the
   full-state resume (a warm replay ring and the actors' RNG/env state from
   a replay snapshot; a device ring resumes cold);
 - ``_HostScaffold``: the stop predicate, the SIGTERM/SIGINT drain-then-save
@@ -18,7 +21,8 @@ of ``r2d2_tpu/train.py``:
 - ``train``: the concurrent system — actor fleet threads (or, with
   ``actor_transport="process"``, fleet subprocesses and the plane's
   ingest, pump, watchdog and, under ``actor_inference="serve"``, inference
-  service threads), a sample thread (host ring only), a priority-feedback
+  service threads), the replay plane's ``replay_watch`` (sharded replay),
+  a sample thread (host ring only), a priority-feedback
   thread (not under in-graph PER), a log thread, the periodic snapshot
   thread (host ring only) and the learner on the calling thread, all but
   the learner under the supervisor — with drain-then-save and replay
@@ -89,21 +93,17 @@ log = logging.getLogger(__name__)
 EnvFactory = Callable[[Config, int], Any]
 
 # chaos sites train() fires (wedge_dispatch only in the anakin transport,
-# the six fleet and service sites only in the process transport); every
-# other kind belongs to a plane the port has not ported yet, named here by
-# its ROADMAP.md item
+# the six fleet and service sites only in the process transport, the
+# seven shard and link sites only with replay_shards > 1 or the socket
+# transport); every other kind belongs to a plane the port has not ported
+# yet, named here by its ROADMAP.md item
 CHAOS_SITES = ("truncate_ckpt", "freeze_learner", "poison_params",
                "wedge_dispatch", "kill_fleet", "garble_block",
                "freeze_service", "drop_act_response", "garble_act_response",
-               "stall_pump")
+               "stall_pump", "kill_replay_shard", "garble_sample_response",
+               "stall_shard", "partition_shard_link", "delay_shard_link",
+               "half_open_shard", "garble_net_frame")
 _UNPORTED_CHAOS = {
-    "kill_replay_shard": "item 8b (replay shards)",
-    "garble_sample_response": "item 8b (replay shards)",
-    "stall_shard": "item 8b (replay shards)",
-    "partition_shard_link": "item 8b (socket replay)",
-    "delay_shard_link": "item 8b (socket replay)",
-    "half_open_shard": "item 8b (socket replay)",
-    "garble_net_frame": "item 8b (socket replay)",
     "kill_eval_sidecar": "item 9 (league)",
     "kill_session_client": "item 11 (the session load generator)",
     "slow_session_client": "item 11 (the session load generator)",
@@ -139,12 +139,6 @@ def check_unported(cfg: Config, use_mesh: bool = False) -> None:
         (bool(cfg.population_spec),
          "population_spec (the population plane) waits for ROADMAP.md A "
          "item 9"),
-        (cfg.replay_shards > 1,
-         "replay_shards > 1 (the sharded replay plane) waits for "
-         "ROADMAP.md A item 8b"),
-        (cfg.replay_transport == "socket",
-         "replay_transport='socket' (the cross-host replay fabric) waits "
-         "for ROADMAP.md A item 8b"),
         (use_mesh, "use_mesh (the learner mesh) waits for ROADMAP.md A "
                    "item 7"),
         (cfg.league_eval,
@@ -175,7 +169,8 @@ def _build(cfg: Config, env_factory: EnvFactory,
            checkpoint_dir: Optional[str], resume: bool,
            device=None) -> Dict[str, Any]:
     """Common bring-up: envs, net, state (maybe restored), the device ring,
-    learner, buffer, actors, and the full-state resume from the newest
+    learner, buffer (the in-process ring, or the sharded replay plane over
+    shm or sockets), actors, and the full-state resume from the newest
     replay snapshot.  Parameters are drawn from a ``torch.Generator``
     seeded with ``cfg.seed``.  The returned ``cfg`` is the effective one:
     ``in_graph_per`` is off when no ring was built."""
@@ -247,9 +242,36 @@ def _build(cfg: Config, env_factory: EnvFactory,
                       checkpointer=checkpointer,
                       start_env_steps=start_env_steps,
                       start_minutes=start_minutes)
-    buffer = ReplayBuffer(cfg, action_dim,
-                          rng=np.random.default_rng(cfg.seed),
-                          device_ring=ring)
+    replay_plane = None
+    if cfg.replay_transport == "socket":
+        # cross-host replay fabric (parallel/replay_net.py): the shard RPCs
+        # travel as length-framed CRC'd TCP messages, to remote shard
+        # servers (cfg.replay_hosts) or plane-spawned loopback processes.
+        # Same facade as the shm plane; config validation already rejected
+        # device_replay and anakin here
+        from r2d2_tpu_torch.parallel.replay_net import NetShardedReplayPlane
+
+        buffer = NetShardedReplayPlane(
+            cfg, action_dim, rng=np.random.default_rng(cfg.seed))
+        replay_plane = buffer
+    elif cfg.replay_shards > 1:
+        # sharded replay plane (parallel/replay_shards.py): K owner
+        # processes each run the ReplayBuffer core over their slot slice;
+        # this coordinator facade fills the buffer role in the fabric.
+        # The processes spawn in train() at plane start, like the fleets
+        from r2d2_tpu_torch.parallel.replay_shards import ShardedReplayPlane
+
+        buffer = ShardedReplayPlane(
+            cfg, action_dim, rng=np.random.default_rng(cfg.seed))
+        replay_plane = buffer
+    else:
+        buffer = ReplayBuffer(cfg, action_dim,
+                              rng=np.random.default_rng(cfg.seed),
+                              device_ring=ring)
+    if replay_plane is not None:
+        # the assembled batch crosses to the card in one copy from pinned
+        # memory (learner.packed_batch)
+        replay_plane.pin_batches = device.type == "cuda"
     buffer.env_steps = start_env_steps
     epsilons = [epsilon_ladder(i, cfg.num_actors, cfg.base_eps, cfg.eps_alpha)
                 for i in range(cfg.num_actors)]
@@ -316,6 +338,7 @@ def _build(cfg: Config, env_factory: EnvFactory,
                 act_net=act_nets[0], learner=learner,
                 buffer=buffer, actors=actors,
                 actor=actors[0] if actors else None, plane=plane,
+                replay_plane=replay_plane,
                 param_store=param_store, checkpointer=checkpointer,
                 host_bs=cfg.batch_size, restored_replay=restored_replay,
                 ring=ring)
@@ -800,7 +823,11 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
       log          — the stats loop: the JSONL run log, the registry, the
                      alert engine, ``log_sink`` and the console line
       chaos        — the fleet plane's ``kill_fleet``/``garble_block``
-                     sites (process transport, when armed)
+                     sites (process transport) and the replay plane's
+                     ``kill_replay_shard``/``stall_shard`` (sharded
+                     replay), when armed
+      replay_watch — the replay shard watchdog: respawns a dead shard,
+                     restored from the latest replay snapshot
       snapshot     — periodic replay snapshots
                      (``cfg.replay_snapshot_interval`` > 0)
       learner_watch— the heartbeat stall watchdog
@@ -854,6 +881,7 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     learner: Learner = sys["learner"]
     checkpointer = sys["checkpointer"]
     plane = sys["plane"]
+    replay_plane = sys["replay_plane"]
     tracer = tracer or Tracer()
     scaffold = _HostScaffold(cfg, checkpoint_dir,
                              max_wall_seconds=max_wall_seconds,
@@ -894,6 +922,16 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     want_full_save = (checkpointer is not None and cfg.replay_snapshot
                       and sys["ring"] is None)
 
+    if replay_plane is not None:
+        # shard counters land in the run's namespace (replay.shard.*,
+        # replay.net.*); the Checkpointer lets the watchdog restore a
+        # respawned shard's slots from the latest committed replay
+        # snapshot; the chaos injector arms the receipt-side sites
+        replay_plane.set_registry(telemetry.registry)
+        if want_full_save:
+            replay_plane.checkpointer = checkpointer
+        replay_plane.chaos = chaos
+
     def learner_stop() -> bool:
         if chaos is not None:
             freeze = chaos.learner_freeze_seconds()
@@ -928,7 +966,15 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                 time.sleep(0.05)
                 continue
             with tracer.span("buffer.sample_batch"):
-                batch = buffer.sample_batch(sys["host_bs"])
+                if replay_plane is not None:
+                    # the scatter/gather sample RPC; None = every shard
+                    # suspect or empty this draw (every RPC deadline is
+                    # bounded) — retry, the watchdog respawns the dead
+                    batch = buffer.sample_batch(sys["host_bs"], stop=stop)
+                    if batch is None:
+                        continue
+                else:
+                    batch = buffer.sample_batch(sys["host_bs"])
             # block-lineage latency decomposition: per-row ages stamped in
             # the ring, observed here where the registry lives
             ages = batch.pop("ages", None)
@@ -967,16 +1013,18 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
 
     def healthz() -> Dict[str, Any]:
         """The /healthz verdict: ``ok``, ``degraded`` (HTTP 200: a fleet's
-        act circuit open, a fleet's params stale past the budget, or the
-        nonfinite learnhealth alert) or ``failing`` (HTTP 503: a supervisor
-        give-up, a failed fleet plane, or a heartbeat past its stall
+        act circuit open, a fleet's params stale past the budget, a replay
+        shard dead, partitioned or reconnecting, or the nonfinite
+        learnhealth alert) or ``failing`` (HTTP 503: a supervisor give-up,
+        a failed fleet or replay plane, or a heartbeat past its stall
         budget)."""
         age = heartbeat.age()
         stale = (cfg.learner_stall_timeout > 0
                  and age > cfg.learner_stall_timeout)
         out = dict(
             ok=not (supervisor.any_failed or stall["stalled"] or stale
-                    or (plane is not None and plane.failed)),
+                    or (plane is not None and plane.failed)
+                    or (replay_plane is not None and replay_plane.failed)),
             learner_heartbeat_age=age,
             learner_stalled=stall["stalled"] or stale,
             threads=supervisor.health(),
@@ -988,6 +1036,25 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                                 restarts=h["restarts"], failed=h["failed"],
                                 resilience=h["resilience"])
             degraded = bool(h["resilience"].get("degraded"))
+        if replay_plane is not None:
+            rh = replay_plane.health()
+            out["replay_shards"] = dict(shards=rh["shards"],
+                                        alive=rh["alive"],
+                                        respawns=rh["respawns"],
+                                        failed=rh["failed"])
+            if "net" in rh:
+                # socket transport: the per-link verdicts, so a prober
+                # sees WHICH link is partitioned
+                out["replay_shards"]["net"] = dict(
+                    connected=rh["net"]["connected"],
+                    reconnects=rh["net"]["reconnects"],
+                    epoch_drops=rh["net"]["epoch_drops"],
+                    circuits=[row["circuit"]
+                              for row in rh["net"]["links"]])
+            # a dead or partitioned shard mid-heal: the plane keeps serving
+            # from the survivors (redistributed strata) — degraded, not
+            # failing
+            degraded = degraded or bool(rh["degraded"])
         degraded = degraded or scaffold.alerts.nonfinite_active
         out["degraded"] = degraded and out["ok"]
         out["status"] = ("failing" if not out["ok"]
@@ -1024,6 +1091,8 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                 entry["chaos"] = chaos.counts()
             if plane is not None:
                 entry["fleet"] = plane.health()
+            if replay_plane is not None:
+                entry["replay_shards"] = replay_plane.health()
             entry["corrupt_blocks"] = s["corrupt_blocks"]
             entry["shard_respawns"] = s.get("shard_respawns", 0)
             try:
@@ -1041,14 +1110,20 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
             last_steps, last_time = s["training_steps"], now
 
     def chaos_loop():
-        # the fleet plane's fault sites (fleet kill, slab garbling); the
-        # learner freeze fires from learner_stop, checkpoint truncation
-        # from the Checkpointer, the service and pump sites from the
-        # plane's own loops
+        # the fleet plane's fault sites (fleet kill, slab garbling) and the
+        # replay plane's (shard kill, shard stall); the learner freeze
+        # fires from learner_stop, checkpoint truncation from the
+        # Checkpointer, the service and pump sites from the plane's own
+        # loops, the response/frame garbling and the link faults from the
+        # replay plane's receipt and issue paths
         while not stop():
             time.sleep(0.05)
-            chaos.maybe_kill_fleet(plane)
-            chaos.maybe_garble_block(plane)
+            if plane is not None:
+                chaos.maybe_kill_fleet(plane)
+                chaos.maybe_garble_block(plane)
+            if replay_plane is not None:
+                chaos.maybe_kill_replay_shard(replay_plane)
+                chaos.maybe_stall_shard(replay_plane)
 
     def snapshot_loop():
         # periodic insurance against kill -9 (no drain possible): the
@@ -1071,9 +1146,12 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     loops = [(f"actor{f}" if len(actors) > 1 else "actor",
               make_actor_loop(a)) for f, a in enumerate(actors)]
     loops += scaffold.watch_loops()
-    if (chaos is not None and plane is not None
-            and (chaos.enabled("kill_fleet")
-                 or chaos.enabled("garble_block"))):
+    if chaos is not None and (
+            (plane is not None and (chaos.enabled("kill_fleet")
+                                    or chaos.enabled("garble_block")))
+            or (replay_plane is not None
+                and (chaos.enabled("kill_replay_shard")
+                     or chaos.enabled("stall_shard")))):
         loops.append(("chaos", chaos_loop))
     if want_full_save and cfg.replay_snapshot_interval > 0:
         loops.append(("snapshot", snapshot_loop))
@@ -1082,6 +1160,9 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
         # ingest, act server, weight pump, watchdog) runs as supervised
         # fabric threads
         loops += plane.make_loops(stop, buffer.add)
+    if replay_plane is not None:
+        # sharded replay: the shard-process watchdog (respawn + restore)
+        loops += replay_plane.make_loops(stop)
     if sys["ring"] is None:
         # device replay: the learner samples index bundles itself, coupled
         # to its dispatch — no batch-staging thread
@@ -1124,6 +1205,12 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     try:
         fleet_snaps = None
         try:
+            if replay_plane is not None:
+                # shard processes first: every other plane's ingest path
+                # routes into them (restores armed by _build apply here).
+                # A plane that cannot start raises out of train(): there
+                # is no in-process ring to fall back on
+                replay_plane.start()
             if plane is not None:
                 plane.start(sys["param_store"])
             scaffold.start(loops)
@@ -1189,8 +1276,14 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
             metrics["chaos"] = chaos.counts()
         if plane is not None:
             metrics["fleet_health"] = plane.health()
+        if replay_plane is not None:
+            metrics["replay_shard_health"] = replay_plane.health()
         metrics["blocks_per_member"] = buffer.stats().get(
             "blocks_per_member", {})
         return metrics
     finally:
+        # AFTER the epilogue: the priority drain and the full-state
+        # snapshot fan-out above both need live shard processes
+        if replay_plane is not None:
+            replay_plane.shutdown()
         scaffold.close()

@@ -352,3 +352,72 @@ def test_inference_service_on_the_card_answers_a_spawned_cpu_fleet(cuda):
         assert stats["circuit_state"] == 0 and stats["local_acts"] == 0
     finally:
         plane.shutdown()
+
+
+@pytest.mark.cuda
+def test_sharded_plane_batch_reaches_the_learner_in_one_copy(cuda):
+    """A K = 2 shm plane's batch, assembled into one pinned host buffer,
+    crosses to the card in ONE copy (``learner.batch_h2d``), and the
+    learner's step on it equals the step on the same batch staged field
+    by field; the shard children hold no CUDA context."""
+    import time
+
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.learner.learner import PACKED_KEY, Learner
+    from r2d2_tpu_torch.learner.step import create_train_state
+    from r2d2_tpu_torch.models.network import create_network
+    from r2d2_tpu_torch.parallel.replay_shards import ShardedReplayPlane
+    from r2d2_tpu_torch.replay.block import LocalBuffer
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS
+
+    A = 4
+    cfg = Config(game_name="Fake", torso="mlp", hidden_dim=64, num_actors=8,
+                 burn_in_steps=4, learning_steps=4, forward_steps=2,
+                 block_length=8, buffer_capacity=160, learning_starts=16,
+                 batch_size=8, replay_shards=2, prefetch_batches=0,
+                 superstep_pipeline=0, compute_dtype="float32")
+    plane = ShardedReplayPlane(cfg, A, rng=np.random.default_rng(0))
+    plane.pin_batches = True
+    try:
+        plane.start()
+        for b in range(6):
+            local = LocalBuffer(cfg, A)
+            local.reset(np.full(cfg.stored_obs_shape, b, np.uint8))
+            for s in range(cfg.block_length):
+                local.add(s % A, float(s),
+                          np.full(cfg.stored_obs_shape, b + s + 1, np.uint8),
+                          np.arange(A, dtype=np.float32) + s,
+                          np.full((2, 1, 64), s / 10, np.float32))
+            block, _, ep = local.finish(None)
+            plane.add(block, np.full(cfg.seqs_per_block, 1.0 + b,
+                                     np.float32), ep)
+        deadline = time.time() + 30
+        while not plane.ready and time.time() < deadline:
+            time.sleep(0.05)
+        batch = plane.sample_batch()
+    finally:
+        plane.shutdown()
+    assert batch[PACKED_KEY][0].is_pinned()
+    plain = {k: (np.array(v) if isinstance(v, np.ndarray) else v)
+             for k, v in batch.items() if k != PACKED_KEY}
+
+    batches = dict(packed=batch, plain=plain)
+
+    def one_step(which: str):
+        # the batch by name: a failure's traceback then shows no arrays
+        net = create_network(cfg, A, device=cuda,
+                             generator=torch.Generator().manual_seed(0))
+        learner = Learner(cfg, net, create_train_state(cfg, net.state_dict()))
+        before = HOST_TRANSFERS.get("learner.batch_h2d")
+        got = []
+        learner.run(lambda: batches[which],
+                    lambda i, p, o, loss: got.append((p, loss)),
+                    max_steps=1)
+        return HOST_TRANSFERS.get("learner.batch_h2d") - before, got[0]
+
+    n_packed, (p_packed, l_packed) = one_step("packed")
+    n_plain, (p_plain, l_plain) = one_step("plain")
+    assert (n_packed, n_plain) == (1, 11)
+    assert np.isfinite(l_packed) and l_packed == l_plain, (l_packed, l_plain)
+    assert np.array_equal(p_packed, p_plain), float(
+        np.abs(p_packed - p_plain).max())
