@@ -217,8 +217,34 @@ Phases (each exits non-zero on failure):
     against K = 1's, beside the plane's sample call alone (5 back-to-back
     calls after the parity check, no other thread), and the phase's
     seconds;
-11. one ``{"kernels": [...]}`` JSON line;
-12. last line: ``{"ok": true, "device": {...}}``.
+11. the learner mesh: an NCCL group of world size 1 on a loopback store,
+    ``make_mesh`` giving dp = fsdp = tp = 1, on the flagship
+    ``Config(game_name="Fake")`` (phase 5's widths, 8 thread actors acting
+    through the kernel at B = 8).  First, from one state and one batch,
+    one meshed train step (a DTensor state, every leaf on the card)
+    against the meshless ``train_step``, bitwise in loss, priorities and
+    every new param (cuDNN deterministic for that check only), and a
+    meshless checkpoint restored onto the mesh bitwise.  Then
+    ``train_sync(cfg, use_mesh=True, device="cuda")`` host-staged on phase
+    5's cut ring (16 updates), and ``train(cfg, use_mesh=True)`` with
+    ``device_replay``, ``device_ring_layout="dp"`` and host-sampled
+    super-steps (``Learner._run_device_multihost``) from this rank's slab
+    of the full 5 000-block ring on the card, cut in warm-up and run
+    length as phase 10 is (16 updates).  Checked in both: the backend
+    ``nccl``, a DTensor state; every loss finite and every priority fed
+    back to this rank's buffer; ``lstm_infer`` launched lstm_layers x
+    acts, the CUDA-core kernel never, none by an update alone; the target
+    synced at step 8 and not 7; one collective gate per update or
+    dispatch and one min-density agreement per super-step; in the ring
+    run the slab on the card and ``/healthz`` ok; the train_sync run's
+    checkpoint restored without a mesh bitwise.  Prints the update and
+    dispatch interval p50 beside phase 5's and phase 7's meshless values,
+    a lone meshed update's host and device time and device events beside
+    the meshless update's (the DTensor dispatch cost), the NCCL kernels
+    in one update with its gate, env steps/s filling and training, peak
+    GB and the phase's seconds;
+12. one ``{"kernels": [...]}`` JSON line;
+13. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -358,6 +384,20 @@ REPLAY_CHECK_BLOCKS = 16
 REPLAY_CHECK_DRAWS = 3
 REPLAY_ALONE_DRAWS = 5
 REPLAY_MASS_RTOL = 1e-12
+# phase 11: the learner mesh at world size 1 (the machine has one card)
+# on the flagship Config(game_name="Fake"): train_sync host-staged on
+# phase 5's cuts (TRAIN_REDUCED), then train() from this rank's dp slab of
+# the full ring on the card, cut in warm-up and run length as phase 10 is,
+# with host-sampled super-steps (k = 8: two dispatches)
+MESH_RING_REDUCED = dict(device_replay=True, device_ring_layout="dp",
+                         in_graph_per=False, learning_starts=6_400,
+                         training_steps=16, target_net_update_interval=8,
+                         save_interval=16, telemetry_port=-1,
+                         log_interval=1.0)
+MESH_WALL_S = 240
+# the meshless timings of phases 5 and 7, set as they run, printed beside
+# phase 11's meshed ones
+MESHLESS: dict = {}
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -1200,6 +1240,7 @@ def phase_training(torch, card: str) -> int:
         fill_steps = sum(n for n, _ in rec["fill"])
         fill_s = sum(t for _, t in rec["fill"])
         upd = np.asarray(rec["updates"])
+        MESHLESS["update_p50"] = float(np.percentile(upd, 50))
         spans = learner.tracer.snapshot()
         print(f"training timings on {card}: fill {fill_steps} lockstep "
               f"iterations x {cfg.num_actors} envs in {fill_s:.2f} s = "
@@ -2170,6 +2211,7 @@ def phase_device_replay(torch, card: str) -> tuple:
         # the run's frame
         gc.collect()
         torch.cuda.empty_cache()
+    MESHLESS["host_sampled_interval_p50"] = timings[False]["interval_p50"]
     print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s on {card}",
           flush=True)
     return launches, timings[True]
@@ -3611,6 +3653,465 @@ def phase_replay_shards(torch, card: str, base) -> tuple:
     return {lbl: r["launches"] for lbl, r in runs.items()}, parity
 
 
+# --------------------------------------------------------------------------
+# phase 11: the learner mesh on the card
+# --------------------------------------------------------------------------
+
+def mesh_group(torch, device: str):
+    """A world of one rank on a loopback ``TCPStore`` (a free port): the
+    NCCL group of the meshed runs on the card (gloo on the CPU)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.parallel.distributed import init_distributed
+
+    store = dist.TCPStore("127.0.0.1", 0, 1, True,
+                          timeout=timedelta(seconds=120))
+    init_distributed(store=store, world_size=1, rank=0, device=device)
+    return store
+
+
+def state_equal(torch, a, b) -> bool:
+    """Two plain TrainStates bit for bit."""
+    return (a.step == b.step and a.opt_state.count == b.opt_state.count
+            and all(torch.equal(x[k], y[k])
+                    for x, y in ((a.params, b.params),
+                                 (a.target_params, b.target_params),
+                                 (a.opt_state.mu, b.opt_state.mu),
+                                 (a.opt_state.nu, b.opt_state.nu))
+                    for k in x))
+
+
+def mesh_step_checks(torch, card: str, cfg, mesh, device: str,
+                     ckdir: str) -> dict:
+    """Run 1 of phase 11: from one state and one batch, one meshed train
+    step against one meshless ``train_step`` (phase 5's ``step_batch``),
+    bitwise; the lone updates' host and device time; and a meshless
+    checkpoint restored onto the mesh, bitwise."""
+    from torch.distributed.tensor import DTensor
+
+    from r2d2_tpu_torch.checkpoint import Checkpointer
+    from r2d2_tpu_torch.learner.learner import Learner
+    from r2d2_tpu_torch.learner.step import (
+        create_train_state,
+        make_train_step,
+    )
+    from r2d2_tpu_torch.models import create_network
+    from r2d2_tpu_torch.parallel.distributed import sync_min_array
+    from r2d2_tpu_torch.parallel.sharding import (
+        ShardingTable,
+        gather_state,
+        mesh_train_step,
+    )
+
+    net = create_network(cfg, TRAIN_ACTIONS, device=device,
+                         generator=torch.Generator().manual_seed(0))
+    plain_state = create_train_state(cfg, net.state_dict())
+    mesh_state = create_train_state(cfg, net.state_dict())
+    table = ShardingTable(mesh, cfg)
+    meshed = mesh_train_step(cfg, net, table, state_template=mesh_state)
+    mesh_state = table.place_state(mesh_state)
+    leaves = [v for d in (mesh_state.params, mesh_state.target_params,
+                          mesh_state.opt_state.mu, mesh_state.opt_state.nu)
+              for v in d.values()]
+    if not all(isinstance(v, DTensor) and v.device.type == device
+               for v in leaves):
+        fail(f"a meshed state leaf is not a DTensor on {device}")
+    plain = make_train_step(cfg, net)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in step_batch(cfg, seed=11).items()}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain_state, la, pa = plain(plain_state, batch)
+        mesh_state, lb, pb = meshed(mesh_state, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    full = gather_state(mesh_state)
+    param_err = max(float((full.params[k] - plain_state.params[k]).abs()
+                          .max()) for k in full.params)
+    bitwise = (torch.equal(la, lb) and torch.equal(pa, pb)
+               and state_equal(torch, plain_state, full))
+    print(f"mesh step parity on {card}: world size 1, {len(leaves)} state "
+          f"leaves DTensors on {device}; loss meshed {lb.item():.6f} vs "
+          f"meshless {la.item():.6f}, priorities max-abs "
+          f"{(pa - pb).abs().max().item():.3e}, new params max-abs "
+          f"{param_err:.3e}; bitwise {bitwise} (cuDNN deterministic for "
+          "this check only)", flush=True)
+    if not bitwise:
+        worst = sorted(((float((full.params[k] - plain_state.params[k])
+                               .abs().max()), k) for k in full.params),
+                       reverse=True)[:5]
+        fail(f"the meshed step is not the meshless step bit for bit: "
+             f"loss {la.item()!r} vs {lb.item()!r}, worst params {worst}")
+
+    # the meshless state, checkpointed, restored onto the mesh
+    ck = Checkpointer(ckdir)
+    ck.save(1, plain_state, meta=dict(env_steps=0))
+    restored, _ = ck.restore()
+    on_mesh = Learner(cfg, net, restored, mesh=mesh)
+    if not state_equal(torch, gather_state(on_mesh.state), plain_state):
+        fail("a meshless checkpoint did not restore onto the mesh bit for "
+             "bit")
+    print(f"checkpoint crossing on {card}: a meshless checkpoint restored "
+          "with the mesh, gathered back, bit for bit", flush=True)
+
+    # the lone updates: the step alone, meshless and meshed; then one
+    # meshed update with its collective gate, for the NCCL kernels
+    def one_plain():
+        plain(plain_state, batch)
+
+    def one_meshed():
+        meshed(mesh_state, batch)
+
+    def one_gated():
+        sync_min_array([1.0, 1.0], tag="profile")
+        meshed(mesh_state, batch)
+
+    out = {}
+    for name, fn in (("meshless", one_plain), ("meshed", one_meshed)):
+        events = profile_events(torch, fn, 2)
+        if events is None:
+            fail(f"no device time in a {name} update")
+        out[name] = dict(wall=wall_ms(torch, fn, 3),
+                         device=sum(ms for _, ms, _ in events),
+                         events=sum(n for _, _, n in events))
+    gated = profile_events(torch, one_gated, 2)
+    if gated is None:
+        fail("no device time in a gated meshed update")
+    nccl = [(n, ms, c) for n, ms, c in gated if "nccl" in n.lower()]
+    out["nccl"] = nccl
+    a, b = out["meshless"], out["meshed"]
+    print(f"lone update on {card} (step only, 3 timed): meshless host wall "
+          f"{a['wall']:.2f} ms, device {a['device']:.3f} ms in "
+          f"{a['events']:.0f} device events; meshed host wall "
+          f"{b['wall']:.2f} ms, device {b['device']:.3f} ms in "
+          f"{b['events']:.0f} device events ({b['wall'] / a['wall']:.2f}x "
+          f"the host wall: the DTensor dispatch); NCCL kernels in one "
+          "update with its gate: " + (", ".join(
+              f"{short_kernel_name(n, 80)} x{c:.0f} ({ms:.4f} ms)"
+              for n, ms, c in nccl) or "none"), flush=True)
+    return out
+
+
+def mesh_run(torch, card: str, cfg, label: str, ckdir: str,
+             sync: bool, device: str) -> dict:
+    """Runs 2 (``sync``: ``train_sync``) and 3 (``train()`` from the
+    device ring) of phase 11, with ``use_mesh=True``; their checks and
+    timings."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.actor import ACTOR_ACT
+    from r2d2_tpu_torch.checkpoint import Checkpointer
+    from r2d2_tpu_torch.evaluate import EVAL_ACT
+    from r2d2_tpu_torch.learner import step as step_mod
+    from r2d2_tpu_torch.learner.learner import Learner
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.parallel.distributed import COLLECTIVE_CALLS
+    from r2d2_tpu_torch.parallel.sharding import full, gather_state
+    from r2d2_tpu_torch.replay.replay_buffer import data_bytes
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+
+    steps, k = cfg.training_steps, cfg.superstep_k
+    rec = dict(start=None, stamps=[], synced={})
+    real_build, real_mts = train._build, step_mod.make_train_step
+    probe = {}
+
+    def recording_mts(cfg_, net_):
+        inner = real_mts(cfg_, net_)
+
+        def step(state, batch):
+            out = inner(state, batch)
+            st = out[0]
+            if st.step in (7, 8):
+                # the learner thread, between steps: the gathers are
+                # collectives every rank makes at the same step
+                rec["synced"][st.step] = all(
+                    torch.equal(full(st.params[n]),
+                                full(st.target_params[n]))
+                    for n in st.params)
+            return out
+        return step
+
+    def capture(*args, **kw):
+        sys_ = real_build(*args, **kw)
+        rec.update(sys_)
+        actor, learner = sys_["actor"], sys_["learner"]
+        run = actor.run
+
+        def timed_run(max_steps, stop=None):
+            if rec["start"] is None:
+                rec["start"] = (time.perf_counter(), actor.actor_steps)
+            run(max_steps, stop)
+            if sync and max_steps == cfg.block_length:
+                rec["filled"] = (time.perf_counter(), actor.actor_steps)
+
+        actor.run = timed_run
+        if sync:
+            step = learner._step_fn
+
+            def timed_step(state, batch):
+                torch.cuda.synchronize()
+                t0, a0 = time.perf_counter(), actor.actor_steps
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                rec["stamps"].append((t0, a0, time.perf_counter(),
+                                      actor.actor_steps))
+                return out
+            learner._step_fn = timed_step
+        else:
+            loop = learner._superstep_loop
+
+            def stamped_loop(k_, target, t0, gate, sample, harvest,
+                             prepare=None, tracer=None):
+                def stamped():
+                    t, a = time.perf_counter(), actor.actor_steps
+                    out = sample()
+                    rec["stamps"].append((t, a, time.perf_counter(),
+                                          actor.actor_steps))
+                    return out
+                return loop(k_, target, t0, gate, stamped, harvest,
+                            prepare, tracer)
+            learner._superstep_loop = stamped_loop
+        return sys_
+
+    def log_sink(entry):
+        if probe:
+            return
+        try:
+            probe["healthz"] = http_get(entry["telemetry_port"], "/healthz")
+        except Exception as e:  # checked below, after the run
+            probe["error"] = f"{type(e).__name__}: {e}"
+
+    KERNEL_LAUNCHES.reset()
+    HOST_TRANSFERS.reset()
+    COLLECTIVE_CALLS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    train._build, step_mod.make_train_step = capture, recording_mts
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if sync:
+                m = train.train_sync(cfg, env_factory, checkpoint_dir=ckdir,
+                                     device=device, use_mesh=True)
+            else:
+                m = train.train(cfg, env_factory, checkpoint_dir=ckdir,
+                                use_mesh=True, device=device,
+                                max_wall_seconds=MESH_WALL_S, verbose=False,
+                                log_sink=log_sink)
+    finally:
+        train._build, step_mod.make_train_step = real_build, real_mts
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
+    old = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
+    acts = HOST_TRANSFERS.get(ACTOR_ACT) + HOST_TRANSFERS.get(EVAL_ACT)
+    calls = dict(COLLECTIVE_CALLS)
+    learner, buffer, ring = rec["learner"], rec["buffer"], rec["ring"]
+    # the run's stamps (the check below steps the learner once more)
+    stamps = list(rec["stamps"])
+    n = len(stamps)
+
+    # the run's checks
+    if dist.get_backend() != ("nccl" if device == "cuda" else "gloo"):
+        fail(f"{label}: the process group's backend is "
+             f"{dist.get_backend()}")
+    if learner.mesh is None or not all(
+            type(v).__name__ == "DTensor" for v in learner.state.params
+            .values()):
+        fail(f"{label}: the learner's state is not on the mesh")
+    if sync:
+        losses = np.asarray(m["losses"])
+        finite = losses.shape == (steps,) and np.isfinite(losses).all()
+    else:
+        lh = m["learnhealth"]
+        losses = lh
+        finite = lh["loss_count"] == steps and not lh["nonfinite"]
+    fed = buffer.stats()["training_steps"]
+    if (m["num_updates"] != steps or not finite
+            or not np.isfinite(m["mean_loss"]) or fed != steps):
+        fail(f"{label}: {m['num_updates']} updates, losses {losses}, "
+             f"{fed} priority feedbacks")
+    per = 1 if sync else k
+    if n * per != steps or learner.gate_counts["go"] != n or (
+            calls.get("gate", 0) != sum(learner.gate_counts.values())):
+        fail(f"{label}: {n} updates or dispatches, gates "
+             f"{dict(learner.gate_counts)}, collectives {calls}")
+    if not sync and calls.get("min_density") != n:
+        fail(f"{label}: {calls.get('min_density')} min-density agreements "
+             f"for {n} super-steps")
+    if launches != cfg.lstm_layers * acts or not acts or old:
+        fail(f"{label}: lstm_infer launched {launches} times (CUDA-core "
+             f"{old}) for {acts} acts, {cfg.lstm_layers} layer")
+    if rec["synced"] != {7: False, 8: True}:
+        fail(f"{label}: target == online after steps 7, 8: "
+             f"{rec['synced']} (want False, True)")
+    line = (f"mesh {label} on {card}: {m['num_updates']} updates"
+            + ("" if sync else f" in {n} dispatches of k={k}")
+            + f" in {run_s:.2f} s, losses finite, mean loss "
+            f"{m['mean_loss']:.5f}; priority feedbacks {fed} to this "
+            f"rank's buffer; collective gates {dict(learner.gate_counts)},"
+            f" collectives {calls}; lstm_infer launches {launches} = "
+            f"{cfg.lstm_layers} x {acts} acts, CUDA-core {old}; target == "
+            f"online after step 7 {rec['synced'][7]}, after 8 "
+            f"{rec['synced'][8]}")
+    if not sync:
+        fallback = [str(w.message) for w in caught
+                    if "host staging" in str(w.message)
+                    or "in_graph_per disabled" in str(w.message)]
+        need = data_bytes(cfg, TRAIN_ACTIONS)
+        if (fallback or ring is None or ring.layout != "dp"
+                or ring.arrays["obs"].device.type != device
+                or ring.nbytes() != need):
+            fail(f"{label}: the dp ring was not built on the card "
+                 f"({fallback}, {ring and ring.layout})")
+        if "error" in probe or probe.get("healthz", (0,))[0] != 200 or (
+                json.loads(probe["healthz"][1]).get("status") != "ok"
+                or m["healthz"].get("status") != "ok"):
+            fail(f"{label}: /healthz {probe}, final {m.get('healthz')}")
+        line += (f"; this rank's dp slab on the card: {ring.nbytes()} "
+                 f"bytes = the whole ring at dp = 1; /healthz ok")
+    print(line, flush=True)
+
+    out = dict(launches=launches, acts=acts, peak_gb=peak / 1e9,
+               seconds=run_s)
+    if sync:
+        # the meshed checkpoint restores without a mesh, bit for bit
+        ck = Checkpointer(ckdir)
+        if ck.steps() != [8, 16]:
+            fail(f"{label}: checkpoints {ck.steps()}, expected [8, 16]")
+        state, _ = ck.restore()
+        plain = Learner(rec["cfg"], rec["net"], state)
+        if not state_equal(torch, plain.state, gather_state(learner.state)):
+            fail(f"{label}: the meshed checkpoint did not restore without "
+                 "the mesh bit for bit")
+        print(f"checkpoint crossing on {card}: the meshed run's step "
+              f"{ck.steps()[-1]} checkpoint restored without a mesh, bit "
+              "for bit", flush=True)
+    # an update alone launches no lstm_infer kernel
+    KERNEL_LAUNCHES.reset()
+    if sync:
+        dev, _ = learner._stage(buffer.sample_batch(rec["host_bs"]))
+        _, loss, _ = learner._step_fn(learner.state, dev)
+    else:
+        from r2d2_tpu_torch.parallel.sharding import mesh_super_step
+        from r2d2_tpu_torch.replay.device_ring import to_device
+
+        fn = mesh_super_step(cfg, learner.net, learner.table, k,
+                             state_template=learner.state)
+        meta = buffer.sample_meta(k, batch_size=rec["host_bs"])
+        _, losses_, _ = fn(learner.state, ring.snapshot(),
+                           to_device(meta["ints"], learner.device),
+                           to_device(meta["is_weights"], learner.device))
+        loss = losses_[-1]
+    torch.cuda.synchronize()
+    if KERNEL_LAUNCHES.get(lstm.KERNEL) or not np.isfinite(loss.item()):
+        fail(f"{label}: an update alone launched "
+             f"{KERNEL_LAUNCHES.get(lstm.KERNEL)} lstm_infer kernels")
+
+    # timings, from the stamps
+    t_start, a_start = rec["start"]
+    n_env = cfg.num_actors
+    first = rec.get("filled", stamps[0][:2]) if sync else stamps[0][:2]
+    fill = (first[1] - a_start) * n_env / max(first[0] - t_start, 1e-9)
+    training = ((stamps[-1][3] - stamps[0][1]) * n_env
+                / max(stamps[-1][2] - stamps[0][0], 1e-9))
+    if sync:
+        gaps = np.asarray([s[2] - s[0] for s in stamps]) * 1e3
+        what = "update (step + synchronise)"
+    else:
+        gaps = np.diff([s[0] for s in stamps]) * 1e3
+        what = "dispatch interval"
+    out.update(interval_p50=pct(gaps, 50), fill=fill, training=training)
+    print(f"mesh {label} timings on {card}: {what} p50 "
+          f"{out['interval_p50']:.2f} ms over {len(gaps)}; env steps/s "
+          f"while filling {fill:.0f}, while training {training:.0f}; peak "
+          f"allocated {peak / 1e9:.2f} GB; {run_s:.2f} s", flush=True)
+    return out
+
+
+def phase_mesh(torch, card: str, device: str = "cuda", base=None) -> dict:
+    """Phase 11: the learner mesh at world size 1 over NCCL — the step
+    parity, ``train_sync`` host-staged, ``train()`` from this rank's dp
+    slab of the full ring, and checkpoints crossing both ways.  Returns
+    the kernel's launches by run.  ``device`` and ``base`` (default: the
+    card and the flagship) let a CPU rehearsal run the phase at test
+    sizes."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.parallel.mesh import axis_sizes, make_mesh
+    from r2d2_tpu_torch.replay.replay_buffer import data_bytes
+
+    t_phase = time.perf_counter()
+    if base is None:
+        flagship_replay_config()      # the flagship's published widths
+        base = Config(game_name="Fake")
+    sync_cfg = base.replace(**TRAIN_REDUCED)
+    ring_cfg = base.replace(**MESH_RING_REDUCED)
+    need = data_bytes(ring_cfg, TRAIN_ACTIONS)
+    print("reduced: world size 1 (one card) with dp = fsdp = tp = 1; "
+          "train_sync: " + ", ".join(
+              f"{k_} {getattr(base, k_)} -> {v}"
+              for k_, v in TRAIN_REDUCED.items())
+          + "; train() from the device ring: " + ", ".join(
+              f"{k_} {getattr(base, k_)} -> {v}"
+              for k_, v in MESH_RING_REDUCED.items())
+          + f", the full ring on the card ({ring_cfg.num_blocks} blocks, "
+          f"{need / 1e9:.2f} GB); fake env episodes of {FAKE_EPISODE_LEN} "
+          f"steps, {TRAIN_ACTIONS} actions", flush=True)
+    store = mesh_group(torch, device)     # noqa: F841 (the group's store)
+    ckdirs = [tempfile.mkdtemp(prefix="chip_smoke_mesh_") for _ in range(3)]
+    try:
+        if dist.get_backend() != ("nccl" if device == "cuda" else "gloo"):
+            fail(f"the group's backend is {dist.get_backend()}")
+        mesh = make_mesh(base, device)
+        if axis_sizes(mesh) != dict(dp=1, fsdp=1, tp=1):
+            fail(f"mesh {axis_sizes(mesh)}")
+        print(f"mesh on {card}: backend {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}, axes {mesh.mesh_dim_names} sizes "
+              f"{axis_sizes(mesh)}", flush=True)
+        step = mesh_step_checks(torch, card, base, mesh, device, ckdirs[0])
+        sync = mesh_run(torch, card, sync_cfg, "train_sync host-staged",
+                        ckdirs[1], True, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ring = mesh_run(torch, card, ring_cfg, "train() dp ring",
+                        ckdirs[2], False, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        for d in ckdirs:
+            shutil.rmtree(d, ignore_errors=True)
+    p5 = MESHLESS.get("update_p50")
+    p7 = MESHLESS.get("host_sampled_interval_p50")
+    a, b = step["meshless"], step["meshed"]
+    print(f"mesh against meshless on {card}: train_sync update p50 "
+          f"{sync['interval_p50']:.2f} ms meshed vs phase 5's "
+          f"{p5 if p5 is None else f'{p5:.2f}'} ms meshless "
+          f"({sync['interval_p50'] / p5 if p5 else float('nan'):.2f}x); "
+          f"device-ring dispatch interval p50 {ring['interval_p50']:.2f} ms"
+          f" (flagship, k = {ring_cfg.superstep_k}, 8 actors) vs phase 7's "
+          f"host-sampled {p7 if p7 is None else f'{p7:.2f}'} ms (Pong, k = "
+          f"4, 64 actors); lone update host wall {b['wall']:.2f} vs "
+          f"{a['wall']:.2f} ms, device {b['device']:.3f} vs "
+          f"{a['device']:.3f} ms, device events {b['events']:.0f} vs "
+          f"{a['events']:.0f}; phase 11 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(sync=sync["launches"], ring=ring["launches"])
+
+
 def main() -> None:
     try:
         import torch
@@ -3670,6 +4171,9 @@ def main() -> None:
     replay_launches, _ = phase_replay_shards(torch, card,
                                              flagship_replay_config())
 
+    # phase 11: the learner mesh over NCCL, world size 1
+    mesh_launches = phase_mesh(torch, card)
+
     head = timings[(1, 256)]
     print(json.dumps({"kernels": [{
         "name": "lstm_infer",
@@ -3680,7 +4184,8 @@ def main() -> None:
                      + serve_ckpt_launches + device_replay_launches
                      + anakin_launches + fleet_launches["serve"]
                      + fleet_launches["local"]
-                     + sum(replay_launches.values())),
+                     + sum(replay_launches.values())
+                     + sum(mesh_launches.values())),
         "launches_by_path": {"serving": serve_launches,
                              "training": train_launches,
                              "fabric": fabric_launches,
@@ -3691,7 +4196,9 @@ def main() -> None:
                              "process_local": fleet_launches["local"],
                              "replay_k1": replay_launches["k1"],
                              "replay_shm": replay_launches["shm"],
-                             "replay_socket": replay_launches["socket"]},
+                             "replay_socket": replay_launches["socket"],
+                             "mesh_sync": mesh_launches["sync"],
+                             "mesh_ring": mesh_launches["ring"]},
         "max_abs_err": errs["tensor_core"][0],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

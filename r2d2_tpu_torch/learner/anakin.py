@@ -1,7 +1,7 @@
 """Anakin: the fused on-device training loop (``actor_transport="anakin"``).
 
 Port of ``r2d2_tpu/learner/anakin.py`` for one device (the mesh hooks
-wait for ROADMAP.md A item 7).  When the environment is itself tensor ops
+wait for ROADMAP.md A item 7b).  When the environment is itself tensor ops
 (``envs/anakin.py``), the actor/replay/learner split collapses: env step →
 act → block cut → replay write → train step all run on the device, and
 the host only issues the work and reads a few scalars back:

@@ -1,11 +1,20 @@
 """Learner host loop: the drivetrain around the train step.
 
-Port of ``r2d2_tpu/learner/learner.py`` for one process (``Learner.
-__init__``, ``_publish``, ``_stage``, ``run``, the device-ring drivetrains
-``run_device`` and ``_run_device_in_graph_per`` with their
-``_superstep_loop``, ``_save``, the learning-health ``monitor`` hook and
-the ``poison_params`` chaos drill; the multi-host branches wait for
-ROADMAP.md A item 7).
+Port of ``r2d2_tpu/learner/learner.py`` (``Learner.__init__``,
+``_publish``, ``_stage``, ``run``, the device-ring drivetrains
+``run_device``, ``_run_device_in_graph_per`` and ``_run_device_multihost``
+with their ``_superstep_loop`` and ``_collective_gate``, ``_save``, the
+learning-health ``monitor`` hook and the ``poison_params`` chaos drill).
+
+With a ``mesh`` (``train(cfg, use_mesh=True)``) the state is DTensors in
+the sharding table's layout (parallel/sharding.py) and the learner is one
+rank of the meshed learner: it samples this rank's rows of the global
+batch from its own buffer, feeds back this rank's priorities, publishes
+full plain clones to its actors, and agrees every stop and "not ready"
+with its peers through one collective gate per update or dispatch — the
+JAX package's multi-host learner, which is the port's only meshed path
+(one device per rank), even at world size 1.
+
 Capability-parity with the reference learner's ``run`` (worker.py:300-381):
 staged batch prefetch, periodic weight publication, periodic
 checkpointing.  Target-net sync happens inside the step, so the host loop
@@ -25,6 +34,7 @@ only drives data and cadences.
 """
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 import time
@@ -94,6 +104,21 @@ BatchSource = Callable[[], Optional[Dict[str, np.ndarray]]]
 PrioritySink = Callable[[np.ndarray, np.ndarray, int, float], None]
 
 
+def global_is_weights(q: np.ndarray, beta: float,
+                      gmin: Optional[np.ndarray] = None) -> np.ndarray:
+    """IS weights of a meshed draw: this rank's raw densities ``q`` (k, B
+    rows, ``sample_meta(raw_densities=True)``) normalised by each step's
+    minimum density over EVERY rank's rows, ``(q / min)^-beta`` — the JAX
+    package's multi-host arithmetic (float64, one cast to float32).
+    ``gmin`` is agreed over the ranks (one ``sync_min_array``) unless
+    given."""
+    if gmin is None:
+        from r2d2_tpu_torch.parallel.distributed import sync_min_array
+
+        gmin = sync_min_array(q.min(axis=1), tag="min_density")
+    return ((q / gmin[:, None]) ** (-beta)).astype(np.float32)
+
+
 def place_state(state: TrainState, device: torch.device) -> TrainState:
     """``state`` with every tensor on ``device`` (no copy where it is
     already there)."""
@@ -135,8 +160,12 @@ class Learner:
     def __init__(self, cfg: Config, net: R2D2Network, state: TrainState,
                  param_store: Optional[ParamStore] = None,
                  checkpointer: Optional[Checkpointer] = None,
-                 start_env_steps: int = 0, start_minutes: float = 0.0):
-        """The learner runs on ``net``'s device; ``state`` is moved there."""
+                 start_env_steps: int = 0, start_minutes: float = 0.0,
+                 mesh: Any = None, table: Any = None):
+        """The learner runs on ``net``'s device; ``state`` is moved there.
+        With a ``mesh`` (a ``DeviceMesh`` of the learner's ranks) the state
+        is placed through ``table`` (default: the table over ``mesh`` and
+        ``cfg``) and every update runs the meshed step."""
         self.cfg = cfg
         self.net = net
         self.device = next(net.parameters()).device
@@ -149,20 +178,50 @@ class Learner:
         # attaches a LearnHealthMonitor that absorbs each harvested loss
         self.monitor: Optional[Any] = None
         self.tracer = Tracer()
-        self._step_fn = make_train_step(cfg, net)
-        self.state = place_state(state, self.device)
+        # the collective gate's outcomes ("go", "wait", "break") under a
+        # mesh: one gate per update or dispatch
+        self.gate_counts: collections.Counter = collections.Counter()
+        self.mesh, self.table = mesh, table
+        state = place_state(state, self.device)
+        if mesh is None:
+            self._step_fn = make_train_step(cfg, net)
+        else:
+            from r2d2_tpu_torch.parallel.sharding import (
+                ShardingTable,
+                mesh_train_step,
+            )
+
+            if self.table is None:
+                self.table = ShardingTable(mesh, cfg)
+            self._step_fn = mesh_train_step(cfg, net, self.table,
+                                            state_template=state)
+            self._batch_shardings = self.table.batch_shardings()
+            state = self.table.place_state(state)
+        self.state = state
         if self.param_store is not None:
             self._publish()
 
     def _publish(self) -> None:
         # a clone: the step updates the parameters in place, so a snapshot
-        # that aliased them would change under the actors mid-act
-        self.param_store.publish({k: v.detach().clone()
+        # that aliased them would change under the actors mid-act.  Under
+        # a mesh the full tensors are gathered here, on the learner thread
+        # (a collective), and the actors get plain local clones: an actor
+        # thread never touches a DTensor nor issues a collective
+        from r2d2_tpu_torch.parallel.sharding import full
+
+        self.param_store.publish({k: full(v).detach().clone()
                                   for k, v in self.state.params.items()})
 
     @property
     def num_updates(self) -> int:
         return self.state.step
+
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """The online params as full plain tensors (under a mesh gathered
+        from their shards: a collective, on the learner thread)."""
+        from r2d2_tpu_torch.parallel.sharding import full
+
+        return {k: full(v) for k, v in self.state.params.items()}
 
     def _note_results(self, losses_np: np.ndarray,
                       strict: bool = True) -> None:
@@ -192,7 +251,10 @@ class Learner:
         """Split host bookkeeping from device fields and start the H2D
         copies (from pinned memory without blocking, on a CUDA device):
         one copy of the whole buffer for a :func:`packed_batch`, else one
-        per field.  Each copy ticks ``learner.batch_h2d``."""
+        per field.  Each copy ticks ``learner.batch_h2d``.  Under a mesh
+        the batch holds this rank's rows, which become its shard of the
+        global dp-sharded batch (``host_local_batch``: no communication,
+        so the prefetch thread may do it)."""
         host = {k: batch[k] for k in batch
                 if k not in DEVICE_BATCH_KEYS and k != PACKED_KEY}
         cuda = self.device.type == "cuda"
@@ -201,14 +263,19 @@ class Learner:
             buf, layout = packed
             HOST_TRANSFERS.count("learner.batch_h2d")
             dev = _unpack(buf.to(self.device, non_blocking=cuda), layout)
-            return {k: dev[k] for k in DEVICE_BATCH_KEYS}, host
-        dev = {}
-        for k in DEVICE_BATCH_KEYS:
-            t = torch.from_numpy(np.ascontiguousarray(batch[k]))
-            if cuda:
-                t = t.pin_memory()
-            HOST_TRANSFERS.count("learner.batch_h2d")
-            dev[k] = t.to(self.device, non_blocking=cuda)
+            dev = {k: dev[k] for k in DEVICE_BATCH_KEYS}
+        else:
+            dev = {}
+            for k in DEVICE_BATCH_KEYS:
+                t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+                if cuda:
+                    t = t.pin_memory()
+                HOST_TRANSFERS.count("learner.batch_h2d")
+                dev[k] = t.to(self.device, non_blocking=cuda)
+        if self.mesh is not None:
+            from r2d2_tpu_torch.parallel.distributed import host_local_batch
+
+            dev = host_local_batch(self.mesh, dev, self._batch_shardings)
         return dev, host
 
     def run(self, batch_source: BatchSource,
@@ -300,11 +367,17 @@ class Learner:
         pending: deque = deque()
         try:
             while updates < target:
-                if stop is not None and stop():
-                    break
-                with tracer.span("learner.batch_wait"):
-                    item = next_item()
-                if item is None:
+                stopping = stop is not None and stop()
+                item = None
+                if not stopping:
+                    with tracer.span("learner.batch_wait"):
+                        item = next_item()
+                if self.mesh is not None:
+                    # the step is a collective: every rank takes it or
+                    # none does
+                    stopping = self._agree(stopping or item is None,
+                                           True) == "break"
+                if stopping or item is None:
                     break
                 dev_batch, host = item
                 with tracer.span("learner.step_dispatch"):
@@ -335,12 +408,42 @@ class Learner:
 
         if self.checkpointer is not None:
             self._save(self.num_updates, t0)
+        self._sum_env_steps()
         return dict(
             num_updates=self.num_updates,
             env_steps=self.env_steps,
             minutes=self.start_minutes + (time.time() - t0) / 60.0,
             mean_loss=float(np.mean(losses)) if losses else float("nan"),
         )
+
+    def _sum_env_steps(self) -> None:
+        """Under a mesh the run's env steps are every rank's."""
+        if self.mesh is not None:
+            from r2d2_tpu_torch.parallel.distributed import sync_counter
+
+            self.env_steps = sync_counter(self.env_steps, "sum",
+                                          tag="env_steps")
+
+    def _agree(self, stopping: bool, ready: bool) -> str:
+        """The collective gate's decision: "break" when any rank stops,
+        else "wait" when any rank is not ready, else "go" — one
+        ``sync_min_array`` of both flags ("stop" travels inverted)."""
+        from r2d2_tpu_torch.parallel.distributed import sync_min_array
+
+        flags = sync_min_array([0.0 if stopping else 1.0,
+                                1.0 if ready else 0.0], tag="gate")
+        out = ("break" if flags[0] == 0.0
+               else "wait" if flags[1] == 0.0 else "go")
+        self.gate_counts[out] += 1
+        return out
+
+    def _collective_gate(self, buffer, stop):
+        """The meshed device drivetrains' gate(): every super-step is a
+        collective, so whether to make it is decided by all ranks
+        together (:meth:`_agree`)."""
+        def gate() -> str:
+            return self._agree(stop is not None and stop(), buffer.ready)
+        return gate
 
     # ------------------------------------------------ device-ring drivetrain
     def run_device(self, buffer: Any, ring: Any,
@@ -374,12 +477,68 @@ class Learner:
         if cfg.in_graph_per:
             return self._run_device_in_graph_per(buffer, ring, k, target,
                                                  t0, stop, tracer)
-        super_step = make_super_step_fn(cfg, self.net, k)
-        B = cfg.batch_size
+        if self.mesh is not None:
+            return self._run_device_multihost(buffer, ring, priority_sink,
+                                              k, target, t0, stop, tracer)
+        return self._run_host_sampled(buffer, ring, priority_sink, k,
+                                      target, t0, tracer,
+                                      self._ready_gate(buffer, stop))
+
+    def _run_device_multihost(self, buffer, ring, priority_sink, k: int,
+                              target: int, t0: float, stop, tracer
+                              ) -> Dict[str, float]:
+        """Device-resident replay over the mesh's ranks (JAX's multi-host
+        data plane, here also the world-size-1 path).  Each rank's buffer
+        and ring are one dp group's slab of the global ring; its writes
+        and draws are its own.  Per super-step every rank:
+
+        1. agrees that all ranks are ready and none stops (the collective
+           gate, :meth:`_agree`);
+        2. draws its ``host_batch_size`` rows per step from its own slab
+           with their raw inclusion densities
+           (``sample_meta(raw_densities=True)``), agrees the k global
+           minimum densities (one ``sync_min_array``) so the IS weights
+           keep the reference's min-of-the-whole-batch normalisation, and
+           gathers its rows from its own slab;
+        3. runs the meshed super-step on the global batch its rows are a
+           dp shard of;
+        4. feeds its rows of the priorities back to its own buffer —
+           feedback never crosses ranks.
+
+        Batch bytes never leave the rank's device; only the gradient
+        reductions and the two small agreements cross ranks.  Step 2's
+        draw and gathers run under the buffer lock (the device_ring
+        contract)."""
+        return self._run_host_sampled(buffer, ring, priority_sink, k,
+                                      target, t0, tracer,
+                                      self._collective_gate(buffer, stop),
+                                      multihost=True)
+
+    def _run_host_sampled(self, buffer, ring, priority_sink, k: int,
+                          target: int, t0: float, tracer, gate,
+                          multihost: bool = False) -> Dict[str, float]:
+        """The host-sampled super-step loop of :meth:`run_device` and
+        :meth:`_run_device_multihost` (``multihost``: this rank's rows,
+        raw densities normalised by the global minimum, the meshed
+        super-step)."""
+        cfg = self.cfg
+        if multihost:
+            from r2d2_tpu_torch.parallel.distributed import host_batch_size
+            from r2d2_tpu_torch.parallel.sharding import mesh_super_step
+
+            B = host_batch_size(cfg, self.mesh)
+            super_step = mesh_super_step(cfg, self.net, self.table, k,
+                                         state_template=self.state)
+        else:
+            B = cfg.batch_size
+            super_step = make_super_step_fn(cfg, self.net, k)
+        beta = cfg.importance_sampling_exponent
         losses_hist: deque = deque(maxlen=100)   # bounded, see run()
 
         def dispatch(ints, weights):
             with tracer.span("learner.gather_dispatch"):
+                if multihost:
+                    weights = global_is_weights(weights, beta)
                 # the dispatch's one declared H2D: the index rows and
                 # their weights (a few KB)
                 with HOST_TRANSFERS.allowed("learner.dispatch_put"):
@@ -391,7 +550,8 @@ class Learner:
 
         def sample():
             with tracer.span("learner.sample_meta"):
-                meta = buffer.sample_meta(k, dispatch=dispatch)
+                meta = buffer.sample_meta(k, batch_size=B, dispatch=dispatch,
+                                          raw_densities=multihost)
             with tracer.span("learner.step_dispatch"):
                 meta["dispatched"] = super_step.run(self.state,
                                                     meta.pop("dispatched"))
@@ -411,8 +571,8 @@ class Learner:
             self._feed_back(meta, flat[:k], flat[k:].reshape(k, B),
                             priority_sink, losses_hist)
 
-        self._superstep_loop(k, target, t0, self._ready_gate(buffer, stop),
-                             sample, harvest, prepare=prepare, tracer=tracer)
+        self._superstep_loop(k, target, t0, gate, sample, harvest,
+                             prepare=prepare, tracer=tracer)
         return self._finish_device_run(losses_hist, t0)
 
     def _ready_gate(self, buffer, stop):
@@ -429,6 +589,7 @@ class Learner:
         summary."""
         if self.checkpointer is not None:
             self._save(self.num_updates, t0)
+        self._sum_env_steps()
         return dict(
             num_updates=self.num_updates,
             env_steps=self.env_steps,
@@ -460,7 +621,11 @@ class Learner:
         the host issues each inner step's kernels, and the hold is that
         long (capturing the super-step in a CUDA graph would shrink it)."""
         cfg = self.cfg
-        super_step = make_in_graph_per_super_step_fn(cfg, self.net, k)
+        # under a mesh (world size 1: one rank owns the whole ring) the
+        # sampled rows are the global batch of the meshed step
+        super_step = make_in_graph_per_super_step_fn(
+            cfg, self.net, k, train_step=(
+                None if self.mesh is None else self._step_fn))
         generator = torch.Generator(device=self.device)
         generator.manual_seed(cfg.seed)
         losses_hist: deque = deque(maxlen=100)
@@ -495,8 +660,10 @@ class Learner:
             buffer.note_updates(losses_np.shape[0], losses_np.sum())
             losses_hist.extend(losses_np.tolist())
 
-        self._superstep_loop(k, target, t0, self._ready_gate(buffer, stop),
-                             sample, harvest, prepare=prepare, tracer=tracer)
+        gate = (self._ready_gate(buffer, stop) if self.mesh is None
+                else self._collective_gate(buffer, stop))
+        self._superstep_loop(k, target, t0, gate, sample, harvest,
+                             prepare=prepare, tracer=tracer)
         return self._finish_device_run(losses_hist, t0)
 
     def _superstep_loop(self, k: int, target: int, t0: float,
@@ -568,7 +735,20 @@ class Learner:
             # complete
             return
         minutes = self.start_minutes + (time.time() - t0) / 60.0
-        self.checkpointer.save(updates, self.state,
+        state = self.state
+        if self.mesh is not None:
+            # every rank gathers the full state (a collective); rank 0
+            # writes it in the meshless byte layout, so a checkpoint
+            # crosses between meshed and meshless runs
+            import torch.distributed as dist
+
+            from r2d2_tpu_torch.parallel.sharding import gather_state
+
+            state = gather_state(state)
+            if dist.get_rank() != 0:
+                self._saved_steps.add(updates)
+                return
+        self.checkpointer.save(updates, state,
                                meta=dict(env_steps=self.env_steps,
                                          minutes=minutes,
                                          game=self.cfg.game_name,

@@ -39,7 +39,7 @@ import torch
 from torch.func import functional_call, vmap
 
 from r2d2_tpu_torch.config import Config
-from r2d2_tpu_torch.models.network import R2D2Network
+from r2d2_tpu_torch.models.network import R2D2Network, unshard
 from r2d2_tpu_torch.replay.device_ring import gather_batch
 
 Params = Dict[str, torch.Tensor]
@@ -208,6 +208,10 @@ def loss_and_priorities(cfg: Config, net: R2D2Network, params: Params,
     gradient to ``params``, the priorities none."""
     q_online, q_target_seq = _double_unroll(cfg, net, params, target_params,
                                             batch)
+    # on the mesh a tp-split head leaves the action dim sharded, and
+    # DTensor's gather along a sharded dim cannot serve the two action
+    # gathers below: keep only the dp split of the (B, T, A) q
+    q_online, q_target_seq = unshard(q_online, -1), unshard(q_target_seq, -1)
     idx_online, idx_target, mask = _window_indices(
         cfg, batch["burn_in"], batch["learning"], batch["forward"])
 
@@ -276,11 +280,13 @@ class SuperStep:
     -> (state, losses (k,), priorities (k,B))``.  The learner calls the two
     halves apart: :meth:`gather` enqueues the k gathers under the buffer
     lock (ordering them before any later ring write), :meth:`run` the k
-    steps after the lock is released."""
+    steps after the lock is released.  ``train_step`` replaces the plain
+    step (the meshed learner passes ``sharding.mesh_train_step``'s)."""
 
-    def __init__(self, cfg: Config, net: R2D2Network, k: int):
+    def __init__(self, cfg: Config, net: R2D2Network, k: int,
+                 train_step=None):
         self.cfg, self.k = cfg, k
-        self._step = make_train_step(cfg, net)
+        self._step = train_step or make_train_step(cfg, net)
 
     def gather(self, arrays, ints: torch.Tensor,
                is_weights: torch.Tensor) -> List[Batch]:
@@ -374,7 +380,8 @@ def scatter_last(leaves: torch.Tensor, idx: torch.Tensor,
     leaves[idx] = vals[last]
 
 
-def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int):
+def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
+                                    train_step=None):
     """``k`` steps with device-side PER: sample → gather → step → priority
     scatter, k times, with no host round trip.  Step j+1 samples from the
     priorities step j scattered.
@@ -388,8 +395,9 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int):
     uniforms are ``uniforms`` (k, B) when given — the tests feed JAX's own
     draws — else drawn from ``generator`` on ``prios``' device.  The caller
     holds the buffer lock for the whole call, so no actor commit lands
-    between a step's draw and its scatter."""
-    step = make_train_step(cfg, net)
+    between a step's draw and its scatter.  ``train_step`` replaces the
+    plain step (the meshed learner's, which returns plain priorities)."""
+    step = train_step or make_train_step(cfg, net)
     B = cfg.batch_size
 
     def super_step(state: TrainState, arrays, prios: torch.Tensor,

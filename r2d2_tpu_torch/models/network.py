@@ -25,6 +25,7 @@ checkpoints each step of the training scan, as the reference's
 """
 from __future__ import annotations
 
+import sys
 from typing import Optional, Tuple
 
 import torch
@@ -71,19 +72,75 @@ def _conv_layer(c_in: int, c_out: int, k: int, stride: int,
     return layer
 
 
+def _dtensor_module(t: torch.Tensor):
+    """``torch.distributed.tensor`` when ``t`` is a DTensor (the meshed
+    learner, parallel/sharding.py), else None.  Without a mesh nothing is
+    a DTensor and that module is never imported here."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod if mod is not None and isinstance(t, mod.DTensor) else None
+
+
+def unshard(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` with tensor dim ``dim`` whole on every rank: a DTensor sharded
+    along ``dim`` is gathered over the axes that split it, keeping its
+    other placements; any other tensor comes back as it is."""
+    mod = _dtensor_module(t)
+    if mod is None:
+        return t
+    dim %= t.ndim
+    pl = [mod.Replicate() if isinstance(p, mod.Shard) and p.dim == dim
+          else p for p in t.placements]
+    return t if pl == list(t.placements) else t.redistribute(placements=pl)
+
+
 def dense(x: torch.Tensor, layer: nn.Linear, cd: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=cd)``: the product rounded to ``cd``, then the
     bias added in ``cd``."""
     return F.linear(x.to(cd), layer.weight.to(cd)) + layer.bias.to(cd)
 
 
-def conv(x: torch.Tensor, layer: nn.Conv2d, cd: torch.dtype) -> torch.Tensor:
+def conv(x: torch.Tensor, layer: nn.Conv2d, cd: torch.dtype,
+         weight: Optional[torch.Tensor] = None,
+         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """flax ``Conv(dtype=cd)`` on NCHW: ``padding="VALID"`` for a layer
     built without padding, ``"SAME"`` for a stride-1 3×3 layer built with
-    padding 1 (flax pads that one symmetrically)."""
-    y = F.conv2d(x.to(cd), layer.weight.to(cd), stride=layer.stride,
+    padding 1 (flax pads that one symmetrically).  ``weight``/``bias``
+    replace the layer's own (a :func:`conv_rows` region's)."""
+    weight = layer.weight if weight is None else weight
+    bias = layer.bias if bias is None else bias
+    y = F.conv2d(x.to(cd), weight.to(cd), stride=layer.stride,
                  padding=layer.padding)
-    return y + layer.bias.to(cd)[:, None, None]
+    return y + bias.to(cd)[:, None, None]
+
+
+def conv_rows(x: torch.Tensor, layers):
+    """``(x, [(weight, bias)], wrap)`` for a conv stack over ``x``.
+
+    On the learner mesh (``x`` a DTensor whose rows are sharded over dp)
+    the stack runs on plain tensors: DTensor's convolution handler is a
+    spatial tensor-parallel conv (a halo exchange over width-sharded
+    images), not a batch-sharded one.  So each rank takes its rows, each
+    weight whole (gathered over fsdp; its gradient a sum over dp), and
+    ``wrap`` makes the stack's output a dp-sharded DTensor again.
+    Anything else passes through with the layers' own params."""
+    mod = _dtensor_module(x)
+    if mod is None:
+        return x, [(layer.weight, layer.bias) for layer in layers], (
+            lambda y: y)
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    rows = [mod.Shard(0) if n == "dp" else mod.Replicate() for n in names]
+    whole = [mod.Replicate()] * len(names)
+    summed = [mod.Partial() if n == "dp" else mod.Replicate()
+              for n in names]
+
+    def local(p):
+        return p.redistribute(placements=whole).to_local(
+            grad_placements=summed)
+
+    params = [(local(layer.weight), local(layer.bias)) for layer in layers]
+    return (x.redistribute(placements=rows).to_local(), params,
+            lambda y: mod.DTensor.from_local(y, mesh, rows))
 
 
 class NatureTorso(nn.Module):
@@ -111,12 +168,13 @@ class NatureTorso(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: (N, H, W, C) in [0, 1], compute dtype
         cd = self.compute_dtype
+        layers = (self.conv1, self.conv2, self.conv3)
+        x, params, wrap = conv_rows(x, layers)
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(conv(x, self.conv1, cd))
-        x = F.relu(conv(x, self.conv2, cd))
-        x = F.relu(conv(x, self.conv3, cd))
+        for layer, (w, b) in zip(layers, params):
+            x = F.relu(conv(x, layer, cd, w, b))
         # flatten in NHWC order, as the reference's Dense rows expect
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = wrap(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
         return F.relu(dense(x, self.dense, cd))
 
 
@@ -168,17 +226,23 @@ class ImpalaTorso(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: (N, H, W, C) in [0, 1], compute dtype
         cd = self.compute_dtype
+        x, params, wrap = conv_rows(x, self.convs)
         x = x.permute(0, 3, 1, 2)
-        convs = iter(self.convs)
+        convs = iter(zip(self.convs, params))
+
+        def step(x):
+            layer, (w, b) = next(convs)
+            return conv(x, layer, cd, w, b)
+
         for _ in range(len(self.convs) // (1 + 2 * self.blocks_per_stage)):
-            x = max_pool_same(conv(x, next(convs), cd))
+            x = max_pool_same(step(x))
             for _ in range(self.blocks_per_stage):
                 skip = x
-                x = conv(F.relu(x), next(convs), cd)
-                x = conv(F.relu(x), next(convs), cd)
+                x = step(F.relu(x))
+                x = step(F.relu(x))
                 x = x + skip
         x = F.relu(x)
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = wrap(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
         return F.relu(dense(x, self.dense, cd))
 
 
@@ -244,7 +308,9 @@ class LSTMLayer(nn.Module):
     def _step(self, x_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
               wh: torch.Tensor):
         gates = x_t + (h.to(self.compute_dtype) @ wh).float()
-        i, f, g, o = gates.split(self.hidden_dim, dim=-1)
+        # under tp each rank holds whole gates of the 4H columns; the cell
+        # mixes all four, so gather the columns before the split
+        i, f, g, o = unshard(gates, -1).split(self.hidden_dim, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         return torch.sigmoid(o) * torch.tanh(c), c
 

@@ -1,12 +1,13 @@
-"""Process planes of the port: the subprocess actor fleets, the
-centralized inference service, and the sharded replay plane over shared
-memory or TCP (``actor_procs``, ``inference_service``, ``replay_shards``,
-``replay_net``).
+"""Process planes and the learner mesh of the port: the subprocess actor
+fleets, the centralized inference service, the sharded replay plane over
+shared memory or TCP (``actor_procs``, ``inference_service``,
+``replay_shards``, ``replay_net``), and the learner's device mesh, its
+sharding table and the multi-rank runtime (``mesh``, ``sharding``,
+``distributed``).
 
-The reference's ``parallel/__init__`` also exports the mesh, sharding and
-multi-host modules; those wait for ROADMAP.md A item 7.  The exports load
-on first use, so a replay shard child imports its own module and the
-numpy replay core, never torch.
+The exports load on first use, so a replay shard child imports its own
+module and the numpy replay core, never torch, and a fleet child never
+imports torch's distributed stack.
 """
 import importlib
 
@@ -29,6 +30,21 @@ _EXPORTS = {
     "ShardServer": "replay_net",
     "run_shard_server": "replay_net",
     "shard_slice_config": "replay_net",
+    "AXES": "mesh",
+    "make_mesh": "mesh",
+    "trivial_mesh": "mesh",
+    "DEVICE_BATCH_KEYS": "sharding",
+    "ShardingTable": "sharding",
+    "UnresolvedShardingError": "sharding",
+    "mesh_super_step": "sharding",
+    "mesh_train_step": "sharding",
+    "shard_batch": "sharding",
+    "host_batch_size": "distributed",
+    "host_local_batch": "distributed",
+    "init_distributed": "distributed",
+    "local_rows": "distributed",
+    "sync_counter": "distributed",
+    "sync_min_array": "distributed",
 }
 
 __all__ = sorted(_EXPORTS)

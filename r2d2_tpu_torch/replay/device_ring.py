@@ -1,6 +1,6 @@
 """Device-resident replay ring: replay data lives in device memory, not host RAM.
 
-Port of ``r2d2_tpu/replay/device_ring.py`` for one device.  The host-staged
+Port of ``r2d2_tpu/replay/device_ring.py``; one ring per rank.  The host-staged
 learner moves every training batch across PCIe (38.4 MB of observations per
 batch at the flagship width); here the flow is inverted:
 
@@ -13,9 +13,12 @@ batch at the flagship width); here the flow is inverted:
   nothing at all under in-graph PER (the priorities live here too).
 
 Writes are in-place slot copies (``arrays[k][ptr].copy_(slot[k])``); the
-ring is never reallocated.  Only the ``"replicated"`` layout exists: the
-``"dp"`` layout that shards the slot axis over a mesh waits for ROADMAP.md
-A item 7 (:func:`resolve_layout`).
+ring is never reallocated.  Without the learner mesh the rank holds the
+whole ring (``"replicated"``).  Under it (``train(cfg, use_mesh=True)``)
+the ``"dp"`` layout shards the slot axis over the mesh's dp axis: each
+rank holds its dp group's slab, a ring of ``num_blocks / dp`` blocks
+built from :func:`ring_slice_config`, with its own ``ReplayBuffer`` over
+the same slice (:func:`resolve_layout`).
 
 CONCURRENCY CONTRACT: a ring write and the dispatch that reads the ring
 must be serialised by the caller (the ReplayBuffer's lock: ``add`` commits
@@ -31,7 +34,7 @@ from dispatch order and donation.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -97,16 +100,63 @@ def gather_batch(cfg: Config, arrays: Dict[str, torch.Tensor],
     )
 
 
-def resolve_layout(cfg: Config) -> str:
-    """The ring's layout: ``"replicated"`` (one device holds the whole
-    ring).  The ``"dp"`` layout waits for ROADMAP.md A item 7 with the
-    learner mesh; ``"auto"`` resolves to ``"replicated"`` without a mesh,
-    as in the JAX package."""
-    if cfg.device_ring_layout == "dp":
-        raise ValueError(
-            "r2d2_tpu_torch: device_ring_layout='dp' (the ring's slot axis "
-            "sharded over a dp mesh axis) waits for ROADMAP.md A item 7")
+def _dp_size(mesh) -> int:
+    if isinstance(mesh, dict):
+        return int(mesh.get("dp", 1))
+    return mesh.size(mesh.mesh_dim_names.index("dp"))
+
+
+def resolve_layout(cfg: Config, mesh=None, need_bytes: int = 0,
+                   cap_bytes: Optional[int] = None) -> str:
+    """``cfg.device_ring_layout`` resolved to ``"replicated"`` or
+    ``"dp"`` (``mesh``: the learner's ``DeviceMesh``, or its axis sizes as
+    a dict; ``need_bytes`` the whole ring; ``cap_bytes`` one device's
+    memory, None when unknown).
+
+    The JAX package's rules: ``"auto"`` shards over dp exactly when the
+    whole ring would not fit 80% of one device and the shapes allow it
+    (``num_blocks`` and ``batch_size`` divisible by dp); an explicit
+    ``"dp"`` raises when they do not, or when there is no mesh.  One
+    difference: the JAX package refuses ``"dp"`` on a mesh whose dp axis
+    is 1, while in the port a rank always holds its own slab, and at
+    dp = 1 that slab is the whole ring."""
+    requested = cfg.device_ring_layout
+    if mesh is None:
+        if requested == "dp":
+            raise ValueError(
+                "device_ring_layout='dp' shards the ring over the learner "
+                "mesh's dp axis: it needs a mesh, train(cfg, use_mesh=True) "
+                "(ROADMAP.md A item 7a)")
+        return "replicated"
+    dp = _dp_size(mesh)
+    can_dp = cfg.num_blocks % dp == 0 and cfg.batch_size % dp == 0
+    if requested == "dp":
+        if not can_dp:
+            raise ValueError(
+                f"device_ring_layout='dp' needs num_blocks "
+                f"({cfg.num_blocks}) and batch_size ({cfg.batch_size}) "
+                f"divisible by dp={dp}")
+        return "dp"
+    if requested == "replicated":
+        return "replicated"
+    if (dp > 1 and can_dp and cap_bytes is not None
+            and need_bytes > 0.8 * cap_bytes):
+        return "dp"
     return "replicated"
+
+
+def ring_slice_config(cfg: Config, dp: int) -> Config:
+    """The config of one rank's slab of a ring split over ``dp`` ranks:
+    ``buffer_capacity / dp`` (so ``num_blocks / dp`` blocks) and
+    ``learning_starts / dp`` rounded up, so the ranks together start
+    learning at the whole ring's fill.  The identity at dp = 1."""
+    if dp == 1:
+        return cfg
+    if cfg.num_blocks % dp:
+        raise ValueError(f"num_blocks ({cfg.num_blocks}) must divide over "
+                         f"the mesh's dp={dp} ranks, each holding a slab")
+    return cfg.replace(buffer_capacity=cfg.buffer_capacity // dp,
+                       learning_starts=-(-cfg.learning_starts // dp))
 
 
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -124,14 +174,20 @@ class DeviceRing:
     """Owns the device-resident ring arrays and their write path, and under
     ``cfg.in_graph_per`` the PER leaves and sampling metadata.
 
-    ``num_groups`` is 1: the ReplayBuffer's slot-group mapping is the
-    identity in the replicated layout."""
+    ``layout`` records what the ring is: the whole ring
+    (``"replicated"``) or this rank's dp slab (``"dp"``, built from
+    :func:`ring_slice_config`).  Either way one process holds one group:
+    ``num_groups`` is 1, and the ReplayBuffer's slot-group mapping is the
+    identity."""
 
-    def __init__(self, cfg: Config, action_dim: int, device="cuda"):
+    def __init__(self, cfg: Config, action_dim: int, device="cuda",
+                 layout: str = "replicated"):
+        if layout not in ("replicated", "dp"):
+            raise ValueError(f"unknown device-ring layout {layout!r}")
         self.cfg = cfg
         self.action_dim = action_dim
         self.device = torch.device(device)
-        resolve_layout(cfg)
+        self.layout = layout
         self.num_groups = 1
         NB = cfg.num_blocks
         self._slot_shapes = _slot_shapes(cfg, action_dim)

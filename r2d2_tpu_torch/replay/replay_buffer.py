@@ -21,8 +21,12 @@ With a :class:`~r2d2_tpu_torch.replay.device_ring.DeviceRing` the bulk
 data lives on the device: ``add`` stages each block outside the lock and
 commits it under it, ``sample_meta`` yields index bundles for the device
 gather, and under ``cfg.in_graph_per`` the PER leaves live on the device
-too.  The dp-sharded ring's slot groups (G > 1: ``_grouped_densities``,
-``_sample_grouped``, ``raw_densities``) wait for ROADMAP.md A item 7.
+too.  Under the learner mesh each rank's buffer is one dp group's slab of
+the global ring and draws its rows with their raw inclusion densities
+(``sample_meta(raw_densities=True)``), which the learner normalises by the
+minimum over every rank; a buffer of several slot groups in one process
+(JAX's single-process dp ring) has no counterpart, since a rank holds one
+device.
 :meth:`ReplayBuffer.serve_sample` is the sharded replay plane's shard-side
 draw (parallel/replay_shards.py, parallel/replay_net.py).
 """
@@ -146,8 +150,10 @@ class ReplayBuffer:
         self.G = device_ring.num_groups if device_ring is not None else 1
         if self.G != 1:
             raise ValueError(
-                "r2d2_tpu_torch: a device ring of several slot groups (the "
-                "dp layout) waits for ROADMAP.md A item 7")
+                "r2d2_tpu_torch: a device ring of several slot groups in one "
+                "process has no counterpart in the port: each rank of the "
+                "learner mesh holds one dp group's slab of the ring "
+                "(train(cfg, use_mesh=True), parallel/distributed.py)")
         self._blocks_per_group = cfg.num_blocks // self.G
         spec = (_count_spec(cfg) if device_ring is not None
                 else _ring_spec(cfg, action_dim))
@@ -472,17 +478,16 @@ class ReplayBuffer:
         ``meta["dispatched"]``: this enqueues the gathers before any later
         ring write (the device_ring concurrency contract).
 
-        ``raw_densities`` (the multi-host plane's per-row densities) waits
-        for ROADMAP.md A item 7.
+        ``raw_densities=True`` returns the rows' inclusion densities q
+        (prio / this buffer's mass) in the ``is_weights`` slots instead of
+        normalised weights: each rank of the learner mesh draws from its
+        own slab, and the learner normalises by the minimum over every
+        rank's rows (``learner.global_is_weights``), keeping the
+        min-of-the-whole-batch scheme across ranks.
 
         Returns ints (k,B,6) i32 · is_weights (k,B) f32 · idxes (k,B) i64 ·
         block_ptr · env_steps.
         """
-        if raw_densities:
-            raise ValueError(
-                "r2d2_tpu_torch: sample_meta(raw_densities=True) (the "
-                "multi-host device-replay plane) waits for ROADMAP.md A "
-                "item 7")
         cfg = self.cfg
         B = batch_size or cfg.batch_size
         K, L = cfg.seqs_per_block, cfg.learning_steps
@@ -495,7 +500,10 @@ class ReplayBuffer:
                     "sample_meta on an empty buffer; wait for add() (use "
                     "`ready` to gate on learning_starts)")
             for j in range(k):
-                idx, w = self.tree.sample(B)
+                if raw_densities:
+                    idx, w = self._grouped_densities(B)
+                else:
+                    idx, w = self.tree.sample(B)
                 block_idx = idx // K
                 seq_idx = idx % K
                 burn_in = self.burn_in_steps[block_idx, seq_idx].astype(
@@ -515,6 +523,26 @@ class ReplayBuffer:
             if dispatch is not None:
                 meta["dispatched"] = dispatch(ints, weights)
         return meta
+
+    def _grouped_densities(self, B: int):
+        """One B-row draw (B/G rows from each group's slab; G is 1 in the
+        port) with the rows' raw inclusion densities prio / group mass
+        (caller holds the lock).  A zero density (a descent landing on a
+        zero leaf through float error) is clamped to the smallest positive
+        one, as ``SumTree.sample`` guards its weights."""
+        K = self.cfg.seqs_per_block
+        span = self._blocks_per_group * K
+        per = B // self.G
+        idx_parts, q_parts = [], []
+        for g in range(self.G):
+            part, prios, mass = self.tree.sample_range(per, g * span,
+                                                       (g + 1) * span)
+            idx_parts.append(part)
+            q_parts.append(prios / mass)
+        idx = np.concatenate(idx_parts)
+        q = np.concatenate(q_parts)
+        pos = q[q > 0]
+        return idx, np.maximum(q, pos.min() if pos.size else 1.0)
 
     # ------------------------------------------------------- priority update
     def update_priorities(self, idxes: np.ndarray, priorities: np.ndarray,

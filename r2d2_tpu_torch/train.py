@@ -1,7 +1,8 @@
 """Training: the threaded fabric and the deterministic single-thread trainer.
 
-Port of the single-device, thread-, process- and anakin-transport subset
-of ``r2d2_tpu/train.py``:
+Port of the thread-, process- and anakin-transport subset of
+``r2d2_tpu/train.py``, on one device or, with ``use_mesh``, as one rank of
+the learner mesh (one process per card under torchrun):
 
 - ``_build``: envs (or, for the process transport, one probe env and the
   fleet plane, ``parallel/actor_procs.py``), network, train state with an
@@ -48,6 +49,7 @@ swaps a module's parameters in place while it runs.
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
 import os
 import queue
@@ -130,6 +132,16 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _world_size() -> int:
+    """The world the meshed learner runs in: the default process group's,
+    else torchrun's ``WORLD_SIZE``, else 1."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE") or 1)
+
+
 def check_unported(cfg: Config, use_mesh: bool = False) -> None:
     """Raise ``ValueError`` for a ``train()`` configuration that needs a
     module the port has not ported yet, naming its ROADMAP.md item."""
@@ -139,8 +151,14 @@ def check_unported(cfg: Config, use_mesh: bool = False) -> None:
         (bool(cfg.population_spec),
          "population_spec (the population plane) waits for ROADMAP.md A "
          "item 9"),
-        (use_mesh, "use_mesh (the learner mesh) waits for ROADMAP.md A "
-                   "item 7"),
+        (use_mesh and cfg.actor_transport == "anakin",
+         "use_mesh with actor_transport='anakin' (the anakin mesh) waits "
+         "for ROADMAP.md A item 7b"),
+        (use_mesh and cfg.in_graph_per and _world_size() > 1,
+         "in_graph_per with use_mesh at world size > 1 (the global draw "
+         "over every rank's slab, gathering sequences across ranks) waits "
+         "for ROADMAP.md A item 7b; at world size 1 one rank owns the "
+         "whole ring and in-graph PER runs"),
         (cfg.league_eval,
          "league_eval (the eval sidecar) waits for ROADMAP.md A item 9"),
         (cfg.learnhealth_interval > 0,
@@ -153,10 +171,10 @@ def check_unported(cfg: Config, use_mesh: bool = False) -> None:
     for refused, why in refusals:
         if refused:
             raise ValueError(f"r2d2_tpu_torch.train: {why}")
-    if cfg.device_replay:
+    if cfg.device_replay and not use_mesh:
         from r2d2_tpu_torch.replay.device_ring import resolve_layout
 
-        resolve_layout(cfg)     # the dp layout waits for item 7
+        resolve_layout(cfg)     # the dp layout needs the learner mesh
     for kind in parse_spec(cfg.chaos_spec):
         if kind not in CHAOS_SITES:
             raise ValueError(
@@ -165,16 +183,77 @@ def check_unported(cfg: Config, use_mesh: bool = False) -> None:
                 f"port's train() fires {CHAOS_SITES}")
 
 
+@contextlib.contextmanager
+def _rank_world(use_mesh: bool, device):
+    """Under ``use_mesh``: the process group this rank trains in — the
+    caller's (``parallel.distributed.init_distributed`` under torchrun),
+    or, when none is up, a world of one on an in-process store (NCCL on
+    the card, gloo on the CPU), destroyed on the way out.  A meshed run
+    always takes the rank-collective route, even alone.  The calling
+    thread is bound as the learner thread: no other thread may issue a
+    collective."""
+    if not use_mesh:
+        yield
+        return
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.parallel import distributed as pd
+
+    created = False
+    if not dist.is_initialized():
+        pd.init_distributed(store=dist.HashStore(), world_size=1, rank=0,
+                            device=resolve_device(device))
+        created = True
+    pd.bind_learner_thread()
+    try:
+        yield
+    finally:
+        pd.unbind_learner_thread()
+        if created:
+            dist.destroy_process_group()
+
+
 def _build(cfg: Config, env_factory: EnvFactory,
            checkpoint_dir: Optional[str], resume: bool,
-           device=None) -> Dict[str, Any]:
+           device=None, use_mesh: bool = False) -> Dict[str, Any]:
     """Common bring-up: envs, net, state (maybe restored), the device ring,
     learner, buffer (the in-process ring, or the sharded replay plane over
     shm or sockets), actors, and the full-state resume from the newest
     replay snapshot.  Parameters are drawn from a ``torch.Generator``
     seeded with ``cfg.seed``.  The returned ``cfg`` is the effective one:
-    ``in_graph_per`` is off when no ring was built."""
+    ``in_graph_per`` is off when no ring was built.
+
+    ``use_mesh`` (the default process group is up, :func:`_rank_world`):
+    one learner mesh (``make_mesh``) and one ``ShardingTable`` per
+    bring-up; this rank samples ``host_batch_size`` rows of the global
+    batch; its replay (host ring, shard plane or device ring) is its dp
+    group's slab of the global ring (``ring_slice_config``); its envs and
+    actors draw from streams offset by the rank (rank 0's are the
+    meshless run's).  Whether the ranks replay from device rings is
+    decided by all of them together, so no rank runs a drivetrain its
+    peers do not."""
     device = resolve_device(device)
+    mesh = table = None
+    host_bs, dp, rank, world = cfg.batch_size, 1, 0, 1
+    actor_cfg = cfg
+    if use_mesh:
+        import torch.distributed as dist
+
+        from r2d2_tpu_torch.parallel.distributed import host_batch_size
+        from r2d2_tpu_torch.parallel.mesh import make_mesh
+        from r2d2_tpu_torch.parallel.sharding import ShardingTable
+
+        mesh = make_mesh(cfg, device.type)
+        table = ShardingTable(mesh, cfg)
+        # cfg.batch_size is the GLOBAL batch; this rank samples its dp
+        # share from its own replay
+        host_bs = host_batch_size(cfg, mesh)
+        dp, rank, world = (table.sizes["dp"], dist.get_rank(),
+                           dist.get_world_size())
+        if rank:
+            # each rank's actors explore their own streams (the JAX
+            # package seeds every host's alike: identical experience)
+            actor_cfg = cfg.replace(seed=cfg.seed + 1_000_003 * rank)
     process = cfg.actor_transport == "process"
     if process:
         # the fleets own the envs in their subprocesses; the trainer only
@@ -187,7 +266,7 @@ def _build(cfg: Config, env_factory: EnvFactory,
         envs = []
     else:
         act_device = _resolve_act_device(cfg.act_device)
-        envs = [env_factory(cfg, cfg.seed + i)
+        envs = [env_factory(actor_cfg, actor_cfg.seed + i)
                 for i in range(cfg.num_actors)]
         action_dim = envs[0].action_space.n
 
@@ -211,7 +290,16 @@ def _build(cfg: Config, env_factory: EnvFactory,
 
     param_store = ParamStore()
     ring = None
-    if cfg.device_replay:
+    # this rank's share of the replay: the whole ring without a mesh, its
+    # dp group's slab under one
+    replay_cfg = cfg
+    if mesh is not None:
+        from r2d2_tpu_torch.replay.device_ring import ring_slice_config
+
+        replay_cfg = ring_slice_config(cfg, dp)
+    if cfg.device_replay and mesh is not None:
+        ring = _mesh_ring(cfg, replay_cfg, mesh, action_dim, device)
+    elif cfg.device_replay:
         from r2d2_tpu_torch.replay.device_ring import DeviceRing
 
         need, dev_cap = data_bytes(cfg, action_dim), _device_memory_bytes(
@@ -236,12 +324,13 @@ def _build(cfg: Config, env_factory: EnvFactory,
             "shrink buffer_capacity to restore the device-PER plane",
             stacklevel=2)
         cfg = cfg.replace(in_graph_per=False)
+        replay_cfg = replay_cfg.replace(in_graph_per=False)
     # the learner is built AFTER the ring/in_graph_per decisions so it, and
     # everything below, sees the effective config
     learner = Learner(cfg, net, state, param_store=param_store,
                       checkpointer=checkpointer,
                       start_env_steps=start_env_steps,
-                      start_minutes=start_minutes)
+                      start_minutes=start_minutes, mesh=mesh, table=table)
     replay_plane = None
     if cfg.replay_transport == "socket":
         # cross-host replay fabric (parallel/replay_net.py): the shard RPCs
@@ -252,7 +341,7 @@ def _build(cfg: Config, env_factory: EnvFactory,
         from r2d2_tpu_torch.parallel.replay_net import NetShardedReplayPlane
 
         buffer = NetShardedReplayPlane(
-            cfg, action_dim, rng=np.random.default_rng(cfg.seed))
+            replay_cfg, action_dim, rng=np.random.default_rng(actor_cfg.seed))
         replay_plane = buffer
     elif cfg.replay_shards > 1:
         # sharded replay plane (parallel/replay_shards.py): K owner
@@ -262,11 +351,12 @@ def _build(cfg: Config, env_factory: EnvFactory,
         from r2d2_tpu_torch.parallel.replay_shards import ShardedReplayPlane
 
         buffer = ShardedReplayPlane(
-            cfg, action_dim, rng=np.random.default_rng(cfg.seed))
+            replay_cfg, action_dim,
+            rng=np.random.default_rng(actor_cfg.seed))
         replay_plane = buffer
     else:
-        buffer = ReplayBuffer(cfg, action_dim,
-                              rng=np.random.default_rng(cfg.seed),
+        buffer = ReplayBuffer(replay_cfg, action_dim,
+                              rng=np.random.default_rng(actor_cfg.seed),
                               device_ring=ring)
     if replay_plane is not None:
         # the assembled batch crosses to the card in one copy from pinned
@@ -289,7 +379,8 @@ def _build(cfg: Config, env_factory: EnvFactory,
         # learner's device
         from r2d2_tpu_torch.parallel.actor_procs import ProcessFleetPlane
 
-        plane = ProcessFleetPlane(cfg, action_dim, env_factory, epsilons,
+        plane = ProcessFleetPlane(actor_cfg, action_dim, env_factory,
+                                  epsilons,
                                   device=(device if cfg.act_device != "cpu"
                                           else None))
     else:
@@ -300,7 +391,7 @@ def _build(cfg: Config, env_factory: EnvFactory,
                         make_host_act_fn(act_nets[f]), param_store,
                         sink=buffer.add, env_workers=fleet_workers,
                         rng=np.random.default_rng(
-                            cfg.seed + 7919 + 104729 * f))
+                            actor_cfg.seed + 7919 + 104729 * f))
             for f, (lo, hi) in enumerate(shards)
         ]
     # full-state resume: a warm replay ring + resumable actor state saved
@@ -308,7 +399,10 @@ def _build(cfg: Config, env_factory: EnvFactory,
     # Loaded AFTER everything is built so a failure here degrades to the
     # plain learner-state resume above instead of killing bring-up
     restored_replay = False
-    if checkpointer is not None and resume:
+    # one replay snapshot per run: a mesh of several ranks has several
+    # replays and neither writes nor reads one (ROADMAP.md A item 7b)
+    single_replay = world == 1
+    if checkpointer is not None and resume and single_replay:
         rep = checkpointer.restore_replay()
         if rep is not None and ring is not None:
             warnings.warn(
@@ -340,8 +434,46 @@ def _build(cfg: Config, env_factory: EnvFactory,
                 actor=actors[0] if actors else None, plane=plane,
                 replay_plane=replay_plane,
                 param_store=param_store, checkpointer=checkpointer,
-                host_bs=cfg.batch_size, restored_replay=restored_replay,
-                ring=ring)
+                host_bs=host_bs, restored_replay=restored_replay,
+                ring=ring, mesh=mesh, table=table,
+                single_replay=single_replay)
+
+
+def _mesh_ring(cfg: Config, replay_cfg: Config, mesh, action_dim: int,
+               device: torch.device):
+    """This rank's device ring under the learner mesh, or None (host
+    staging).  The layout follows ``resolve_layout``'s rules, agreed over
+    the ranks ("auto" reads each rank's own card); a ``"dp"`` ring is this
+    rank's slab of ``num_blocks / dp`` blocks.  The ring-or-staging choice
+    is collective (one ``sync_counter`` min), as in the JAX package: the
+    two drivetrains issue different collectives, so one rank failing its
+    memory guard moves every rank to host staging instead of deadlocking
+    them."""
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.parallel.distributed import sync_counter
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing, resolve_layout
+
+    need, dev_cap = data_bytes(cfg, action_dim), _device_memory_bytes(device)
+    cap = dev_cap if dev_cap is not None else _available_host_bytes()
+    layout = resolve_layout(cfg, mesh, need, dev_cap)
+    if sync_counter(int(layout == "dp"), "max", tag="ring") > 0:
+        layout = "dp"
+    # a whole ring on each of several ranks has no dp slab to sample
+    # from: the JAX package stages from the host there, and so does this
+    whole_each = layout == "replicated" and dist.get_world_size() > 1
+    per_rank = data_bytes(replay_cfg, action_dim)
+    fits = cap is None or per_rank <= 0.8 * cap
+    if sync_counter(int(fits and not whole_each), "min", tag="ring") > 0:
+        return DeviceRing(replay_cfg, action_dim, device=device,
+                          layout=layout)
+    warnings.warn(
+        "meshed device_replay disabled (on at least one rank): "
+        f"layout={layout}, ring {per_rank / 1e9:.1f} GB per rank"
+        + (f" against {cap / 1e9:.1f} GB" if cap is not None else "")
+        + (" — a replicated ring over several ranks" if whole_each else "")
+        + "; using host staging instead", stacklevel=3)
+    return None
 
 
 def _device_memory_bytes(device: torch.device) -> Optional[int]:
@@ -508,14 +640,19 @@ class _HostScaffold:
 def train_sync(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                checkpoint_dir: Optional[str] = None, resume: bool = False,
                actor_steps_per_update: int = 4,
-               device=None) -> Dict[str, Any]:
+               device=None, use_mesh: bool = False) -> Dict[str, Any]:
     """Deterministic interleaving: fill the buffer to ``learning_starts``,
     then alternate ``actor_steps_per_update`` lockstep actor iterations
     with one learner update, applying priority feedback inline.
+    ``use_mesh`` trains this rank of the learner mesh, as in
+    :func:`train` (each rank fills its own buffer; the updates are
+    collective).
 
     Returns metrics incl. the per-update loss curve and episode returns
-    (the JAX package's keys; ``final_params`` is the learner's state dict).
+    (the JAX package's keys; ``final_params`` is the learner's state dict,
+    full plain tensors).
     """
+    check_unported(cfg, use_mesh)
     # prefetch would run batch_source (which steps the actor) on a thread,
     # and env workers / multiple fleets would make block arrival order racy
     # — all break the deterministic interleaving this function promises;
@@ -527,7 +664,17 @@ def train_sync(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                       actor_inference="local", replay_shards=1,
                       population_spec="", league_eval=False,
                       learnhealth_interval=0)
-    sys = _build(cfg, env_factory, checkpoint_dir, resume, device=device)
+    with _rank_world(use_mesh, device):
+        return _train_sync(cfg, env_factory, checkpoint_dir, resume,
+                           actor_steps_per_update, device, use_mesh)
+
+
+def _train_sync(cfg: Config, env_factory: EnvFactory,
+                checkpoint_dir: Optional[str], resume: bool,
+                actor_steps_per_update: int, device, use_mesh: bool
+                ) -> Dict[str, Any]:
+    sys = _build(cfg, env_factory, checkpoint_dir, resume, device=device,
+                 use_mesh=use_mesh)
     actor: VectorActor = sys["actor"]
     buffer: ReplayBuffer = sys["buffer"]
     learner: Learner = sys["learner"]
@@ -552,7 +699,7 @@ def train_sync(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     metrics = learner.run(batch_source, priority_sink)
     metrics.update(losses=losses, episode_returns=episode_returns,
                    buffer_size=len(buffer),
-                   final_params=learner.state.params)
+                   final_params=learner.full_params())
     return metrics
 
 
@@ -585,7 +732,7 @@ def _train_anakin(cfg: Config, checkpoint_dir: Optional[str] = None,
     dispatch's harvest, and ``cfg.dispatch_deadline`` (> 0) turns a
     dispatch that blows its budget into a snapshot-then-clean-abort
     (``metrics["dispatch_wedged"]``).  The mesh waits for ROADMAP.md A
-    item 7 (:func:`check_unported`)."""
+    item 7b (:func:`check_unported`)."""
     from r2d2_tpu_torch.learner.anakin import AnakinPlane, run_anakin_loop
     from r2d2_tpu_torch.replay.device_ring import DeviceRing
 
@@ -799,9 +946,17 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
           stop_fn: Optional[Callable[[], bool]] = None,
           device=None) -> Dict[str, Any]:
     """The full concurrent system (the reference's ``train()`` for
-    ``actor_transport="thread"`` and ``"process"``, one device), or, for
+    ``actor_transport="thread"`` and ``"process"``), or, for
     ``actor_transport="anakin"``, the fused on-device loop
     (:func:`_train_anakin`).
+
+    ``use_mesh`` trains this process as one rank of the learner mesh
+    (``parallel/``): launch one process per card under ``torchrun``, call
+    ``parallel.distributed.init_distributed()`` in each, then this.  With
+    no process group up it trains in a world of one it creates.  The
+    state is DTensors in the sharding table's layout; each rank keeps its
+    own actors and its dp group's slab of the replay, and every update
+    or dispatch is agreed by all ranks.
 
     With ``cfg.device_replay`` the replay data lives on the card and the
     learner drives ``Learner.run_device``: it samples index bundles itself
@@ -874,7 +1029,23 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                              verbose=verbose, log_sink=log_sink,
                              tracer=tracer, profile_dir=profile_dir,
                              stop_fn=stop_fn, device=device)
-    sys = _build(cfg, env_factory, checkpoint_dir, resume, device=device)
+    with _rank_world(use_mesh, device):
+        return _train_fabric(cfg, env_factory, checkpoint_dir, resume,
+                             use_mesh, max_wall_seconds, verbose, log_sink,
+                             tracer, profile_dir, max_thread_restarts,
+                             stop_fn, device)
+
+
+def _train_fabric(cfg: Config, env_factory: EnvFactory,
+                  checkpoint_dir: Optional[str], resume: bool,
+                  use_mesh: bool, max_wall_seconds: Optional[float],
+                  verbose: bool, log_sink, tracer, profile_dir,
+                  max_thread_restarts: int, stop_fn, device
+                  ) -> Dict[str, Any]:
+    """The thread and process transports of :func:`train` (its
+    arguments, in its order)."""
+    sys = _build(cfg, env_factory, checkpoint_dir, resume, device=device,
+                 use_mesh=use_mesh)
     cfg = sys["cfg"]     # the effective config (in_graph_per may be off)
     actors: List[VectorActor] = sys["actors"]
     buffer: ReplayBuffer = sys["buffer"]
@@ -918,9 +1089,9 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
 
     scaffold.install_signals()
     # full-state snapshots need the host ring (a device ring's state lives
-    # on the card)
+    # on the card) and one replay per run
     want_full_save = (checkpointer is not None and cfg.replay_snapshot
-                      and sys["ring"] is None)
+                      and sys["ring"] is None and sys["single_replay"])
 
     if replay_plane is not None:
         # shard counters land in the run's namespace (replay.shard.*,
@@ -1262,7 +1433,7 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
 
         metrics.update(buffer_size=len(buffer), logs=list(logs),
                        buffer_training_steps=buffer.training_steps,
-                       final_params=learner.state.params,
+                       final_params=learner.full_params(),
                        restored_replay=sys["restored_replay"],
                        learner_stalled=stall["stalled"],
                        trace=tracer.snapshot(), health=supervisor.health(),

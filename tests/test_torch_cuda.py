@@ -421,3 +421,93 @@ def test_sharded_plane_batch_reaches_the_learner_in_one_copy(cuda):
     assert np.isfinite(l_packed) and l_packed == l_plain, (l_packed, l_plain)
     assert np.array_equal(p_packed, p_plain), float(
         np.abs(p_packed - p_plain).max())
+
+
+MESH_A = 4
+
+
+def _mesh_batch(cfg, seed):
+    rng = np.random.default_rng(seed)
+    B, T, L = cfg.batch_size, cfg.seq_len, cfg.learning_steps
+    return dict(
+        obs=rng.integers(0, 255, (B, T, *cfg.stored_obs_shape), np.uint8),
+        last_action=rng.random((B, T, MESH_A)).astype(np.float32),
+        last_reward=rng.random((B, T)).astype(np.float32),
+        hidden=rng.normal(size=(B, 2, cfg.lstm_layers, cfg.hidden_dim)
+                          ).astype(np.float32),
+        action=rng.integers(0, MESH_A, (B, L)).astype(np.int32),
+        n_step_reward=rng.random((B, L)).astype(np.float32),
+        n_step_gamma=np.full((B, L), 0.99, np.float32),
+        burn_in=np.full(B, cfg.burn_in_steps, np.int32),
+        learning=rng.integers(1, L + 1, B).astype(np.int32),
+        forward=np.full(B, cfg.forward_steps, np.int32),
+        is_weights=rng.uniform(0.3, 1.0, B).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_meshed_step_on_the_card_is_the_meshless_step(cuda, dtype):
+    """An NCCL world of one: the meshed train step on a DTensor state
+    equals the meshless step bit for bit (cuDNN deterministic)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.learner.step import (
+        create_train_state,
+        make_train_step,
+    )
+    from r2d2_tpu_torch.models.network import create_network
+    from r2d2_tpu_torch.parallel.distributed import init_distributed
+    from r2d2_tpu_torch.parallel.mesh import make_mesh
+    from r2d2_tpu_torch.parallel.sharding import (
+        ShardingTable,
+        gather_state,
+        mesh_train_step,
+    )
+
+    cfg = test_config(compute_dtype=dtype)
+    init_distributed(store=dist.HashStore(), world_size=1, rank=0,
+                     device=cuda)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        assert dist.get_backend() == "nccl"
+        net = create_network(cfg, MESH_A, device=cuda,
+                             generator=torch.Generator().manual_seed(0))
+        a = create_train_state(cfg, net.state_dict())
+        b = create_train_state(cfg, net.state_dict())
+        table = ShardingTable(make_mesh(cfg, "cuda"), cfg)
+        meshed = mesh_train_step(cfg, net, table, state_template=b)
+        b = table.place_state(b)
+        assert all(isinstance(v, DTensor) and v.device.type == "cuda"
+                   for v in b.params.values())
+        plain = make_train_step(cfg, net)
+        for seed in range(2):
+            batch = {k: torch.from_numpy(v).to(cuda)
+                     for k, v in _mesh_batch(cfg, seed).items()}
+            a, la, pa = plain(a, batch)
+            b, lb, pb = meshed(b, batch)
+            assert torch.equal(la, lb) and torch.equal(pa, pb)
+        full = gather_state(b)
+        assert all(torch.equal(a.params[k], full.params[k])
+                   for k in a.params)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_meshed_train_sync_on_the_card(cuda):
+    """``train_sync(cfg, use_mesh=True)`` with no group up makes an NCCL
+    world of one, trains through it and tears it down."""
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch import train as ttrain
+    from r2d2_tpu_torch.config import test_config
+
+    m = ttrain.train_sync(test_config(game_name="Fake", training_steps=6),
+                          device="cuda", use_mesh=True)
+    assert m["num_updates"] == 6 and np.isfinite(m["losses"]).all()
+    assert all(v.device.type == "cuda" for v in m["final_params"].values())
+    assert not dist.is_initialized()

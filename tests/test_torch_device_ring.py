@@ -204,18 +204,30 @@ def test_sample_batch_and_snapshot_refuse_a_device_buffer(tmp_path):
     assert not hasattr(dev, "obs") and dev.burn_in_steps.shape == (20, 2)
 
 
-def test_the_dp_layout_waits_for_item_7():
+def test_the_dp_layout_needs_the_learner_mesh():
+    """Without a mesh the ring is whole and "dp" raises, pointing at
+    ``use_mesh``; under one a rank holds its dp slab (layout "dp", one
+    group).  Raw densities are the meshed draw's and equal the JAX
+    package's; a ring of several slot groups in one process has no
+    counterpart (one device per rank)."""
     cfg = port_test_config(device_replay=True)
     assert resolve_layout(cfg) == "replicated"
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(ValueError, match="use_mesh"):
         resolve_layout(cfg.replace(device_ring_layout="dp"))
-    with pytest.raises(ValueError, match="item 7"):
-        DeviceRing(cfg.replace(device_ring_layout="dp"), A, device="cpu")
+    assert resolve_layout(cfg.replace(device_ring_layout="dp"),
+                          dict(dp=1)) == "dp"
+    slab = DeviceRing(cfg, A, device="cpu", layout="dp")
+    assert slab.layout == "dp" and slab.num_groups == 1
+    with pytest.raises(ValueError, match="layout"):
+        DeviceRing(cfg, A, device="cpu", layout="diagonal")
     _, dev, ring = port_buffers(cfg, 2)
-    with pytest.raises(ValueError, match="item 7"):
-        dev.sample_meta(1, raw_densities=True)
+    jbuf, _ = jax_buffer(jax_test_config(device_replay=True), 2)
+    got = dev.sample_meta(2, raw_densities=True)
+    want = jbuf.sample_meta(2, raw_densities=True)
+    for key in ("ints", "is_weights", "idxes"):
+        np.testing.assert_array_equal(got[key], want[key])
     ring.num_groups = 2
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(ValueError, match="one dp group"):
         ReplayBuffer(cfg, A, device_ring=ring)
 
 

@@ -119,7 +119,7 @@ def test_train_needs_a_device_or_cuda(monkeypatch):
 
 REFUSALS = [
     (dict(actor_transport="anakin", learnhealth_interval=10), "item 10"),
-    (dict(device_replay=True, device_ring_layout="dp"), "item 7"),
+    (dict(device_replay=True, device_ring_layout="dp"), "item 7a"),
     (dict(actor_transport="process", actor_fleets=2,
           population_spec='[{"name": "a"}, {"name": "b"}]'), "item 9"),
     (dict(league_eval=True), "item 9"),
@@ -137,10 +137,43 @@ def test_unported_branches_raise_naming_their_roadmap_item(kw, item):
                      verbose=False, device="cpu")
 
 
-def test_use_mesh_raises_naming_its_roadmap_item():
-    with pytest.raises(ValueError, match="item 7"):
-        ttrain.train(cpu_config(), env_factory=env_factory, use_mesh=True,
+def test_use_mesh_raises_naming_its_roadmap_item(monkeypatch):
+    """What the learner mesh still refuses names ROADMAP item 7b: the
+    anakin mesh, and in-graph PER over several ranks (checked before any
+    process group exists, from torchrun's WORLD_SIZE)."""
+    with pytest.raises(ValueError, match="item 7b"):
+        ttrain.train(cpu_config(actor_transport="anakin"),
+                     use_mesh=True, verbose=False, device="cpu")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="item 7b"):
+        ttrain.train(cpu_config(device_replay=True, in_graph_per=True),
+                     env_factory=env_factory, use_mesh=True,
                      verbose=False, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(device_replay=True, in_graph_per=True, superstep_k=2),
+    dict(replay_shards=2)], ids=["host_staged", "in_graph_per", "shards"])
+def test_use_mesh_trains_at_world_size_one(kw):
+    """``use_mesh`` with no process group up trains in a world of one it
+    creates (gloo on the CPU) and tears down: the state is DTensors, each
+    update passes the collective gate, and in-graph PER runs because the
+    one rank owns the whole ring."""
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.parallel.distributed import COLLECTIVE_CALLS
+
+    COLLECTIVE_CALLS.clear()
+    m = ttrain.train(cpu_config(training_steps=6, **kw),
+                     env_factory=env_factory, use_mesh=True, verbose=False,
+                     device="cpu", max_wall_seconds=120)
+    assert m["num_updates"] == 6 and not m["fabric_failed"]
+    assert np.isfinite(m["mean_loss"]) and m["healthz"]["status"] == "ok"
+    assert not any(type(v).__name__ == "DTensor"
+                   for v in m["final_params"].values())
+    assert COLLECTIVE_CALLS["gate"] >= (3 if kw else 6)
+    assert COLLECTIVE_CALLS["env_steps"] == 1
+    assert not dist.is_initialized()
 
 
 def test_every_chaos_kind_is_fired_or_refused():
