@@ -205,8 +205,8 @@ Phases (each exits non-zero on failure):
     ring); /healthz ok.  In the shard runs: the shards' summed size equal
     to the ingested blocks' transitions; 0 corrupt blocks, respawns,
     dropped blocks and stale feedback, and 0 redraws, sample timeouts and
-    garbled responses at the last update (the stop then cuts the draw in
-    flight, which the plane counts as timed out); over sockets every
+    garbled responses at the run's end (the stop's cut of the draw in
+    flight counts as a sample stop, ROADMAP C 10); over sockets every
     circuit closed and 0 epoch drops; the
     /statusz and /healthz ``replay_shards`` blocks present; each shard's
     process (read from ``/proc``) maps no CUDA driver and no JAX, and
@@ -243,8 +243,33 @@ Phases (each exits non-zero on failure):
     the meshless update's (the DTensor dispatch cost), the NCCL kernels
     in one update with its gate, env steps/s filling and training, peak
     GB and the phase's seconds;
-12. one ``{"kernels": [...]}`` JSON line;
-13. last line: ``{"ok": true, "device": {...}}``.
+12. the cross-rank draw: phase 11's NCCL group of world size 1.  (a)
+    ``pong_config(game_name="Fake")`` with in-graph PER on the mesh and
+    ``device_ring_layout="dp"`` (this rank's slab is the whole 15.80 GB
+    ring): on a 16-block ring at the preset's slot shapes, one meshed
+    super-step (k = 4, through ``parallel/cross_rank.py``) against the
+    meshless one from the same ring, state and generator seed — sampled
+    indices, losses, the priority slab and every new param bitwise (cuDNN
+    deterministic for the check), with the design's collectives; then
+    ``train(cfg, use_mesh=True)`` from the full ring, cut as phase 7's
+    in-graph run (16 updates).  (b) The README's anakin config on the
+    mesh: on a 64-block ring at the full slot shapes, the meshed plane's
+    warm-up and one training dispatch against the meshless plane's —
+    every payload array, the losses and every param bitwise — and its
+    snapshot read into a meshless plane bitwise; then ``train(cfg,
+    use_mesh=True)`` from the full ring, cut as phase 8 (2 dispatches of
+    k = 8).  Checked in both runs: the backend ``nccl`` and a DTensor
+    state; every loss finite; the target synced at step 8 and not 7; the
+    collectives ``CROSS_RANK_CALLS`` counts equal to the design's count
+    per inner step and per actor step; one result fetch per dispatch (and
+    per rollout); ``lstm_infer`` launched layers × acts in (a), 0 in (b),
+    the CUDA-core kernel never; in (b) the second dispatch clean under
+    ``set_sync_debug_mode("error")``; ``/healthz`` ok.  Prints a lone
+    meshed super-step's and anakin dispatch's host time, device time,
+    device events and NCCL kernels beside the meshless ones, env steps or
+    frames/s while filling and training, peak GB and the phase's seconds;
+13. one ``{"kernels": [...]}`` JSON line;
+14. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -395,6 +420,23 @@ MESH_RING_REDUCED = dict(device_replay=True, device_ring_layout="dp",
                          save_interval=16, telemetry_port=-1,
                          log_interval=1.0)
 MESH_WALL_S = 240
+# phase 12: the cross-rank draw at world size 1 over NCCL.  (a) The Pong
+# preset with in-graph PER on the mesh, its ring this rank's dp slab (the
+# whole ring at dp = 1), cut as phase 7's in-graph run in warm-up and
+# cadences, 16 updates; (b) the README's anakin config on the mesh, cut as
+# phase 8 in warm-up and eval cadence, 2 dispatches of k = 8, no replay
+# snapshot (the plane's snapshot is checked on the 64-block ring)
+MESH_IG_REDUCED = dict(device_ring_layout="dp", learning_starts=25_600,
+                       training_steps=16, target_net_update_interval=8,
+                       save_interval=16, telemetry_port=-1,
+                       log_interval=1.0)
+MESH_ANAKIN_REDUCED = dict(learning_starts=4_096, anakin_eval_interval=2,
+                           training_steps=16, target_net_update_interval=8,
+                           save_interval=16, replay_snapshot=False,
+                           telemetry_port=-1, log_interval=1.0)
+# (a)'s parity ring: 16 scripted blocks at the preset's slot shapes
+MESH_CHECK_BLOCKS = 16
+MESH_DRAW_WATCHDOG_S = 420
 # the meshless timings of phases 5 and 7, set as they run, printed beside
 # phase 11's meshed ones
 MESHLESS: dict = {}
@@ -3317,14 +3359,6 @@ def replay_run(torch, card: str, cfg, label: str, ckdir) -> dict:
                 # the shards' maps and CPU seconds, read from /proc while
                 # they serve the run
                 rec["cpu"].append((time.perf_counter(), read_procs(plane)))
-            if plane is not None and n == steps:
-                # the plane's fault counters as training ends: the stop
-                # then cuts the sample thread's draw in flight, which the
-                # plane counts as timed out (JAX's accounting)
-                rec["at_end"] = dict(
-                    timeouts=plane.sample_timeouts, redraws=plane.redraws,
-                    garbled=plane.garbled_responses,
-                    retries=plane.sample_retries)
             return out
 
         def counted_stage(batch):
@@ -3457,9 +3491,14 @@ def replay_run(torch, card: str, cfg, label: str, ckdir) -> dict:
     else:
         settle = rec["settle"]
         rh = settle["health"]
+        # the fault counters at the run's end: the stop's cut of the
+        # draw in flight counts as a sample stop, not as a fault
         bad = dict(corrupt=rh["corrupt_blocks"], respawns=rh["respawns"],
                    dropped=rh["dropped_blocks"],
-                   stale=rh["stale_feedback"], **rec["at_end"])
+                   stale=rh["stale_feedback"],
+                   timeouts=rh["sample_timeouts"], redraws=rh["redraws"],
+                   garbled=rh["garbled_responses"],
+                   retries=rh["sample_retries"])
         if (settle["size"] != plane.env_steps or rh["alive"] != K
                 or any(bad["respawns"]) or any(
                     v for k_, v in bad.items() if k_ != "respawns")):
@@ -3492,10 +3531,10 @@ def replay_run(torch, card: str, cfg, label: str, ckdir) -> dict:
         line += (f"; shards' size {settle['size']} = the ingested "
                  f"transitions ({rh['blocks_routed']} blocks routed), "
                  f"sizes {rh['sizes']}; corrupt 0, respawns 0, dropped 0, "
-                 f"stale feedback 0; while training redraws 0, timeouts 0, "
-                 f"garbled 0 (at the end, with the stop's cut of the draw "
-                 f"in flight: timeouts {rh['sample_timeouts']}, redraws "
-                 f"{rh['redraws']})"
+                 f"stale feedback 0; at the run's end redraws 0, timeouts "
+                 f"0, garbled 0, retries 0 (sample stops "
+                 f"{rh['sample_stops']}: the stop's cut of the draw in "
+                 f"flight)"
                  + (f"; circuits {['closed'] * K}, epoch drops 0, "
                     f"reconnects {net['reconnects']}" if net else "")
                  + f"; /statusz replay_shards {health['replay_shards']}; "
@@ -4112,6 +4151,676 @@ def phase_mesh(torch, card: str, device: str = "cuda", base=None) -> dict:
     return dict(sync=sync["launches"], ring=ring["launches"])
 
 
+# --------------------------------------------------------------------------
+# phase 12: the cross-rank draw on the card
+# --------------------------------------------------------------------------
+
+def lone(torch, fn, iters: int = 1) -> dict:
+    """A call's host wall clock (``iters`` calls after the profiled ones,
+    synchronised at the end), device time and device events, and the
+    NCCL kernels among them (per call)."""
+    events = profile_events(torch, fn, iters)
+    if events is None:
+        fail("no device time in a profiled call")
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return dict(wall=(time.perf_counter() - t0) / iters * 1e3,
+                device=sum(ms for _, ms, _ in events),
+                events=sum(c for _, _, c in events),
+                nccl=[(n, ms, c) for n, ms, c in events
+                      if "nccl" in n.lower()])
+
+
+def fmt_lone(a: dict, b: dict) -> str:
+    """A lone meshless call ``a`` beside the meshed ``b``."""
+    return (f"host wall {b['wall']:.2f} ms meshed vs {a['wall']:.2f} ms "
+            f"meshless ({b['wall'] / a['wall']:.2f}x), device "
+            f"{b['device']:.3f} vs {a['device']:.3f} ms, device events "
+            f"{b['events']:.0f} vs {a['events']:.0f}, device idle "
+            f"{1 - b['device'] / b['wall']:.1%} vs "
+            f"{1 - a['device'] / a['wall']:.1%}; NCCL kernels in the "
+            "meshed call: " + (", ".join(
+                f"{short_kernel_name(n, 60)} x{c:.0f} ({ms:.4f} ms)"
+                for n, ms, c in b["nccl"]) or "none"))
+
+
+def draw_calls(k: int, dispatches: int) -> dict:
+    """The collectives the design counts for ``dispatches`` in-graph
+    super-steps of ``k`` inner steps (parallel/cross_rank.py): seq_meta
+    and first gathered once, the leaves and the feedback gathered and the
+    seven ring fields exchanged once an inner step."""
+    return dict(all_gather=dispatches * (2 + 2 * k),
+                all_to_all=dispatches * 7 * k)
+
+
+def anakin_calls(cfg, rollouts: int, dispatches: int) -> dict:
+    """The collectives the design counts for an anakin run: per actor step
+    two emits, each one cut gather and one block all_to_all; per inner
+    step the leaves, seq_meta, first and feedback gathered and seven row
+    exchanges; per rollout and dispatch one all_reduce of the lane
+    counters."""
+    steps = cfg.superstep_k * cfg.anakin_env_steps_per_update
+    k = cfg.superstep_k
+    return dict(all_gather=(rollouts + dispatches) * 2 * steps
+                + dispatches * 4 * k,
+                all_to_all=(rollouts + dispatches) * 2 * steps
+                + dispatches * 7 * k,
+                all_reduce=rollouts + dispatches)
+
+
+def mesh_draw_parity(torch, card: str, base, mesh, device: str) -> dict:
+    """12(a), first: on a ring of ``MESH_CHECK_BLOCKS`` scripted blocks at
+    the preset's slot shapes, one meshed in-graph super-step (k = 4)
+    against the meshless one from the same ring, state and generator
+    seed: sampled indices, losses, the priority slab and every new param
+    bitwise (cuDNN deterministic for this check only), with the design's
+    collectives; then each alone, timed."""
+    from r2d2_tpu_torch.learner.step import (
+        create_train_state,
+        make_in_graph_per_super_step_fn,
+    )
+    from r2d2_tpu_torch.models import create_network
+    from r2d2_tpu_torch.parallel.cross_rank import CROSS_RANK_CALLS, CrossRank
+    from r2d2_tpu_torch.parallel.sharding import (
+        ShardingTable,
+        gather_state,
+        mesh_train_step,
+    )
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing
+    from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+
+    dev = torch.device(device, torch.cuda.current_device()
+                       if device == "cuda" else None)
+    cfg = base.replace(
+        buffer_capacity=MESH_CHECK_BLOCKS * base.block_length,
+        learning_starts=base.block_length, device_ring_layout="dp")
+    k = cfg.superstep_k
+    ring = DeviceRing(cfg, TRAIN_ACTIONS, device=dev, layout="dp")
+    buf = ReplayBuffer(cfg, TRAIN_ACTIONS, rng=np.random.default_rng(3),
+                       device_ring=ring)
+    for blk, prios in scripted_blocks(cfg, MESH_CHECK_BLOCKS, seed=12):
+        buf.add(blk, prios, None)
+    net = create_network(cfg, TRAIN_ACTIONS, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    plain_state = create_train_state(cfg, net.state_dict())
+    mesh_state = create_train_state(cfg, net.state_dict())
+    table = ShardingTable(mesh, cfg)
+    step = mesh_train_step(cfg, net, table, state_template=mesh_state)
+    mesh_state = table.place_state(mesh_state)
+    cross = CrossRank(cfg, mesh, cfg.num_blocks)
+    plain = make_in_graph_per_super_step_fn(cfg, net, k)
+    meshed = make_in_graph_per_super_step_fn(cfg, net, k, train_step=step,
+                                             cross=cross)
+    meta = ring.per_meta()
+    p0 = ring.take_prios().clone()
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(cfg.seed)
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        pa, pb, ra, rb = p0.clone(), p0.clone(), [], []
+        plain_state, pa, la = plain(plain_state, ring.snapshot(), pa,
+                                    meta["seq_meta"], meta["first"],
+                                    generator=gen(), record=ra)
+        CROSS_RANK_CALLS.clear()
+        mesh_state, pb, lb = meshed(mesh_state, ring.snapshot(), pb,
+                                    meta["seq_meta"], meta["first"],
+                                    generator=gen(), record=rb)
+        calls = dict(CROSS_RANK_CALLS)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    full = gather_state(mesh_state)
+    same_idx = len(ra) == len(rb) == k and all(
+        torch.equal(x, y) for x, y in zip(ra, rb))
+    bitwise = (same_idx and torch.equal(la, lb) and torch.equal(pa, pb)
+               and state_equal(torch, plain_state, full))
+    print(f"mesh in-graph parity on {card}: world size 1, a "
+          f"{cfg.num_blocks}-block ring at the preset's slot shapes, k = "
+          f"{k}: sampled indices equal {same_idx}, losses meshed "
+          f"{lb.tolist()} vs meshless {la.tolist()}, priority slab max-abs "
+          f"{(pa - pb).abs().max().item():.3e}; bitwise {bitwise} (cuDNN "
+          f"deterministic for this check only); collectives {calls}",
+          flush=True)
+    if not bitwise:
+        fail("the meshed in-graph super-step is not the meshless one bit "
+             "for bit")
+    if calls != draw_calls(k, 1):
+        fail(f"mesh in-graph: collectives {calls}, the design counts "
+             f"{draw_calls(k, 1)}")
+
+    arrays = ring.snapshot()
+    out = dict(meshless=lone(torch, lambda: plain(
+        plain_state, arrays, pa, meta["seq_meta"], meta["first"],
+        generator=gen()), 2), meshed=lone(torch, lambda: meshed(
+            mesh_state, arrays, pb, meta["seq_meta"], meta["first"],
+            generator=gen()), 2))
+    print(f"lone in-graph super-step on {card} (k = {k}, batch "
+          f"{cfg.batch_size}, 2 profiled, 2 timed): "
+          + fmt_lone(out["meshless"], out["meshed"]), flush=True)
+    return out
+
+
+def mesh_ig_run(torch, card: str, cfg, device: str) -> dict:
+    """12(a), then: ``train(cfg, use_mesh=True)`` with in-graph PER from
+    this rank's slab of the full ring (``Learner._run_device_in_graph_per``
+    through parallel/cross_rank.py), its checks and timings."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.actor import ACTOR_ACT
+    from r2d2_tpu_torch.evaluate import EVAL_ACT
+    from r2d2_tpu_torch.learner import step as step_mod
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.parallel.cross_rank import CROSS_RANK_CALLS
+    from r2d2_tpu_torch.parallel.sharding import full
+    from r2d2_tpu_torch.replay.replay_buffer import data_bytes
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+
+    steps, k = cfg.training_steps, cfg.superstep_k
+    rec = dict(start=None, stamps=[], synced={})
+    probe = {}
+    real_build, real_mts = train._build, step_mod.make_train_step
+
+    def recording_mts(cfg_, net_):
+        inner = real_mts(cfg_, net_)
+
+        def step(state, batch):
+            out = inner(state, batch)
+            st = out[0]
+            if st.step in (7, 8):
+                rec["synced"][st.step] = all(
+                    torch.equal(full(st.params[n]),
+                                full(st.target_params[n]))
+                    for n in st.params)
+            return out
+        return step
+
+    def capture(*args, **kw):
+        sys_ = real_build(*args, **kw)
+        rec.update(sys_)
+        actor, learner = sys_["actor"], sys_["learner"]
+        run, loop = actor.run, learner._superstep_loop
+
+        def timed_run(max_steps, stop=None):
+            if rec["start"] is None:
+                rec["start"] = (time.perf_counter(), actor.actor_steps)
+            run(max_steps, stop)
+
+        def stamped_loop(k_, target, t0, gate, sample, harvest,
+                         prepare=None, tracer=None):
+            def stamped():
+                t, a = time.perf_counter(), actor.actor_steps
+                out = sample()
+                rec["stamps"].append((t, a, time.perf_counter(),
+                                      actor.actor_steps))
+                return out
+            return loop(k_, target, t0, gate, stamped, harvest, prepare,
+                        tracer)
+
+        actor.run, learner._superstep_loop = timed_run, stamped_loop
+        return sys_
+
+    def log_sink(entry):
+        if probe:
+            return
+        try:
+            probe["healthz"] = http_get(entry["telemetry_port"], "/healthz")
+        except Exception as e:  # checked below, after the run
+            probe["error"] = f"{type(e).__name__}: {e}"
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_ig_")
+    KERNEL_LAUNCHES.reset()
+    HOST_TRANSFERS.reset()
+    CROSS_RANK_CALLS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    train._build, step_mod.make_train_step = capture, recording_mts
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            m = train.train(cfg, env_factory, checkpoint_dir=ckdir,
+                            use_mesh=True, device=device,
+                            max_wall_seconds=MESH_WALL_S, verbose=False,
+                            log_sink=log_sink)
+    finally:
+        train._build, step_mod.make_train_step = real_build, real_mts
+        shutil.rmtree(ckdir, ignore_errors=True)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
+    old = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
+    acts = HOST_TRANSFERS.get(ACTOR_ACT) + HOST_TRANSFERS.get(EVAL_ACT)
+    calls = dict(CROSS_RANK_CALLS)
+    learner, ring, rcfg = rec["learner"], rec["ring"], rec["cfg"]
+    stamps, n = rec["stamps"], len(rec["stamps"])
+    fetches = HOST_TRANSFERS.get("learner.result_fetch")
+    lh = m["learnhealth"]
+
+    bad = []
+    if dist.get_backend() != ("nccl" if device == "cuda" else "gloo"):
+        bad.append(f"backend {dist.get_backend()}")
+    if learner.mesh is None or not all(
+            type(v).__name__ == "DTensor"
+            for v in learner.state.params.values()):
+        bad.append("the learner's state is not on the mesh")
+    if (m["num_updates"] != steps or n * k != steps
+            or lh["loss_count"] != steps or lh["nonfinite"]
+            or not np.isfinite(m["mean_loss"])):
+        bad.append(f"{m['num_updates']} updates in {n} dispatches, "
+                   f"learnhealth {lh}")
+    if not rcfg.in_graph_per or any(
+            "host staging" in str(w.message)
+            or "in_graph_per disabled" in str(w.message) for w in caught):
+        bad.append("in_graph_per did not stay on")
+    need = data_bytes(cfg, TRAIN_ACTIONS)
+    if (ring is None or ring.layout != "dp"
+            or ring.arrays["obs"].device.type != device
+            or ring.nbytes() != need):
+        bad.append(f"the dp slab was not the whole ring on the card "
+                   f"({ring and ring.layout}, {ring and ring.nbytes()})")
+    if calls != draw_calls(k, n):
+        bad.append(f"collectives {calls}, the design counts "
+                   f"{draw_calls(k, n)} for {n} dispatches")
+    if fetches != n or learner.gate_counts["go"] != n:
+        bad.append(f"{fetches} result fetches, gates "
+                   f"{dict(learner.gate_counts)} for {n} dispatches")
+    if launches != cfg.lstm_layers * acts or not acts or old:
+        bad.append(f"lstm_infer launched {launches} times (CUDA-core "
+                   f"{old}) for {acts} acts")
+    if rec["synced"] != {7: False, 8: True}:
+        bad.append(f"target == online after steps 7, 8: {rec['synced']}")
+    if "error" in probe or probe.get("healthz", (0,))[0] != 200 or (
+            json.loads(probe["healthz"][1]).get("status") != "ok"
+            or m["healthz"].get("status") != "ok"):
+        bad.append(f"/healthz {probe}, final {m.get('healthz')}")
+    if bad:
+        fail("mesh in-graph run: " + "; ".join(bad))
+
+    t_start, a_start = rec["start"]
+    n_env = cfg.num_actors
+    fill = ((stamps[0][1] - a_start) * n_env
+            / max(stamps[0][0] - t_start, 1e-9))
+    training = ((stamps[-1][3] - stamps[0][1]) * n_env
+                / max(stamps[-1][2] - stamps[0][0], 1e-9))
+    gaps = np.diff([s[0] for s in stamps]) * 1e3
+    print(f"mesh in-graph run on {card}: {steps} updates in {n} dispatches"
+          f" of k={k} in {run_s:.2f} s, losses finite, mean loss "
+          f"{m['mean_loss']:.5f}; backend {dist.get_backend()}, DTensor "
+          f"state; collectives {calls} = the design's for {n} dispatches; "
+          f"{fetches} result fetches; gates {dict(learner.gate_counts)}; "
+          f"lstm_infer launches {launches} = {cfg.lstm_layers} x {acts} "
+          f"acts, CUDA-core {old}; target == online after step 7 "
+          f"{rec['synced'][7]}, after 8 {rec['synced'][8]}; this rank's "
+          f"dp slab on the card {ring.nbytes()} bytes = the whole ring; "
+          f"/healthz ok", flush=True)
+    print(f"mesh in-graph run timings on {card}: dispatch interval p50 "
+          f"{pct(gaps, 50):.2f} ms over {len(gaps)}; env steps/s while "
+          f"filling {fill:.0f}, while training {training:.0f}; peak "
+          f"allocated {peak / 1e9:.2f} GB", flush=True)
+    return dict(launches=launches, interval_p50=pct(gaps, 50), fill=fill,
+                training=training, peak_gb=peak / 1e9, seconds=run_s)
+
+
+def mesh_anakin_checks(torch, card: str, base, mesh, device: str) -> dict:
+    """12(b), first: on a ring of ``ANAKIN_CHECK_BLOCKS`` blocks at the
+    full slot shapes, cuDNN deterministic, the meshed plane (world size
+    1) against the meshless plane from one seed: the warm-up rollouts and
+    one training dispatch give the same loop state — every payload array,
+    ring, PER leaves and carry — the same losses and params, bit for bit;
+    the meshed plane's snapshot reads into a fresh meshless plane bit for
+    bit; then each dispatch alone, timed."""
+    import shutil
+    import tempfile
+
+    from r2d2_tpu_torch.learner.anakin import AnakinPlane
+    from r2d2_tpu_torch.learner.learner import Learner
+    from r2d2_tpu_torch.learner.step import create_train_state
+    from r2d2_tpu_torch.models import create_network
+    from r2d2_tpu_torch.parallel.sharding import ShardingTable
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing
+
+    dev = torch.device(device, torch.cuda.current_device()
+                       if device == "cuda" else None)
+    cfg = base.replace(
+        buffer_capacity=ANAKIN_CHECK_BLOCKS * base.block_length,
+        learning_starts=1_024, device_replay=True, in_graph_per=True)
+    table = ShardingTable(mesh, cfg)
+
+    def build(seed, meshed):
+        net = create_network(cfg, TRAIN_ACTIONS, device=dev,
+                             generator=torch.Generator().manual_seed(seed))
+        learner = Learner(cfg, net, create_train_state(cfg,
+                                                       net.state_dict()),
+                          mesh=mesh if meshed else None,
+                          table=table if meshed else None)
+        ring = DeviceRing(cfg, TRAIN_ACTIONS, device=dev,
+                          layout="dp" if meshed else "replicated")
+        plane = AnakinPlane(cfg, net, TRAIN_ACTIONS, ring,
+                            table=table if meshed else None,
+                            state_template=learner.state)
+        return plane, learner
+
+    def drive(plane, learner):
+        while not plane.ready:
+            plane.rollout_step(learner.state.params)
+        learner.state, res = plane.dispatch(learner.state)
+        return plane.harvest(res)
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_mesh_anakin_")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        pa, la = build(5, False)
+        loss_a = drive(pa, la)
+        pay_a = pa._payload()
+        pb, lb = build(5, True)
+        loss_b = drive(pb, lb)
+        pay_b = pb._payload()
+        params = la.full_params(), lb.full_params()
+        same = (np.array_equal(loss_a, loss_b)
+                and sorted(pay_a) == sorted(pay_b)
+                and all(np.array_equal(pay_a[k], pay_b[k]) for k in pay_a)
+                and all(torch.equal(params[0][k], params[1][k])
+                        for k in params[0]))
+        meta = pb.write_state(os.path.join(d, "anakin.bin"))
+        pc, _ = build(6, False)
+        pc.read_state(os.path.join(d, "anakin.bin"), meta)
+        pay_c = pc._payload()
+        resumed = all(np.array_equal(pay_b[k], pay_c[k]) for k in pay_b)
+        del pc
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"mesh anakin parity on {card}: world size 1, a "
+          f"{cfg.num_blocks}-block ring at the full slot shapes, cuDNN "
+          f"deterministic: warm-up and one training dispatch meshed == "
+          f"meshless over {len(pay_a)} payload arrays, the losses and every"
+          f" param: {same}; the meshed snapshot read into a meshless plane "
+          f"bit for bit: {resumed}", flush=True)
+    if not (same and resumed):
+        fail("mesh anakin: the meshed plane is not the meshless plane bit "
+             "for bit, or its snapshot does not read back")
+
+    def one(plane, learner):
+        def fn():
+            learner.state, res = plane.dispatch(learner.state)
+            plane.harvest(res)
+        return fn
+
+    out = dict(meshless=lone(torch, one(pa, la)),
+               meshed=lone(torch, one(pb, lb)))
+    print(f"lone anakin training dispatch on {card} (k = "
+          f"{cfg.superstep_k} x (E = {cfg.anakin_env_steps_per_update} "
+          f"steps of {cfg.num_actors} lanes + 1 train step), 1 profiled, "
+          f"1 timed): "
+          + fmt_lone(out["meshless"], out["meshed"]), flush=True)
+    return out
+
+
+def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
+    """12(b), then: ``train(cfg, use_mesh=True)`` with the anakin
+    transport on this rank's slab of the full ring; its checks and
+    timings.  The second dispatch runs under
+    ``set_sync_debug_mode("error")``."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.learner import anakin
+    from r2d2_tpu_torch.learner import step as step_mod
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.parallel.cross_rank import CROSS_RANK_CALLS
+    from r2d2_tpu_torch.parallel.sharding import full
+    from r2d2_tpu_torch.replay.replay_buffer import data_bytes
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+
+    k, N = cfg.superstep_k, cfg.num_actors
+    fetches = "anakin.result_fetch"
+    rec = dict(rollouts=[], dispatches=[], bad=[], synced={},
+               sync_checked=None)
+    probe = {}
+    real_loop, real_mts = anakin.run_anakin_loop, step_mod.make_train_step
+
+    def recording_mts(cfg_, net_):
+        inner = real_mts(cfg_, net_)
+
+        def step(state, batch):
+            out = inner(state, batch)
+            st = out[0]
+            if st.step in (7, 8):
+                rec["synced"][st.step] = all(
+                    torch.equal(full(st.params[n]),
+                                full(st.target_params[n]))
+                    for n in st.params)
+            return out
+        return step
+
+    def loop(learner, plane, **kw):
+        rec.update(learner=learner, plane=plane)
+        roll, disp = plane.rollout_step, plane.dispatch
+
+        def rollout_step(params):
+            f0, t = HOST_TRANSFERS.get(fetches), time.perf_counter()
+            roll(params)
+            rec["rollouts"].append((t, time.perf_counter()))
+            if HOST_TRANSFERS.get(fetches) - f0 != 1:
+                rec["bad"].append("a rollout did not fetch once")
+
+        def dispatch(state):
+            t = time.perf_counter()
+            if len(rec["dispatches"]) == 1:
+                # one training dispatch under the sync debug mode: any
+                # device->host synchronisation in it raises
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = disp(state)
+                except RuntimeError as e:
+                    rec["sync_checked"] = repr(e)
+                    raise
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                rec["sync_checked"] = "clean"
+            else:
+                out = disp(state)
+            rec["dispatches"].append((t, time.perf_counter()))
+            return out
+
+        plane.rollout_step, plane.dispatch = rollout_step, dispatch
+        return real_loop(learner, plane, **kw)
+
+    def log_sink(entry):
+        if probe:
+            return
+        try:
+            probe["healthz"] = http_get(entry["telemetry_port"], "/healthz")
+        except Exception as e:  # checked below, after the run
+            probe["error"] = f"{type(e).__name__}: {e}"
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_anakin_run_")
+    KERNEL_LAUNCHES.reset()
+    HOST_TRANSFERS.reset()
+    CROSS_RANK_CALLS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    anakin.run_anakin_loop, step_mod.make_train_step = loop, recording_mts
+    t0 = time.perf_counter()
+    try:
+        m = train.train(cfg, checkpoint_dir=ckdir, use_mesh=True,
+                        max_wall_seconds=MESH_WALL_S, verbose=False,
+                        device=device, log_sink=log_sink)
+    except RuntimeError as e:
+        fail(f"mesh anakin run: {e} (sync debug check: "
+             f"{rec['sync_checked']})")
+    finally:
+        anakin.run_anakin_loop, step_mod.make_train_step = real_loop, \
+            real_mts
+        shutil.rmtree(ckdir, ignore_errors=True)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = (KERNEL_LAUNCHES.get(lstm.KERNEL)
+                + KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER))
+    plane, learner = rec["plane"], rec["learner"]
+    ring = plane.ring
+    n_roll, n_disp = len(rec["rollouts"]), len(rec["dispatches"])
+    calls = dict(CROSS_RANK_CALLS)
+    want_calls = anakin_calls(cfg, n_roll, n_disp)
+    lh = m["learnhealth"]
+
+    bad = list(rec["bad"])
+    if dist.get_backend() != ("nccl" if device == "cuda" else "gloo"):
+        bad.append(f"backend {dist.get_backend()}")
+    if learner.mesh is None or plane.cross is None or not all(
+            type(v).__name__ == "DTensor"
+            for v in learner.state.params.values()):
+        bad.append("the learner's state or the plane is not on the mesh")
+    if (m["num_updates"] != cfg.training_steps or n_disp * k
+            != cfg.training_steps or lh["loss_count"] != cfg.training_steps
+            or lh["nonfinite"] or m["dispatch_wedged"]
+            or m["fabric_failed"]):
+        bad.append(f"{m['num_updates']} updates in {n_disp} dispatches, "
+                   f"learnhealth {lh}, wedged {m['dispatch_wedged']}")
+    if rec["sync_checked"] != "clean":
+        bad.append(f"sync debug check {rec['sync_checked']}")
+    if HOST_TRANSFERS.get(fetches) != n_roll + n_disp:
+        bad.append(f"{HOST_TRANSFERS.get(fetches)} result fetches for "
+                   f"{n_roll} rollouts and {n_disp} dispatches")
+    if calls != want_calls:
+        bad.append(f"collectives {calls}, the design counts {want_calls}")
+    blt = int(plane.state["block_learning_total"].sum())
+    if plane.fill != blt or plane.fill < cfg.learning_starts:
+        bad.append(f"fill {plane.fill} != block_learning_total sum {blt}")
+    need = data_bytes(cfg.replace(device_replay=True, in_graph_per=True),
+                      TRAIN_ACTIONS)
+    if (ring.layout != "dp" or ring.arrays["obs"].device.type != device
+            or ring.nbytes() != need):
+        bad.append(f"ring {ring.layout} {ring.nbytes()} bytes on "
+                   f"{ring.arrays['obs'].device}")
+    if launches:
+        bad.append(f"lstm_infer launched {launches} times")
+    if rec["synced"] != {7: False, 8: True}:
+        bad.append(f"target == online after steps 7, 8: {rec['synced']}")
+    if plane.eval_episodes_total < N:
+        bad.append(f"eval episodes {plane.eval_episodes_total}")
+    if "error" in probe or probe.get("healthz", (0,))[0] != 200 or (
+            json.loads(probe["healthz"][1]).get("status") != "ok"
+            or m["healthz"].get("status") != "ok"):
+        bad.append(f"/healthz {probe}, final {m.get('healthz')}")
+    if bad:
+        fail("mesh anakin run: " + "; ".join(bad))
+
+    fpd = plane.roll_steps * N
+    r, d = rec["rollouts"], rec["dispatches"]
+    fill_fps = n_roll * fpd / max(r[-1][1] - r[0][0], 1e-9)
+    train_fps = n_disp * fpd / max(d[-1][1] - d[0][0], 1e-9)
+    issue = np.asarray([x[1] - x[0] for x in d]) * 1e3
+    print(f"mesh anakin run on {card}: {m['num_updates']} updates in "
+          f"{n_disp} dispatches of k={k} after {n_roll} rollouts, "
+          f"{run_s:.2f} s; backend {dist.get_backend()}, DTensor state; "
+          f"result fetches {HOST_TRANSFERS.get(fetches)} = {n_roll} + "
+          f"{n_disp}; collectives {calls} = the design's; dispatch 2 under "
+          f"set_sync_debug_mode('error'): clean; losses finite, mean "
+          f"{m['mean_loss']:.5f}; eval episodes "
+          f"{plane.eval_episodes_total}; fill {plane.fill} = sum of "
+          f"block_learning_total; lstm_infer launches {launches}; target "
+          f"== online after step 7 {rec['synced'][7]}, after 8 "
+          f"{rec['synced'][8]}; /healthz ok", flush=True)
+    print(f"mesh anakin run timings on {card}: env frames/s while filling "
+          f"{fill_fps:.1f}, while training {train_fps:.1f}; dispatch issue "
+          f"{', '.join(f'{x:.2f}' for x in issue)} ms; ring "
+          f"{ring.nbytes() / 1e9:.2f} GB, peak allocated {peak / 1e9:.2f} "
+          f"GB", flush=True)
+    return dict(launches=launches, fill_fps=fill_fps, train_fps=train_fps,
+                peak_gb=peak / 1e9, seconds=run_s)
+
+
+def phase_mesh_draw(torch, card: str, device: str = "cuda", ig_base=None,
+                    anakin_base=None) -> dict:
+    """Phase 12: the cross-rank draw at world size 1 over NCCL — (a) the
+    Pong preset's in-graph PER on the mesh, (b) the README's anakin
+    config on the mesh, each held bitwise to its meshless path and then
+    trained by ``train(cfg, use_mesh=True)`` from the full ring.  Returns
+    the kernel's launches by path.  ``device`` and the bases (default:
+    the card and the published configs) let a CPU rehearsal run the phase
+    at test sizes."""
+    import gc
+
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.config import Config, pong_config
+    from r2d2_tpu_torch.parallel.mesh import axis_sizes, make_mesh
+    from r2d2_tpu_torch.replay.replay_buffer import data_bytes
+
+    t_phase = time.perf_counter()
+    faulthandler.dump_traceback_later(MESH_DRAW_WATCHDOG_S)
+    if ig_base is None:
+        ig_base = pong_config(game_name="Fake")
+        anakin_base = Config(game_name="Fake", actor_transport="anakin",
+                             anakin_env="grid")
+    ig_cfg = ig_base.replace(**MESH_IG_REDUCED)
+    an_cfg = anakin_base.replace(**MESH_ANAKIN_REDUCED)
+    print("reduced: world size 1 (one card), dp = fsdp = tp = 1; (a) "
+          "in-graph PER: " + ", ".join(
+              f"{k_} {getattr(ig_base, k_)} -> {v}"
+              for k_, v in MESH_IG_REDUCED.items())
+          + f", the full ring on the card ({ig_cfg.num_blocks} blocks, "
+          f"{data_bytes(ig_cfg, TRAIN_ACTIONS) / 1e9:.2f} GB); (b) anakin: "
+          + ", ".join(f"{k_} {getattr(anakin_base, k_)} -> {v}"
+                      for k_, v in MESH_ANAKIN_REDUCED.items())
+          + f", the full ring ({an_cfg.num_blocks} blocks)", flush=True)
+    store = mesh_group(torch, device)     # noqa: F841 (the group's store)
+    try:
+        if dist.get_backend() != ("nccl" if device == "cuda" else "gloo"):
+            fail(f"the group's backend is {dist.get_backend()}")
+        mesh = make_mesh(ig_base, device)
+        if axis_sizes(mesh) != dict(dp=1, fsdp=1, tp=1):
+            fail(f"mesh {axis_sizes(mesh)}")
+        parts = [time.perf_counter()]
+        ig = mesh_draw_parity(torch, card, ig_base.replace(
+            device_replay=True, in_graph_per=True), mesh, device)
+        parts.append(time.perf_counter())
+        ig_run = mesh_ig_run(torch, card, ig_cfg, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts.append(time.perf_counter())
+        an = mesh_anakin_checks(torch, card, anakin_base, mesh, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts.append(time.perf_counter())
+        an_run = mesh_anakin_run(torch, card, an_cfg, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts.append(time.perf_counter())
+    finally:
+        dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+    print(f"phase 12 on {card}: (a) lone super-step host wall "
+          f"{ig['meshed']['wall']:.2f} vs {ig['meshless']['wall']:.2f} ms "
+          f"meshless, run dispatch interval p50 "
+          f"{ig_run['interval_p50']:.2f} ms, env steps/s filling "
+          f"{ig_run['fill']:.0f} training {ig_run['training']:.0f}, peak "
+          f"{ig_run['peak_gb']:.2f} GB; (b) lone dispatch host wall "
+          f"{an['meshed']['wall']:.2f} vs {an['meshless']['wall']:.2f} ms "
+          f"meshless, env frames/s filling {an_run['fill_fps']:.1f} "
+          f"training {an_run['train_fps']:.1f}, peak "
+          f"{an_run['peak_gb']:.2f} GB; phase 12 took "
+          f"{time.perf_counter() - t_phase:.1f} s (in-graph checks, run, "
+          f"anakin checks, run: "
+          + ", ".join(f"{b - a:.1f}" for a, b in zip(parts, parts[1:]))
+          + " s)", flush=True)
+    return dict(in_graph=ig_run["launches"], anakin=an_run["launches"])
+
+
 def main() -> None:
     try:
         import torch
@@ -4174,6 +4883,9 @@ def main() -> None:
     # phase 11: the learner mesh over NCCL, world size 1
     mesh_launches = phase_mesh(torch, card)
 
+    # phase 12: the cross-rank draw, in-graph PER and anakin on the mesh
+    draw_launches = phase_mesh_draw(torch, card)
+
     head = timings[(1, 256)]
     print(json.dumps({"kernels": [{
         "name": "lstm_infer",
@@ -4185,7 +4897,8 @@ def main() -> None:
                      + anakin_launches + fleet_launches["serve"]
                      + fleet_launches["local"]
                      + sum(replay_launches.values())
-                     + sum(mesh_launches.values())),
+                     + sum(mesh_launches.values())
+                     + sum(draw_launches.values())),
         "launches_by_path": {"serving": serve_launches,
                              "training": train_launches,
                              "fabric": fabric_launches,
@@ -4198,7 +4911,9 @@ def main() -> None:
                              "replay_shm": replay_launches["shm"],
                              "replay_socket": replay_launches["socket"],
                              "mesh_sync": mesh_launches["sync"],
-                             "mesh_ring": mesh_launches["ring"]},
+                             "mesh_ring": mesh_launches["ring"],
+                             "mesh_in_graph": draw_launches["in_graph"],
+                             "mesh_anakin": draw_launches["anakin"]},
         "max_abs_err": errs["tensor_core"][0],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

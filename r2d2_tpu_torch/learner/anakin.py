@@ -1,8 +1,8 @@
 """Anakin: the fused on-device training loop (``actor_transport="anakin"``).
 
-Port of ``r2d2_tpu/learner/anakin.py`` for one device (the mesh hooks
-wait for ROADMAP.md A item 7b).  When the environment is itself tensor ops
-(``envs/anakin.py``), the actor/replay/learner split collapses: env step →
+Port of ``r2d2_tpu/learner/anakin.py``, on one device or on the learner
+mesh (``AnakinPlane(table=...)``).  When the environment is itself tensor
+ops (``envs/anakin.py``), the actor/replay/learner split collapses: env step →
 act → block cut → replay write → train step all run on the device, and
 the host only issues the work and reads a few scalars back:
 
@@ -46,6 +46,31 @@ Where JAX needs constructs eager torch has not:
 - JAX donates the ring and the carry; here the ring, the PER leaves and
   metadata and the local buffers are written in place, on one stream from
   one thread, so the device runs the writes in issue order.
+
+On the learner mesh (``AnakinPlane(table=..., state_template=...)``;
+JAX's ``table=`` entry points, whose GSPMD program moves the data
+implicitly) the port issues the moves itself, through
+``parallel/cross_rank.py``, the same at every world size:
+
+- each rank steps its share of the lanes, ``[r·N/dp, (r+1)·N/dp)``,
+  whose carry rows, streams and ladder epsilons are the global lanes', so
+  a dp = 2 trajectory is dp = 1's bit for bit; its ring is its slab of
+  ``num_blocks / dp`` slots;
+- an emit all-gathers the cut vector and the new learning totals, so
+  every rank computes the meshless slots for all N lanes (and keeps
+  ``ptr``, ``fill``, ``block_learning_total`` and the deltas replicated),
+  then one all_to_all moves the cut lanes' packed blocks to the ranks
+  that own their slots;
+- each inner step's draw is global over every slab (``CrossRank.
+  sample_batch``), each rank trains its rows with the meshed step and
+  writes back the leaves it owns; the lanes' episode and reward deltas
+  are summed over the ranks once a dispatch, so every rank's result
+  vector is the global one and still one fetch a dispatch;
+- the actor steps read plain local views of the replicated params
+  (:func:`acting_params`); the eval lane runs whole on every rank;
+- the snapshot is layout-free: ``write_state`` gathers every split entry
+  and rank 0 writes the global arrays; ``read_state`` keeps this rank's
+  rows, so a dp = 2 snapshot resumes at dp = 1 and the other way round.
 
 Numerics against the host block cutter and JAX (tests/test_torch_
 anakin.py): integer fields, observation bytes, gamma tails (host f32
@@ -102,6 +127,10 @@ STATS_FIELDS = ("env_steps", "fill", "episodes", "reward_sum", "blocks")
 # cfg.anakin_eval_interval > 0 (zeros on off-cadence dispatches)
 EVAL_FIELDS = ("eval_episodes", "eval_return_sum")
 
+# the most bytes a rank contributes to one all_gather of a meshed
+# snapshot (AnakinPlane._gather_host)
+_SNAPSHOT_CHUNK = 256 << 20
+
 # stream salts: the plane's env/exploration root, the eval lane's root,
 # the PER sampler's uniforms (JAX's fold_in constants where it has them)
 _PLANE_SALT, _EVAL_SALT, _SAMPLE_SALT = 0x414B, 0x45564C, 0x504552
@@ -137,7 +166,8 @@ def sample_uniforms(seed: int, dispatch_idx: int, k: int, B: int,
     return uniform(mix32(mix32(pos + 0x9E3779B9) ^ root)).reshape(k, B)
 
 
-def _make_assemble(cfg: Config, action_dim: int, done: bool, device):
+def _make_assemble(cfg: Config, action_dim: int, done: bool, device,
+                   n_lanes: Optional[int] = None):
     """Block assembly for every lane at once: the tensor twin of
     ``replay.block.assemble_block`` over the lanes' stream/window buffers,
     every per-sequence quantity computed at the static maximum K and
@@ -145,8 +175,9 @@ def _make_assemble(cfg: Config, action_dim: int, done: bool, device):
 
     ``done`` is static: the two call sites are terminal (episode-end cuts)
     or bootstrapped (boundary cuts), like the host actor's two ``finish``
-    calls."""
-    N, A = cfg.num_actors, action_dim
+    calls.  ``n_lanes`` (default ``cfg.num_actors``) is the lanes this
+    process steps: a rank's share on the mesh."""
+    N, A = n_lanes or cfg.num_actors, action_dim
     BL, L, n = cfg.block_length, cfg.learning_steps, cfg.forward_steps
     K, cap = cfg.seqs_per_block, cfg.max_block_steps
     burn_max = cfg.burn_in_steps
@@ -237,7 +268,8 @@ def _make_assemble(cfg: Config, action_dim: int, done: bool, device):
     return assemble
 
 
-def _make_emit(cfg: Config, action_dim: int, done: bool, device):
+def _make_emit(cfg: Config, action_dim: int, done: bool, device,
+               n_lanes: Optional[int] = None, cross: Any = None):
     """Batched cut-and-write: assemble every lane's candidate block, then
     write the ``cut`` lanes' blocks into ring slots ``ptr..`` (cut lanes
     take consecutive slots in lane order, the order the host actor's
@@ -245,60 +277,172 @@ def _make_emit(cfg: Config, action_dim: int, done: bool, device):
     the bytes it held (module docstring).  Updates the ring arrays, the
     PER leaves, ``seq_meta``, ``first`` and ``block_learning_total`` in
     place; returns the carry with ``ptr``, ``fill`` and the deltas
-    advanced."""
+    advanced.
+
+    ``cross`` (a :class:`~r2d2_tpu_torch.parallel.cross_rank.CrossRank`)
+    is the mesh's routing: this rank assembles its ``n_lanes`` lanes'
+    blocks, and the slots are global FIFO slots of which this rank's ring
+    holds its slab — see :func:`_make_routed_emit`."""
+    if cross is not None:
+        return _make_routed_emit(cfg, action_dim, done, device, n_lanes,
+                                 cross)
     NB, K, N = cfg.num_blocks, cfg.seqs_per_block, cfg.num_actors
     alpha = cfg.prio_exponent
     assemble = _make_assemble(cfg, action_dim, done, device)
     kk = torch.arange(K, device=device)[None, :]
 
-    def put(dst: torch.Tensor, slot: torch.Tensor, cut: torch.Tensor,
-            new: torch.Tensor) -> torch.Tensor:
-        """``dst[slot] = where(cut, new, dst[slot])``; returns the old
-        rows."""
-        old = dst.index_select(0, slot)
-        m = cut.reshape((-1,) + (1,) * (new.dim() - 1))
-        dst.index_copy_(0, slot, torch.where(m, new.to(dst.dtype), old))
-        return old
-
     def emit(ast, arrays, prios, seq_meta, first, cut, last_q):
-        bufs = dict(obs=ast["buf_obs"], last_action=ast["buf_last_action"],
-                    last_reward=ast["buf_last_reward"],
-                    hidden=ast["buf_hidden"], action=ast["buf_action"],
-                    reward=ast["buf_reward"], qval=ast["buf_qval"])
-        blocks = assemble(bufs, ast["prefix"], ast["size"], last_q)
+        blocks = assemble(_lane_bufs(ast), ast["prefix"], ast["size"],
+                          last_q)
 
-        cut_i = cut.int()
-        rest_i = 1 - cut_i
-        n_cut = cut_i.sum(dtype=torch.int32)
-        rank_cut = torch.cumsum(cut_i, 0, dtype=torch.int32) - cut_i
-        rank_rest = torch.cumsum(rest_i, 0, dtype=torch.int32) - rest_i
-        ptr = ast["ptr"]
-        slot = torch.where(cut, (ptr + rank_cut) % NB,
-                           (ptr + n_cut + rank_rest) % NB).long()
-
+        slot, n_cut = _slots(cut, ast["ptr"], NB)
         for key, dst in arrays.items():
-            put(dst, slot, cut, blocks["slot"][key])
+            _put(dst, slot, cut, blocks["slot"][key])
         leaf = (slot[:, None] * K + kk).reshape(-1)
-        put(prios, leaf, cut[:, None].expand(N, K).reshape(-1),
-            (blocks["priorities"] ** alpha).reshape(-1))
-        put(seq_meta, slot, cut, blocks["meta"])
-        put(first, slot, cut, blocks["first_burn"])
-
-        # fill accounting mirrors ReplayBuffer.add: subtract the
-        # overwritten slot's learning total, add the new one
-        new_tot = blocks["learning_total"]
-        old_tot = put(ast["block_learning_total"], slot, cut, new_tot)
-        new_tot = torch.where(cut, new_tot, 0)
-        old_tot = torch.where(cut, old_tot, 0)
-        return {**ast,
-                "ptr": (ptr + n_cut) % NB,
-                "fill": ast["fill"] + (new_tot - old_tot).sum(
-                    dtype=torch.int32),
-                "env_steps_d": ast["env_steps_d"]
-                + new_tot.sum(dtype=torch.int32),
-                "blocks_d": ast["blocks_d"] + n_cut}
+        _put(prios, leaf, cut[:, None].expand(N, K).reshape(-1),
+             (blocks["priorities"] ** alpha).reshape(-1))
+        _put(seq_meta, slot, cut, blocks["meta"])
+        _put(first, slot, cut, blocks["first_burn"])
+        return _account(ast, slot, cut, n_cut, blocks["learning_total"], NB)
 
     return emit
+
+
+def _slots(cut: torch.Tensor, ptr: torch.Tensor, NB: int):
+    """Every lane's ring slot for one emit, and the cut count: cut lanes
+    ``(ptr + rank among cut lanes) % NB``, the others ``(ptr + n_cut +
+    rank among the rest) % NB`` — N distinct slots."""
+    cut_i = cut.int()
+    rest_i = 1 - cut_i
+    n_cut = cut_i.sum(dtype=torch.int32)
+    rank_cut = torch.cumsum(cut_i, 0, dtype=torch.int32) - cut_i
+    rank_rest = torch.cumsum(rest_i, 0, dtype=torch.int32) - rest_i
+    slot = torch.where(cut, (ptr + rank_cut) % NB,
+                       (ptr + n_cut + rank_rest) % NB).long()
+    return slot, n_cut
+
+
+def _put(dst: torch.Tensor, slot: torch.Tensor, cut: torch.Tensor,
+         new: torch.Tensor) -> torch.Tensor:
+    """``dst[slot] = where(cut, new, dst[slot])`` for distinct ``slot``
+    entries; returns the old rows."""
+    old = dst.index_select(0, slot)
+    m = cut.reshape((-1,) + (1,) * (new.dim() - 1))
+    dst.index_copy_(0, slot, torch.where(m, new.to(dst.dtype), old))
+    return old
+
+
+def _lane_bufs(ast: dict) -> Dict[str, torch.Tensor]:
+    return dict(obs=ast["buf_obs"], last_action=ast["buf_last_action"],
+                last_reward=ast["buf_last_reward"],
+                hidden=ast["buf_hidden"], action=ast["buf_action"],
+                reward=ast["buf_reward"], qval=ast["buf_qval"])
+
+
+def _account(ast: dict, slot, cut, n_cut, new_tot, NB: int) -> dict:
+    """The emit's ring accounting, as ``ReplayBuffer.add``: the cut
+    lanes' learning totals into ``block_learning_total`` at their slots
+    (subtracting the overwritten ones from the fill), the pointer and the
+    per-dispatch deltas advanced."""
+    old_tot = _put(ast["block_learning_total"], slot, cut, new_tot)
+    new_tot = torch.where(cut, new_tot, 0)
+    old_tot = torch.where(cut, old_tot, 0)
+    return {**ast,
+            "ptr": (ast["ptr"] + n_cut) % NB,
+            "fill": ast["fill"] + (new_tot - old_tot).sum(
+                dtype=torch.int32),
+            "env_steps_d": ast["env_steps_d"]
+            + new_tot.sum(dtype=torch.int32),
+            "blocks_d": ast["blocks_d"] + n_cut}
+
+
+def _make_routed_emit(cfg: Config, action_dim: int, done: bool, device,
+                      n_lanes: int, cross: Any):
+    """The emit on the mesh.  This rank assembles its lanes' candidate
+    blocks; one all_gather gives every rank every lane's cut flag and new
+    learning total, so every rank computes the meshless emit's slots for
+    all N lanes; one all_to_all moves the cut lanes' packed blocks to the
+    ranks whose slabs hold their slots.  Each rank writes the rows, PER
+    leaves, ``seq_meta`` and ``first`` of the slots it owns; the N slots
+    are the window ``[ptr, ptr + N)`` of the ring, so with ``N <= NB_r``
+    they fall on N distinct rows of every slab (``slot % NB_r``), and a
+    row this rank does not own writes back the bytes it held.  ``ptr``,
+    ``fill``, ``block_learning_total`` and the deltas stay replicated:
+    every rank computes them alike from the gathered vectors."""
+    NB, K, N = cfg.num_blocks, cfg.seqs_per_block, cfg.num_actors
+    nb = cross.nb
+    alpha = cfg.prio_exponent
+    assemble = _make_assemble(cfg, action_dim, done, device, n_lanes)
+    kk = torch.arange(K, device=device)[None, :]
+    layout = None
+
+    def emit(ast, arrays, prios, seq_meta, first, cut, last_q):
+        nonlocal layout
+        blocks = assemble(_lane_bufs(ast), ast["prefix"], ast["size"],
+                          last_q)
+        cut_g, tot_g = cross.gather_cuts(cut, blocks["learning_total"])
+        slot, n_cut = _slots(cut_g, ast["ptr"], NB)
+
+        fields = dict(blocks["slot"])
+        fields.update(
+            prios=blocks["priorities"] ** alpha, meta=blocks["meta"],
+            first=blocks["first_burn"])
+        dtypes = dict({k: v.dtype for k, v in arrays.items()},
+                      prios=prios.dtype, meta=seq_meta.dtype,
+                      first=first.dtype)
+        if layout is None:
+            layout = _pack_layout({k: (tuple(v.shape[1:]), dtypes[k])
+                                   for k, v in fields.items()})
+        new = _unpack(cross.route_blocks(
+            _pack({k: v.to(dtypes[k]) for k, v in fields.items()}, layout),
+            slot, cut_g), layout)
+
+        local = slot % nb
+        write = cut_g & (slot // nb == cross.rank)
+        for key, dst in arrays.items():
+            _put(dst, local, write, new[key])
+        leaf = (local[:, None] * K + kk).reshape(-1)
+        _put(prios, leaf, write[:, None].expand(N, K).reshape(-1),
+             new["prios"].reshape(-1))
+        _put(seq_meta, local, write, new["meta"])
+        _put(first, local, write, new["first"])
+        return _account(ast, slot, cut_g, n_cut, tot_g, NB)
+
+    return emit
+
+
+def _pack_layout(spec: Dict[str, tuple]) -> List[tuple]:
+    """``(name, shape, dtype, byte offset, bytes)`` per field of one
+    lane's block, packed back to back in a row of bytes."""
+    out, off = [], 0
+    for name, (shape, dtype) in spec.items():
+        n = int(np.prod(shape, dtype=np.int64)) * torch.empty(
+            0, dtype=dtype).element_size()
+        out.append((name, shape, dtype, off, n))
+        off += n
+    return out
+
+
+def _pack(fields: Dict[str, torch.Tensor], layout) -> torch.Tensor:
+    """(lanes, row bytes) uint8: each lane's fields back to back."""
+    n = next(iter(fields.values())).shape[0]
+
+    def raw(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+        # default strides (a size-1 dim may carry any stride, and a view
+        # as bytes needs a unit last stride)
+        t = t.reshape(n, -1).clone(memory_format=torch.contiguous_format)
+        return t.view(torch.uint8).reshape(n, nbytes)
+
+    return torch.cat([raw(fields[name], nbytes)
+                      for name, _, _, _, nbytes in layout], dim=1)
+
+
+def _unpack(rows: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
+    """The fields of :func:`_pack`'s rows, typed and shaped."""
+    n = rows.shape[0]
+    return {name: rows[:, off:off + nbytes].contiguous().view(dtype)
+            .reshape(n, *shape)
+            for name, shape, dtype, off, nbytes in layout}
 
 
 def _retain_prefix(cfg: Config, ast: dict, cut: torch.Tensor,
@@ -330,7 +474,8 @@ def _retain_prefix(cfg: Config, ast: dict, cut: torch.Tensor,
 
 
 def _make_actor_step(cfg: Config, net: R2D2Network, env: Any,
-                     action_dim: int):
+                     action_dim: int, lanes: Optional[tuple] = None,
+                     cross: Any = None):
     """One env/actor step for the whole fleet — the twin of one
     ``VectorActor.run`` iteration, same sub-step order (boundary cuts with
     this step's bootstrap Q first, then act/step/record, then episode-end
@@ -340,15 +485,23 @@ def _make_actor_step(cfg: Config, net: R2D2Network, env: Any,
 
     ``draws`` (the parity tests' hook) replaces the step's random values:
     ``u`` (N,) f32 and ``rand_a`` (N,) for exploration, ``reset`` for
-    ``env.reset_lanes``."""
-    N, A, BL = cfg.num_actors, action_dim, cfg.block_length
+    ``env.reset_lanes``.
+
+    ``lanes`` = ``(lo, hi)`` are the global lanes this process steps
+    (default: all); each keeps its global ladder epsilon, and its carry
+    rows (streams included) are the global lane's, so a rank's lanes act
+    as they would in a world of one.  ``cross`` routes the cut blocks to
+    the ranks that own their slots (:func:`_make_routed_emit`)."""
+    lo, hi = lanes or (0, cfg.num_actors)
+    N, A, BL = hi - lo, action_dim, cfg.block_length
     device = env.device
-    eps = torch.tensor([epsilon_ladder(i, N, cfg.base_eps, cfg.eps_alpha)
-                        for i in range(N)], dtype=torch.float32,
+    eps = torch.tensor([epsilon_ladder(i, cfg.num_actors, cfg.base_eps,
+                                       cfg.eps_alpha)
+                        for i in range(lo, hi)], dtype=torch.float32,
                        device=device)
     act_net = _loss_net(net)   # the scan recurrence, as JAX's actor
-    emit_boundary = _make_emit(cfg, A, False, device)
-    emit_done = _make_emit(cfg, A, True, device)
+    emit_boundary = _make_emit(cfg, A, False, device, N, cross)
+    emit_done = _make_emit(cfg, A, True, device, N, cross)
     env_keys = tuple(env.STATE_KEYS)
     lanes = torch.arange(N, device=device)
     rows = lanes[:, None]
@@ -474,6 +627,19 @@ def _stats_vec(ast: dict) -> torch.Tensor:
                         ast["blocks_d"].float()])
 
 
+def _sum_lane_deltas(ast: dict, cross: Any) -> dict:
+    """On the mesh the lanes' deltas (episodes, reward) count this rank's
+    lanes: the carry with them summed over the ranks (one all_reduce), so
+    every rank's deltas are the global ones, as the ring's (env steps,
+    fill, blocks) already are.  Meshless: ``ast`` as it is."""
+    if cross is None:
+        return ast
+    both = cross.reduce_sum(torch.stack([ast["episodes_d"].float(),
+                                         ast["reward_d"]]))
+    return {**ast, "episodes_d": both[0].to(ast["episodes_d"].dtype),
+            "reward_d": both[1]}
+
+
 def make_anakin_state(cfg: Config, action_dim: int, env: Any, root: int,
                       draws: Optional[dict] = None) -> dict:
     """The fused loop's full device-resident carry, on ``env.device``: the
@@ -568,7 +734,8 @@ def _make_eval_lane(cfg: Config, net: R2D2Network, env: Any,
 
 
 def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
-                           action_dim: int):
+                           action_dim: int, lanes: Optional[tuple] = None,
+                           cross: Any = None, train_step=None):
     """The fused dispatch: ``k × (E env/actor steps + 1 train step)``.
     Signature::
 
@@ -586,11 +753,21 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
     dicts, see :func:`_make_actor_step`) replaces the actor's draws.  The
     priority feedback is :func:`~r2d2_tpu_torch.learner.step.
     scatter_last` of ``new_p ** prio_exponent``, as in the in-graph PER
-    super-step."""
+    super-step.
+
+    On the mesh (``cross``, a :class:`~r2d2_tpu_torch.parallel.cross_rank.
+    CrossRank`; ``lanes``, this rank's ``(lo, hi)``; ``train_step``, the
+    meshed step): the actor steps run this rank's lanes on plain local
+    views of the (replicated) params, their blocks routed to the slabs
+    that own their slots; each inner step's draw is global over every
+    rank's leaves and metadata, each rank trains its rows of the batch
+    and writes back the leaves it owns; and the lane counters (episodes,
+    reward) are summed over the ranks, so every rank's stats are the
+    global ones.  The eval lane runs alike on every rank."""
     k, E, B = cfg.superstep_k, cfg.anakin_env_steps_per_update, \
         cfg.batch_size
-    step = make_train_step(cfg, net)
-    actor_step = _make_actor_step(cfg, net, env, action_dim)
+    step = train_step or make_train_step(cfg, net)
+    actor_step = _make_actor_step(cfg, net, env, action_dim, lanes, cross)
     eval_lane = (_make_eval_lane(cfg, net, env, action_dim)
                  if cfg.anakin_eval_interval > 0 else None)
 
@@ -602,40 +779,79 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
         if uniforms is None:
             uniforms = sample_uniforms(cfg.seed, dispatch_idx, k, B,
                                        prios.device)
+        params = acting_params(train_state.params)
         losses = []
         for i in range(k):
             for e in range(E):
-                ast, _ = actor_step(train_state.params, ast, arrays, prios,
+                ast, _ = actor_step(params, ast, arrays, prios,
                                     seq_meta, first,
                                     None if draws is None
                                     else draws[i * E + e])
-            idx, w, ints = _in_graph_sample(cfg, uniforms[i], prios,
-                                            seq_meta, first)
-            train_state, loss, new_p = step(
-                train_state, gather_batch(cfg, arrays, ints, w))
-            scatter_last(prios, idx, new_p ** cfg.prio_exponent)
+            if cross is None:
+                idx, w, ints = _in_graph_sample(cfg, uniforms[i], prios,
+                                                seq_meta, first)
+                batch = gather_batch(cfg, arrays, ints, w)
+            else:
+                d, batch = cross.sample_batch(
+                    uniforms[i], prios, cross.global_meta(seq_meta, first),
+                    arrays)
+                idx = d.idx
+            train_state, loss, new_p = step(train_state, batch)
+            if cross is None:
+                scatter_last(prios, idx, new_p ** cfg.prio_exponent)
+            else:
+                cross.scatter_feedback(prios, idx,
+                                       new_p ** cfg.prio_exponent)
             losses.append(loss)
+        ast = _sum_lane_deltas(ast, cross)
         parts = [torch.stack(losses), _stats_vec(ast)]
         if eval_lane is not None:
-            parts.append(eval_lane(train_state.params, dispatch_idx))
+            parts.append(eval_lane(params, dispatch_idx))
         return (train_state, ast, arrays, prios, seq_meta, first,
                 torch.cat(parts))
 
     return super_step
 
 
+def acting_params(params: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """The params the actor steps read: the tensors themselves, or on the
+    mesh each replicated DTensor's local tensor — the full parameter, with
+    no copy and no collective, updated in place by the train step as the
+    meshless params are (a placement over an axis of size 1 holds the
+    whole tensor).  A parameter split over several ranks (fsdp or tp
+    across ranks, which the meshed trainers refuse) raises."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, DTensor):
+            local = v.to_local()
+            if local.shape != v.shape:
+                raise ValueError(
+                    f"param {k!r} is split {v.placements}; the anakin "
+                    "actor acts on whole params (a dp-only mesh)")
+            v = local
+        out[k] = v
+    return out
+
+
 def make_anakin_rollout(cfg: Config, net: R2D2Network, env: Any,
-                        action_dim: int, steps: int):
+                        action_dim: int, steps: int,
+                        lanes: Optional[tuple] = None, cross: Any = None):
     """The warm-up dispatch: ``steps`` env/actor steps with ring/PER
     writes but NO train step — dispatched until the fill counter reaches
     ``learning_starts``.  ``rollout(params, ast, arrays, prios, seq_meta,
-    first) -> (ast', arrays, prios, seq_meta, first, stats (5,))``."""
-    actor_step = _make_actor_step(cfg, net, env, action_dim)
+    first) -> (ast', arrays, prios, seq_meta, first, stats (5,))``.
+    ``lanes`` and ``cross`` as in :func:`make_anakin_super_step`."""
+    actor_step = _make_actor_step(cfg, net, env, action_dim, lanes, cross)
 
     def rollout(params, ast, arrays, prios, seq_meta, first):
         ast = _zero_deltas(ast)
+        params = acting_params(params)
         for _ in range(steps):
             ast, _ = actor_step(params, ast, arrays, prios, seq_meta, first)
+        ast = _sum_lane_deltas(ast, cross)
         return ast, arrays, prios, seq_meta, first, _stats_vec(ast)
 
     return rollout
@@ -691,7 +907,8 @@ class AnakinPlane:
     flight (``run_anakin_loop`` drains first)."""
 
     def __init__(self, cfg: Config, net: R2D2Network, action_dim: int,
-                 ring: Any, start_env_steps: int = 0):
+                 ring: Any, start_env_steps: int = 0, table: Any = None,
+                 state_template: Optional[TrainState] = None):
         if not getattr(cfg, "in_graph_per", False):
             raise ValueError("the anakin plane requires in_graph_per=True "
                              "(train._train_anakin flips it on)")
@@ -715,13 +932,20 @@ class AnakinPlane:
         self.env = make_anakin_env(cfg, action_dim, device=ring.device)
         # the env/exploration root: two salts, a derivation distinct from
         # the PER sampler's and the eval lane's (JAX: a double fold_in)
-        self.state = make_anakin_state(
+        state = make_anakin_state(
             cfg, action_dim, self.env, derive(cfg.seed, _PLANE_SALT, 1))
-        self.super_step = make_anakin_super_step(cfg, net, self.env,
-                                                 action_dim)
+        self.table, self.cross, lanes, train_step = table, None, None, None
+        if table is not None:
+            lanes, train_step = self._mesh_setup(net, state, state_template)
+            state = {k: self._my_rows(v).clone() if self._split(k) else v
+                     for k, v in state.items()}
+        self.state = state
+        self.super_step = make_anakin_super_step(
+            cfg, net, self.env, action_dim, lanes, self.cross, train_step)
         self.roll_steps = cfg.superstep_k * cfg.anakin_env_steps_per_update
         self.rollout = make_anakin_rollout(cfg, net, self.env, action_dim,
-                                           steps=self.roll_steps)
+                                           self.roll_steps, lanes,
+                                           self.cross)
         self._frames_per_dispatch = self.roll_steps * cfg.num_actors
 
         # host-int counter mirrors (absolute; deltas arrive per dispatch).
@@ -747,6 +971,50 @@ class AnakinPlane:
         self._interval_reward = 0.0
         self._interval_loss = 0.0
         self._interval_eval_episodes = 0
+
+    # --------------------------------------------------------------- mesh
+    def _mesh_setup(self, net, state, state_template):
+        """The meshed plane (``table``): this rank steps its share of the
+        lanes, its ring is its slab of ``num_blocks / dp`` blocks, and
+        the draw, block routing and train step are the mesh's.  Returns
+        ``(lanes, train_step)``."""
+        from r2d2_tpu_torch.parallel.cross_rank import CrossRank
+        from r2d2_tpu_torch.parallel.distributed import owned_dp_groups
+        from r2d2_tpu_torch.parallel.sharding import mesh_train_step
+
+        cfg, mesh = self.cfg, self.table.mesh
+        if state_template is None:
+            raise ValueError("a meshed AnakinPlane needs state_template "
+                             "(the learner's TrainState) for its step")
+        owned_dp_groups(mesh)       # a dp group spanning ranks: refused
+        self.cross = CrossRank(cfg, mesh, self.ring.cfg.num_blocks)
+        dp, nb = self.cross.dp, self.cross.nb
+        N = cfg.num_actors
+        if N % dp:
+            raise ValueError(f"num_actors ({N}) must divide over dp={dp}: "
+                             "each rank steps its share of the lanes")
+        if N > nb:
+            raise ValueError(
+                f"anakin on the mesh needs num_actors ({N}) <= the blocks "
+                f"of one rank's slab ({nb}): the N slots of one emit must "
+                "fall on distinct rows of every slab")
+        self._shardings = self.table.anakin_state_shardings(state)
+        n = N // dp
+        r = self.cross.rank
+        return (r * n, (r + 1) * n), mesh_train_step(
+            cfg, net, self.table, state_template=state_template)
+
+    def _split(self, key: str) -> bool:
+        """Whether carry leaf ``key`` is split over the ranks by its
+        leading (lane) axis."""
+        return any(getattr(p, "dim", None) == 0
+                   for p in self._shardings[key])
+
+    def _my_rows(self, v):
+        """This rank's rows of a global entry split over the ranks (a
+        tensor or an array)."""
+        n = v.shape[0] // self.cross.dp
+        return v[self.cross.rank * n:(self.cross.rank + 1) * n]
 
     # ----------------------------------------------------------- dispatch
     def _handles(self):
@@ -868,22 +1136,53 @@ class AnakinPlane:
         out.update(per_prios=prios, per_seq_meta=seq_meta, per_first=first)
         return out
 
+    def _split_payload(self, key: str) -> bool:
+        """Whether payload entry ``key`` is split over the ranks (a lane
+        leaf of the carry, or a slab of the ring and its PER state)."""
+        if self.cross is None:
+            return False
+        if key.startswith("state_"):
+            return self._split(key[len("state_"):])
+        return True
+
+    def _gather_host(self, v: torch.Tensor) -> np.ndarray:
+        """Every rank's part of a split entry, in rank order, on the host:
+        all_gathers of at most ``_SNAPSHOT_CHUNK`` bytes a rank, so a
+        whole ring is never held twice on the device."""
+        dp, n = self.cross.dp, v.shape[0]
+        out = np.empty((dp * n, *v.shape[1:]), dtype=_np_dtype(v))
+        row = max(1, v[0].numel() * v.element_size()) if n else 1
+        step = max(1, _SNAPSHOT_CHUNK // row)
+        for c in range(0, n, step):
+            m = min(step, n - c)
+            got = self.cross.all_gather(v[c:c + m]).cpu().numpy()
+            for d in range(dp):
+                out[d * n + c:d * n + c + m] = got[d * m:(d + 1) * m]
+        return out
+
     def _payload(self) -> Dict[str, np.ndarray]:
         """Host copies of the ENTIRE on-device loop state — the anakin
         carry (env state and streams, agent obs/LSTM carry, local
         buffers), the ring arrays and the PER leaves and metadata — under
-        the JAX package's names.  Call only with no dispatch in flight."""
+        the JAX package's names.  Call only with no dispatch in flight.
+        On the mesh the split entries are gathered from every rank (a
+        collective), so the payload is the global state at any mesh
+        shape."""
         with HOST_TRANSFERS.allowed("anakin.snapshot_fetch"):
-            return {k: v.cpu().numpy()
+            return {k: (self._gather_host(v) if self._split_payload(k)
+                        else v.cpu().numpy())
                     for k, v in self._payload_tensors().items()}
 
     def write_state(self, path: str) -> Dict[str, Any]:
         """Serialise the full loop state into ``path`` (the
         ``Checkpointer.save_replay`` writer contract).  Returns the
-        JSON-able meta :meth:`read_state` validates against."""
+        JSON-able meta :meth:`read_state` validates against.  On the mesh
+        every rank calls it (the gathers are collectives) and rank 0
+        alone writes the layout-free global state."""
         flat = self._payload()
-        with open(path, "wb") as f:  # file handle: savez must not append .npz
-            np.savez(f, **flat)
+        if self.cross is None or self.cross.rank == 0:
+            with open(path, "wb") as f:  # savez must not append .npz
+                np.savez(f, **flat)
         return dict(
             kind="anakin",
             layout=[[k, list(v.shape), v.dtype.name]
@@ -901,15 +1200,23 @@ class AnakinPlane:
             raise ValueError("snapshot is not an anakin loop snapshot")
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
+        dp = 1 if self.cross is None else self.cross.dp
         want = [[k, list(v.shape), v.dtype.name]
                 for k, v in sorted(flat.items())]
-        have = [[k, list(v.shape), _np_dtype(v).name]
+        have = [[k, ([v.shape[0] * dp, *v.shape[1:]]
+                     if self._split_payload(k) else list(v.shape)),
+                 _np_dtype(v).name]
                 for k, v in sorted(self._payload_tensors().items())]
         if want != have:
             raise ValueError(
                 "anakin snapshot layout mismatch — written under a "
                 "different config geometry (or by another package); "
                 "resuming cold")
+        # the global arrays, re-placed under this plane's mesh: each rank
+        # keeps its lanes and its slab
+        flat = {k: (np.ascontiguousarray(self._my_rows(v))
+                    if self._split_payload(k) else v)
+                for k, v in flat.items()}
         dev = self.ring.device
         self.state = {k[len("state_"):]: torch.from_numpy(v).to(dev)
                       for k, v in flat.items() if k.startswith("state_")}

@@ -619,13 +619,26 @@ class Learner:
         them could be overwritten by a stale scatter.  JAX issues the
         super-step as one asynchronous dispatch, in microseconds; here
         the host issues each inner step's kernels, and the hold is that
-        long (capturing the super-step in a CUDA graph would shrink it)."""
+        long (capturing the super-step in a CUDA graph would shrink it).
+
+        Under a mesh, at every world size, the ring is this rank's slab
+        and the draw is global (parallel/cross_rank.py): every rank draws
+        the same strata over every slab's leaves, trains its rows of the
+        batch, exchanged from the slabs that hold them, and writes back
+        the new priorities of the leaves it owns.  Every rank seeds the
+        generator alike and passes the collective gate before each
+        dispatch, so the uniforms stay in lockstep (JAX's note: its
+        dispatch counters advance together for the same reason); each
+        rank holds its own buffer lock over its issue."""
         cfg = self.cfg
-        # under a mesh (world size 1: one rank owns the whole ring) the
-        # sampled rows are the global batch of the meshed step
+        cross = None
+        if self.mesh is not None:
+            from r2d2_tpu_torch.parallel.cross_rank import CrossRank
+
+            cross = CrossRank(cfg, self.mesh, ring.cfg.num_blocks)
         super_step = make_in_graph_per_super_step_fn(
             cfg, self.net, k, train_step=(
-                None if self.mesh is None else self._step_fn))
+                None if self.mesh is None else self._step_fn), cross=cross)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(cfg.seed)
         losses_hist: deque = deque(maxlen=100)

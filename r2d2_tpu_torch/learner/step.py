@@ -381,7 +381,7 @@ def scatter_last(leaves: torch.Tensor, idx: torch.Tensor,
 
 
 def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
-                                    train_step=None):
+                                    train_step=None, cross=None):
     """``k`` steps with device-side PER: sample → gather → step → priority
     scatter, k times, with no host round trip.  Step j+1 samples from the
     priorities step j scattered.
@@ -396,25 +396,48 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
     draws — else drawn from ``generator`` on ``prios``' device.  The caller
     holds the buffer lock for the whole call, so no actor commit lands
     between a step's draw and its scatter.  ``train_step`` replaces the
-    plain step (the meshed learner's, which returns plain priorities)."""
+    plain step (the meshed learner's, which returns plain priorities).
+
+    ``cross`` (a :class:`~r2d2_tpu_torch.parallel.cross_rank.CrossRank`)
+    is the meshed hook: the ring, ``prios``, ``seq_meta`` and
+    ``first_burn`` are then this rank's slab, the draw runs over every
+    rank's leaves (``seq_meta`` and ``first`` gathered once per call, the
+    leaves once per inner step), each rank trains its rows of the global
+    batch, exchanged from their owners, and the feedback goes back to the
+    slabs that own the leaves.  ``record`` (a list), when given, collects
+    each inner step's global sampled indices."""
     step = train_step or make_train_step(cfg, net)
     B = cfg.batch_size
 
     def super_step(state: TrainState, arrays, prios: torch.Tensor,
                    seq_meta: torch.Tensor, first_burn: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
-                   uniforms: Optional[torch.Tensor] = None):
+                   uniforms: Optional[torch.Tensor] = None,
+                   record: Optional[list] = None):
         if uniforms is None:
             uniforms = torch.rand((k, B), generator=generator,
                                   device=prios.device)
+        meta = None if cross is None else cross.global_meta(seq_meta,
+                                                            first_burn)
         losses = []
         for j in range(k):
-            idx, w, ints = _in_graph_sample(cfg, uniforms[j], prios,
-                                            seq_meta, first_burn)
-            batch = gather_batch(cfg, arrays, ints, w)
+            if cross is None:
+                idx, w, ints = _in_graph_sample(cfg, uniforms[j], prios,
+                                                seq_meta, first_burn)
+                batch = gather_batch(cfg, arrays, ints, w)
+            else:
+                d, batch = cross.sample_batch(uniforms[j], prios, meta,
+                                              arrays)
+                idx = d.idx
             state, loss, new_p = step(state, batch)
             # feedback: the exponent the host tree applies (sum_tree.py)
-            scatter_last(prios, idx, new_p ** cfg.prio_exponent)
+            if cross is None:
+                scatter_last(prios, idx, new_p ** cfg.prio_exponent)
+            else:
+                cross.scatter_feedback(prios, idx,
+                                       new_p ** cfg.prio_exponent)
+            if record is not None:
+                record.append(idx)
             losses.append(loss)
         return state, prios, torch.stack(losses)
 

@@ -1013,7 +1013,8 @@ class ShardLink:
                        ) -> Tuple[str, Optional[Tuple], Optional[dict]]:
         """Wait (bounded) for the sample response to ``seq``.  Returns
         ``("ok", header, views)`` / ``("garbled", ..)`` / ``("timeout",
-        ..)`` — never raises into the sample loop."""
+        ..)``, or ``("stopped", ..)`` when ``stop()`` cuts the wait —
+        never raises into the sample loop."""
         with self._lock:
             while True:
                 if seq in self._pending:
@@ -1027,8 +1028,10 @@ class ShardLink:
                     self._garbled_pending -= 1
                     self._expected.discard(seq)
                     return "garbled", None, None
-                if (deadline.expired or self._closed
-                        or (stop is not None and stop())):
+                if stop is not None and stop():
+                    self._expected.discard(seq)
+                    return "stopped", None, None
+                if deadline.expired or self._closed:
                     self._expected.discard(seq)
                     return "timeout", None, None
                 self._cond.wait(deadline.poll_timeout(0.05))
@@ -1163,6 +1166,7 @@ class NetShardedReplayPlane:
         self.dropped_blocks = 0
         self.shard_respawns = 0
         self.sample_timeouts = 0
+        self.sample_stops = 0           # draws cut by the fabric's stop
         self.sample_retries = 0
         self.garbled_responses = 0
         self.redraws = 0
@@ -1574,6 +1578,15 @@ class NetShardedReplayPlane:
                         self.sample_retries += 1
                     self.registry.inc("replay.net.garbled", shard=str(s))
                     retry_counts[s] = n     # same shard, fresh seq
+                elif verdict == "stopped":
+                    # the fabric is stopping: no link is at fault and no
+                    # row is redrawn (the JAX package counts a timeout
+                    # and redraws); the batch comes out as before, None
+                    with self._lock:
+                        self.sample_stops += 1
+                    self.registry.inc("replay.net.sample_stops",
+                                      shard=str(s))
+                    masses[s] = 0.0
                 else:   # timeout: suspect — redistribute off this shard
                     link.breaker.record_failure()
                     with self._lock:
@@ -1852,6 +1865,7 @@ class NetShardedReplayPlane:
                                 + int(st["totals"].get(
                                     "corrupt_blocks", 0))),
                 sample_timeouts=self.sample_timeouts,
+                sample_stops=self.sample_stops,
                 sample_retries=self.sample_retries,
                 garbled_responses=self.garbled_responses,
                 redraws=self.redraws,

@@ -636,6 +636,7 @@ class ShardedReplayPlane:
         self.dropped_blocks = 0     # send-budget drops (dead shard)
         self.shard_respawns = 0
         self.sample_timeouts = 0
+        self.sample_stops = 0       # draws cut by the fabric's stop
         self.sample_retries = 0
         self.garbled_responses = 0
         self.redraws = 0            # rows redistributed off a suspect shard
@@ -897,12 +898,13 @@ class ShardedReplayPlane:
                         stop: Optional[Callable[[], bool]]) -> str:
         """Wait (bounded by ``cfg.replay_sample_timeout``) for shard
         ``s``'s reply to ``seq`` and verify its CRC.  Returns "ok" /
-        "timeout" / "garbled" — never raises into the sample loop."""
+        "timeout" / "garbled", or "stopped" when ``stop()`` cuts the wait
+        — never raises into the sample loop."""
         ch = self.channels[s]
         deadline = Deadline(self.cfg.replay_sample_timeout)
         while True:
             if stop is not None and stop():
-                return "timeout"
+                return "stopped"
             try:
                 got = ch.rsp_q.get(timeout=deadline.poll_timeout(0.05))
             except Empty:
@@ -998,6 +1000,15 @@ class ShardedReplayPlane:
                     self.registry.inc("replay.shard.garbled_responses",
                                       shard=str(s))
                     counts[s] = pending[s]   # same shard, fresh seq
+                elif verdict == "stopped":
+                    # the fabric is stopping: no shard is at fault and no
+                    # row is redrawn (the JAX package counts a timeout
+                    # and redraws); the batch comes out as before, None
+                    with self._lock:
+                        self.sample_stops += 1
+                    self.registry.inc("replay.shard.sample_stops",
+                                      shard=str(s))
+                    masses[s] = 0.0
                 else:   # timeout: suspect — redistribute off this shard
                     with self._lock:
                         self.sample_timeouts += 1
@@ -1240,6 +1251,7 @@ class ShardedReplayPlane:
                                 + int(st["totals"].get(
                                     "corrupt_blocks", 0))),
                 sample_timeouts=self.sample_timeouts,
+                sample_stops=self.sample_stops,
                 sample_retries=self.sample_retries,
                 garbled_responses=self.garbled_responses,
                 redraws=self.redraws,

@@ -99,6 +99,10 @@ DEFAULT_TABLE: Dict[str, Spec] = {
     # the "dp" ring layout (each rank holds its slab)
     "ring.*": ("dp",),
     "per.*": ("dp",),
+    # anakin fused loop (learner/anakin.py): the per-lane carry — env
+    # state and streams, agent obs and LSTM carry, local stream buffers —
+    # splits its lane axis over dp (each rank steps its lanes)
+    "anakin.lane.*": ("dp",),
 }
 
 
@@ -251,6 +255,27 @@ class ShardingTable:
         if layout == "replicated":
             return {k: self.replicated() for k in PER_KEYS}
         return {k: self.placements(self.spec(("per", k))) for k in PER_KEYS}
+
+    def anakin_state_shardings(self, ast: Dict[str, Any]
+                               ) -> Dict[str, Tuple[Any, ...]]:
+        """Placements of the anakin loop's carry (``learner/anakin.py:
+        make_anakin_state``; JAX's ``anakin_state_shardings``): every
+        lane-batched leaf resolves through ``anakin.lane.*`` (the lane
+        axis over dp, replicated where dp does not divide it), and the
+        scalars — ring pointer, fill, the per-dispatch deltas — replicate.
+        ``block_learning_total`` replicates too (JAX shards it with the
+        ring slabs): every rank keeps the whole (num_blocks,) vector, so
+        each computes the fill of a cut from the gathered cut vector with
+        no further collective."""
+        out = {}
+        for k, v in ast.items():
+            shape = tuple(v.shape)
+            if k == "block_learning_total" or not shape:
+                out[k] = self.replicated()
+            else:
+                out[k] = self.placements(self.spec(("anakin", "lane", k),
+                                                   shape))
+        return out
 
     # ---------------------------------------------------------- placement
     def _need_mesh(self) -> None:

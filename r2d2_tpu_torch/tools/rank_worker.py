@@ -238,7 +238,189 @@ def task_train(cfg_kw, ckpt_dir=None, sync=False):
     out["fed"] = fed
     out["collectives"] = dict(COLLECTIVE_CALLS)
     out["threads"] = torch.get_num_threads()
-    out["first_block"] = first[0]
+    out["first_block"] = first[0] if first else None
+    return out
+
+
+def _slab(v, dp, r):
+    """Rank ``r``'s slab (of ``dp``) of a global ring array, as a tensor."""
+    import torch
+
+    n = v.shape[0] // dp
+    return torch.from_numpy(v[r * n:(r + 1) * n].copy())
+
+
+def task_cross_rank(cfg_kw, ring, us, fb_idx, fb_vals, params=None,
+                    uniforms=None):
+    """The cross-rank draw over this rank's slab of ``ring`` (the global
+    ring arrays, ``prios``, ``seq_meta`` and ``first``): per uniform row
+    of ``us`` the global draw and this rank's exchanged rows; the slab
+    after ``scatter_feedback`` of ``fb_vals`` at ``fb_idx``; with
+    ``params``, one meshed in-graph super-step of ``len(uniforms)`` inner
+    steps (losses, sampled indices, the slab's leaves, the gathered
+    params); and the collectives each part issued."""
+    import torch
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.learner.step import (
+        create_train_state,
+        make_in_graph_per_super_step_fn,
+    )
+    from r2d2_tpu_torch.models.network import create_network
+    from r2d2_tpu_torch.parallel.cross_rank import CROSS_RANK_CALLS, CrossRank
+    from r2d2_tpu_torch.parallel.mesh import make_mesh
+    from r2d2_tpu_torch.parallel.sharding import (
+        ShardingTable,
+        gather_state,
+        mesh_train_step,
+    )
+
+    cfg = test_config(device_replay=True, in_graph_per=True, **cfg_kw)
+    mesh = make_mesh(cfg, "cpu")
+    dp, r = dist.get_world_size(), dist.get_rank()
+    cross = CrossRank(cfg, mesh, cfg.num_blocks // dp)
+    arrays = {k: _slab(v, dp, r) for k, v in ring["arrays"].items()}
+    prios, seq_meta, first = (_slab(ring[k], dp, r)
+                              for k in ("prios", "seq_meta", "first"))
+    out = dict(draws=[], rows=[], calls={})
+
+    CROSS_RANK_CALLS.clear()
+    meta = cross.global_meta(seq_meta, first)
+    for u in us:
+        d, rows = cross.sample_batch(torch.from_numpy(u), prios, meta,
+                                     arrays)
+        out["draws"].append({k: _np(getattr(d, k))
+                             for k in ("idx", "q", "w", "ints")})
+        out["rows"].append({k: _np(v) for k, v in rows.items()})
+    out["calls"]["draws"] = dict(CROSS_RANK_CALLS)
+
+    CROSS_RANK_CALLS.clear()
+    slab = prios.clone()
+    rows = cross.rows
+    cross.scatter_feedback(slab, torch.from_numpy(fb_idx),
+                           torch.from_numpy(fb_vals[rows]))
+    out["feedback"] = _np(slab)
+    out["calls"]["feedback"] = dict(CROSS_RANK_CALLS)
+
+    if params is not None:
+        CROSS_RANK_CALLS.clear()
+        net = create_network(cfg, 4, device="cpu", lstm_impl="scan")
+        state = create_train_state(
+            cfg, {k: torch.from_numpy(v) for k, v in params.items()})
+        table = ShardingTable(mesh, cfg)
+        step = mesh_train_step(cfg, net, table, state_template=state)
+        state = table.place_state(state)
+        fn = make_in_graph_per_super_step_fn(
+            cfg, net, len(uniforms), train_step=step, cross=cross)
+        drawn = []
+        state, new_p, losses = fn(state, arrays, prios.clone(), seq_meta,
+                                  first, uniforms=torch.from_numpy(uniforms),
+                                  record=drawn)
+        full = gather_state(state)
+        out["super"] = dict(
+            losses=_np(losses), prios=_np(new_p),
+            idx=[_np(i) for i in drawn],
+            params={k: _np(v) for k, v in full.params.items()},
+            calls=dict(CROSS_RANK_CALLS))
+    return out
+
+
+def task_emit(cfg_kw, ast, ring, cut, last_q, done):
+    """One routed emit (``learner/anakin.py:_make_routed_emit``) of this
+    rank's lanes of ``ast`` (the global carry's fields, numpy) into its
+    slab of ``ring``, under the global ``cut`` vector: this rank's slab
+    and the carry's replicated fields after the emit."""
+    import torch
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.learner.anakin import _make_routed_emit
+    from r2d2_tpu_torch.parallel.cross_rank import CrossRank
+    from r2d2_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = test_config(**cfg_kw)
+    mesh = make_mesh(cfg, "cpu")
+    dp, r = dist.get_world_size(), dist.get_rank()
+    cross = CrossRank(cfg, mesh, cfg.num_blocks // dp)
+    n = cfg.num_actors // dp
+    lanes = slice(r * n, (r + 1) * n)
+    mine = {k: (torch.from_numpy(v.copy()) if v.ndim == 0
+                or k == "block_learning_total"
+                else torch.from_numpy(v[lanes].copy()))
+            for k, v in ast.items()}
+    arrays = {k: _slab(v, dp, r) for k, v in ring["arrays"].items()}
+    prios, seq_meta, first = (_slab(ring[k], dp, r)
+                              for k in ("prios", "seq_meta", "first"))
+    emit = _make_routed_emit(cfg, 4, done, torch.device("cpu"), n, cross)
+    out = emit(mine, arrays, prios, seq_meta, first,
+               torch.from_numpy(cut[lanes]), torch.from_numpy(last_q[lanes]))
+    return dict(arrays={k: _np(v) for k, v in arrays.items()},
+                prios=_np(prios), seq_meta=_np(seq_meta), first=_np(first),
+                carry={k: _np(out[k]) for k in (
+                    "ptr", "fill", "env_steps_d", "blocks_d",
+                    "block_learning_total")})
+
+
+def task_anakin(cfg_kw, dispatches, seed=0, snap_path=None):
+    """A meshed anakin plane over this rank's lanes and slab: warm-up
+    rollouts until ready, then ``dispatches`` training dispatches, each
+    harvested at once.  Returns the losses and stats per dispatch, the
+    gathered global payload, the gathered params, the fetches and the
+    collectives; ``snap_path``: every rank calls ``write_state`` and rank
+    0 writes it there."""
+    import torch
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.learner.anakin import AnakinPlane
+    from r2d2_tpu_torch.learner.learner import Learner
+    from r2d2_tpu_torch.learner.step import create_train_state
+    from r2d2_tpu_torch.models.network import create_network
+    from r2d2_tpu_torch.parallel.cross_rank import CROSS_RANK_CALLS
+    from r2d2_tpu_torch.parallel.mesh import make_mesh
+    from r2d2_tpu_torch.parallel.sharding import ShardingTable
+    from r2d2_tpu_torch.replay.device_ring import (
+        DeviceRing,
+        ring_slice_config,
+    )
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS
+
+    cfg = test_config(**cfg_kw)
+    mesh = make_mesh(cfg, "cpu")
+    table = ShardingTable(mesh, cfg)
+    dp = dist.get_world_size()
+    net = create_network(cfg, 4, device="cpu",
+                         generator=torch.Generator().manual_seed(seed))
+    learner = Learner(cfg, net, create_train_state(cfg, net.state_dict()),
+                      mesh=mesh, table=table)
+    ring = DeviceRing(ring_slice_config(cfg, dp), 4, device="cpu",
+                      layout="dp")
+    plane = AnakinPlane(cfg, net, 4, ring, table=table,
+                        state_template=learner.state)
+    HOST_TRANSFERS.reset()
+    CROSS_RANK_CALLS.clear()
+    rollouts = 0
+    while not plane.ready:
+        plane.rollout_step(learner.state.params)
+        rollouts += 1
+    calls_rollout = dict(CROSS_RANK_CALLS)
+    CROSS_RANK_CALLS.clear()
+    losses, stats = [], []
+    for _ in range(dispatches):
+        learner.state, res = plane.dispatch(learner.state)
+        losses.append(plane.harvest(res).tolist())
+        stats.append(plane.stats())
+    out = dict(losses=losses, stats=stats, rollouts=rollouts,
+               calls_rollout=calls_rollout,
+               calls_train=dict(CROSS_RANK_CALLS),
+               fetches=HOST_TRANSFERS.get("anakin.result_fetch"),
+               payload=plane._payload(),
+               params={k: _np(v) for k, v in learner.full_params().items()},
+               counters={k: getattr(plane, k)
+                         for k in plane._COUNTER_FIELDS})
+    if snap_path is not None:
+        out["meta"] = plane.write_state(snap_path)
     return out
 
 

@@ -132,16 +132,6 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _world_size() -> int:
-    """The world the meshed learner runs in: the default process group's,
-    else torchrun's ``WORLD_SIZE``, else 1."""
-    import torch.distributed as dist
-
-    if dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE") or 1)
-
-
 def check_unported(cfg: Config, use_mesh: bool = False) -> None:
     """Raise ``ValueError`` for a ``train()`` configuration that needs a
     module the port has not ported yet, naming its ROADMAP.md item."""
@@ -151,14 +141,6 @@ def check_unported(cfg: Config, use_mesh: bool = False) -> None:
         (bool(cfg.population_spec),
          "population_spec (the population plane) waits for ROADMAP.md A "
          "item 9"),
-        (use_mesh and cfg.actor_transport == "anakin",
-         "use_mesh with actor_transport='anakin' (the anakin mesh) waits "
-         "for ROADMAP.md A item 7b"),
-        (use_mesh and cfg.in_graph_per and _world_size() > 1,
-         "in_graph_per with use_mesh at world size > 1 (the global draw "
-         "over every rank's slab, gathering sequences across ranks) waits "
-         "for ROADMAP.md A item 7b; at world size 1 one rank owns the "
-         "whole ring and in-graph PER runs"),
         (cfg.league_eval,
          "league_eval (the eval sidecar) waits for ROADMAP.md A item 9"),
         (cfg.learnhealth_interval > 0,
@@ -400,7 +382,8 @@ def _build(cfg: Config, env_factory: EnvFactory,
     # plain learner-state resume above instead of killing bring-up
     restored_replay = False
     # one replay snapshot per run: a mesh of several ranks has several
-    # replays and neither writes nor reads one (ROADMAP.md A item 7b)
+    # replays and neither writes nor reads one, as in the JAX package
+    # (its full save needs a single process)
     single_replay = world == 1
     if checkpointer is not None and resume and single_replay:
         rep = checkpointer.restore_replay()
@@ -457,6 +440,12 @@ def _mesh_ring(cfg: Config, replay_cfg: Config, mesh, action_dim: int,
     need, dev_cap = data_bytes(cfg, action_dim), _device_memory_bytes(device)
     cap = dev_cap if dev_cap is not None else _available_host_bytes()
     layout = resolve_layout(cfg, mesh, need, dev_cap)
+    dp = mesh.size(mesh.mesh_dim_names.index("dp"))
+    if (cfg.device_ring_layout == "auto" and dist.get_world_size() > 1
+            and cfg.num_blocks % dp == 0 and cfg.batch_size % dp == 0):
+        # the JAX package's multi-host rule: each host owns the slabs of
+        # its dp groups unless the config asks for a replicated ring
+        layout = "dp"
     if sync_counter(int(layout == "dp"), "max", tag="ring") > 0:
         layout = "dp"
     # a whole ring on each of several ranks has no dp slab to sample
@@ -715,7 +704,7 @@ def _train_anakin(cfg: Config, checkpoint_dir: Optional[str] = None,
                   tracer: Optional[Tracer] = None,
                   profile_dir: Optional[str] = None,
                   stop_fn: Optional[Callable[[], bool]] = None,
-                  device=None) -> Dict[str, Any]:
+                  device=None, use_mesh: bool = False) -> Dict[str, Any]:
     """``actor_transport="anakin"``: the whole training loop — batched
     device env, device actor, device replay writes, train steps — runs on
     the device, issued dispatch by dispatch from this thread
@@ -731,8 +720,18 @@ def _train_anakin(cfg: Config, checkpoint_dir: Optional[str] = None,
     checkpoint cadence.  Chaos: the ``wedge_dispatch`` site stalls one
     dispatch's harvest, and ``cfg.dispatch_deadline`` (> 0) turns a
     dispatch that blows its budget into a snapshot-then-clean-abort
-    (``metrics["dispatch_wedged"]``).  The mesh waits for ROADMAP.md A
-    item 7b (:func:`check_unported`)."""
+    (``metrics["dispatch_wedged"]``).
+
+    ``use_mesh`` (the process group is up, :func:`_rank_world`): the
+    learner mesh and its sharding table, this rank's slab of the ring
+    (``ring_slice_config``; "auto" or "dp" layout, as JAX's multi-host
+    rings), the meshed ``Learner`` and the meshed plane — this rank's
+    share of the lanes, blocks routed to the slabs that own their slots,
+    the global draw — with one collective stop gate per dispatch.  A dp
+    group over several ranks (fsdp or tp across ranks) is refused, as in
+    :func:`train`'s other drivetrains.  The full-state snapshot is
+    written at world size 1 only (the JAX package's rule), and read at
+    any mesh shape."""
     from r2d2_tpu_torch.learner.anakin import AnakinPlane, run_anakin_loop
     from r2d2_tpu_torch.replay.device_ring import DeviceRing
 
@@ -760,14 +759,37 @@ def _train_anakin(cfg: Config, checkpoint_dir: Optional[str] = None,
         start_env_steps = int(meta.get("env_steps", 0))
         start_minutes = float(meta.get("minutes", 0.0))
 
-    ring = DeviceRing(cfg, action_dim, device=device)
+    mesh = table = None
+    ring_cfg, layout, world = cfg, "replicated", 1
+    if use_mesh:
+        import torch.distributed as dist
+
+        from r2d2_tpu_torch.parallel.mesh import make_mesh
+        from r2d2_tpu_torch.parallel.sharding import ShardingTable
+        from r2d2_tpu_torch.replay.device_ring import (
+            resolve_layout,
+            ring_slice_config,
+        )
+
+        mesh = make_mesh(cfg, device.type)
+        table = ShardingTable(mesh, cfg)
+        world = dist.get_world_size()
+        resolve_layout(cfg, mesh)       # an explicit "dp" must divide
+        if world > 1 and cfg.device_ring_layout == "replicated":
+            raise ValueError(
+                "anakin over several ranks routes each block to the rank "
+                "whose slab holds its slot: device_ring_layout must be "
+                "'auto' or 'dp', not 'replicated'")
+        ring_cfg, layout = ring_slice_config(cfg, table.sizes["dp"]), "dp"
+    ring = DeviceRing(ring_cfg, action_dim, device=device, layout=layout)
     # no ParamStore: the fused loop acts on the current params on the
     # device, and nothing else reads published snapshots in this mode
     learner = Learner(cfg, net, state, checkpointer=checkpointer,
                       start_env_steps=start_env_steps,
-                      start_minutes=start_minutes)
+                      start_minutes=start_minutes, mesh=mesh, table=table)
     plane = AnakinPlane(cfg, net, action_dim, ring,
-                        start_env_steps=start_env_steps)
+                        start_env_steps=start_env_steps, table=table,
+                        state_template=learner.state)
 
     restored_anakin = False
     if checkpointer is not None and resume:
@@ -813,7 +835,10 @@ def _train_anakin(cfg: Config, checkpoint_dir: Optional[str] = None,
 
     def learner_stop() -> bool:
         heartbeat.beat()
-        return stop()
+        if mesh is None:
+            return stop()
+        # every dispatch is a collective: every rank stops or none does
+        return learner._agree(stop(), True) == "break"
 
     def healthz() -> Dict[str, Any]:
         age = heartbeat.age()
@@ -874,7 +899,8 @@ def _train_anakin(cfg: Config, checkpoint_dir: Optional[str] = None,
             last_steps, last_frames, last_time = (
                 s["training_steps"], s["frames"], now)
 
-    want_full_save = checkpointer is not None and cfg.replay_snapshot
+    want_full_save = (checkpointer is not None and cfg.replay_snapshot
+                      and world == 1)
 
     def save_anakin_snapshot(step: int) -> None:
         """Persist the ENTIRE on-device loop state through the atomic
@@ -915,7 +941,7 @@ def _train_anakin(cfg: Config, checkpoint_dir: Optional[str] = None,
 
         metrics.update(buffer_size=plane.fill, logs=list(logs),
                        buffer_training_steps=plane.training_steps,
-                       final_params=learner.state.params,
+                       final_params=learner.full_params(),
                        restored_replay=restored_anakin,
                        learner_stalled=stall["stalled"],
                        trace=tracer.snapshot(), health=supervisor.health(),
@@ -1023,12 +1049,14 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                 "envs/anakin.py four-method surface "
                 "(init_state/observe/step/reset_lanes + STATE_KEYS) and "
                 "register it in make_anakin_env")
-        return _train_anakin(cfg, checkpoint_dir=checkpoint_dir,
-                             resume=resume,
-                             max_wall_seconds=max_wall_seconds,
-                             verbose=verbose, log_sink=log_sink,
-                             tracer=tracer, profile_dir=profile_dir,
-                             stop_fn=stop_fn, device=device)
+        with _rank_world(use_mesh, device):
+            return _train_anakin(cfg, checkpoint_dir=checkpoint_dir,
+                                 resume=resume,
+                                 max_wall_seconds=max_wall_seconds,
+                                 verbose=verbose, log_sink=log_sink,
+                                 tracer=tracer, profile_dir=profile_dir,
+                                 stop_fn=stop_fn, device=device,
+                                 use_mesh=use_mesh)
     with _rank_world(use_mesh, device):
         return _train_fabric(cfg, env_factory, checkpoint_dir, resume,
                              use_mesh, max_wall_seconds, verbose, log_sink,

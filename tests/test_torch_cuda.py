@@ -511,3 +511,74 @@ def test_meshed_train_sync_on_the_card(cuda):
     assert m["num_updates"] == 6 and np.isfinite(m["losses"]).all()
     assert all(v.device.type == "cuda" for v in m["final_params"].values())
     assert not dist.is_initialized()
+
+
+@pytest.mark.cuda
+def test_cross_rank_draw_over_nccl_matches_the_cpu_draw(cuda):
+    """The cross-rank draw at world size 1 over NCCL on the card — the
+    global leaves and metadata gathered, the draw, the row exchange, the
+    feedback — against the in-graph sampler, ``gather_batch`` and
+    ``scatter_last`` on the CPU from the same ring: indices, ints, rows
+    and the written slab bitwise; IS weights within 1e-6 relative (an
+    f32 ``pow``)."""
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.learner import step as tstep
+    from r2d2_tpu_torch.parallel.cross_rank import CrossRank
+    from r2d2_tpu_torch.parallel.distributed import init_distributed
+    from r2d2_tpu_torch.parallel.mesh import make_mesh
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing, gather_batch
+
+    cfg = test_config(device_replay=True, in_graph_per=True)
+    NB, K, B = cfg.num_blocks, cfg.seqs_per_block, cfg.batch_size
+    rng = np.random.default_rng(0)
+    arrays = {}
+    for k, v in DeviceRing(cfg, 4, device="cpu").arrays.items():
+        if v.dtype == torch.uint8:
+            arrays[k] = torch.from_numpy(rng.integers(0, 256, v.shape,
+                                                      dtype=np.uint8))
+        elif v.dtype == torch.bool:
+            arrays[k] = torch.from_numpy(rng.random(v.shape) < 0.5)
+        else:
+            arrays[k] = torch.from_numpy(
+                rng.normal(size=v.shape).astype(np.float32))
+    prios = torch.from_numpy(rng.uniform(0.0, 2.0, NB * K)
+                             .astype(np.float32))
+    prios[::5] = 0.0
+    seq_meta = torch.from_numpy(np.stack([
+        rng.integers(0, cfg.burn_in_steps + 1, (NB, K)),
+        rng.integers(1, cfg.learning_steps + 1, (NB, K)),
+        rng.integers(0, cfg.forward_steps + 1, (NB, K))], -1)
+        .astype(np.int32))
+    first = torch.from_numpy(rng.integers(
+        cfg.burn_in_steps, cfg.burn_in_steps + 3, NB).astype(np.int32))
+    u = torch.from_numpy(rng.random(B).astype(np.float32))
+    vals = torch.from_numpy(rng.uniform(0.1, 2.0, B).astype(np.float32))
+
+    idx, w, ints = tstep._in_graph_sample(cfg, u, prios, seq_meta, first)
+    whole = gather_batch(cfg, arrays, ints, w)
+    want = prios.clone()
+    tstep.scatter_last(want, idx, vals)
+
+    dev = torch.device("cuda", 0)
+    init_distributed(store=dist.HashStore(), world_size=1, rank=0,
+                     device="cuda")
+    try:
+        cross = CrossRank(cfg, make_mesh(cfg, "cuda"), NB)
+        on = {k: v.to(dev) for k, v in arrays.items()}
+        p = prios.to(dev)
+        d, rows = cross.sample_batch(
+            u.to(dev), p, cross.global_meta(seq_meta.to(dev),
+                                            first.to(dev)), on)
+        cross.scatter_feedback(p, d.idx, vals.to(dev))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(d.idx.cpu(), idx) and torch.equal(d.ints.cpu(), ints)
+    np.testing.assert_allclose(d.w.cpu().numpy(), w.numpy(), rtol=1e-6)
+    for k in ("obs", "last_action", "last_reward", "hidden", "action",
+              "n_step_reward", "n_step_gamma", "burn_in", "learning",
+              "forward"):
+        assert torch.equal(rows[k].cpu(), whole[k]), k
+    assert torch.equal(p.cpu(), want)

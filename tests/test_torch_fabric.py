@@ -138,17 +138,29 @@ def test_unported_branches_raise_naming_their_roadmap_item(kw, item):
 
 
 def test_use_mesh_raises_naming_its_roadmap_item(monkeypatch):
-    """What the learner mesh still refuses names ROADMAP item 7b: the
-    anakin mesh, and in-graph PER over several ranks (checked before any
-    process group exists, from torchrun's WORLD_SIZE)."""
-    with pytest.raises(ValueError, match="item 7b"):
-        ttrain.train(cpu_config(actor_transport="anakin"),
+    """The learner mesh refuses only what waits for another ROADMAP item
+    (the in-graph diagnostics, item 10); the anakin mesh and in-graph PER
+    over several ranks (item 7b) pass the check — from torchrun's
+    WORLD_SIZE, before any process group exists — and the anakin mesh
+    trains in a world of one."""
+    with pytest.raises(ValueError, match="item 10"):
+        ttrain.train(cpu_config(actor_transport="anakin",
+                                learnhealth_interval=10),
                      use_mesh=True, verbose=False, device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(ValueError, match="item 7b"):
-        ttrain.train(cpu_config(device_replay=True, in_graph_per=True),
-                     env_factory=env_factory, use_mesh=True,
-                     verbose=False, device="cpu")
+    ttrain.check_unported(cpu_config(device_replay=True, in_graph_per=True),
+                          use_mesh=True)
+    ttrain.check_unported(cpu_config(actor_transport="anakin"),
+                          use_mesh=True)
+    monkeypatch.delenv("WORLD_SIZE")
+    m = ttrain.train(cpu_config(actor_transport="anakin", num_actors=2,
+                                superstep_k=2, learning_starts=16,
+                                anakin_episode_len=12, training_steps=4),
+                     use_mesh=True, verbose=False, device="cpu",
+                     max_wall_seconds=120)
+    assert m["num_updates"] == 4 and np.isfinite(m["mean_loss"])
+    assert not any(type(v).__name__ == "DTensor"
+                   for v in m["final_params"].values())
 
 
 @pytest.mark.parametrize("kw", [

@@ -112,3 +112,58 @@ def test_four_rank_train_end_to_end(tmp_path):
         assert r["env_steps"] == out[0]["env_steps"] > 0
         assert all(np.array_equal(r["params"][k], out[0]["params"][k])
                    for k in r["params"])
+
+
+def test_cross_rank_draw_at_dp4_equals_one_slab(tmp_path):
+    """The cross-rank draw over four slabs of one ring (44 scripted
+    blocks through the 20-slot ring, 5 blocks a slab): every rank draws
+    the global strata bitwise those of one slab holding the ring, receives
+    its quarter of ``gather_batch`` over the whole ring bit for bit, and
+    the feedback's slabs concatenate to ``scatter_last``'s."""
+    from r2d2_tpu_torch.learner import step as tstep
+    from r2d2_tpu_torch.replay.device_ring import gather_batch
+    from test_torch_cross_rank import N_BLOCKS, global_ring, task_args
+    from test_torch_in_graph_per import filled
+
+    cfg, _, ring, _, _ = filled(N_BLOCKS)
+    g = global_ring(ring)
+    args = task_args(cfg, g)
+    out = run_ranks("cross_rank", 4, str(tmp_path), args, timeout=150)
+    t = {k: torch.from_numpy(g[k]) for k in ("prios", "seq_meta", "first")}
+    arrays = {k: torch.from_numpy(v) for k, v in g["arrays"].items()}
+    B = cfg.batch_size
+    for j, u in enumerate(args["us"]):
+        idx, w, ints = tstep._in_graph_sample(
+            cfg, torch.from_numpy(u), t["prios"], t["seq_meta"], t["first"])
+        whole = gather_batch(cfg, arrays, ints, w)
+        for r, res in enumerate(out):
+            d = res["draws"][j]
+            np.testing.assert_array_equal(d["idx"], idx.numpy())
+            np.testing.assert_array_equal(d["ints"], ints.numpy())
+            np.testing.assert_array_equal(d["w"], w.numpy())
+            rows = slice(r * B // 4, (r + 1) * B // 4)
+            for k, v in whole.items():
+                np.testing.assert_array_equal(res["rows"][j][k],
+                                              v.numpy()[rows], err_msg=k)
+    want = t["prios"].clone()
+    tstep.scatter_last(want, torch.from_numpy(args["fb_idx"]),
+                       torch.from_numpy(args["fb_vals"]))
+    np.testing.assert_array_equal(
+        np.concatenate([r["feedback"] for r in out]), want.numpy())
+
+
+def test_anakin_at_dp4_one_fetch_per_dispatch(tmp_path):
+    """The anakin plane over four ranks, one lane each: one result fetch
+    per rollout and per dispatch on every rank, finite losses, and the
+    same gathered state and counters on all four."""
+    from test_torch_anakin_mesh import BASE
+
+    out = run_ranks("anakin", 4, str(tmp_path),
+                    dict(cfg_kw=BASE, dispatches=2), timeout=150)
+    for r in out:
+        assert r["fetches"] == r["rollouts"] + 2
+        assert np.isfinite(r["losses"]).all()
+        assert r["counters"] == out[0]["counters"]
+        for k, v in r["payload"].items():
+            np.testing.assert_array_equal(v, out[0]["payload"][k],
+                                          err_msg=k)

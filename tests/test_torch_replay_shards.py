@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from r2d2_tpu.config import test_config as jax_test_config
+from r2d2_tpu.parallel import replay_net as jrn
 from r2d2_tpu.parallel import replay_shards as jrs
 from r2d2_tpu.replay import block as jblock
 from r2d2_tpu.replay.replay_buffer import ReplayBuffer as JaxReplayBuffer
@@ -43,6 +44,7 @@ from r2d2_tpu_torch.learner.learner import (
 )
 from r2d2_tpu_torch.learner.step import create_train_state
 from r2d2_tpu_torch.models.network import create_network
+from r2d2_tpu_torch.parallel import replay_net as trn
 from r2d2_tpu_torch.parallel import replay_shards as trs
 from r2d2_tpu_torch.replay import block as tblock
 from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
@@ -445,6 +447,37 @@ def test_stalled_shard_redistributes_within_deadline():
         assert plane.health()["degraded"] is False
     finally:
         plane.shutdown()
+
+
+@pytest.mark.parametrize("transport", ["shm", "socket"])
+def test_a_draw_cut_by_the_stop_counts_apart_from_timeouts(transport):
+    """A draw the fabric's stop cuts (ROADMAP C 10): the JAX package's
+    plane counts it as K sample timeouts and B redraws that no shard
+    caused; the port's counts K sample stops and neither.  Both return no
+    batch, and the next draw is whole."""
+    counts = {}
+    for pkg, mod in (("jax", jrs if transport == "shm" else jrn),
+                     ("torch", trs if transport == "shm" else trn)):
+        cfg = make_cfg(pkg, replay_transport=transport)
+        cls = (mod.ShardedReplayPlane if transport == "shm"
+               else mod.NetShardedReplayPlane)
+        plane = cls(cfg, A, rng=np.random.default_rng(8))
+        plane.start()
+        try:
+            fill_plane(plane, cfg, [1.0, 2.0, 3.0, 4.0],
+                       jblock.LocalBuffer if pkg == "jax"
+                       else tblock.LocalBuffer)
+            assert plane.sample_batch(8, stop=lambda: True) is None
+            counts[pkg] = dict(
+                timeouts=plane.sample_timeouts, redraws=plane.redraws,
+                stops=getattr(plane, "sample_stops", None))
+            if pkg == "torch":
+                assert plane.health()["sample_stops"] == 2
+            assert plane.sample_batch(8) is not None
+        finally:
+            plane.shutdown()
+    assert counts["jax"] == dict(timeouts=2, redraws=8, stops=None)
+    assert counts["torch"] == dict(timeouts=0, redraws=0, stops=2)
 
 
 def test_garbled_sample_response_is_retried():
