@@ -255,8 +255,11 @@ Phases (each exits non-zero on failure):
     in-graph run (16 updates).  (b) The README's anakin config on the
     mesh: on a 64-block ring at the full slot shapes, the meshed plane's
     warm-up and one training dispatch against the meshless plane's —
-    every payload array, the losses and every param bitwise — and its
-    snapshot read into a meshless plane bitwise; then ``train(cfg,
+    every payload array, the losses and every param bitwise, with the
+    lanes split over dp and with the replicated lane axis forced (the
+    fallback when the lanes do not divide over dp or outnumber a slab's
+    blocks) — and its snapshot read into a meshless plane bitwise; then
+    ``train(cfg,
     use_mesh=True)`` from the full ring, cut as phase 8 (2 dispatches of
     k = 8).  Checked in both runs: the backend ``nccl`` and a DTensor
     state; every loss finite; the target synced at step 8 and not 7; the
@@ -268,8 +271,35 @@ Phases (each exits non-zero on failure):
     meshed super-step's and anakin dispatch's host time, device time,
     device events and NCCL kernels beside the meshless ones, env steps or
     frames/s while filling and training, peak GB and the phase's seconds;
-13. one ``{"kernels": [...]}`` JSON line;
-14. last line: ``{"ok": true, "device": {...}}``.
+13. the league: the flagship ``Config(game_name="Fake",
+    actor_transport="process", actor_fleets=2, actor_inference="serve",
+    population_spec=<the base and the low_resource member preset>,
+    league_eval=True, league_eval_episodes=2)`` (phase 5's widths, its 8
+    lanes in two member fleets of 4, each under its member's config and
+    epsilon ladder, acting through the trainer's service and the kernel
+    at B = 8) trained by ``train(cfg, device="cuda")`` from the full
+    5 000-block host ring, cut in warm-up as phase 10, with a checkpoint
+    every 4 updates, until the eval sidecar (a CPU subprocess with the
+    card hidden) has scored both members on 2 complete checkpoints and
+    the learner has taken 12 updates, under a wall budget that fails the
+    phase (the ``reduced:`` line).  Checked: every loss finite; both
+    members' blocks in replay and in the population rows (member 1 the
+    ``low_resource`` preset); ``league.jsonl`` with >= 2 complete sweeps,
+    no duplicate (step, member) and the reference's keys; a live
+    ``/statusz`` with the 2-row league table, ``/metrics`` with the
+    population and league series, ``/healthz`` ok; ``lstm_infer``
+    launched layers x (service batches + 1 warm-up) times, the CUDA-core
+    kernel never; the served q against the fleets' f32 CPU twin as in
+    phase 9; the sidecar's process (``/proc``) maps no CUDA driver and no
+    JAX, and ``nvidia-smi --query-compute-apps`` does not list it.  Then
+    the chaos drill, ``kill_eval_sidecar:every=1``: the sidecar's respawn
+    budget runs out, ``/healthz`` answers HTTP 200 ``degraded`` with
+    ``league.failed``, and the learner updates after that.  Prints the
+    update interval p50, each member's env steps/s filling and training,
+    a sweep's latency from its checkpoint's commit, the sidecar's CPU
+    cores, peak GB and the phase's seconds;
+14. one ``{"kernels": [...]}`` JSON line;
+15. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -437,6 +467,30 @@ MESH_ANAKIN_REDUCED = dict(learning_starts=4_096, anakin_eval_interval=2,
 # (a)'s parity ring: 16 scripted blocks at the preset's slot shapes
 MESH_CHECK_BLOCKS = 16
 MESH_DRAW_WATCHDOG_S = 420
+# phase 13: the league — the flagship's 8 lanes in two member fleets (the
+# base and the low_resource member preset) acting through the service,
+# the eval sidecar scoring both members on every complete checkpoint.
+# Cut as phase 10 in warm-up; the run trains until the sidecar has scored
+# two complete sweeps and the learner has taken LEAGUE_MIN_UPDATES, and
+# the chaos drill until the learner updates after the sidecar's budget
+# ran out.  A wall budget fails the phase rather than hang it
+LEAGUE_SPEC = ('[{"name": "base"}, {"name": "low", '
+               '"preset": "low_resource"}]')
+LEAGUE_REDUCED = dict(learning_starts=6_400, save_interval=4,
+                      keep_checkpoints=4, league_eval_interval=0.5,
+                      telemetry_port=-1, log_interval=0.5)
+LEAGUE_MIN_UPDATES = 12
+LEAGUE_SWEEPS = 2
+# the chaos drill: a shorter warm-up, and this many updates after the
+# sidecar's budget ran out
+LEAGUE_DRILL_STARTS = 1_600
+LEAGUE_DRILL_UPDATES = 4
+LEAGUE_WALL_S = 150
+LEAGUE_WATCHDOG_S = 420
+# the keys of a league.jsonl row (r2d2_tpu/league/eval_service.py:212-220)
+LEAGUE_ROW_KEYS = {"kind", "time", "step", "member", "member_name", "game",
+                   "episodes", "mean_reward", "env_frames", "minutes",
+                   "incarnation"}
 # the meshless timings of phases 5 and 7, set as they run, printed beside
 # phase 11's meshed ones
 MESHLESS: dict = {}
@@ -3182,15 +3236,21 @@ def mem_available() -> int:
 
 
 def proc_report(pid: int) -> dict:
-    """What a child process holds, read from the outside: a CUDA context
-    maps the driver library (``libcuda``), JAX maps ``xla_extension`` or
-    ``jaxlib``, torch ``libtorch``; and its CPU seconds so far."""
+    """What a child process holds, read from the outside: the CUDA driver
+    library (``libcuda``; a process that imports the CUDA build of torch
+    maps it too, through ``libcaffe2_nvrtc.so``), the card itself (a CUDA
+    context opens and maps the ``/dev/nvidia*`` device files), JAX
+    (``xla_extension`` or ``jaxlib``), torch (``libtorch``); and its CPU
+    seconds so far."""
+    from r2d2_tpu_torch.league.eval_service import card_handles
+
     with open(f"/proc/{pid}/maps") as f:
         maps = f.read()
     with open(f"/proc/{pid}/stat") as f:
         fields = f.read().rsplit(")", 1)[1].split()
     cpu = (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
     return dict(pid=pid, cuda="libcuda" in maps,
+                device=bool(card_handles(str(pid))),
                 jax="xla_extension" in maps or "jaxlib" in maps,
                 torch="libtorch" in maps, cpu_s=cpu)
 
@@ -4475,9 +4535,11 @@ def mesh_anakin_checks(torch, card: str, base, mesh, device: str) -> dict:
     full slot shapes, cuDNN deterministic, the meshed plane (world size
     1) against the meshless plane from one seed: the warm-up rollouts and
     one training dispatch give the same loop state — every payload array,
-    ring, PER leaves and carry — the same losses and params, bit for bit;
-    the meshed plane's snapshot reads into a fresh meshless plane bit for
-    bit; then each dispatch alone, timed."""
+    ring, PER leaves and carry — the same losses and params, bit for bit,
+    with the lanes split over dp and with the replicated lane axis forced
+    (the fallback for lanes that do not divide over dp or outnumber a
+    slab's blocks); the meshed plane's snapshot reads into a fresh
+    meshless plane bit for bit; then each dispatch alone, timed."""
     import shutil
     import tempfile
 
@@ -4495,7 +4557,7 @@ def mesh_anakin_checks(torch, card: str, base, mesh, device: str) -> dict:
         learning_starts=1_024, device_replay=True, in_graph_per=True)
     table = ShardingTable(mesh, cfg)
 
-    def build(seed, meshed):
+    def build(seed, meshed, replicate=False):
         net = create_network(cfg, TRAIN_ACTIONS, device=dev,
                              generator=torch.Generator().manual_seed(seed))
         learner = Learner(cfg, net, create_train_state(cfg,
@@ -4506,7 +4568,8 @@ def mesh_anakin_checks(torch, card: str, base, mesh, device: str) -> dict:
                           layout="dp" if meshed else "replicated")
         plane = AnakinPlane(cfg, net, TRAIN_ACTIONS, ring,
                             table=table if meshed else None,
-                            state_template=learner.state)
+                            state_template=learner.state,
+                            replicate_lanes=replicate)
         return plane, learner
 
     def drive(plane, learner):
@@ -4522,15 +4585,23 @@ def mesh_anakin_checks(torch, card: str, base, mesh, device: str) -> dict:
         pa, la = build(5, False)
         loss_a = drive(pa, la)
         pay_a = pa._payload()
+        params_a = la.full_params()
+
+        def same_as_meshless(plane, learner):
+            loss = drive(plane, learner)
+            pay, params = plane._payload(), learner.full_params()
+            ok = (np.array_equal(loss_a, loss) and sorted(pay_a) == sorted(pay)
+                  and all(np.array_equal(pay_a[k], pay[k]) for k in pay_a)
+                  and all(torch.equal(params_a[k], params[k])
+                          for k in params_a))
+            return ok, pay
+
+        pr, lr = build(5, True, replicate=True)
+        replicated, _ = same_as_meshless(pr, lr)
+        replicated = replicated and pr.replicated_lanes
+        del pr, lr
         pb, lb = build(5, True)
-        loss_b = drive(pb, lb)
-        pay_b = pb._payload()
-        params = la.full_params(), lb.full_params()
-        same = (np.array_equal(loss_a, loss_b)
-                and sorted(pay_a) == sorted(pay_b)
-                and all(np.array_equal(pay_a[k], pay_b[k]) for k in pay_a)
-                and all(torch.equal(params[0][k], params[1][k])
-                        for k in params[0]))
+        same, pay_b = same_as_meshless(pb, lb)
         meta = pb.write_state(os.path.join(d, "anakin.bin"))
         pc, _ = build(6, False)
         pc.read_state(os.path.join(d, "anakin.bin"), meta)
@@ -4545,11 +4616,13 @@ def mesh_anakin_checks(torch, card: str, base, mesh, device: str) -> dict:
           f"{cfg.num_blocks}-block ring at the full slot shapes, cuDNN "
           f"deterministic: warm-up and one training dispatch meshed == "
           f"meshless over {len(pay_a)} payload arrays, the losses and every"
-          f" param: {same}; the meshed snapshot read into a meshless plane "
+          f" param: {same}; the same with the replicated lane axis forced: "
+          f"{replicated}; the meshed snapshot read into a meshless plane "
           f"bit for bit: {resumed}", flush=True)
-    if not (same and resumed):
-        fail("mesh anakin: the meshed plane is not the meshless plane bit "
-             "for bit, or its snapshot does not read back")
+    if not (same and replicated and resumed):
+        fail("mesh anakin: a meshed plane (lanes split or replicated) is "
+             "not the meshless plane bit for bit, or its snapshot does not "
+             "read back")
 
     def one(plane, learner):
         def fn():
@@ -4821,6 +4894,349 @@ def phase_mesh_draw(torch, card: str, device: str = "cuda", ig_base=None,
     return dict(in_graph=ig_run["launches"], anakin=an_run["launches"])
 
 
+# --------------------------------------------------------------------------
+# phase 13: the league
+# --------------------------------------------------------------------------
+
+def league_config():
+    """The flagship with its 8 lanes in two member fleets, acting through
+    the trainer's service, and the eval sidecar on, checked against the
+    flagship's published widths."""
+    from r2d2_tpu_torch.config import Config
+
+    base = Config(game_name="Fake", actor_transport="process",
+                  actor_fleets=2, actor_inference="serve",
+                  population_spec=LEAGUE_SPEC, league_eval=True,
+                  league_eval_episodes=2)
+    literal = dict(torso="nature", stored_obs_shape=(21, 21, 16),
+                   hidden_dim=H, lstm_layers=1, compute_dtype="bfloat16",
+                   num_actors=8, buffer_capacity=2_000_000,
+                   block_length=400)
+    got = {k: getattr(base, k) for k in literal}
+    if got != literal:
+        fail(f"the league config is not the flagship: {got}")
+    return base
+
+
+def league_run(torch, card: str, cfg, chaos: bool) -> dict:
+    """One of phase 13's ``train()`` runs.  The main run trains until the
+    sidecar has scored ``LEAGUE_SWEEPS`` complete sweeps on a live
+    /statusz and the learner has taken ``LEAGUE_MIN_UPDATES``; the chaos
+    drill until the learner has updated after the sidecar's respawn budget
+    ran out.  A live poller reads /statusz, /metrics and /healthz, the
+    sidecar's ``/proc`` maps and CPU seconds, and the card's compute
+    processes.  Returns the run's checks and timings."""
+    import shutil
+    import tempfile
+
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.league import eval_service
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.utils.trace import KERNEL_LAUNCHES
+
+    real_build, real_start = train._build, eval_service.EvalSidecar.start
+    rec = dict(updates=[], entries=[], port=None, live=None, sidecar=None,
+               procs=[], failed_at=None, after=None, healthz=None,
+               ingested=[0, 0])
+    done, finished = threading.Event(), threading.Event()
+
+    def capture(*args, **kw):
+        sys_ = real_build(*args, **kw)
+        rec.update(sys_)
+        learner = sys_["learner"]
+        step = learner._step_fn
+
+        def timed_step(state, batch):
+            rec["updates"].append(time.perf_counter())
+            return step(state, batch)
+
+        learner._step_fn = timed_step
+        return sys_
+
+    def start(self):
+        real_start(self)
+        rec["sidecar"] = self
+
+    def log_sink(entry):
+        rec["port"] = entry["telemetry_port"]
+        pop = entry.get("fleet", {}).get("population", {}).get("members")
+        rec["entries"].append((time.perf_counter(),
+                               [r["env_steps"] for r in pop or []]))
+        if pop:
+            rec["ingested"] = [r["blocks_ingested"] for r in pop]
+        h = (entry.get("league") or {}).get("health") or {}
+        if chaos and h.get("failed") and rec["failed_at"] is None:
+            rec["failed_at"] = len(rec["updates"])
+
+    def sidecar_proc():
+        sc = rec["sidecar"]
+        p = sc.proc if sc is not None else None
+        if p is None or not p.is_alive():
+            return None
+        try:
+            return (time.perf_counter(), proc_report(p.pid))
+        except OSError:
+            return None
+
+    def poll():
+        # live reads while the run trains; the run stops when they are in
+        while not finished.is_set():
+            time.sleep(0.5)
+            if rec["port"] is None:
+                continue
+            try:
+                if poll_once():
+                    done.set()
+                    return
+            except (OSError, ValueError):
+                continue   # the exporter between two requests: ask again
+
+    def poll_once() -> bool:
+        """One round of live reads; True once the run's checks are in."""
+        if chaos:
+            if rec["failed_at"] is not None and rec["healthz"] is None:
+                rec["healthz"] = http_get(rec["port"], "/healthz")
+            if (rec["healthz"] is not None and min(rec["ingested"]) > 0
+                    and len(rec["updates"])
+                    >= rec["failed_at"] + LEAGUE_DRILL_UPDATES):
+                rec["after"] = len(rec["updates"]) - rec["failed_at"]
+                return True
+            return False
+        code, body = http_get(rec["port"], "/statusz")
+        entry = json.loads(body).get("last_entry") or {}
+        lg = entry.get("league") or {}
+        pop = ((entry.get("fleet") or {}).get("population")
+               or {}).get("members") or []
+        if lg.get("rows") and not rec["procs"]:
+            # the sidecar has scored: its maps and CPU seconds, and the
+            # card's compute processes
+            got = sidecar_proc()
+            if got is not None:
+                rec["procs"].append(got)
+                smi = subprocess.run(
+                    ["nvidia-smi", "--query-compute-apps=pid",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True, timeout=60)
+                rec["smi"] = (smi.returncode, smi.stdout.split(),
+                              got[1]["pid"])
+        if not (code == 200 and lg.get("sweeps", 0) >= LEAGUE_SWEEPS
+                and len(lg.get("table") or []) == 2 and len(pop) == 2
+                and all(r["blocks"] > 0 for r in pop)
+                and len(rec["updates"]) >= LEAGUE_MIN_UPDATES
+                and rec["procs"]):
+            return False
+        got = sidecar_proc()
+        if got is not None:
+            rec["procs"].append(got)
+        rec["live"] = dict(league=lg, population=pop,
+                           metrics=http_get(rec["port"], "/metrics"),
+                           healthz=http_get(rec["port"], "/healthz"))
+        return True
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_league_")
+    poller = threading.Thread(target=poll, daemon=True)
+    try:
+        KERNEL_LAUNCHES.reset()
+        torch.cuda.reset_peak_memory_stats()
+        train._build = capture
+        eval_service.EvalSidecar.start = start
+        poller.start()
+        t0 = time.perf_counter()
+        try:
+            m = train.train(cfg, env_factory, checkpoint_dir=ckdir,
+                            max_wall_seconds=LEAGUE_WALL_S, verbose=False,
+                            log_sink=log_sink, stop_fn=done.is_set)
+        finally:
+            train._build = real_build
+            eval_service.EvalSidecar.start = real_start
+            finished.set()
+            poller.join(30)
+        run_s = time.perf_counter() - t0
+        launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
+        old = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
+        rows = eval_service.read_league(ckdir)
+        metas = {int(n[len("step_"):-len(".meta.json")]):
+                 os.path.getmtime(os.path.join(ckdir, n))
+                 for n in os.listdir(ckdir) if n.endswith(".meta.json")}
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    label = "chaos drill" if chaos else "run"
+    if not done.is_set():
+        fail(f"league {label}: the wall budget ({LEAGUE_WALL_S} s) ran out "
+             f"before its checks were in: {len(rec['updates'])} updates, "
+             f"failed at {rec['failed_at']}, live {rec['live']}")
+    lh, plane, buffer = m["learnhealth"], rec["plane"], rec["buffer"]
+    restarts = {n: h["restarts"] for n, h in m["health"].items()}
+    bpm = m["blocks_per_member"]
+    if (lh["nonfinite"] or lh["loss_count"] != m["num_updates"]
+            or not np.isfinite(m["mean_loss"]) or m["num_updates"] < 1
+            or m["fabric_failed"] or any(restarts.values())
+            or set(bpm) != {0, 1} or min(bpm.values()) < 1):
+        fail(f"league {label}: {m['num_updates']} updates, learnhealth "
+             f"{lh}, failed {m['fabric_failed']}, thread restarts "
+             f"{restarts}, blocks per member {bpm}")
+    pop = m["fleet_health"]["population"]["members"]
+    if (len(pop) != 2 or any(r["env_steps"] < 1 or r["blocks"] < 1
+                             for r in pop)
+            or pop[1]["preset"] != "low_resource"):
+        fail(f"league {label}: population rows {pop}")
+    svc = plane.service
+    h = svc.health()
+    want = cfg.lstm_layers * (h["batches"] + h["warmups"])
+    if launches != want or old:
+        fail(f"league {label}: lstm_infer launched {launches} times "
+             f"(CUDA-core {old}) for {h['batches']} service batches + "
+             f"{h['warmups']} warm-up x {cfg.lstm_layers} layer")
+    out = dict(launches=launches, seconds=run_s, updates=m["num_updates"],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               batches=h["batches"], warmups=h["warmups"])
+    if chaos:
+        code, body = rec["healthz"]
+        hz = json.loads(body)
+        if (code != 200 or hz.get("status") != "degraded"
+                or not hz.get("league", {}).get("failed")
+                or m["chaos"].get("kill_eval_sidecar", 0) < 1
+                or not m["league"]["health"]["failed"]):
+            fail(f"league chaos drill: /healthz {code} {hz}, chaos "
+                 f"{m['chaos']}, league {m['league']}, {len(rows)} rows")
+        print(f"league chaos drill on {card}: kill_eval_sidecar fired "
+              f"{m['chaos']['kill_eval_sidecar']} times; the sidecar's "
+              f"budget ran out after {rec['sidecar'].restarts} respawns "
+              f"(update {rec['failed_at']}); /healthz {code} "
+              f"{hz['status']} with league.failed; {rec['after']} updates "
+              f"after that, {m['num_updates']} in all, losses finite; "
+              f"blocks per member {bpm}; lstm_infer {launches} = "
+              f"{cfg.lstm_layers} x ({h['batches']} + {h['warmups']}), "
+              f"CUDA-core 0; {run_s:.1f} s", flush=True)
+        return out
+
+    # the main run: the sidecar's record, its live view, its process
+    table = eval_service.league_table(rows, 2)
+    pairs = [(r["step"], r["member"]) for r in rows]
+    live = rec["live"]
+    code, body = live["healthz"]
+    mcode, metrics = live["metrics"]
+    if (table["sweeps"] < LEAGUE_SWEEPS or len(pairs) != len(set(pairs))
+            or any(set(r) != LEAGUE_ROW_KEYS for r in rows)
+            or not all(np.isfinite(r["mean_reward"]) for r in rows)
+            or m["league"]["sweeps"] < LEAGUE_SWEEPS
+            or m["league"]["health"]["failed"]):
+        fail(f"league: league.jsonl {len(rows)} rows, {table['sweeps']} "
+             f"sweeps, duplicates {len(pairs) - len(set(pairs))}, keys "
+             f"{[sorted(r) for r in rows[:1]]}; metrics league "
+             f"{m['league']}")
+    if (code != 200 or json.loads(body).get("status") != "ok"
+            or m["healthz"].get("status") != "ok" or mcode != 200
+            or 'r2d2_population_env_steps_total{member="1"}' not in metrics
+            or "r2d2_league_sweeps_total" not in metrics
+            or live["league"]["members"] != 2):
+        fail(f"league: live /healthz {code} {body[:300]}, /metrics "
+             f"{mcode}, /statusz league {live['league']}")
+    (t_a, first), (t_b, last) = rec["procs"][0], rec["procs"][-1]
+    smi_rc, smi_pids, pid = rec["smi"]
+    if (first["device"] or first["jax"] or last["device"] or last["jax"]
+            or smi_rc != 0 or str(pid) in smi_pids or len(smi_pids) > 1):
+        fail(f"league: the sidecar (pid {pid}) maps {first} / {last}; "
+             f"nvidia-smi compute apps {smi_pids} (rc {smi_rc})")
+    # timings, from the stamps: the learner's update interval, each
+    # member's env steps/s filling and training (from the log entries'
+    # population rows), each sweep's latency from its checkpoint's commit
+    # to its last row, and the sidecar's CPU cores
+    ups = rec["updates"]
+    gaps = np.diff(ups) * 1e3
+    t_train = ups[0]
+    ent = [e for e in rec["entries"] if len(e[1]) == 2]
+
+    def rates(lo, hi):
+        sel = [e for e in ent if lo <= e[0] <= hi]
+        if len(sel) < 2:
+            return [float("nan")] * 2
+        (ta, a), (tb, b) = sel[0], sel[-1]
+        return [(y - x) / max(tb - ta, 1e-9) for x, y in zip(a, b)]
+
+    def rows_of(pop):
+        return [(r["member"], r["name"], r["preset"], r["env_steps"],
+                 r["blocks"]) for r in pop]
+
+    fill = rates(0.0, t_train)
+    training = rates(t_train, float("inf"))
+    by_step = {}
+    for r in rows:
+        by_step.setdefault(r["step"], []).append(r["time"])
+    sweep_s = [max(ts) - metas[s] for s, ts in by_step.items()
+               if len(ts) == 2 and s in metas]
+    cores = (last["cpu_s"] - first["cpu_s"]) / max(t_b - t_a, 1e-9)
+    out.update(interval_p50=pct(gaps, 50), fill=fill, training=training,
+               sweep_p50=pct(sweep_s, 50), sweep_max=max(sweep_s,
+                                                         default=float("nan")),
+               sidecar_cores=cores, sweeps=table["sweeps"], rows=len(rows))
+    print(f"league run on {card}: {m['num_updates']} updates in "
+          f"{run_s:.2f} s, losses finite {lh['loss_count']}; blocks per "
+          f"member {bpm}; population (member, name, preset, env steps, "
+          f"blocks) {rows_of(pop)}; "
+          f"league.jsonl {len(rows)} rows, {table['sweeps']} complete "
+          f"sweeps, no duplicate (step, member), the reference's keys; "
+          f"live /statusz: {live['league']['sweeps']} sweeps, "
+          f"{len(live['league']['table'])} table rows; /metrics carries "
+          f"the population and league series; /healthz ok; lstm_infer "
+          f"{launches} = {cfg.lstm_layers} x ({h['batches']} service "
+          f"batches + {h['warmups']} warm-up), CUDA-core 0; the sidecar "
+          f"(pid {pid}) holds no card (no /dev/nvidia* open or mapped) and "
+          f"no JAX (libtorch mapped: {first['torch']}, and with it the "
+          f"driver library: {first['cuda']}), not among the card's compute "
+          f"apps {smi_pids}", flush=True)
+    print(f"league timings on {card}: update interval p50 "
+          f"{out['interval_p50']:.2f} ms ({len(gaps)} intervals); env "
+          f"steps/s per member filling {fmt_list(fill, 1)}, training "
+          f"{fmt_list(training, 1)}; a sweep ({cfg.league_eval_episodes} "
+          f"episodes x 2 members on the CPU) from its checkpoint's commit "
+          f"to its last row p50 {out['sweep_p50']:.2f} s, max "
+          f"{out['sweep_max']:.2f} s over {len(sweep_s)} sweeps; the "
+          f"sidecar's CPU cores {cores:.2f} of {os.cpu_count()}; peak "
+          f"{out['peak_gb']:.2f} GB", flush=True)
+    out["twin"] = served_vs_twin(torch, card, cfg, svc)
+    return out
+
+
+def phase_league(torch, card: str) -> dict:
+    """Phase 13: the league.  The flagship's lanes in two member fleets
+    train through ``train()`` from its full host ring while the CPU eval
+    sidecar scores both members on every complete checkpoint, then the
+    kill-sidecar chaos drill.  Returns the kernel's launches by run."""
+    import gc
+
+    from r2d2_tpu_torch.replay.replay_buffer import data_bytes
+
+    t_phase = time.perf_counter()
+    faulthandler.dump_traceback_later(LEAGUE_WATCHDOG_S)
+    base = league_config()
+    need = data_bytes(base, TRAIN_ACTIONS)
+    if mem_available() < 1.2 * need:
+        fail(f"MemAvailable {mem_available()} bytes; the host ring needs "
+             f"{need}")
+    print("reduced: " + ", ".join(
+        f"{k} {getattr(base, k)} -> {v}" for k, v in LEAGUE_REDUCED.items())
+        + f", training_steps {base.training_steps} -> until "
+        f"{LEAGUE_SWEEPS} sweeps and {LEAGUE_MIN_UPDATES} updates (chaos "
+        f"drill: learning_starts -> {LEAGUE_DRILL_STARTS}, until "
+        f"{LEAGUE_DRILL_UPDATES} updates after the sidecar failed), a "
+        f"{LEAGUE_WALL_S} s wall budget a run; the full host ring, "
+        f"{base.num_blocks} blocks ({need / 1e9:.2f} GB); 8 lanes in 2 "
+        f"member fleets of 4; os.cpu_count() {os.cpu_count()}", flush=True)
+    cfg = base.replace(training_steps=10 ** 9, **LEAGUE_REDUCED)
+    main_run = league_run(torch, card, cfg, chaos=False)
+    gc.collect()
+    drill = league_run(torch, card, cfg.replace(
+        chaos_spec="kill_eval_sidecar:every=1,n=1000000",
+        learning_starts=LEAGUE_DRILL_STARTS), chaos=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    faulthandler.cancel_dump_traceback_later()
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+    return dict(run=main_run["launches"], chaos=drill["launches"])
+
+
 def main() -> None:
     try:
         import torch
@@ -4886,6 +5302,9 @@ def main() -> None:
     # phase 12: the cross-rank draw, in-graph PER and anakin on the mesh
     draw_launches = phase_mesh_draw(torch, card)
 
+    # phase 13: the league, member fleets and the CPU eval sidecar
+    league_launches = phase_league(torch, card)
+
     head = timings[(1, 256)]
     print(json.dumps({"kernels": [{
         "name": "lstm_infer",
@@ -4898,7 +5317,8 @@ def main() -> None:
                      + fleet_launches["local"]
                      + sum(replay_launches.values())
                      + sum(mesh_launches.values())
-                     + sum(draw_launches.values())),
+                     + sum(draw_launches.values())
+                     + sum(league_launches.values())),
         "launches_by_path": {"serving": serve_launches,
                              "training": train_launches,
                              "fabric": fabric_launches,
@@ -4913,7 +5333,9 @@ def main() -> None:
                              "mesh_sync": mesh_launches["sync"],
                              "mesh_ring": mesh_launches["ring"],
                              "mesh_in_graph": draw_launches["in_graph"],
-                             "mesh_anakin": draw_launches["anakin"]},
+                             "mesh_anakin": draw_launches["anakin"],
+                             "league": league_launches["run"],
+                             "league_chaos": league_launches["chaos"]},
         "max_abs_err": errs["tensor_core"][0],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

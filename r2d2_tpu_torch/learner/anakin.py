@@ -66,6 +66,12 @@ implicitly) the port issues the moves itself, through
   writes back the leaves it owns; the lanes' episode and reward deltas
   are summed over the ranks once a dispatch, so every rank's result
   vector is the global one and still one fetch a dispatch;
+- when the lanes do not divide over dp, or outnumber one slab's blocks,
+  the lane axis is replicated instead, as JAX's falls back to
+  replication: every rank steps every lane with its global stream and
+  epsilon, computes the meshless slots with no collective, and writes the
+  cut blocks whose slots its slab holds (:func:`_make_owned_emit`); the
+  trajectory is the same;
 - the actor steps read plain local views of the replicated params
   (:func:`acting_params`); the eval lane runs whole on every rank;
 - the snapshot is layout-free: ``write_state`` gathers every split entry
@@ -269,7 +275,8 @@ def _make_assemble(cfg: Config, action_dim: int, done: bool, device,
 
 
 def _make_emit(cfg: Config, action_dim: int, done: bool, device,
-               n_lanes: Optional[int] = None, cross: Any = None):
+               n_lanes: Optional[int] = None, cross: Any = None,
+               replicated: bool = False):
     """Batched cut-and-write: assemble every lane's candidate block, then
     write the ``cut`` lanes' blocks into ring slots ``ptr..`` (cut lanes
     take consecutive slots in lane order, the order the host actor's
@@ -282,7 +289,11 @@ def _make_emit(cfg: Config, action_dim: int, done: bool, device,
     ``cross`` (a :class:`~r2d2_tpu_torch.parallel.cross_rank.CrossRank`)
     is the mesh's routing: this rank assembles its ``n_lanes`` lanes'
     blocks, and the slots are global FIFO slots of which this rank's ring
-    holds its slab — see :func:`_make_routed_emit`."""
+    holds its slab — see :func:`_make_routed_emit`; with ``replicated``
+    every rank steps every lane and nothing is routed — see
+    :func:`_make_owned_emit`."""
+    if cross is not None and replicated:
+        return _make_owned_emit(cfg, action_dim, done, device, cross)
     if cross is not None:
         return _make_routed_emit(cfg, action_dim, done, device, n_lanes,
                                  cross)
@@ -411,6 +422,50 @@ def _make_routed_emit(cfg: Config, action_dim: int, done: bool, device,
     return emit
 
 
+def _make_owned_emit(cfg: Config, action_dim: int, done: bool, device,
+                     cross: Any):
+    """The emit on the mesh with replicated lanes (the plane's fallback
+    when the lanes do not divide over dp, or outnumber one slab's blocks):
+    every rank has stepped every lane, so every rank assembles every
+    lane's block and computes the meshless slots, with no collective, and
+    writes the cut blocks whose slots its slab holds.  With N above a
+    slab's ``nb`` blocks, several lanes' slots can fall on one slab row
+    (``slot % nb``), and an ``index_copy_`` with repeated rows keeps any
+    one of their writes; so every lane bound for a row writes the same
+    bytes: those of the cut lane that owns the row (at most one, the N
+    global slots being distinct), else the row's own.  ``ptr``, ``fill``
+    and ``block_learning_total`` advance as the meshless emit's."""
+    NB, K, N = cfg.num_blocks, cfg.seqs_per_block, cfg.num_actors
+    nb = cross.nb
+    alpha = cfg.prio_exponent
+    assemble = _make_assemble(cfg, action_dim, done, device)
+    kk = torch.arange(K, device=device)[None, :]
+    lane_ids = torch.arange(N, device=device)
+    no_owner = torch.full((nb,), -1, dtype=torch.long, device=device)
+
+    def emit(ast, arrays, prios, seq_meta, first, cut, last_q):
+        blocks = assemble(_lane_bufs(ast), ast["prefix"], ast["size"],
+                          last_q)
+        slot, n_cut = _slots(cut, ast["ptr"], NB)
+        local = slot % nb
+        write = cut & (slot // nb == cross.rank)
+        # each slab row's writing lane (-1: none), then every lane's
+        owner = no_owner.scatter_reduce(
+            0, local, torch.where(write, lane_ids, -1), reduce="amax")[local]
+        hit = owner >= 0
+        src = owner.clamp(min=0)
+        for key, dst in arrays.items():
+            _put(dst, local, hit, blocks["slot"][key][src])
+        leaf = (local[:, None] * K + kk).reshape(-1)
+        _put(prios, leaf, hit[:, None].expand(N, K).reshape(-1),
+             (blocks["priorities"][src] ** alpha).reshape(-1))
+        _put(seq_meta, local, hit, blocks["meta"][src])
+        _put(first, local, hit, blocks["first_burn"][src])
+        return _account(ast, slot, cut, n_cut, blocks["learning_total"], NB)
+
+    return emit
+
+
 def _pack_layout(spec: Dict[str, tuple]) -> List[tuple]:
     """``(name, shape, dtype, byte offset, bytes)`` per field of one
     lane's block, packed back to back in a row of bytes."""
@@ -475,7 +530,7 @@ def _retain_prefix(cfg: Config, ast: dict, cut: torch.Tensor,
 
 def _make_actor_step(cfg: Config, net: R2D2Network, env: Any,
                      action_dim: int, lanes: Optional[tuple] = None,
-                     cross: Any = None):
+                     cross: Any = None, replicated: bool = False):
     """One env/actor step for the whole fleet — the twin of one
     ``VectorActor.run`` iteration, same sub-step order (boundary cuts with
     this step's bootstrap Q first, then act/step/record, then episode-end
@@ -491,7 +546,9 @@ def _make_actor_step(cfg: Config, net: R2D2Network, env: Any,
     (default: all); each keeps its global ladder epsilon, and its carry
     rows (streams included) are the global lane's, so a rank's lanes act
     as they would in a world of one.  ``cross`` routes the cut blocks to
-    the ranks that own their slots (:func:`_make_routed_emit`)."""
+    the ranks that own their slots (:func:`_make_routed_emit`), or, with
+    ``replicated`` (every rank steps every lane), each rank writes the cut
+    blocks its slab owns (:func:`_make_owned_emit`)."""
     lo, hi = lanes or (0, cfg.num_actors)
     N, A, BL = hi - lo, action_dim, cfg.block_length
     device = env.device
@@ -500,8 +557,8 @@ def _make_actor_step(cfg: Config, net: R2D2Network, env: Any,
                         for i in range(lo, hi)], dtype=torch.float32,
                        device=device)
     act_net = _loss_net(net)   # the scan recurrence, as JAX's actor
-    emit_boundary = _make_emit(cfg, A, False, device, N, cross)
-    emit_done = _make_emit(cfg, A, True, device, N, cross)
+    emit_boundary = _make_emit(cfg, A, False, device, N, cross, replicated)
+    emit_done = _make_emit(cfg, A, True, device, N, cross, replicated)
     env_keys = tuple(env.STATE_KEYS)
     lanes = torch.arange(N, device=device)
     rows = lanes[:, None]
@@ -627,12 +684,14 @@ def _stats_vec(ast: dict) -> torch.Tensor:
                         ast["blocks_d"].float()])
 
 
-def _sum_lane_deltas(ast: dict, cross: Any) -> dict:
+def _sum_lane_deltas(ast: dict, cross: Any, replicated: bool = False
+                     ) -> dict:
     """On the mesh the lanes' deltas (episodes, reward) count this rank's
     lanes: the carry with them summed over the ranks (one all_reduce), so
     every rank's deltas are the global ones, as the ring's (env steps,
-    fill, blocks) already are.  Meshless: ``ast`` as it is."""
-    if cross is None:
+    fill, blocks) already are.  Meshless, or with replicated lanes (every
+    rank's deltas are already every lane's): ``ast`` as it is."""
+    if cross is None or replicated:
         return ast
     both = cross.reduce_sum(torch.stack([ast["episodes_d"].float(),
                                          ast["reward_d"]]))
@@ -735,7 +794,8 @@ def _make_eval_lane(cfg: Config, net: R2D2Network, env: Any,
 
 def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
                            action_dim: int, lanes: Optional[tuple] = None,
-                           cross: Any = None, train_step=None):
+                           cross: Any = None, train_step=None,
+                           replicated: bool = False):
     """The fused dispatch: ``k × (E env/actor steps + 1 train step)``.
     Signature::
 
@@ -763,11 +823,15 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
     rank's leaves and metadata, each rank trains its rows of the batch
     and writes back the leaves it owns; and the lane counters (episodes,
     reward) are summed over the ranks, so every rank's stats are the
-    global ones.  The eval lane runs alike on every rank."""
+    global ones.  With ``replicated`` every rank steps every lane
+    (``lanes`` is all of them) and writes the cut blocks its slab owns:
+    no block moves, and the lane counters are already global.  The eval
+    lane runs alike on every rank."""
     k, E, B = cfg.superstep_k, cfg.anakin_env_steps_per_update, \
         cfg.batch_size
     step = train_step or make_train_step(cfg, net)
-    actor_step = _make_actor_step(cfg, net, env, action_dim, lanes, cross)
+    actor_step = _make_actor_step(cfg, net, env, action_dim, lanes, cross,
+                                  replicated)
     eval_lane = (_make_eval_lane(cfg, net, env, action_dim)
                  if cfg.anakin_eval_interval > 0 else None)
 
@@ -803,7 +867,7 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
                 cross.scatter_feedback(prios, idx,
                                        new_p ** cfg.prio_exponent)
             losses.append(loss)
-        ast = _sum_lane_deltas(ast, cross)
+        ast = _sum_lane_deltas(ast, cross, replicated)
         parts = [torch.stack(losses), _stats_vec(ast)]
         if eval_lane is not None:
             parts.append(eval_lane(params, dispatch_idx))
@@ -838,20 +902,23 @@ def acting_params(params: Dict[str, torch.Tensor]
 
 def make_anakin_rollout(cfg: Config, net: R2D2Network, env: Any,
                         action_dim: int, steps: int,
-                        lanes: Optional[tuple] = None, cross: Any = None):
+                        lanes: Optional[tuple] = None, cross: Any = None,
+                        replicated: bool = False):
     """The warm-up dispatch: ``steps`` env/actor steps with ring/PER
     writes but NO train step — dispatched until the fill counter reaches
     ``learning_starts``.  ``rollout(params, ast, arrays, prios, seq_meta,
     first) -> (ast', arrays, prios, seq_meta, first, stats (5,))``.
-    ``lanes`` and ``cross`` as in :func:`make_anakin_super_step`."""
-    actor_step = _make_actor_step(cfg, net, env, action_dim, lanes, cross)
+    ``lanes``, ``cross`` and ``replicated`` as in
+    :func:`make_anakin_super_step`."""
+    actor_step = _make_actor_step(cfg, net, env, action_dim, lanes, cross,
+                                  replicated)
 
     def rollout(params, ast, arrays, prios, seq_meta, first):
         ast = _zero_deltas(ast)
         params = acting_params(params)
         for _ in range(steps):
             ast, _ = actor_step(params, ast, arrays, prios, seq_meta, first)
-        ast = _sum_lane_deltas(ast, cross)
+        ast = _sum_lane_deltas(ast, cross, replicated)
         return ast, arrays, prios, seq_meta, first, _stats_vec(ast)
 
     return rollout
@@ -908,7 +975,8 @@ class AnakinPlane:
 
     def __init__(self, cfg: Config, net: R2D2Network, action_dim: int,
                  ring: Any, start_env_steps: int = 0, table: Any = None,
-                 state_template: Optional[TrainState] = None):
+                 state_template: Optional[TrainState] = None,
+                 replicate_lanes: bool = False):
         if not getattr(cfg, "in_graph_per", False):
             raise ValueError("the anakin plane requires in_graph_per=True "
                              "(train._train_anakin flips it on)")
@@ -935,17 +1003,20 @@ class AnakinPlane:
         state = make_anakin_state(
             cfg, action_dim, self.env, derive(cfg.seed, _PLANE_SALT, 1))
         self.table, self.cross, lanes, train_step = table, None, None, None
+        self.replicated_lanes = False
         if table is not None:
-            lanes, train_step = self._mesh_setup(net, state, state_template)
+            lanes, train_step = self._mesh_setup(net, state, state_template,
+                                                 replicate_lanes)
             state = {k: self._my_rows(v).clone() if self._split(k) else v
                      for k, v in state.items()}
         self.state = state
         self.super_step = make_anakin_super_step(
-            cfg, net, self.env, action_dim, lanes, self.cross, train_step)
+            cfg, net, self.env, action_dim, lanes, self.cross, train_step,
+            self.replicated_lanes)
         self.roll_steps = cfg.superstep_k * cfg.anakin_env_steps_per_update
         self.rollout = make_anakin_rollout(cfg, net, self.env, action_dim,
                                            self.roll_steps, lanes,
-                                           self.cross)
+                                           self.cross, self.replicated_lanes)
         self._frames_per_dispatch = self.roll_steps * cfg.num_actors
 
         # host-int counter mirrors (absolute; deltas arrive per dispatch).
@@ -973,11 +1044,14 @@ class AnakinPlane:
         self._interval_eval_episodes = 0
 
     # --------------------------------------------------------------- mesh
-    def _mesh_setup(self, net, state, state_template):
+    def _mesh_setup(self, net, state, state_template, replicate_lanes):
         """The meshed plane (``table``): this rank steps its share of the
         lanes, its ring is its slab of ``num_blocks / dp`` blocks, and
-        the draw, block routing and train step are the mesh's.  Returns
-        ``(lanes, train_step)``."""
+        the draw, block routing and train step are the mesh's.  When the
+        lanes do not divide over dp, or outnumber one slab's blocks (or
+        ``replicate_lanes`` asks for it), every rank steps every lane
+        instead, the JAX package's replicated lane axis: the same
+        trajectory, nothing routed.  Returns ``(lanes, train_step)``."""
         from r2d2_tpu_torch.parallel.cross_rank import CrossRank
         from r2d2_tpu_torch.parallel.distributed import owned_dp_groups
         from r2d2_tpu_torch.parallel.sharding import mesh_train_step
@@ -990,25 +1064,23 @@ class AnakinPlane:
         self.cross = CrossRank(cfg, mesh, self.ring.cfg.num_blocks)
         dp, nb = self.cross.dp, self.cross.nb
         N = cfg.num_actors
-        if N % dp:
-            raise ValueError(f"num_actors ({N}) must divide over dp={dp}: "
-                             "each rank steps its share of the lanes")
-        if N > nb:
-            raise ValueError(
-                f"anakin on the mesh needs num_actors ({N}) <= the blocks "
-                f"of one rank's slab ({nb}): the N slots of one emit must "
-                "fall on distinct rows of every slab")
+        # a split lane axis needs N/dp lanes a rank, and the N-slot window
+        # of one routed emit on N distinct rows of every slab
+        self.replicated_lanes = bool(replicate_lanes or N % dp or N > nb)
         self._shardings = self.table.anakin_state_shardings(state)
+        train_step = mesh_train_step(cfg, net, self.table,
+                                     state_template=state_template)
+        if self.replicated_lanes:
+            return (0, N), train_step
         n = N // dp
         r = self.cross.rank
-        return (r * n, (r + 1) * n), mesh_train_step(
-            cfg, net, self.table, state_template=state_template)
+        return (r * n, (r + 1) * n), train_step
 
     def _split(self, key: str) -> bool:
         """Whether carry leaf ``key`` is split over the ranks by its
-        leading (lane) axis."""
-        return any(getattr(p, "dim", None) == 0
-                   for p in self._shardings[key])
+        leading (lane) axis (never with replicated lanes)."""
+        return not self.replicated_lanes and any(
+            getattr(p, "dim", None) == 0 for p in self._shardings[key])
 
     def _my_rows(self, v):
         """This rank's rows of a global entry split over the ranks (a

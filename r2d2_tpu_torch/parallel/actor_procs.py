@@ -1,10 +1,9 @@
 """Process-fleet actor plane: experience generation in subprocesses.
 
-Port of ``r2d2_tpu/parallel/actor_procs.py``, whole but for the population
-plane (``members``: ROADMAP.md A item 9).  The threaded fabric runs every
-actor fleet in the trainer's interpreter, where the fleets, the learner's
-issue and the fabric threads share one GIL.  This plane moves each fleet
-into a process of its own:
+Port of ``r2d2_tpu/parallel/actor_procs.py``.  The threaded fabric runs
+every actor fleet in the trainer's interpreter, where the fleets, the
+learner's issue and the fabric threads share one GIL.  This plane moves
+each fleet into a process of its own:
 
 - **N subprocess fleets** (``cfg.actor_fleets``), spawn-started (the
   trainer holds a CUDA context, which a fork would copy), each running the
@@ -28,6 +27,12 @@ into a process of its own:
   process-local ParamStore.
 - **Supervision**: a watchdog respawns a dead fleet on its lane shard,
   bounded by a restart budget, after which the run stops.
+- **Population** (``members``, ``league/population.py``): fleet f acts
+  for member f — its child runs under the member's config (env, epsilon
+  ladder, discount) and stamps the member's id into every block — while
+  the channels stay laid out under the base config (asserted
+  byte-identical); :meth:`ProcessFleetPlane.population_health` is the
+  per-member view of the fleet counters.
 
 Inference placement is ``cfg.actor_inference``: ``"local"`` acts in every
 child through its CPU twin of the network (float32, the scan recurrence —
@@ -180,9 +185,11 @@ class ShmBlockProducer:
     polls ``stop_event`` so shutdown never hangs a fleet mid-block."""
 
     def __init__(self, cfg: Config, action_dim: int,
-                 info: Tuple[str, Any, Any], stop_event, src: int = 0):
+                 info: Tuple[str, Any, Any], stop_event, src: int = 0,
+                 member_id: int = 0):
         name, self.free, self.ready = info
         self.src = src
+        self.member_id = member_id   # population member tag (league/)
         # Attaching registers the segment with the resource tracker again.
         # Spawned children share the trainer's tracker, whose registry is a
         # set: the second registration is a no-op, the child's exit (or
@@ -212,6 +219,9 @@ class ShmBlockProducer:
                 continue
         views = slot_views(self.shm.buf, self.spec, self.offsets,
                            self.slot_nbytes, slot)
+        # the member tag rides the wire, so every hop downstream (ingest,
+        # replay stats) counts per-member flow without a side table
+        block.member_id = self.member_id
         k, n_obs, n_steps = write_block(views, block, priorities)
         self.ready.put((slot, self.src, k, n_obs, n_steps, episode_reward))
         self.blocks_sent += 1
@@ -236,6 +246,9 @@ class _FleetSpec:
                             # and exploration stream
     num_threads: int = 0    # torch intra-op threads in the child (0:
                             # leave torch's default)
+    member_id: int = 0      # the population member this fleet acts for
+                            # (fleet f <-> member f), stamped into every
+                            # block's member_id word
 
 
 # ---------------------------------------------------------------- weights
@@ -436,7 +449,7 @@ def _fleet_worker_main(cfg: Config, action_dim: int, env_factory,
         act_fn = _TimedAct(make_host_act_fn(fleet_act_net(cfg, action_dim)))
 
     producer = ShmBlockProducer(cfg, action_dim, producer_info, stop_event,
-                                src=spec.fleet_id)
+                                src=spec.fleet_id, member_id=spec.member_id)
     stats_writer = (StatsSlabWriter(stats_info)
                     if stats_info is not None else None)
     num_lanes = spec.hi - spec.lo
@@ -567,13 +580,20 @@ class ProcessFleetPlane:
 
     ``device`` is where the serve-mode service acts (default: resolved
     from ``cfg.act_device``, the current CUDA device for ``"auto"``).
+
+    ``members`` (``league/population.py``, one per fleet): fleet f's
+    child runs under ``members[f].cfg`` — its envs, actor and block math —
+    and tags its blocks with the member's id; the channels, the act slabs
+    and the service stay laid out under ``cfg``.  The epsilons are the
+    caller's (``population_epsilons``: each member's own ladder over its
+    fleet's lanes).
     """
 
     SLOTS_PER_FLEET = 4   # in-flight blocks per fleet channel
 
     def __init__(self, cfg: Config, action_dim: int, env_factory,
                  epsilons: Sequence[float], max_restarts: int = 3,
-                 device=None):
+                 device=None, members: Optional[Sequence[Any]] = None):
         from r2d2_tpu_torch.actor import fleet_shards
 
         self.cfg = cfg
@@ -581,11 +601,26 @@ class ProcessFleetPlane:
         self.env_factory = env_factory
         self.max_restarts = max_restarts
         self.ctx = mp.get_context("spawn")
+        self.members = list(members) if members else []
+        if self.members:
+            from r2d2_tpu_torch.league.population import (
+                assert_wire_compatible,
+            )
+
+            if len(self.members) != cfg.actor_fleets:
+                raise ValueError(
+                    f"{len(self.members)} population members for "
+                    f"{cfg.actor_fleets} fleets — one fleet per member")
+            assert_wire_compatible(cfg, self.members, action_dim)
+        self.fleet_cfgs = ([m.cfg for m in self.members] if self.members
+                           else [cfg] * cfg.actor_fleets)
         shards, fleet_workers = fleet_shards(cfg)
         threads = max(1, (os.cpu_count() or 1) // len(shards))
         self.specs = [
             _FleetSpec(f, lo, hi, tuple(float(e) for e in epsilons[lo:hi]),
-                       fleet_workers, num_threads=threads)
+                       fleet_workers, num_threads=threads,
+                       member_id=(self.members[f].member_id
+                                  if self.members else 0))
             for f, (lo, hi) in enumerate(shards)
         ]
         F = len(self.specs)
@@ -770,7 +805,12 @@ class ProcessFleetPlane:
                 self.service.reset_shard(f)
         p = self.ctx.Process(
             target=_fleet_worker_main, name=f"fleet{f}",
-            args=(self.cfg, self.action_dim, self.env_factory, spec,
+            # the member's config under a population: the child's envs,
+            # actor and block math run member-shaped, while the channel
+            # above stays laid out under the base (asserted at
+            # construction)
+            args=(self.fleet_cfgs[f], self.action_dim, self.env_factory,
+                  spec,
                   self.channels[f].producer_info(), self.weight_queues[f],
                   self.stop_event, self.ctrl_queues[f], self.snap_queues[f],
                   restore_snap, act_info, self.stats_slab.writer_info(f)),
@@ -1042,6 +1082,33 @@ class ProcessFleetPlane:
         loops.append(("fleet_watch", fleet_watch))
         return loops
 
+    def population_health(self, stats: Optional[dict] = None
+                          ) -> Optional[dict]:
+        """The per-member view of the slab-merged fleet counters (fleet f
+        <-> member f): env steps, blocks produced and ingested, episodes,
+        reward sum — the ``population.*`` telemetry rows.  None outside a
+        population run."""
+        if not self.members:
+            return None
+        stats = stats if stats is not None else self.poll_fleet_stats()
+        rows = []
+        for f, m in enumerate(self.members):
+            row = (stats["per_fleet"][f]
+                   if f < len(stats["per_fleet"]) else {})
+            rows.append(dict(
+                member=m.member_id, name=m.name, preset=m.preset,
+                game=m.cfg.game_name,
+                lanes=self.specs[f].hi - self.specs[f].lo,
+                env_steps=int(row.get("env_steps", 0)),
+                blocks=int(row.get("blocks_produced", 0)),
+                blocks_ingested=int(self.blocks_per_fleet[f]),
+                episodes=int(row.get("episodes", 0)),
+                episode_reward_sum=float(
+                    row.get("episode_reward_sum", 0.0)),
+                param_version=int(row.get("param_version", 0)),
+            ))
+        return dict(members=rows)
+
     def health(self) -> dict:
         stats = self.poll_fleet_stats()
         out = dict(
@@ -1057,6 +1124,9 @@ class ProcessFleetPlane:
             stats=stats,
             resilience=self.resilience_health(stats),
         )
+        pop = self.population_health(stats)
+        if pop is not None:
+            out["population"] = pop
         if self.service is not None:
             out["service"] = self.service.health()
         return out

@@ -362,13 +362,15 @@ def task_emit(cfg_kw, ast, ring, cut, last_q, done):
                     "block_learning_total")})
 
 
-def task_anakin(cfg_kw, dispatches, seed=0, snap_path=None):
+def task_anakin(cfg_kw, dispatches, seed=0, snap_path=None,
+                replicate_lanes=False):
     """A meshed anakin plane over this rank's lanes and slab: warm-up
     rollouts until ready, then ``dispatches`` training dispatches, each
     harvested at once.  Returns the losses and stats per dispatch, the
-    gathered global payload, the gathered params, the fetches and the
-    collectives; ``snap_path``: every rank calls ``write_state`` and rank
-    0 writes it there."""
+    gathered global payload, the gathered params, the fetches, the
+    collectives and whether the lanes were replicated; ``snap_path``:
+    every rank calls ``write_state`` and rank 0 writes it there;
+    ``replicate_lanes`` forces the replicated lane axis."""
     import torch
     import torch.distributed as dist
 
@@ -397,7 +399,8 @@ def task_anakin(cfg_kw, dispatches, seed=0, snap_path=None):
     ring = DeviceRing(ring_slice_config(cfg, dp), 4, device="cpu",
                       layout="dp")
     plane = AnakinPlane(cfg, net, 4, ring, table=table,
-                        state_template=learner.state)
+                        state_template=learner.state,
+                        replicate_lanes=replicate_lanes)
     HOST_TRANSFERS.reset()
     CROSS_RANK_CALLS.clear()
     rollouts = 0
@@ -418,7 +421,8 @@ def task_anakin(cfg_kw, dispatches, seed=0, snap_path=None):
                payload=plane._payload(),
                params={k: _np(v) for k, v in learner.full_params().items()},
                counters={k: getattr(plane, k)
-                         for k in plane._COUNTER_FIELDS})
+                         for k in plane._COUNTER_FIELDS},
+               replicated=plane.replicated_lanes)
     if snap_path is not None:
         out["meta"] = plane.write_state(snap_path)
     return out

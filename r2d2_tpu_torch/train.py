@@ -12,7 +12,9 @@ the learner mesh (one process per card under torchrun):
   card), learner, replay buffer (or, with ``replay_shards > 1`` or
   ``replay_transport="socket"``, the sharded replay plane over shm or TCP,
   ``parallel/replay_shards.py``, ``parallel/replay_net.py``), ladder
-  epsilons, vector actors, and the
+  epsilons (each population member's own ladder over its fleet's lanes
+  under ``cfg.population_spec``, ``league/population.py``, with every
+  member's env probed), vector actors, and the
   full-state resume (a warm replay ring and the actors' RNG/env state from
   a replay snapshot; a device ring resumes cold);
 - ``_HostScaffold``: the stop predicate, the SIGTERM/SIGINT drain-then-save
@@ -25,9 +27,10 @@ the learner mesh (one process per card under torchrun):
   service threads), the replay plane's ``replay_watch`` (sharded replay),
   a sample thread (host ring only), a priority-feedback
   thread (not under in-graph PER), a log thread, the periodic snapshot
-  thread (host ring only) and the learner on the calling thread, all but
-  the learner under the supervisor — with drain-then-save and replay
-  snapshots;
+  thread (host ring only), the league's eval sidecar and its
+  ``eval_watch`` (``cfg.league_eval``, ``league/eval_service.py``) and
+  the learner on the calling thread, all but the learner under the
+  supervisor — with drain-then-save and replay snapshots;
 - ``train_sync``: the deterministic interleaving of the same components
   (the integration tests' and the debugger's loop);
 - ``_train_anakin``: ``actor_transport="anakin"``, the fused on-device
@@ -97,16 +100,16 @@ EnvFactory = Callable[[Config, int], Any]
 # chaos sites train() fires (wedge_dispatch only in the anakin transport,
 # the six fleet and service sites only in the process transport, the
 # seven shard and link sites only with replay_shards > 1 or the socket
-# transport); every other kind belongs to a plane the port has not ported
-# yet, named here by its ROADMAP.md item
+# transport, kill_eval_sidecar only with the league's eval sidecar);
+# every other kind belongs to a plane the port has not ported yet, named
+# here by its ROADMAP.md item
 CHAOS_SITES = ("truncate_ckpt", "freeze_learner", "poison_params",
                "wedge_dispatch", "kill_fleet", "garble_block",
                "freeze_service", "drop_act_response", "garble_act_response",
                "stall_pump", "kill_replay_shard", "garble_sample_response",
                "stall_shard", "partition_shard_link", "delay_shard_link",
-               "half_open_shard", "garble_net_frame")
+               "half_open_shard", "garble_net_frame", "kill_eval_sidecar")
 _UNPORTED_CHAOS = {
-    "kill_eval_sidecar": "item 9 (league)",
     "kill_session_client": "item 11 (the session load generator)",
     "slow_session_client": "item 11 (the session load generator)",
 }
@@ -138,11 +141,15 @@ def check_unported(cfg: Config, use_mesh: bool = False) -> None:
     from r2d2_tpu_torch.utils.chaos import parse_spec
 
     refusals = [
-        (bool(cfg.population_spec),
-         "population_spec (the population plane) waits for ROADMAP.md A "
-         "item 9"),
-        (cfg.league_eval,
-         "league_eval (the eval sidecar) waits for ROADMAP.md A item 9"),
+        (cfg.league_eval and cfg.actor_transport == "anakin",
+         "league_eval is not wired into the anakin transport (the fused "
+         "loop scores itself with its on-device eval lane, "
+         "anakin_eval_interval); the JAX package runs such a config "
+         "without the eval sidecar, and the port refuses it rather than "
+         "drop the sidecar"),
+        (cfg.transfer_guard,
+         "transfer_guard (device<->host transfer guards around the "
+         "dispatches) waits for ROADMAP.md A item 10"),
         (cfg.learnhealth_interval > 0,
          "learnhealth_interval > 0 (the in-graph diagnostic vector) waits "
          "for ROADMAP.md A item 10"),
@@ -242,9 +249,7 @@ def _build(cfg: Config, env_factory: EnvFactory,
         # needs the action space to size the network and replay layouts
         probe = env_factory(cfg, cfg.seed)
         action_dim = probe.action_space.n
-        close = getattr(probe, "close", None)
-        if callable(close):
-            close()
+        _close_env(probe)
         envs = []
     else:
         act_device = _resolve_act_device(cfg.act_device)
@@ -347,6 +352,21 @@ def _build(cfg: Config, env_factory: EnvFactory,
     buffer.env_steps = start_env_steps
     epsilons = [epsilon_ladder(i, cfg.num_actors, cfg.base_eps, cfg.eps_alpha)
                 for i in range(cfg.num_actors)]
+    members = None
+    if cfg.population_spec:
+        # the population plane (league/population.py; Config validation
+        # already pinned actor_transport="process" and one fleet per
+        # member): the member configs, each member's own ladder over its
+        # fleet's lanes, and the members' envs probed — one Q-head serves
+        # the whole population
+        from r2d2_tpu_torch.league.population import (
+            build_members,
+            population_epsilons,
+        )
+
+        members = build_members(actor_cfg)
+        epsilons = population_epsilons(cfg, members)
+        _probe_members(cfg, members, env_factory, action_dim)
     # actor_fleets fleets over contiguous lane slices: the ladder epsilons
     # stay GLOBAL, and each fleet gets its own RNG stream.  Each fleet acts
     # through its own network module (the act swaps the module's
@@ -364,7 +384,8 @@ def _build(cfg: Config, env_factory: EnvFactory,
         plane = ProcessFleetPlane(actor_cfg, action_dim, env_factory,
                                   epsilons,
                                   device=(device if cfg.act_device != "cpu"
-                                          else None))
+                                          else None),
+                                  members=members)
     else:
         shards, fleet_workers = fleet_shards(cfg)
         act_nets = [network(act_device) for _ in shards]
@@ -422,6 +443,47 @@ def _build(cfg: Config, env_factory: EnvFactory,
                 single_replay=single_replay)
 
 
+def _close_env(env) -> None:
+    close = getattr(env, "close", None)
+    if callable(close):
+        close()
+
+
+def _probe_members(cfg: Config, members, env_factory: EnvFactory,
+                   action_dim: int) -> None:
+    """Refuse, at start-up and naming the member, a population member whose
+    env cannot serve the base's Q-head: another action set, an env the
+    factory cannot build, or (with ``league_eval``) a real game the eval
+    sidecar's suite cannot build without the ALE (``league/scenarios.py``
+    builds its suites with ``create_env``, which refuses a real game
+    without ``ale_py``)."""
+    from r2d2_tpu_torch.envs import atari_available
+
+    for m in members:
+        if (cfg.league_eval and m.cfg.game_name != "Fake"
+                and not atari_available()):
+            raise ValueError(
+                f"population member {m.member_id} ({m.name}): game "
+                f"{m.cfg.game_name!r} needs the ALE for the eval sidecar's "
+                "held-out suite, and ale_py is not installed")
+        if m.cfg.game_name == cfg.game_name:
+            continue
+        try:
+            probe = env_factory(m.cfg, m.cfg.seed)
+        except RuntimeError as e:
+            raise ValueError(
+                f"population member {m.member_id} ({m.name}): env "
+                f"{m.cfg.game_name!r} cannot be built: {e}") from e
+        member_dim = probe.action_space.n
+        _close_env(probe)
+        if member_dim != action_dim:
+            raise ValueError(
+                f"population member {m.member_id} ({m.name}): env "
+                f"{m.cfg.game_name!r} has action_dim {member_dim} but the "
+                f"base env has {action_dim} — one Q-head serves the whole "
+                "population")
+
+
 def _mesh_ring(cfg: Config, replay_cfg: Config, mesh, action_dim: int,
                device: torch.device):
     """This rank's device ring under the learner mesh, or None (host
@@ -463,6 +525,15 @@ def _mesh_ring(cfg: Config, replay_cfg: Config, mesh, action_dim: int,
         + (" — a replicated ring over several ranks" if whole_each else "")
         + "; using host staging instead", stacklevel=3)
     return None
+
+
+def _rank(use_mesh: bool) -> int:
+    """This process's rank in the learner mesh (0 without one)."""
+    if not use_mesh:
+        return 0
+    import torch.distributed as dist
+
+    return dist.get_rank()
 
 
 def _device_memory_bytes(device: torch.device) -> Optional[int]:
@@ -726,7 +797,8 @@ def _train_anakin(cfg: Config, checkpoint_dir: Optional[str] = None,
     learner mesh and its sharding table, this rank's slab of the ring
     (``ring_slice_config``; "auto" or "dp" layout, as JAX's multi-host
     rings), the meshed ``Learner`` and the meshed plane — this rank's
-    share of the lanes, blocks routed to the slabs that own their slots,
+    share of the lanes, blocks routed to the slabs that own their slots
+    (or, when the lanes do not split over dp, every lane on every rank),
     the global draw — with one collective stop gate per dispatch.  A dp
     group over several ranks (fsdp or tp across ranks) is refused, as in
     :func:`train`'s other drivetrains.  The full-state snapshot is
@@ -1009,6 +1081,10 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                      replay), when armed
       replay_watch — the replay shard watchdog: respawns a dead shard,
                      restored from the latest replay snapshot
+      eval_watch   — the eval sidecar's watchdog (``cfg.league_eval``
+                     with a ``checkpoint_dir``): respawns a dead sidecar,
+                     its cursor resumed from league.jsonl; an exhausted
+                     budget degrades /healthz
       snapshot     — periodic replay snapshots
                      (``cfg.replay_snapshot_interval`` > 0)
       learner_watch— the heartbeat stall watchdog
@@ -1131,6 +1207,26 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
             replay_plane.checkpointer = checkpointer
         replay_plane.chaos = chaos
 
+    # the standing evaluation sidecar (league/eval_service.py): a CPU
+    # subprocess that follows this run's checkpoints, scores every
+    # population member on its held-out suite and publishes league.jsonl
+    # and the /statusz league table.  Its death only ever DEGRADES
+    # /healthz: the eval_watch loop respawns it (the cursor resumes from
+    # league.jsonl), and an exhausted budget stops evaluation, never
+    # training.  On the learner mesh rank 0 writes the checkpoints, so
+    # rank 0 runs it
+    sidecar = None
+    if cfg.league_eval and _rank(use_mesh) == 0:
+        if checkpoint_dir is None:
+            log.warning("league_eval requested without a checkpoint_dir — "
+                        "the eval sidecar follows checkpoints; running "
+                        "without it")
+        else:
+            from r2d2_tpu_torch.league.eval_service import EvalSidecar
+
+            sidecar = EvalSidecar(cfg, checkpoint_dir, sys["action_dim"],
+                                  registry=telemetry.registry)
+
     def learner_stop() -> bool:
         if chaos is not None:
             freeze = chaos.learner_freeze_seconds()
@@ -1213,10 +1309,10 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
     def healthz() -> Dict[str, Any]:
         """The /healthz verdict: ``ok``, ``degraded`` (HTTP 200: a fleet's
         act circuit open, a fleet's params stale past the budget, a replay
-        shard dead, partitioned or reconnecting, or the nonfinite
-        learnhealth alert) or ``failing`` (HTTP 503: a supervisor give-up,
-        a failed fleet or replay plane, or a heartbeat past its stall
-        budget)."""
+        shard dead, partitioned or reconnecting, the eval sidecar dead or
+        failed, or the nonfinite learnhealth alert) or ``failing`` (HTTP
+        503: a supervisor give-up, a failed fleet or replay plane, or a
+        heartbeat past its stall budget)."""
         age = heartbeat.age()
         stale = (cfg.learner_stall_timeout > 0
                  and age > cfg.learner_stall_timeout)
@@ -1254,6 +1350,12 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
             # from the survivors (redistributed strata) — degraded, not
             # failing
             degraded = degraded or bool(rh["degraded"])
+        if sidecar is not None:
+            # a dead or failed evaluator blinds the run to policy quality
+            # but touches nothing on the training path: degraded, never
+            # failing
+            out["league"] = sidecar.health()
+            degraded = degraded or bool(out["league"]["degraded"])
         degraded = degraded or scaffold.alerts.nonfinite_active
         out["degraded"] = degraded and out["ok"]
         out["status"] = ("failing" if not out["ok"]
@@ -1292,6 +1394,10 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
                 entry["fleet"] = plane.health()
             if replay_plane is not None:
                 entry["replay_shards"] = replay_plane.health()
+            if sidecar is not None:
+                # the league standings ride the entry: /statusz's
+                # last_entry, the JSONL run log and the league.* metrics
+                entry["league"] = sidecar.status()
             entry["corrupt_blocks"] = s["corrupt_blocks"]
             entry["shard_respawns"] = s.get("shard_respawns", 0)
             try:
@@ -1309,12 +1415,12 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
             last_steps, last_time = s["training_steps"], now
 
     def chaos_loop():
-        # the fleet plane's fault sites (fleet kill, slab garbling) and the
-        # replay plane's (shard kill, shard stall); the learner freeze
-        # fires from learner_stop, checkpoint truncation from the
-        # Checkpointer, the service and pump sites from the plane's own
-        # loops, the response/frame garbling and the link faults from the
-        # replay plane's receipt and issue paths
+        # the fleet plane's fault sites (fleet kill, slab garbling), the
+        # replay plane's (shard kill, shard stall) and the eval sidecar's
+        # kill; the learner freeze fires from learner_stop, checkpoint
+        # truncation from the Checkpointer, the service and pump sites
+        # from the plane's own loops, the response/frame garbling and the
+        # link faults from the replay plane's receipt and issue paths
         while not stop():
             time.sleep(0.05)
             if plane is not None:
@@ -1323,6 +1429,8 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
             if replay_plane is not None:
                 chaos.maybe_kill_replay_shard(replay_plane)
                 chaos.maybe_stall_shard(replay_plane)
+            if sidecar is not None:
+                chaos.maybe_kill_eval_sidecar(sidecar)
 
     def snapshot_loop():
         # periodic insurance against kill -9 (no drain possible): the
@@ -1350,7 +1458,9 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
                                     or chaos.enabled("garble_block")))
             or (replay_plane is not None
                 and (chaos.enabled("kill_replay_shard")
-                     or chaos.enabled("stall_shard")))):
+                     or chaos.enabled("stall_shard")))
+            or (sidecar is not None
+                and chaos.enabled("kill_eval_sidecar"))):
         loops.append(("chaos", chaos_loop))
     if want_full_save and cfg.replay_snapshot_interval > 0:
         loops.append(("snapshot", snapshot_loop))
@@ -1359,6 +1469,10 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
         # ingest, act server, weight pump, watchdog) runs as supervised
         # fabric threads
         loops += plane.make_loops(stop, buffer.add)
+    if sidecar is not None:
+        # the eval sidecar's watchdog (respawn with the cursor resumed):
+        # an exhausted budget degrades health, never the fabric
+        loops += sidecar.make_loops(stop)
     if replay_plane is not None:
         # sharded replay: the shard-process watchdog (respawn + restore)
         loops += replay_plane.make_loops(stop)
@@ -1412,6 +1526,8 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
                 replay_plane.start()
             if plane is not None:
                 plane.start(sys["param_store"])
+            if sidecar is not None:
+                sidecar.start()
             scaffold.start(loops)
             with device_profile(profile_dir):
                 if sys["ring"] is not None:
@@ -1431,6 +1547,14 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
             except Exception:
                 final_health = {}
             scaffold.quiesce()
+            league_final = None
+            if sidecar is not None:
+                # the standings the run served with, then the child stopped
+                # before the fleet plane: evaluation is pure overhead in a
+                # drain, and a sidecar mid-restore must not race the
+                # retention GC the epilogue save may run
+                league_final = sidecar.status()
+                sidecar.shutdown()
             if plane is not None:
                 # drain-then-save: resumable actor snapshots from the dying
                 # fleets, answered by their shutdown handshake
@@ -1477,6 +1601,11 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
             metrics["fleet_health"] = plane.health()
         if replay_plane is not None:
             metrics["replay_shard_health"] = replay_plane.health()
+        if sidecar is not None:
+            # the health the run served with, and a final re-read of the
+            # table (rows the sidecar committed in its own drain count)
+            metrics["league"] = dict(sidecar.status(max_age=0.0),
+                                     health=league_final["health"])
         metrics["blocks_per_member"] = buffer.stats().get(
             "blocks_per_member", {})
         return metrics

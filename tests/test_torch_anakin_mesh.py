@@ -11,7 +11,11 @@ for bit and trains on.  One routed emit over two ranks against the
 meshless emit (bitwise) and JAX's ``_make_emit`` (integers, bytes,
 hiddens and discounts bitwise; n-step returns and priorities to 1e-5, the
 port's anakin tolerance).  One result fetch per dispatch at dp = 1 and 2,
-and ``train(..., use_mesh=True)`` over two ranks.
+and ``train(..., use_mesh=True)`` over two ranks.  The replicated lane
+axis (lanes that do not divide over dp, or outnumber a slab's blocks:
+every rank steps every lane and writes the cut blocks its slab owns):
+three lanes over two ranks against dp = 1 at the same tolerances, and,
+forced at dp = 1, the meshless plane bit for bit.
 """
 import contextlib
 import os
@@ -139,6 +143,63 @@ def test_dp2_snapshot_resumes_on_dp1(dp2):
     for _ in range(2):
         learner.state, res = plane.dispatch(learner.state)
         assert np.isfinite(plane.harvest(res)).all()
+
+
+def assert_matches_meshless(ranks, cfg_kw, dispatches):
+    """Every rank's replicated-lane run against the meshless plane on the
+    same config: the trajectory bitwise, floats, params and PER mass at
+    the dp = 2 tolerances above, every rank the same state."""
+    plane, learner = meshless(anakin_config(**cfg_kw))
+    losses = drive(plane, learner, dispatches)
+    ref = plane._payload()
+    r0 = ranks[0]
+    np.testing.assert_allclose(r0["losses"], losses, rtol=1e-4)
+    for r in ranks:
+        assert r["replicated"] and r["losses"] == r0["losses"]
+        assert r["counters"] == r0["counters"]
+        assert_payload_parity(ref, r["payload"])
+        for k in ref:
+            np.testing.assert_array_equal(r["payload"][k], r0["payload"][k],
+                                          err_msg=k)
+    np.testing.assert_allclose(float(ref["per_prios"].sum()),
+                               float(r0["payload"]["per_prios"].sum()),
+                               rtol=1e-5)
+    for k, v in learner.state.params.items():
+        np.testing.assert_allclose(r0["params"][k], v.numpy(), **PARAM_TOL,
+                                   err_msg=k)
+    for f in ("env_steps", "fill", "blocks", "episodes_total",
+              "training_steps", "dispatch_no"):
+        assert r0["counters"][f] == getattr(plane, f), f
+
+
+def test_replicated_lanes_dp2_three_lanes_match_dp1(tmp_path):
+    """Three lanes over two ranks (the JAX package trains this geometry
+    on a replicated lane axis): every rank steps all three lanes and keeps
+    the cut blocks its slab owns; the trajectory is dp = 1's.  No block
+    moves between ranks: no collective in a rollout, and only the draw's
+    in a dispatch."""
+    kw = dict(BASE, num_actors=3)
+    ranks = run_ranks("anakin", 2, str(tmp_path),
+                      dict(cfg_kw=kw, dispatches=DISPATCHES), timeout=150)
+    assert_matches_meshless(ranks, dict(num_actors=3), DISPATCHES)
+    k = anakin_config().superstep_k
+    for r in ranks:
+        assert r["calls_rollout"] == {}
+        assert r["calls_train"] == dict(all_gather=DISPATCHES * 4 * k,
+                                        all_to_all=DISPATCHES * 7 * k)
+
+
+def test_forced_replicated_lanes_at_dp1_are_the_meshless_plane():
+    """The replicated lane axis forced at dp = 1 on the mesh: the meshless
+    plane's losses and every payload array, bit for bit."""
+    with world_of_one():
+        one = rank_worker.task_anakin(BASE, DISPATCHES, replicate_lanes=True)
+    assert one["replicated"]
+    plane, learner = meshless(anakin_config())
+    assert drive(plane, learner, DISPATCHES) == one["losses"]
+    ref = plane._payload()
+    for k, v in one["payload"].items():
+        np.testing.assert_array_equal(v, ref[k], err_msg=k)
 
 
 def test_one_fetch_per_dispatch_at_dp1_and_dp2(dp2):

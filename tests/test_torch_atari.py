@@ -151,14 +151,20 @@ def test_create_env_ale_branch_up_to_gymnasium_make(monkeypatch):
 
 
 def test_import_without_jax_cv2_or_gymnasium():
-    """``import r2d2_tpu_torch`` (and its envs, trainer and anakin loop)
-    works with jax, cv2 and gymnasium all blocked, imports nothing of the
-    JAX package, and reports no ALE."""
+    """``import r2d2_tpu_torch`` (and its envs, the league and its three
+    modules, the trainer and the anakin loop) works with jax, cv2 and
+    gymnasium all blocked, imports nothing of the JAX package, and reports
+    no ALE; the league imports without the trainer."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'cv2', 'gymnasium', 'ale_py'):\n"
         "    sys.modules[m] = None\n"
-        "import r2d2_tpu_torch, r2d2_tpu_torch.envs, r2d2_tpu_torch.train\n"
+        "import r2d2_tpu_torch, r2d2_tpu_torch.envs\n"
+        "import r2d2_tpu_torch.league\n"
+        "from r2d2_tpu_torch.league import eval_service, population\n"
+        "from r2d2_tpu_torch.league import scenarios\n"
+        "assert 'r2d2_tpu_torch.train' not in sys.modules\n"
+        "import r2d2_tpu_torch.train\n"
         "import r2d2_tpu_torch.learner.anakin\n"
         "from r2d2_tpu_torch.envs import atari\n"
         "assert not atari.atari_available() and atari.gymnasium is None\n"

@@ -582,3 +582,64 @@ def test_cross_rank_draw_over_nccl_matches_the_cpu_draw(cuda):
               "forward"):
         assert torch.equal(rows[k].cpu(), whole[k]), k
     assert torch.equal(p.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_population_trains_on_the_card_while_the_cpu_sidecar_scores(
+        cuda, tmp_path):
+    """A 2-member population (the base and the low_resource preset) in two
+    serve-mode fleets trains a few updates through ``train(device=
+    "cuda")``: both members' blocks in replay, the service acting through
+    the tensor-core kernel (layers x (batches + warm-up) launches), and
+    the eval sidecar scoring on the CPU, its process holding no NVIDIA
+    device file (no CUDA context; the driver library itself comes with
+    ``import torch``)."""
+    import json
+    import threading
+
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.league import eval_service
+
+    spec = json.dumps([{"name": "base"},
+                       {"name": "low", "preset": "low_resource"}])
+    cfg = Config(game_name="Fake", torso="mlp", hidden_dim=64, num_actors=8,
+                 burn_in_steps=4, learning_steps=4, forward_steps=2,
+                 block_length=8, buffer_capacity=1600, learning_starts=64,
+                 batch_size=8, actor_transport="process", actor_fleets=2,
+                 actor_inference="serve", population_spec=spec,
+                 league_eval=True, league_eval_episodes=2,
+                 league_eval_interval=0.2, save_interval=2,
+                 training_steps=10 ** 9, log_interval=0.3)
+    seen, done, real_start = {}, threading.Event(), (
+        eval_service.EvalSidecar.start)
+
+    def start(self):
+        real_start(self)
+        seen["sidecar"] = self
+
+    def log_sink(entry):
+        lg = entry.get("league") or {}
+        if (lg.get("sweeps", 0) >= 1 and entry["training_steps"] >= 4
+                and "handles" not in seen):
+            seen["handles"] = eval_service.card_handles(
+                str(seen["sidecar"].proc.pid))
+            done.set()
+
+    KERNEL_LAUNCHES.reset()
+    eval_service.EvalSidecar.start = start
+    try:
+        m = train.train(cfg, checkpoint_dir=str(tmp_path), verbose=False,
+                        device="cuda", max_wall_seconds=240,
+                        log_sink=log_sink, stop_fn=done.is_set)
+    finally:
+        eval_service.EvalSidecar.start = real_start
+    assert done.is_set() and not m["fabric_failed"]
+    assert np.isfinite(m["mean_loss"]) and m["num_updates"] >= 4
+    assert set(m["blocks_per_member"]) == {0, 1}
+    assert m["league"]["sweeps"] >= 1 and not m["league"]["health"]["failed"]
+    assert seen["handles"] == []
+    svc = m["fleet_health"]["service"]
+    assert KERNEL_LAUNCHES.get(KERNEL) == cfg.lstm_layers * (
+        svc["batches"] + svc["warmups"])
+    assert KERNEL_LAUNCHES.get(CUDACORE_COUNTER) == 0

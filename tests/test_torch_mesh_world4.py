@@ -4,10 +4,11 @@ The meshed step at a two-axis layout (dp = 2 × tp = 2: the batch split
 over dp, the LSTM gate columns and dense outputs over tp) against the
 meshless step and against JAX's ``pjit_train_step`` at the same layout on
 the conftest's 8-device CPU mesh (3 steps, mlp torso, H = 16; the
-tolerances of tests/test_torch_distributed.py), and ``train()`` over a
-dp = 4 mesh end to end.  The ranks are processes of
-``r2d2_tpu_torch.tools.rank_worker``, each with a deadline and a stack
-dump.
+tolerances of tests/test_torch_distributed.py), ``train()`` over a
+dp = 4 mesh end to end, and anakin at dp = 4 with one lane a rank and
+with eight lanes over five-block slabs (the replicated lane axis).  The
+ranks are processes of ``r2d2_tpu_torch.tools.rank_worker``, each with a
+deadline and a stack dump.
 """
 import jax
 import numpy as np
@@ -167,3 +168,17 @@ def test_anakin_at_dp4_one_fetch_per_dispatch(tmp_path):
         for k, v in r["payload"].items():
             np.testing.assert_array_equal(v, out[0]["payload"][k],
                                           err_msg=k)
+
+
+def test_anakin_at_dp4_replicated_lanes_match_dp1(tmp_path):
+    """Eight lanes over four ranks whose slabs hold five of the 20 blocks:
+    more lanes than a slab's blocks, so every rank steps all eight (the
+    replicated lane axis) and keeps the cut blocks its slab owns; the
+    trajectory is dp = 1's, as at dp = 2."""
+    from test_torch_anakin_mesh import BASE, assert_matches_meshless
+
+    kw = dict(BASE, num_actors=8)
+    assert port_test_config(**kw).num_blocks == 20
+    out = run_ranks("anakin", 4, str(tmp_path),
+                    dict(cfg_kw=kw, dispatches=2), timeout=150)
+    assert_matches_meshless(out, dict(num_actors=8), 2)
