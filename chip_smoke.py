@@ -298,8 +298,39 @@ Phases (each exits non-zero on failure):
     update interval p50, each member's env steps/s filling and training,
     a sweep's latency from its checkpoint's commit, the sidecar's CPU
     cores, peak GB and the phase's seconds;
-14. one ``{"kernels": [...]}`` JSON line;
-15. last line: ``{"ok": true, "device": {...}}``.
+14. telemetry and guards: (a) one armed train step (the in-graph
+    diagnostic vector) of the flagship net in f32 on the card against f32
+    on the CPU — the 12 scalars within ``DIAG_RTOL`` relative, the 16
+    bucket counts equal up to the values within ``DIAG_EDGE_EPS`` of an
+    edge (their number printed) — then the bf16 step printed, not held;
+    (b) the flagship ``Config(game_name="Fake")`` through ``train()`` from
+    its full host ring with ``learnhealth_interval=4`` and
+    ``trace_steps=8``, 8 thread actors, cut in warm-up and run length (the
+    ``reduced:`` line), and a plain run beside it.  Checked: armed diag
+    rows every 4th update and zeros elsewhere, one ``learner.
+    result_fetch`` an update in both runs, ``/alertz`` live, one trace
+    JSON with the trainer track, ``learner.*`` spans and
+    ``block.env_steps+cut`` flows, ``lstm_infer`` = layers x acts; prints
+    the update interval p50 with and without the diagnostics and in the
+    capture window, and a lone step's device time armed and disarmed;
+    (c) phase 10's flagship over two shm shards with ``actor_transport=
+    "process"``, two fleets through the service: ``GET /tracez?steps=4``
+    (200, then 409 while busy) dumps one trace with one track per process
+    (fleets and shards in distinct pids), a block flow across fleet,
+    trainer and shard, ``serve.batch`` instants and no torn slot, and no
+    child holds the card; ``GET /profilez?secs=1`` (200, then 409) writes
+    a ``torch.profiler`` trace holding ``lstm_step_wgmma``; (d) phase 8's
+    anakin config with ``transfer_guard=True``, cut to two dispatches:
+    its windows counted and none tripped; on a 64-block plane at the same
+    widths, a guarded dispatch's cost against an unguarded one and an
+    undeclared ``.item()`` injected into a dispatch window raising
+    ``TransferGuardTripped`` naming it; phase 4's served act under an
+    armed guard (``window.serving.act`` counted, no trip); (e) the Pong
+    preset's in-graph super-step with ``learnhealth_interval=2`` returning
+    (k, 28) rows, and a meshed world-size-1 step's diag bit for bit its
+    meshless one over NCCL.  Prints each part's seconds;
+15. one ``{"kernels": [...]}`` JSON line;
+16. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -491,6 +522,42 @@ LEAGUE_WATCHDOG_S = 420
 LEAGUE_ROW_KEYS = {"kind", "time", "step", "member", "member_name", "game",
                    "episodes", "mean_reward", "env_frames", "minutes",
                    "incarnation"}
+# phase 14: telemetry and guards.  (a) one armed step, f32 card vs f32
+# CPU: the scalars sum in other orders, nothing else differs; a |TD| or IS
+# weight within DIAG_EDGE_EPS of a bucket edge may land in either bucket
+DIAG_RTOL = 1e-4
+DIAG_EDGE_EPS = 1e-5
+# (b) the flagship Config(game_name="Fake") through train() from its full
+# host ring, cut in warm-up (8 blocks: each lane's first, 80 sequences for
+# a batch of 64) and run length, with the diagnostics every 4th update
+# and a boot-time capture of 8 updates; the comparison run has neither
+LH_INTERVAL = 4
+LH_TRACE_STEPS = 8
+LH_REDUCED = dict(learning_starts=3_200, training_steps=16,
+                  telemetry_port=-1, log_interval=0.5)
+LH_PLAIN_STEPS = 8
+LH_WALL_S = 240
+LH_COST_ITERS = 2
+# (c) the flagship over two shm shards with two fleets through the
+# service, cut in warm-up as (b); a capture of 4 updates through
+# /tracez, then a 1 s profile through /profilez
+CAPTURE_REDUCED = dict(replay_shards=2, actor_transport="process",
+                       actor_fleets=2, actor_inference="serve",
+                       learning_starts=3_200, telemetry_port=-1,
+                       log_interval=0.5)
+CAPTURE_STEPS = 4
+CAPTURE_ATTEMPTS = 10
+PROFILE_SECS = 1.0
+CAPTURE_WALL_S = 240
+# (d) phase 8's anakin config with the guard armed after its warm-up, cut
+# as phase 8 in warm-up and to two dispatches; then a 64-block plane at
+# the same widths, and phase 4's served act
+GUARD_REDUCED = dict(ANAKIN_REDUCED, training_steps=16,
+                     replay_snapshot=False)
+GUARD_PAIRS = 4
+GUARD_SERVE_BATCHES = (1, 5, 32)
+GUARD_WALL_S = 240
+TELEMETRY_WATCHDOG_S = 600
 # the meshless timings of phases 5 and 7, set as they run, printed beside
 # phase 11's meshed ones
 MESHLESS: dict = {}
@@ -3921,8 +3988,8 @@ def mesh_run(torch, card: str, cfg, label: str, ckdir: str,
     real_build, real_mts = train._build, step_mod.make_train_step
     probe = {}
 
-    def recording_mts(cfg_, net_):
-        inner = real_mts(cfg_, net_)
+    def recording_mts(cfg_, net_, **kw):
+        inner = real_mts(cfg_, net_, **kw)
 
         def step(state, batch):
             out = inner(state, batch)
@@ -4390,8 +4457,8 @@ def mesh_ig_run(torch, card: str, cfg, device: str) -> dict:
     probe = {}
     real_build, real_mts = train._build, step_mod.make_train_step
 
-    def recording_mts(cfg_, net_):
-        inner = real_mts(cfg_, net_)
+    def recording_mts(cfg_, net_, **kw):
+        inner = real_mts(cfg_, net_, **kw)
 
         def step(state, batch):
             out = inner(state, batch)
@@ -4666,8 +4733,8 @@ def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
     probe = {}
     real_loop, real_mts = anakin.run_anakin_loop, step_mod.make_train_step
 
-    def recording_mts(cfg_, net_):
-        inner = real_mts(cfg_, net_)
+    def recording_mts(cfg_, net_, **kw):
+        inner = real_mts(cfg_, net_, **kw)
 
         def step(state, batch):
             out = inner(state, batch)
@@ -5237,6 +5304,730 @@ def phase_league(torch, card: str) -> dict:
     return dict(run=main_run["launches"], chaos=drill["launches"])
 
 
+# --------------------------------------------------------------------------
+# phase 14: telemetry and guards on the card
+# --------------------------------------------------------------------------
+
+def diag_rel(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Per-scalar relative difference of two diag vectors (absolute where
+    the reference is 0)."""
+    return np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+
+
+def near_edges(values: np.ndarray, edges) -> int:
+    """How many of ``values`` lie within ``DIAG_EDGE_EPS`` of a bucket
+    edge: a value there may bucket differently on the card and the CPU."""
+    v = np.asarray(values, np.float64).reshape(-1, 1)
+    return int((np.abs(v - np.asarray(edges, np.float64)[None, :])
+                <= DIAG_EDGE_EPS).any(axis=1).sum())
+
+
+def diag_card_vs_cpu(torch, base, device: str = "cuda") -> dict:
+    """(a): one armed train step of the flagship net, f32 on the card
+    against f32 on the CPU from the same params on the same batch: the
+    twelve scalars within ``DIAG_RTOL`` relative, the bucket counts equal
+    up to the values within ``DIAG_EDGE_EPS`` of an edge; then the bf16
+    step on the card, printed against the f32 CPU diag and not held."""
+    from r2d2_tpu_torch.learner.step import (
+        _loss_net,
+        create_train_state,
+        loss_and_priorities,
+        make_train_step,
+    )
+    from r2d2_tpu_torch.models import create_network
+    from r2d2_tpu_torch.telemetry import learnhealth as lhm
+
+    out, edge_vals = {}, None
+    for dev, dtype in ((device, "float32"), ("cpu", "float32"),
+                       (device, "bfloat16")):
+        cfg = base.replace(compute_dtype=dtype, learnhealth_interval=1)
+        net = create_network(cfg, TRAIN_ACTIONS, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+        state = create_train_state(cfg, net.state_dict())
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in step_batch(cfg, seed=14).items()}
+        if dev == "cpu":
+            with torch.no_grad():
+                _, _, aux = loss_and_priorities(
+                    cfg, _loss_net(net), state.params, state.target_params,
+                    batch, with_aux=True)
+            td, mask = aux[0].numpy(), aux[1].numpy()
+            edge_vals = (near_edges(np.abs(td)[mask], lhm.TD_ABS_EDGES)
+                         + near_edges(batch["is_weights"].numpy(),
+                                      lhm.IS_WEIGHT_EDGES))
+        _, loss, _, diag = make_train_step(cfg, net, learnhealth=True)(
+            state, batch)
+        out[(dev, dtype)] = diag.float().cpu().numpy()
+    card = out[(device, "float32")]
+    cpu = out[("cpu", "float32")]
+    bf16 = out[(device, "bfloat16")]
+    n = len(lhm.DIAG_SCALARS)
+    rel = diag_rel(card[:n], cpu[:n])
+    buckets = np.abs(card[n:] - cpu[n:]).sum()
+    worst = int(np.argmax(rel))
+    print(f"diag card vs CPU (flagship widths, f32, batch "
+          f"{base.batch_size}, T={base.seq_len}): armed {card[0]:.0f}/"
+          f"{cpu[0]:.0f}; scalars max relative {rel.max():.3e} at "
+          f"{lhm.DIAG_SCALARS[worst]} (tol {DIAG_RTOL:.0e}); bucket counts "
+          f"differ by {buckets:.0f} with {edge_vals} values within "
+          f"{DIAG_EDGE_EPS:.0e} of an edge; dq_mean {cpu[8]:.5f}, dq_max "
+          f"{cpu[9]:.5f}, grad_norm {cpu[3]:.5f}", flush=True)
+    rel_bf = diag_rel(bf16[:n], cpu[:n])
+    print("diag bf16 card vs f32 CPU (printed, not held): " + ", ".join(
+        f"{name} {r:.2e}" for name, r in zip(lhm.DIAG_SCALARS, rel_bf))
+        + f"; bucket counts differ by {np.abs(bf16[n:] - cpu[n:]).sum():.0f}",
+        flush=True)
+    if not (np.isfinite(card).all() and np.isfinite(cpu).all()
+            and card[0] == 1.0 and cpu[0] == 1.0):
+        fail(f"the armed diag is not finite and armed: {card} / {cpu}")
+    if rel.max() > DIAG_RTOL or buckets > 2 * edge_vals:
+        fail(f"the card's diag disagrees with the CPU's: scalars "
+             f"{rel.tolist()}, buckets {card[n:]} vs {cpu[n:]}")
+    return dict(max_rel=float(rel.max()), bucket_diff=float(buckets),
+                near_edge=edge_vals)
+
+
+def armed_step_cost(torch, base, device: str = "cuda") -> dict:
+    """The device time of an armed train step against a disarmed one at
+    the run's widths (bf16): the ΔQ re-unroll, the norms and histograms."""
+    from r2d2_tpu_torch.learner.step import (
+        create_train_state,
+        make_train_step,
+    )
+    from r2d2_tpu_torch.models import create_network
+
+    cfg = base.replace(learnhealth_interval=1)
+    net = create_network(cfg, TRAIN_ACTIONS, device=device,
+                         generator=torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in step_batch(cfg, seed=15).items()}
+    out = {}
+    for label, lh in (("armed", True), ("disarmed", False)):
+        state = create_train_state(cfg, net.state_dict())
+        step = make_train_step(cfg, net, learnhealth=lh)
+        box = [state]
+
+        def fn():
+            box[0] = step(box[0], batch)[0]
+
+        out[label] = device_ms(torch, fn, iters=LH_COST_ITERS)
+    return out
+
+
+def lh_run(torch, card: str, cfg, label: str, ckdir: str,
+           device: str = "cuda") -> dict:
+    """One of (b)'s ``train()`` runs: the rows the monitor absorbed, the
+    learner's result fetches, the kernel's launches and the update
+    interval, in the capture window and after it."""
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.actor import ACTOR_ACT
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.telemetry import learnhealth as lhm
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+
+    real_build = train._build
+    real_absorb = lhm.LearnHealthMonitor.absorb_diags
+    rec = dict(stamps=[], rows=[])
+    probe = {}
+
+    def capture(*args, **kw):
+        sys_ = real_build(*args, **kw)
+        learner = sys_["learner"]
+        step = learner._step_fn
+
+        def stamped(state, batch):
+            rec["stamps"].append(time.perf_counter())
+            return step(state, batch)
+
+        learner._step_fn = stamped
+        return sys_
+
+    def absorb(self, diags):
+        rec["rows"].extend(np.asarray(diags, np.float64)
+                           .reshape(-1, lhm.DIAG_SIZE))
+        return real_absorb(self, diags)
+
+    def log_sink(entry):
+        if "alertz" in probe:
+            return
+        try:
+            probe["alertz"] = http_get(entry["telemetry_port"], "/alertz")
+        except Exception as e:   # checked below, after the run
+            probe["alertz"] = (0, f"{type(e).__name__}: {e}")
+
+    KERNEL_LAUNCHES.reset()
+    HOST_TRANSFERS.reset()
+    train._build = capture
+    lhm.LearnHealthMonitor.absorb_diags = absorb
+    t0 = time.perf_counter()
+    try:
+        m = train.train(cfg, env_factory, checkpoint_dir=ckdir,
+                        max_wall_seconds=LH_WALL_S, verbose=False,
+                        log_sink=log_sink, device=device)
+    finally:
+        train._build = real_build
+        lhm.LearnHealthMonitor.absorb_diags = real_absorb
+    run_s = time.perf_counter() - t0
+    steps = cfg.training_steps
+    launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
+    acts = HOST_TRANSFERS.get(ACTOR_ACT)
+    fetches = HOST_TRANSFERS.get("learner.result_fetch")
+    if (m["num_updates"] != steps or m["fabric_failed"]
+            or not np.isfinite(m["mean_loss"])):
+        fail(f"{label}: {m['num_updates']} updates, failed "
+             f"{m['fabric_failed']}, mean loss {m['mean_loss']}")
+    if launches != cfg.lstm_layers * acts or not acts:
+        fail(f"{label}: lstm_infer launched {launches} times for {acts} "
+             f"acts, {cfg.lstm_layers} layer")
+    if probe.get("alertz", (0,))[0] != 200:
+        fail(f"{label}: /alertz answered {probe.get('alertz')}")
+    stamps = np.asarray(rec["stamps"])
+    gaps = np.diff(stamps) * 1e3
+    return dict(m=m, rows=np.asarray(rec["rows"]), fetches=fetches,
+                launches=launches, acts=acts, seconds=run_s, gaps=gaps,
+                alertz=json.loads(probe["alertz"][1]))
+
+
+def trace_summary(path: str) -> dict:
+    """A merged trace's tracks, event names and flows."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    tracks = {e["pid"]: e["args"]["name"] for e in events
+              if e.get("ph") == "M" and e["name"] == "process_name"}
+    names: dict = {}
+    flows: dict = {}
+    for e in events:
+        if e.get("ph") == "M":
+            continue
+        names.setdefault(e["pid"], set()).add(e["name"])
+        if e.get("cat") == "block":
+            flows.setdefault(e["id"], set()).add(e["pid"])
+    return dict(tracks=tracks, names=names, flows=flows, events=len(events),
+                bytes=os.path.getsize(path))
+
+
+def crossing_flows(tr: dict) -> list:
+    """The block flows of a merged trace with events on a fleet's, the
+    trainer's and a shard's track."""
+    pid_of = {n: p for p, n in tr["tracks"].items()}
+    fleets = {p for n, p in pid_of.items() if n.startswith("fleet")}
+    shards = {p for n, p in pid_of.items() if n.startswith("shard")}
+    trainer = pid_of.get("trainer")
+    return [i for i, pids in tr["flows"].items()
+            if pids & fleets and trainer in pids and pids & shards]
+
+
+def lh_fabric(torch, card: str, device: str = "cuda", base=None) -> dict:
+    """(b): the flagship through ``train()`` with the diagnostics armed
+    every ``LH_INTERVAL`` updates and a boot-time capture of
+    ``LH_TRACE_STEPS``, then the same run with neither."""
+    import glob
+    import shutil
+    import tempfile
+
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.telemetry.learnhealth import DIAG_SIZE
+
+    base = base or Config(game_name="Fake")
+    cfg = base.replace(learnhealth_interval=LH_INTERVAL,
+                       trace_steps=LH_TRACE_STEPS, **LH_REDUCED)
+    print("reduced: " + ", ".join(
+        f"{k} {getattr(base, k)} -> {v}" for k, v in LH_REDUCED.items())
+        + f", learnhealth_interval 0 -> {LH_INTERVAL}, trace_steps 0 -> "
+        f"{LH_TRACE_STEPS}; the comparison run {LH_PLAIN_STEPS} updates "
+        f"with neither; the full host ring ({base.num_blocks} blocks of "
+        f"{base.block_length}), 8 thread actors, fake env episodes of "
+        f"{FAKE_EPISODE_LEN} steps", flush=True)
+    cost = armed_step_cost(torch, base, device)
+    ckdirs = [tempfile.mkdtemp(prefix="chip_smoke_lh_") for _ in range(2)]
+    try:
+        lh = lh_run(torch, card, cfg, "diagnosed", ckdirs[0], device)
+        plain = lh_run(torch, card, base.replace(
+            training_steps=LH_PLAIN_STEPS, **{
+                k: v for k, v in LH_REDUCED.items()
+                if k != "training_steps"}), "plain", ckdirs[1], device)
+        dumps = sorted(glob.glob(os.path.join(ckdirs[0], "telemetry",
+                                              "trace_*.json")))
+        if len(dumps) != 1:
+            fail(f"the diagnosed run dumped {dumps}, want one trace")
+        tr = trace_summary(dumps[0])
+    finally:
+        for d in ckdirs:
+            shutil.rmtree(d, ignore_errors=True)
+    rows = lh["rows"]
+    steps = cfg.training_steps
+    armed = rows[:, 0] == 1.0
+    want = (np.arange(1, len(rows) + 1) % LH_INTERVAL) == 0
+    if (len(rows) != steps or not np.array_equal(armed, want)
+            or np.any(rows[~armed] != 0) or rows.shape[1] != DIAG_SIZE
+            or not np.isfinite(rows).all()):
+        fail(f"diag rows: {len(rows)} for {steps} updates, armed at "
+             f"{np.nonzero(armed)[0].tolist()}, want every {LH_INTERVAL}th")
+    if (lh["fetches"] != steps or plain["fetches"] != LH_PLAIN_STEPS):
+        fail(f"learner.result_fetch: {lh['fetches']} for {steps} diagnosed "
+             f"updates, {plain['fetches']} for {LH_PLAIN_STEPS} plain")
+    if lh["m"]["learnhealth"]["armed_steps"] != steps // LH_INTERVAL:
+        fail(f"the monitor absorbed {lh['m']['learnhealth']} armed steps")
+    trainer = [p for p, n in tr["tracks"].items() if n == "trainer"]
+    got = tr["names"].get(trainer[0], set()) if trainer else set()
+    learner_spans = sorted(n for n in got if n.startswith("learner."))
+    if (not trainer or not learner_spans or "block.env_steps+cut" not in got
+            or not tr["flows"]):
+        fail(f"the trace: tracks {tr['tracks']}, trainer names "
+             f"{sorted(got)}, {len(tr['flows'])} flows")
+    gaps = lh["gaps"]
+    inside = gaps[:LH_TRACE_STEPS - 1]
+    after = gaps[LH_TRACE_STEPS:]
+    print(f"diagnosed flagship on {card}: {steps} updates in "
+          f"{lh['seconds']:.2f} s, armed rows at updates "
+          f"{(np.nonzero(armed)[0] + 1).tolist()} and zeros elsewhere; "
+          f"learner.result_fetch {lh['fetches']} = one a update, as the "
+          f"plain run's {plain['fetches']} for {LH_PLAIN_STEPS}; /alertz "
+          f"200 ({len(lh['alertz'].get('rules', []))} rules); lstm_infer "
+          f"{lh['launches']} = 1 x {lh['acts']} acts (plain run "
+          f"{plain['launches']} = 1 x {plain['acts']}); trace "
+          f"{os.path.basename(dumps[0])}: {tr['events']} events, "
+          f"{tr['bytes']} bytes, {len(tr['flows'])} block flows, trainer "
+          f"spans {learner_spans}", flush=True)
+    a_ms, a_ev = cost["armed"]
+    d_ms, d_ev = cost["disarmed"]
+    print(f"diagnostics' cost on {card}: update interval p50 "
+          f"{pct(gaps, 50):.2f} ms diagnosed vs {pct(plain['gaps'], 50):.2f}"
+          f" ms plain; in the capture window {pct(inside, 50):.2f} ms vs "
+          f"{pct(after, 50):.2f} ms after it; a lone step's device time "
+          f"armed {fmt(a_ms)} ({a_ev:.0f} device events) vs disarmed "
+          f"{fmt(d_ms)} ({d_ev:.0f}): the re-unroll, norms and histograms "
+          f"{fmt(None if a_ms is None or d_ms is None else a_ms - d_ms)}",
+          flush=True)
+    return dict(launches=lh["launches"] + plain["launches"],
+                armed_ms=a_ms, disarmed_ms=d_ms)
+
+
+def capture_run(torch, card: str, device: str = "cuda", base=None) -> dict:
+    """(c): the flagship over two shm replay shards with two fleets in
+    serve mode; a capture armed through ``GET /tracez?steps=`` and a
+    profile through ``GET /profilez?secs=``, both read back."""
+    import shutil
+    import tempfile
+
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.utils.trace import KERNEL_LAUNCHES
+
+    base = base or Config(game_name="Fake")
+    cfg = base.replace(**CAPTURE_REDUCED)
+    print("reduced: " + ", ".join(
+        f"{k} {getattr(base, k)} -> {v}" for k, v in
+        CAPTURE_REDUCED.items()) + "; stopped once the capture and the "
+        "profile are read back", flush=True)
+    real_build = train._build
+    rec: dict = {}
+    stop = threading.Event()
+    state = dict(port=None, steps=0)
+
+    def capture(*args, **kw):
+        sys_ = real_build(*args, **kw)
+        rec.update(sys_)
+        return sys_
+
+    def log_sink(entry):
+        state["port"] = entry["telemetry_port"]
+        state["steps"] = entry["training_steps"]
+        if "procs" not in rec and rec.get("plane") is not None:
+            plane, rp = rec["plane"], rec["replay_plane"]
+            try:
+                rec["procs"] = [proc_report(p.pid) for p in
+                                list(plane.procs) + list(rp.procs)]
+            except OSError as e:
+                rec["procs_error"] = str(e)
+
+    def driver():
+        try:
+            deadline = time.time() + CAPTURE_WALL_S
+            while (state["port"] is None or state["steps"] < 1) and \
+                    time.time() < deadline and not stop.is_set():
+                time.sleep(0.1)
+            port = state["port"]
+            # lockstep lanes cut their 400-step blocks in bursts, and a
+            # window of a few updates may fall between two bursts: capture
+            # again until one window holds a block's whole chain (the
+            # attempts are printed)
+            for attempt in range(1, CAPTURE_ATTEMPTS + 1):
+                arm = http_get(port, f"/tracez?steps={CAPTURE_STEPS}")
+                busy = http_get(port, f"/tracez?steps={CAPTURE_STEPS}")
+                rec.setdefault("arm", arm)
+                rec.setdefault("busy", busy)
+                while time.time() < deadline:
+                    status = json.loads(http_get(port, "/tracez")[1])
+                    if (not status["armed"]
+                            and status["last"].get("capture_id") == attempt):
+                        rec["trace"] = status["last"]
+                        break
+                    time.sleep(0.2)
+                rec["attempts"] = attempt
+                if "trace" in rec and crossing_flows(
+                        trace_summary(rec["trace"]["path"])):
+                    break
+            for attempt in range(2):
+                t0 = time.perf_counter()
+                rec["profile_arm"] = http_get(
+                    port, f"/profilez?secs={PROFILE_SECS}")
+                rec["profile_busy"] = http_get(
+                    port, f"/profilez?secs={PROFILE_SECS}")
+                while time.time() < deadline:
+                    status = json.loads(http_get(port, "/profilez")[1])
+                    if not status["armed"] and status["last"]:
+                        rec["profile"] = status["last"]
+                        rec["profile_s"] = time.perf_counter() - t0
+                        break
+                    time.sleep(0.1)
+                if "path" in rec.get("profile", {}):
+                    break
+                print(f"profile attempt {attempt + 1}: {rec.get('profile')}",
+                      flush=True)
+        except Exception as e:   # checked below, after the run
+            rec["driver_error"] = f"{type(e).__name__}: {e}"
+        finally:
+            stop.set()
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_capture_")
+    KERNEL_LAUNCHES.reset()
+    train._build = capture
+    th = threading.Thread(target=driver, name="capture-driver", daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        m = train.train(cfg, env_factory, checkpoint_dir=ckdir,
+                        max_wall_seconds=CAPTURE_WALL_S, verbose=False,
+                        log_sink=log_sink, stop_fn=stop.is_set,
+                        device=device)
+        run_s = time.perf_counter() - t0
+        th.join(30)
+        launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
+        if "driver_error" in rec or "trace" not in rec:
+            fail(f"capture: driver {rec.get('driver_error')}, trace "
+                 f"{rec.get('trace')}")
+        if rec["arm"][0] != 200 or rec["busy"][0] != 409:
+            fail(f"/tracez answered {rec['arm']} then {rec['busy']}")
+        tr = trace_summary(rec["trace"]["path"])
+        prof = rec.get("profile", {})
+        kernels = 0
+        if "path" in prof:
+            with open(prof["path"]) as f:
+                kernels = sum(1 for e in json.load(f).get("traceEvents", [])
+                              if WGMMA_KERNEL in str(e.get("name", "")))
+    finally:
+        train._build = real_build
+        shutil.rmtree(ckdir, ignore_errors=True)
+    names = set(tr["tracks"].values())
+    want = {"trainer", "fleet0", "fleet1", "shard0", "shard1"}
+    trainer = {n: p for p, n in tr["tracks"].items()}.get("trainer")
+    crossing = crossing_flows(tr)
+    serve_batches = "serve.batch" in tr["names"].get(trainer, set())
+    procs = rec.get("procs", [])
+    if (m["fabric_failed"] or not names >= want
+            or len(set(tr["tracks"])) != len(tr["tracks"]) or not crossing
+            or not serve_batches or rec["trace"]["dropped_slabs"] != 0):
+        fail(f"capture: failed {m['fabric_failed']}, tracks "
+             f"{tr['tracks']}, {len(crossing)} flows across fleet, trainer "
+             f"and shard, serve.batch {serve_batches}, last "
+             f"{rec['trace']}")
+    if not procs or any(p["device"] for p in procs):
+        fail(f"a fleet or shard child holds the card: {procs} "
+             f"{rec.get('procs_error')}")
+    if (rec["profile_arm"][0] != 200 or rec["profile_busy"][0] != 409
+            or "path" not in prof or not kernels):
+        fail(f"/profilez: {rec['profile_arm']} then {rec['profile_busy']}, "
+             f"last {prof}, {kernels} {WGMMA_KERNEL} events")
+    print(f"capture across processes on {card}: {m['num_updates']} "
+          f"updates in {run_s:.2f} s; /tracez?steps={CAPTURE_STEPS} 200 "
+          f"then 409 while busy, {rec['attempts']} capture(s) to catch a "
+          f"block's chain; tracks {sorted(tr['tracks'].items())}, "
+          f"{tr['events']} events, {tr['bytes']} bytes, "
+          f"{rec['trace']['dropped_slabs']} torn slots, overflow "
+          f"{rec['trace']['overflow']}; {len(crossing)} of "
+          f"{len(tr['flows'])} block flows cross fleet -> trainer -> shard; "
+          f"serve.batch instants on the trainer track; children "
+          f"{len(procs)}, none holding the card; /profilez?secs="
+          f"{PROFILE_SECS} 200 then 409, {prof['device_events']} device "
+          f"events, {kernels} {WGMMA_KERNEL} events, the window "
+          f"{rec['profile_s']:.2f} s end to end; lstm_infer {launches}",
+          flush=True)
+    return dict(launches=launches)
+
+
+def guard_checks(torch, card: str, device: str = "cuda", base=None,
+                 serve_cfg=None) -> dict:
+    """(d): anakin trained with ``transfer_guard=True`` (phase 8's config,
+    cut short): windows counted, none tripped; an undeclared ``.item()``
+    injected into a dispatch window of a small plane raises
+    ``TransferGuardTripped`` naming the window; a guarded dispatch's cost;
+    and phase 4's served act under an armed guard."""
+    import shutil
+    import tempfile
+
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.learner.anakin import AnakinPlane
+    from r2d2_tpu_torch.learner.learner import Learner
+    from r2d2_tpu_torch.learner.step import create_train_state
+    from r2d2_tpu_torch.models import create_network
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing
+    from r2d2_tpu_torch.serving import SessionServer
+    from r2d2_tpu_torch.utils.trace import (
+        KERNEL_LAUNCHES,
+        TRANSFER_GUARD,
+        TransferGuardTripped,
+    )
+
+    base = base or Config(game_name="Fake", actor_transport="anakin",
+                          anakin_env="grid")
+    cfg = base.replace(transfer_guard=True, **GUARD_REDUCED)
+    print("reduced: " + ", ".join(
+        f"{k} {getattr(base, k)} -> {v}" for k, v in GUARD_REDUCED.items())
+        + ", transfer_guard False -> True", flush=True)
+    TRANSFER_GUARD.reset()
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_guard_")
+    t0 = time.perf_counter()
+    try:
+        m = train.train(cfg, checkpoint_dir=ckdir, verbose=False,
+                        max_wall_seconds=GUARD_WALL_S, device=device)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    run_s = time.perf_counter() - t0
+    snap = TRANSFER_GUARD.snapshot()
+    dispatches = cfg.training_steps // cfg.superstep_k
+    trips = {k: v for k, v in snap.items() if k.startswith("trip.")}
+    if (m["num_updates"] != cfg.training_steps or m["fabric_failed"]
+            or snap.get("window.anakin.dispatch") != dispatches
+            or snap.get("window.anakin.harvest") != dispatches or trips):
+        fail(f"guarded anakin: {m['num_updates']} updates, failed "
+             f"{m['fabric_failed']}, guard {snap}")
+    print(f"guarded anakin on {card}: {m['num_updates']} updates in "
+          f"{run_s:.2f} s, guard {snap}", flush=True)
+
+    # a small plane at the flagship widths: a guarded dispatch's cost,
+    # then the injected sync
+    small = base.replace(
+        buffer_capacity=ANAKIN_CHECK_BLOCKS * base.block_length,
+        learning_starts=2 * base.block_length, device_replay=True,
+        in_graph_per=True)
+    net = create_network(small, TRAIN_ACTIONS, device=device,
+                         generator=torch.Generator().manual_seed(0))
+    learner = Learner(small, net, create_train_state(small,
+                                                     net.state_dict()))
+    plane = AnakinPlane(small, net, TRAIN_ACTIONS,
+                        DeviceRing(small, TRAIN_ACTIONS, device=device))
+    while not plane.ready:
+        plane.rollout_step(learner.state.params)
+
+    def cycle():
+        learner.state, result = plane.dispatch(learner.state)
+        plane.harvest(result)
+
+    cycle()
+    times = {"guarded": [], "unguarded": []}
+    for _ in range(GUARD_PAIRS):
+        for label in ("unguarded", "guarded"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if label == "guarded":
+                with TRANSFER_GUARD.arm():
+                    cycle()
+            else:
+                cycle()
+            times[label].append((time.perf_counter() - t1) * 1e3)
+    real = plane.super_step
+
+    def undeclared(*a, **k):
+        out = real(*a, **k)
+        out[-1].sum().item()        # a sync no crossing declares
+        return out
+
+    plane.super_step = undeclared
+    raised = None
+    with TRANSFER_GUARD.arm():
+        try:
+            plane.dispatch(learner.state)
+        except TransferGuardTripped as e:
+            raised = str(e)
+    plane.super_step = real
+    if raised is None or "'anakin.dispatch'" not in raised:
+        fail(f"an undeclared .item() in a dispatch window raised {raised}")
+    print(f"guarded dispatch on {card} (64-block ring, flagship widths, "
+          f"{GUARD_PAIRS} alternating pairs of dispatch + harvest): p50 "
+          f"{pct(times['guarded'], 50):.2f} ms guarded vs "
+          f"{pct(times['unguarded'], 50):.2f} ms unguarded; the injected "
+          f".item() raised TransferGuardTripped: {raised[:110]}", flush=True)
+    del plane, learner, net
+
+    # phase 4's server, its act under an armed guard
+    scfg = serve_cfg or Config(serve_max_batch=256)
+    snet = create_network(scfg, ACTION_DIM, device=device,
+                          generator=torch.Generator().manual_seed(0))
+    server = SessionServer(scfg, ACTION_DIM, host="127.0.0.1")
+    server.publish_params({k: v.detach().clone()
+                           for k, v in snet.state_dict().items()})
+    server.warmup()
+    rng = np.random.default_rng(4)
+    TRANSFER_GUARD.reset()
+    KERNEL_LAUNCHES.reset()
+    acts = 0
+    with TRANSFER_GUARD.arm():
+        for n in GUARD_SERVE_BATCHES:
+            q, _ = server.batcher.act(
+                rng.integers(0, 256, (n, *scfg.stored_obs_shape), np.uint8),
+                np.eye(ACTION_DIM, dtype=np.float32)[
+                    rng.integers(ACTION_DIM, size=n)],
+                rng.normal(size=n).astype(np.float32),
+                (rng.normal(size=(n, 2, scfg.lstm_layers, scfg.hidden_dim))
+                 * 0.5).astype(np.float32))
+            acts += 1
+            if not np.isfinite(q).all():
+                fail("a guarded served act is not finite")
+    snap = TRANSFER_GUARD.snapshot()
+    served = KERNEL_LAUNCHES.get(lstm.KERNEL)
+    server.close()
+    if (snap.get("window.serving.act") != acts
+            or any(k.startswith("trip.") for k in snap) or served != acts):
+        fail(f"guarded serving: {snap}, {served} launches for {acts} acts")
+    print(f"guarded served act on {card}: batches {GUARD_SERVE_BATCHES}, "
+          f"guard {snap}, lstm_infer {served}", flush=True)
+    return dict(serve=served)
+
+
+def ig_and_mesh_diag(torch, card: str, device: str = "cuda", pong=None,
+                     base=None) -> dict:
+    """(e): the Pong preset's in-graph super-steps with the diagnostics
+    every 2nd step return (k, DIAG_SIZE) rows, on a ring of a few blocks
+    at the full slot shapes; and a meshed world-size-1 step's diag is its
+    meshless one bit for bit."""
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.config import Config, pong_config
+    from r2d2_tpu_torch.learner.step import (
+        create_train_state,
+        make_in_graph_per_super_step_fn,
+        make_train_step,
+    )
+    from r2d2_tpu_torch.models import create_network
+    from r2d2_tpu_torch.parallel.mesh import make_mesh
+    from r2d2_tpu_torch.parallel.sharding import (
+        ShardingTable,
+        mesh_train_step,
+    )
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing
+    from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+    from r2d2_tpu_torch.telemetry.learnhealth import DIAG_SIZE
+
+    pong = pong or pong_config(game_name="Fake")
+    cfg = pong.replace(buffer_capacity=CHECK_RING_BLOCKS * pong.block_length,
+                       learning_starts=pong.block_length,
+                       learnhealth_interval=2)
+    k = cfg.superstep_k
+    ring = DeviceRing(cfg, TRAIN_ACTIONS, device=device)
+    buf = ReplayBuffer(cfg, TRAIN_ACTIONS, rng=np.random.default_rng(3),
+                       device_ring=ring)
+    for blk, prios in scripted_blocks(cfg, CHECK_RING_BLOCKS):
+        buf.add(blk, prios, None)
+    net = create_network(cfg, TRAIN_ACTIONS, device=device,
+                         generator=torch.Generator().manual_seed(0))
+    fn = make_in_graph_per_super_step_fn(cfg, net, k, learnhealth=True)
+    meta = ring.per_meta()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.seed)
+    state, _, losses, diags = fn(
+        create_train_state(cfg, net.state_dict()), ring.snapshot(),
+        ring.take_prios(), meta["seq_meta"], meta["first"], generator=gen)
+    d = diags.float().cpu().numpy()
+    want = (np.arange(1, k + 1) % 2) == 0
+    if (d.shape != (k, DIAG_SIZE) or not np.array_equal(d[:, 0] == 1, want)
+            or np.any(d[~want] != 0) or not np.isfinite(d).all()):
+        fail(f"in-graph super-step diag rows {d.shape}: armed "
+             f"{d[:, 0].tolist()}")
+    print(f"in-graph super-step on {card} (Pong widths, k = {k}, "
+          f"{CHECK_RING_BLOCKS}-block ring at the full slot shapes, "
+          f"learnhealth_interval 2): diag rows {d.shape}, armed "
+          f"{d[:, 0].tolist()}, dq_mean {d[want, 8].tolist()}", flush=True)
+    del ring, buf
+
+    base = (base or Config(game_name="Fake")).replace(learnhealth_interval=1)
+    store = mesh_group(torch, device)     # noqa: F841 (the group's store)
+    try:
+        mesh = make_mesh(base, device)
+        mnet = create_network(base, TRAIN_ACTIONS, device=device,
+                              generator=torch.Generator().manual_seed(0))
+        plain_state = create_train_state(base, mnet.state_dict())
+        mesh_state = create_train_state(base, mnet.state_dict())
+        table = ShardingTable(mesh, base)
+        meshed = mesh_train_step(base, mnet, table,
+                                 state_template=mesh_state)
+        mesh_state = table.place_state(mesh_state)
+        plain = make_train_step(base, mnet, learnhealth=True)
+        batch = {kk: torch.from_numpy(v).to(device)
+                 for kk, v in step_batch(base, seed=16).items()}
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            da = plain(plain_state, batch)[3]
+            db = meshed(mesh_state, batch)[3]
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = det
+    finally:
+        dist.destroy_process_group()
+    if not torch.equal(da, db) or da[0].item() != 1.0:
+        fail(f"the meshed diag is not the meshless one bit for bit: "
+             f"{da.tolist()} vs {db.tolist()}")
+    print(f"meshed diag on {card}: world size 1 over "
+          f"{'NCCL' if device == 'cuda' else 'gloo'}, {DIAG_SIZE} values "
+          f"bit for bit the meshless step's (cuDNN deterministic for this "
+          "check only)", flush=True)
+    return {}
+
+
+def phase_telemetry(torch, card: str) -> dict:
+    """Phase 14: the in-graph diagnostics, the cross-process trace with
+    ``/tracez`` and ``/profilez``, and the transfer guard on the card.
+    Returns the kernel's launches by run."""
+    import gc
+
+    from r2d2_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    faulthandler.dump_traceback_later(TELEMETRY_WATCHDOG_S)
+    base = Config(game_name="Fake")
+    t = time.perf_counter()
+    diag_card_vs_cpu(torch, base)
+    print(f"phase 14 (a) {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    b = lh_fabric(torch, card)
+    print(f"phase 14 (b) {time.perf_counter() - t:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    c = capture_run(torch, card)
+    print(f"phase 14 (c) {time.perf_counter() - t:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    d = guard_checks(torch, card)
+    print(f"phase 14 (d) {time.perf_counter() - t:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ig_and_mesh_diag(torch, card)
+    print(f"phase 14 (e) {time.perf_counter() - t:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    faulthandler.cancel_dump_traceback_later()
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(diagnosed=b["launches"], capture=c["launches"],
+                guarded_serve=d["serve"])
+
+
 def main() -> None:
     try:
         import torch
@@ -5305,6 +6096,10 @@ def main() -> None:
     # phase 13: the league, member fleets and the CPU eval sidecar
     league_launches = phase_league(torch, card)
 
+    # phase 14: telemetry and guards — the in-graph diagnostics, the
+    # cross-process trace with /tracez and /profilez, the transfer guard
+    telemetry_launches = phase_telemetry(torch, card)
+
     head = timings[(1, 256)]
     print(json.dumps({"kernels": [{
         "name": "lstm_infer",
@@ -5318,7 +6113,8 @@ def main() -> None:
                      + sum(replay_launches.values())
                      + sum(mesh_launches.values())
                      + sum(draw_launches.values())
-                     + sum(league_launches.values())),
+                     + sum(league_launches.values())
+                     + sum(telemetry_launches.values())),
         "launches_by_path": {"serving": serve_launches,
                              "training": train_launches,
                              "fabric": fabric_launches,
@@ -5335,7 +6131,13 @@ def main() -> None:
                              "mesh_in_graph": draw_launches["in_graph"],
                              "mesh_anakin": draw_launches["anakin"],
                              "league": league_launches["run"],
-                             "league_chaos": league_launches["chaos"]},
+                             "league_chaos": league_launches["chaos"],
+                             "telemetry_diagnosed":
+                                 telemetry_launches["diagnosed"],
+                             "telemetry_capture":
+                                 telemetry_launches["capture"],
+                             "telemetry_guarded_serve":
+                                 telemetry_launches["guarded_serve"]},
         "max_abs_err": errs["tensor_core"][0],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

@@ -299,8 +299,9 @@ class VectorActor:
                 self._reset_lane(i)  # env can't resume: fresh episode
 
     def _note_cut(self, i: int, block: Block) -> None:
-        """Block-lineage hook at every cut (a disarmed no-op until the
-        tracing slice lands; telemetry/tracing.py)."""
+        """Block-lineage hook at every cut: under an armed capture window
+        the block gets a fabric-unique trace id and its env steps one
+        slice, the start of its flow (telemetry/tracing.py)."""
         now = time.perf_counter()
         if EVENTS.armed:
             block.trace_id = EVENTS.next_trace_id()

@@ -349,7 +349,7 @@ class Config:
                                       # inference kernel (ops/lstm.py);
                                       # "auto" picks it on a CUDA device
     pallas_interpret: bool = False    # run pallas kernels interpreted (CPU tests)
-    transfer_guard: bool = False      # arm jax.transfer_guard("disallow")
+    transfer_guard: bool = False      # arm the transfer guard's
                                       # windows around every declared
                                       # dispatch/harvest site: an
                                       # UNDECLARED implicit device<->host

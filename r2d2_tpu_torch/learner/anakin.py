@@ -88,6 +88,7 @@ sampling clamp invariant already keeps those positions loss-masked.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -121,7 +122,8 @@ from r2d2_tpu_torch.models.network import R2D2Network
 from r2d2_tpu_torch.replay.device_ring import gather_batch
 from r2d2_tpu_torch.utils.math import epsilon_ladder
 from r2d2_tpu_torch.utils.resilience import Deadline
-from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, Tracer
+from r2d2_tpu_torch.telemetry.learnhealth import DIAG_SIZE, diag_enabled
+from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, TRANSFER_GUARD, Tracer
 
 log = logging.getLogger(__name__)
 
@@ -806,8 +808,10 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
     The ring arrays, ``prios``, ``seq_meta`` and ``first`` are updated in
     place and returned; the train state's tensors too.  ``flat`` is the
     k losses, the :data:`STATS_FIELDS` deltas, then the
-    :data:`EVAL_FIELDS` pair when ``cfg.anakin_eval_interval > 0`` — the
-    dispatch's only device→host payload.  The PER uniforms are
+    :data:`EVAL_FIELDS` pair when ``cfg.anakin_eval_interval > 0``, then
+    the k inner steps' learnhealth diag rows (k × DIAG_SIZE) when
+    ``cfg.learnhealth_interval > 0`` — the dispatch's only device→host
+    payload.  The PER uniforms are
     :func:`sample_uniforms` of (``cfg.seed``, ``dispatch_idx``) unless
     ``uniforms`` (k, B) is given; ``draws`` (a list of k·E per-step
     dicts, see :func:`_make_actor_step`) replaces the actor's draws.  The
@@ -829,7 +833,8 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
     lane runs alike on every rank."""
     k, E, B = cfg.superstep_k, cfg.anakin_env_steps_per_update, \
         cfg.batch_size
-    step = train_step or make_train_step(cfg, net)
+    lh = diag_enabled(cfg)
+    step = train_step or make_train_step(cfg, net, learnhealth=lh)
     actor_step = _make_actor_step(cfg, net, env, action_dim, lanes, cross,
                                   replicated)
     eval_lane = (_make_eval_lane(cfg, net, env, action_dim)
@@ -844,7 +849,7 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
             uniforms = sample_uniforms(cfg.seed, dispatch_idx, k, B,
                                        prios.device)
         params = acting_params(train_state.params)
-        losses = []
+        losses, diags = [], []
         for i in range(k):
             for e in range(E):
                 ast, _ = actor_step(params, ast, arrays, prios,
@@ -860,7 +865,10 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
                     uniforms[i], prios, cross.global_meta(seq_meta, first),
                     arrays)
                 idx = d.idx
-            train_state, loss, new_p = step(train_state, batch)
+            out = step(train_state, batch)
+            train_state, loss, new_p = out[:3]
+            if lh:
+                diags.append(out[3])
             if cross is None:
                 scatter_last(prios, idx, new_p ** cfg.prio_exponent)
             else:
@@ -871,6 +879,8 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
         parts = [torch.stack(losses), _stats_vec(ast)]
         if eval_lane is not None:
             parts.append(eval_lane(params, dispatch_idx))
+        if lh:
+            parts.append(torch.stack(diags).reshape(-1))
         return (train_state, ast, arrays, prios, seq_meta, first,
                 torch.cat(parts))
 
@@ -996,6 +1006,9 @@ class AnakinPlane:
         self.ring = ring
         self.action_dim = action_dim
         self._eval = cfg.anakin_eval_interval > 0
+        # learnhealth: the flat result vector carries the per-inner-step
+        # diag rows, absorbed by the attached monitor
+        self._lh = diag_enabled(cfg)
         self.monitor = None
         self.env = make_anakin_env(cfg, action_dim, device=ring.device)
         # the env/exploration root: two salts, a derivation distinct from
@@ -1102,15 +1115,16 @@ class AnakinPlane:
     def rollout_step(self, params) -> None:
         """One warm-up dispatch (env/actor/ring-write only), harvested at
         once — the fill counter gates the switch to training."""
-        ast, arrays, prios, seq_meta, first, stats = self.rollout(
-            params, self.state, *self._handles())
-        self.state = ast
-        self._store(arrays, prios, seq_meta, first)
-        with self._stats_lock:
-            self.frames += self._frames_per_dispatch
-        result = _Result(stats)
-        with HOST_TRANSFERS.allowed("anakin.result_fetch"):
-            stats_np = result.fetch()
+        with TRANSFER_GUARD.disallow("anakin.rollout"):
+            ast, arrays, prios, seq_meta, first, stats = self.rollout(
+                params, self.state, *self._handles())
+            self.state = ast
+            self._store(arrays, prios, seq_meta, first)
+            with self._stats_lock:
+                self.frames += self._frames_per_dispatch
+            result = _Result(stats)
+            with HOST_TRANSFERS.allowed("anakin.result_fetch"):
+                stats_np = result.fetch()
         self._absorb(stats_np)
 
     def dispatch(self, train_state: TrainState):
@@ -1119,20 +1133,26 @@ class AnakinPlane:
         it later (pipelined) with :meth:`harvest`."""
         idx = self.dispatch_no & 0xFFFFFFFF
         self.dispatch_no += 1
-        train_state, ast, arrays, prios, seq_meta, first, flat = (
-            self.super_step(train_state, self.state, *self._handles(), idx))
-        self.state = ast
-        self._store(arrays, prios, seq_meta, first)
-        with self._stats_lock:
-            self.frames += self._frames_per_dispatch
-            self.super_steps += 1
-        return train_state, _Result(flat)
+        with TRANSFER_GUARD.disallow("anakin.dispatch"):
+            train_state, ast, arrays, prios, seq_meta, first, flat = (
+                self.super_step(train_state, self.state, *self._handles(),
+                                idx))
+            self.state = ast
+            self._store(arrays, prios, seq_meta, first)
+            with self._stats_lock:
+                self.frames += self._frames_per_dispatch
+                self.super_steps += 1
+            # the result's copy starts here, from the card into pinned
+            # memory: it waits on nothing
+            result = _Result(flat)
+        return train_state, result
 
     def harvest(self, result: _Result) -> np.ndarray:
         """Fetch one dispatch's result vector — the loop's only recurring
         device→host crossing — and fold its deltas into the host
         counters.  Returns the k inner-step losses."""
-        with HOST_TRANSFERS.allowed("anakin.result_fetch"):
+        with TRANSFER_GUARD.disallow("anakin.harvest"), \
+                HOST_TRANSFERS.allowed("anakin.result_fetch"):
             v = result.fetch()
         k = self.cfg.superstep_k
         losses = v[:k]
@@ -1140,6 +1160,7 @@ class AnakinPlane:
         off = k + len(STATS_FIELDS)
         if self._eval:
             ep, rsum = float(v[off]), float(v[off + 1])
+            off += len(EVAL_FIELDS)
             if ep > 0:
                 with self._stats_lock:
                     self.eval_episodes_total += int(ep)
@@ -1148,8 +1169,11 @@ class AnakinPlane:
                     self._interval_eval_episodes += int(ep)
         if self.monitor is not None:
             # the monitor owns non-finite handling (a clean fabric stop
-            # and the nonfinite alert)
+            # and the nonfinite alert) and absorbs the diag rows the
+            # dispatch appended to the same flat vector
             self.monitor.note_losses(losses)
+            if self._lh:
+                self.monitor.absorb_diags(v[off:].reshape(k, DIAG_SIZE))
         else:
             assert np.isfinite(losses).all(), (
                 f"non-finite loss in anakin super-step: {losses}")
@@ -1413,38 +1437,51 @@ def run_anakin_loop(learner: Any, plane: AnakinPlane,
                 budget.elapsed(), cfg.dispatch_deadline)
             wedged = True
 
-    while updates < target and not wedged:
-        if stop is not None and stop():
-            break
-        if not plane.ready:
-            with tracer.span("anakin.rollout_dispatch"):
-                plane.rollout_step(learner.state.params)
-            continue
-        with tracer.span("learner.step_dispatch"):
-            learner.state, result = plane.dispatch(learner.state)
-        pending.append(result)
-        while len(pending) > cfg.superstep_pipeline and not wedged:
-            with tracer.span("learner.result_sync"):
-                harvest_one()
+    # cfg.transfer_guard: arm the process guard once the warm-up ends, so
+    # every window of dispatch, harvest and rollout enforces its declared
+    # crossings — an undeclared sync raises TransferGuardTripped instead
+    # of stalling the stream.  Armed AFTER the warm-up: the library
+    # handles the first dispatches create belong to bring-up
+    guard = contextlib.ExitStack()
+    guard_armed = False
+    try:
+        while updates < target and not wedged:
+            if stop is not None and stop():
+                break
+            if not plane.ready:
+                with tracer.span("anakin.rollout_dispatch"):
+                    plane.rollout_step(learner.state.params)
+                continue
+            if cfg.transfer_guard and not guard_armed:
+                guard.enter_context(TRANSFER_GUARD.arm())
+                guard_armed = True
+            with tracer.span("learner.step_dispatch"):
+                learner.state, result = plane.dispatch(learner.state)
+            pending.append(result)
+            while len(pending) > cfg.superstep_pipeline and not wedged:
+                with tracer.span("learner.result_sync"):
+                    harvest_one()
 
-        prev, updates = updates, updates + k
-        if (learner.checkpointer is not None
-                and updates // cfg.save_interval
-                > prev // cfg.save_interval):
-            learner.env_steps = plane.env_steps
-            with tracer.span("learner.checkpoint_save"):
-                learner._save(updates, t0)
-        if (snapshot_fn is not None
-                and cfg.replay_snapshot_interval > 0
-                and time.time() - last_snap
-                > cfg.replay_snapshot_interval):
-            while pending and not hard_wedged:
-                harvest_one()   # snapshots need no dispatch in flight
-            if not hard_wedged:
-                snapshot_fn(updates)
-                last_snap = time.time()
-    while pending and not hard_wedged:
-        harvest_one()
+            prev, updates = updates, updates + k
+            if (learner.checkpointer is not None
+                    and updates // cfg.save_interval
+                    > prev // cfg.save_interval):
+                learner.env_steps = plane.env_steps
+                with tracer.span("learner.checkpoint_save"):
+                    learner._save(updates, t0)
+            if (snapshot_fn is not None
+                    and cfg.replay_snapshot_interval > 0
+                    and time.time() - last_snap
+                    > cfg.replay_snapshot_interval):
+                while pending and not hard_wedged:
+                    harvest_one()   # snapshots need no dispatch in flight
+                if not hard_wedged:
+                    snapshot_fn(updates)
+                    last_snap = time.time()
+        while pending and not hard_wedged:
+            harvest_one()
+    finally:
+        guard.close()
     if wedged and snapshot_fn is not None:
         # the clean abort's resumable artifact.  On a HARD wedge the
         # snapshot reads device handles and can block on the same dead

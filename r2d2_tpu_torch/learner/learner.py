@@ -55,7 +55,8 @@ from r2d2_tpu_torch.learner.step import (
 from r2d2_tpu_torch.models.network import R2D2Network
 from r2d2_tpu_torch.replay.device_ring import to_device
 from r2d2_tpu_torch.utils.store import ParamStore
-from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, Tracer
+from r2d2_tpu_torch.telemetry.learnhealth import DIAG_SIZE, diag_enabled
+from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, TRANSFER_GUARD, Tracer
 
 # the batch fields the step reads; the rest of a sampled batch (idxes,
 # block_ptr, env_steps, ages) is host bookkeeping
@@ -176,7 +177,10 @@ class Learner:
         self._saved_steps: set = set()  # steps THIS run saved (see _save)
         # learnhealth plane (telemetry/learnhealth.py): the trainer
         # attaches a LearnHealthMonitor that absorbs each harvested loss
+        # and, with cfg.learnhealth_interval > 0, each step's diagnostic
+        # vector, folded into the same single result fetch
         self.monitor: Optional[Any] = None
+        self._lh = diag_enabled(cfg)
         self.tracer = Tracer()
         # the collective gate's outcomes ("go", "wait", "break") under a
         # mesh: one gate per update or dispatch
@@ -184,7 +188,7 @@ class Learner:
         self.mesh, self.table = mesh, table
         state = place_state(state, self.device)
         if mesh is None:
-            self._step_fn = make_train_step(cfg, net)
+            self._step_fn = make_train_step(cfg, net, learnhealth=self._lh)
         else:
             from r2d2_tpu_torch.parallel.sharding import (
                 ShardingTable,
@@ -224,14 +228,18 @@ class Learner:
         return {k: full(v) for k, v in self.state.params.items()}
 
     def _note_results(self, losses_np: np.ndarray,
+                      diags_np: Optional[np.ndarray] = None,
                       strict: bool = True) -> None:
-        """Route harvested losses to the attached monitor.  Without a
-        monitor, ``strict`` fails fast on a non-finite loss; with one, the
-        monitor trips the fabric's clean stop and fires the ``nonfinite``
-        alert instead of crashing the learner thread."""
+        """Route harvested losses (and the learnhealth diag rows) to the
+        attached monitor.  Without a monitor, ``strict`` fails fast on a
+        non-finite loss; with one, the monitor trips the fabric's clean
+        stop and fires the ``nonfinite`` alert instead of crashing the
+        learner thread."""
         m = self.monitor
         if m is not None:
             m.note_losses(losses_np)
+            if diags_np is not None and diags_np.size:
+                m.absorb_diags(diags_np)
             return
         if strict:
             assert np.isfinite(losses_np).all(), (
@@ -259,19 +267,23 @@ class Learner:
                 if k not in DEVICE_BATCH_KEYS and k != PACKED_KEY}
         cuda = self.device.type == "cuda"
         packed = batch.get(PACKED_KEY)
-        if packed is not None:
-            buf, layout = packed
-            HOST_TRANSFERS.count("learner.batch_h2d")
-            dev = _unpack(buf.to(self.device, non_blocking=cuda), layout)
-            dev = {k: dev[k] for k in DEVICE_BATCH_KEYS}
-        else:
-            dev = {}
-            for k in DEVICE_BATCH_KEYS:
-                t = torch.from_numpy(np.ascontiguousarray(batch[k]))
-                if cuda:
-                    t = t.pin_memory()
+        # the copies start from pinned memory and wait on nothing: an
+        # armed guard catches any copy that would
+        with TRANSFER_GUARD.disallow("learner.stage"):
+            if packed is not None:
+                buf, layout = packed
                 HOST_TRANSFERS.count("learner.batch_h2d")
-                dev[k] = t.to(self.device, non_blocking=cuda)
+                dev = _unpack(buf.to(self.device, non_blocking=cuda),
+                              layout)
+                dev = {k: dev[k] for k in DEVICE_BATCH_KEYS}
+            else:
+                dev = {}
+                for k in DEVICE_BATCH_KEYS:
+                    t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+                    if cuda:
+                        t = t.pin_memory()
+                    HOST_TRANSFERS.count("learner.batch_h2d")
+                    dev[k] = t.to(self.device, non_blocking=cuda)
         if self.mesh is not None:
             from r2d2_tpu_torch.parallel.distributed import host_local_batch
 
@@ -353,10 +365,19 @@ class Learner:
         def harvest(pending_item) -> None:
             host, result = pending_item
             with tracer.span("learner.result_sync"), \
+                    TRANSFER_GUARD.disallow("learner.harvest"), \
                     HOST_TRANSFERS.allowed("learner.result_fetch"):
                 flat = result.fetch()
-            loss, priorities = float(flat[0]), flat[1:]
-            self._note_results(np.asarray([loss]), strict=False)
+            # one flat vector: the loss, the priorities, then (learnhealth)
+            # the step's diag vector
+            loss, diag = float(flat[0]), None
+            if self._lh:
+                priorities, diag = flat[1:-DIAG_SIZE], flat[-DIAG_SIZE:]
+            else:
+                priorities = flat[1:]
+            self._note_results(np.asarray([loss]),
+                               None if diag is None else diag[None],
+                               strict=False)
             losses.append(loss)
             self.env_steps = int(host.get("env_steps", self.env_steps))
             if priority_sink is not None:
@@ -380,10 +401,12 @@ class Learner:
                 if stopping or item is None:
                     break
                 dev_batch, host = item
-                with tracer.span("learner.step_dispatch"):
-                    self.state, loss, priorities = self._step_fn(self.state,
-                                                                 dev_batch)
-                    result = _Result(loss, priorities)
+                with tracer.span("learner.step_dispatch"), \
+                        TRANSFER_GUARD.disallow("learner.dispatch"):
+                    out = self._step_fn(self.state, dev_batch)
+                    self.state = out[0]
+                    # the diag rides the step's one result copy
+                    result = _Result(*out[1:])
                 pending.append((host, result))
                 while len(pending) > cfg.superstep_pipeline:
                     harvest(pending.popleft())
@@ -531,7 +554,8 @@ class Learner:
                                          state_template=self.state)
         else:
             B = cfg.batch_size
-            super_step = make_super_step_fn(cfg, self.net, k)
+            super_step = make_super_step_fn(cfg, self.net, k,
+                                            learnhealth=self._lh)
         beta = cfg.importance_sampling_exponent
         losses_hist: deque = deque(maxlen=100)   # bounded, see run()
 
@@ -549,27 +573,39 @@ class Learner:
                 return super_step.gather(ring.snapshot(), d_ints, d_w)
 
         def sample():
-            with tracer.span("learner.sample_meta"):
-                meta = buffer.sample_meta(k, batch_size=B, dispatch=dispatch,
-                                          raw_densities=multihost)
-            with tracer.span("learner.step_dispatch"):
-                meta["dispatched"] = super_step.run(self.state,
-                                                    meta.pop("dispatched"))
+            with TRANSFER_GUARD.disallow("learner.dispatch"):
+                with tracer.span("learner.sample_meta"):
+                    meta = buffer.sample_meta(k, batch_size=B,
+                                              dispatch=dispatch,
+                                              raw_densities=multihost)
+                with tracer.span("learner.step_dispatch"):
+                    out = super_step.run(self.state, meta.pop("dispatched"))
+            # the diag rows ride with the losses (prepare)
+            meta["dispatched"] = ((out[0], (out[1], out[3]), out[2])
+                                  if self._lh else out)
             return meta
 
         def prepare(item):
             # start the result's D2H now, so a harvest
-            # ``superstep_pipeline`` dispatches later finds it landed
+            # ``superstep_pipeline`` dispatches later finds it landed: ONE
+            # flat vector of the losses, priorities and (learnhealth) the
+            # (k, DIAG_SIZE) diag rows
             meta, losses, priorities = item
+            if self._lh:
+                losses, diags = losses
+                return meta, _Result(losses, priorities, diags)
             return meta, _Result(losses, priorities)
 
         def harvest(item) -> None:
             meta, result = item
             with tracer.span("learner.result_sync"), \
+                    TRANSFER_GUARD.disallow("learner.harvest"), \
                     HOST_TRANSFERS.allowed("learner.result_fetch"):
                 flat = result.fetch()
-            self._feed_back(meta, flat[:k], flat[k:].reshape(k, B),
-                            priority_sink, losses_hist)
+            diags = (flat[k + k * B:].reshape(k, DIAG_SIZE) if self._lh
+                     else None)
+            self._feed_back(meta, flat[:k], flat[k:k + k * B].reshape(k, B),
+                            priority_sink, losses_hist, diags)
 
         self._superstep_loop(k, target, t0, gate, sample, harvest,
                              prepare=prepare, tracer=tracer)
@@ -638,37 +674,42 @@ class Learner:
             cross = CrossRank(cfg, self.mesh, ring.cfg.num_blocks)
         super_step = make_in_graph_per_super_step_fn(
             cfg, self.net, k, train_step=(
-                None if self.mesh is None else self._step_fn), cross=cross)
+                None if self.mesh is None else self._step_fn), cross=cross,
+            learnhealth=self._lh)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(cfg.seed)
         losses_hist: deque = deque(maxlen=100)
 
         def sample():
-            with tracer.span("learner.step_dispatch"):
+            with tracer.span("learner.step_dispatch"), \
+                    TRANSFER_GUARD.disallow("learner.dispatch"):
                 with buffer.lock:
                     with tracer.span("learner.dispatch_lock"):
                         meta = ring.per_meta()
-                        state, prios, losses = super_step(
+                        out = super_step(
                             self.state, ring.snapshot(), ring.take_prios(),
                             meta["seq_meta"], meta["first"],
                             generator=generator)
-                        ring.put_prios(prios)
+                        ring.put_prios(out[1])
                         env_steps = buffer.env_steps
-            # the losses ride the pipeline; priorities never leave the
-            # device
-            return dict(dispatched=(state, losses, None),
+            # the losses (and the diag rows) ride the pipeline; priorities
+            # never leave the device
+            return dict(dispatched=(out[0], out[2:], None),
                         env_steps=env_steps)
 
         def prepare(item):
             meta, losses, _ = item
-            return meta, _Result(losses)
+            return meta, _Result(*losses)
 
         def harvest(item) -> None:
             meta, result = item
             with tracer.span("learner.result_sync"), \
+                    TRANSFER_GUARD.disallow("learner.harvest"), \
                     HOST_TRANSFERS.allowed("learner.result_fetch"):
-                losses_np = result.fetch()
-            self._note_results(losses_np)
+                flat = result.fetch()
+            losses_np = flat[:k]
+            self._note_results(losses_np, flat[k:].reshape(k, DIAG_SIZE)
+                               if self._lh else None)
             self.env_steps = int(meta["env_steps"])
             buffer.note_updates(losses_np.shape[0], losses_np.sum())
             losses_hist.extend(losses_np.tolist())
@@ -728,10 +769,11 @@ class Learner:
 
     def _feed_back(self, meta, losses_np: np.ndarray, prios_np: np.ndarray,
                    priority_sink: Optional[PrioritySink],
-                   losses_hist: deque) -> None:
+                   losses_hist: deque,
+                   diags_np: Optional[np.ndarray] = None) -> None:
         """Route one harvested super-step's results to the host side: one
         priority feedback per inner step."""
-        self._note_results(losses_np)
+        self._note_results(losses_np, diags_np)
         self.env_steps = int(meta["env_steps"])
         if priority_sink is not None:
             for j in range(losses_np.shape[0]):

@@ -1,7 +1,7 @@
 """The R2D2 train step, and the k-fused super-steps over the device ring.
 
-Port of ``r2d2_tpu/learner/step.py`` (the learnhealth diagnostics wait for
-the telemetry slice, ROADMAP.md A item 10).  Capability-parity with the reference
+Port of ``r2d2_tpu/learner/step.py``, with the learnhealth diagnostic
+vector (telemetry/learnhealth.py).  Capability-parity with the reference
 learner's gradient path (worker.py:318-390): burn-in + stored-state LSTM
 unroll, n-step **double-Q** targets under value rescaling,
 importance-weighted MSE over the learning window, grad-clip-40 Adam, mixed
@@ -19,6 +19,12 @@ clip scales by ``max_norm / norm`` with no ``+1e-6`` (unlike
 square root, ``eps_root = 0`` and bias correction on both moments.  The
 step updates the state's tensors in place; a caller that hands parameters
 to another thread publishes a copy (``learner.Learner._publish``).
+
+With ``learnhealth`` (and ``cfg.learnhealth_interval > 0``) the step also
+returns the ``(DIAG_SIZE,)`` diagnostic vector: armed when the new step
+count is a multiple of the interval — decided from the host step counter,
+so the predicate costs no sync — and zeros otherwise; the ΔQ zero-state
+re-unroll runs on armed steps only.
 
 The super-steps (:class:`SuperStep`, :func:`make_in_graph_per_super_step_fn`)
 run k train steps on batches gathered on the device from the replay ring
@@ -89,9 +95,11 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: Params, state: AdamState,
-               params: Params) -> None:
+               params: Params, updates: Optional[Params] = None) -> None:
         """Clip ``grads`` by their global norm, advance ``state`` and
-        apply the Adam step to ``params``, all in place."""
+        apply the Adam step to ``params``, all in place.  ``updates``, when
+        given, collects each parameter's step (optax's ``updates``: the
+        values added to the parameters)."""
         b1, b2 = self.b1, self.b2
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
         keep = g_norm < self.max_norm
@@ -105,7 +113,10 @@ class Optimizer:
             state.mu[k].copy_(mu)
             state.nu[k].copy_(nu)
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            params[k].add_(update * -self.lr)
+            step = update * -self.lr
+            params[k].add_(step)
+            if updates is not None:
+                updates[k] = step
 
 
 def make_optimizer(cfg: Config) -> Optimizer:
@@ -202,10 +213,12 @@ def _loss_net(net: R2D2Network) -> R2D2Network:
 
 
 def loss_and_priorities(cfg: Config, net: R2D2Network, params: Params,
-                        target_params: Params, batch: Batch
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        target_params: Params, batch: Batch,
+                        with_aux: bool = False):
     """(loss, per-sequence priorities) for one batch; the loss carries the
-    gradient to ``params``, the priorities none."""
+    gradient to ``params``, the priorities none.  ``with_aux`` adds the
+    forward's intermediates the learnhealth diagnostics read, ``(td, mask,
+    q_learn, max_abs_q)``, detached: ``(loss, priorities, aux)``."""
     q_online, q_target_seq = _double_unroll(cfg, net, params, target_params,
                                             batch)
     # on the mesh a tp-split head leaves the action dim sharded, and
@@ -237,32 +250,68 @@ def loss_and_priorities(cfg: Config, net: R2D2Network, params: Params,
     loss = torch.where(mask, weighted_sq, torch.zeros_like(weighted_sq)
                        ).sum() / torch.clamp(valid, min=1)
     priorities = mixed_priorities(td.detach().abs(), mask, batch["learning"])
-    return loss, priorities
+    if not with_aux:
+        return loss, priorities
+    aux = (td.detach(), mask, q_learn.detach(), q_online.detach().abs().max())
+    return loss, priorities, aux
 
 
-def make_train_step(cfg: Config, net: R2D2Network):
+def make_train_step(cfg: Config, net: R2D2Network,
+                    learnhealth: bool = False):
     """Returns ``train_step(state, batch) -> (state, loss, priorities)``:
     loss and gradient through the scan network, the clip + Adam step in
     place, the step counter, and the hard target sync when
     ``step % target_net_update_interval == 0``.  ``loss`` (a 0-d tensor)
-    and ``priorities`` (B,) stay on the device; nothing waits for it."""
+    and ``priorities`` (B,) stay on the device; nothing waits for it.
+
+    ``learnhealth`` (with ``cfg.learnhealth_interval > 0``) appends the
+    diagnostic vector: ``-> (state, loss, priorities, diag (DIAG_SIZE,)
+    f32)``, armed when the NEW step count is a multiple of the interval
+    and zeros otherwise (the JAX package's ``lax.cond``).  The predicate
+    reads the host step counter; the ΔQ re-unroll, norms and histograms
+    run on armed steps only; the re-unroll runs before the in-place
+    update, on the pre-update parameters."""
     opt = make_optimizer(cfg)
     net = _loss_net(net)  # grad paths always run the scan recurrence
+    lh = learnhealth and cfg.learnhealth_interval > 0
+    if lh:
+        from r2d2_tpu_torch.telemetry.learnhealth import DIAG_SIZE, make_diag_fn
+
+        diag_fn = make_diag_fn(cfg, net)
 
     def train_step(state: TrainState, batch: Batch):
         names = list(state.params)
         params = {k: state.params[k].detach().requires_grad_(True)
                   for k in names}
-        loss, priorities = loss_and_priorities(cfg, net, params,
-                                               state.target_params, batch)
-        grads = torch.autograd.grad(loss, [params[k] for k in names])
-        opt.update(dict(zip(names, grads)), state.opt_state, state.params)
+        armed = lh and (state.step + 1) % cfg.learnhealth_interval == 0
+        out = loss_and_priorities(cfg, net, params, state.target_params,
+                                  batch, with_aux=armed)
+        loss, priorities = out[0], out[1]
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, [params[k] for k in names])))
+        q_zero = updates = None
+        if armed:
+            # the ΔQ re-unroll reads the PRE-update params: run it before
+            # the in-place update
+            q_zero = diag_fn.zero_state_unroll(state.params, batch)
+            updates = {}
+        opt.update(grads, state.opt_state, state.params, updates)
         state.step += 1
         if state.step % cfg.target_net_update_interval == 0:
             with torch.no_grad():
                 for k in names:
                     state.target_params[k].copy_(state.params[k])
-        return state, loss.detach(), priorities
+        if not lh:
+            return state, loss.detach(), priorities
+        if armed:
+            with torch.no_grad():
+                diag = diag_fn(None, batch, loss.detach(), grads, updates,
+                               state.params, state.target_params, out[2],
+                               q_zero=q_zero)
+        else:
+            diag = torch.zeros(DIAG_SIZE, dtype=torch.float32,
+                               device=loss.device)
+        return state, loss.detach(), priorities, diag
 
     return train_step
 
@@ -277,16 +326,21 @@ class SuperStep:
     plain steps.
 
     Callable as ``super_step(state, arrays, ints (k,B,6), is_weights (k,B))
-    -> (state, losses (k,), priorities (k,B))``.  The learner calls the two
-    halves apart: :meth:`gather` enqueues the k gathers under the buffer
-    lock (ordering them before any later ring write), :meth:`run` the k
-    steps after the lock is released.  ``train_step`` replaces the plain
-    step (the meshed learner passes ``sharding.mesh_train_step``'s)."""
+    -> (state, losses (k,), priorities (k,B))``, plus ``diags (k,
+    DIAG_SIZE)`` — each inner step's diagnostic vector, zeros off cadence
+    — under ``learnhealth``.  The learner calls the two halves apart:
+    :meth:`gather` enqueues the k gathers under the buffer lock (ordering
+    them before any later ring write), :meth:`run` the k steps after the
+    lock is released.  ``train_step`` replaces the plain step (the meshed
+    learner passes ``sharding.mesh_train_step``'s, built with the same
+    ``learnhealth``)."""
 
     def __init__(self, cfg: Config, net: R2D2Network, k: int,
-                 train_step=None):
+                 train_step=None, learnhealth: bool = False):
         self.cfg, self.k = cfg, k
-        self._step = train_step or make_train_step(cfg, net)
+        self.lh = learnhealth and cfg.learnhealth_interval > 0
+        self._step = train_step or make_train_step(cfg, net,
+                                                   learnhealth=self.lh)
 
     def gather(self, arrays, ints: torch.Tensor,
                is_weights: torch.Tensor) -> List[Batch]:
@@ -294,11 +348,17 @@ class SuperStep:
                 for j in range(self.k)]
 
     def run(self, state: TrainState, batches: List[Batch]):
-        losses, priorities = [], []
+        losses, priorities, diags = [], [], []
         for batch in batches:
-            state, loss, p = self._step(state, batch)
+            out = self._step(state, batch)
+            state, loss, p = out[:3]
             losses.append(loss)
             priorities.append(p)
+            if self.lh:
+                diags.append(out[3])
+        if self.lh:
+            return (state, torch.stack(losses), torch.stack(priorities),
+                    torch.stack(diags))
         return state, torch.stack(losses), torch.stack(priorities)
 
     def __call__(self, state: TrainState, arrays, ints: torch.Tensor,
@@ -306,10 +366,11 @@ class SuperStep:
         return self.run(state, self.gather(arrays, ints, is_weights))
 
 
-def make_super_step_fn(cfg: Config, net: R2D2Network, k: int) -> SuperStep:
+def make_super_step_fn(cfg: Config, net: R2D2Network, k: int,
+                       learnhealth: bool = False) -> SuperStep:
     """The host-sampled super-step (see :class:`SuperStep`), by the JAX
     package's name."""
-    return SuperStep(cfg, net, k)
+    return SuperStep(cfg, net, k, learnhealth=learnhealth)
 
 
 def _compensated_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -381,7 +442,8 @@ def scatter_last(leaves: torch.Tensor, idx: torch.Tensor,
 
 
 def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
-                                    train_step=None, cross=None):
+                                    train_step=None, cross=None,
+                                    learnhealth: bool = False):
     """``k`` steps with device-side PER: sample → gather → step → priority
     scatter, k times, with no host round trip.  Step j+1 samples from the
     priorities step j scattered.
@@ -405,8 +467,14 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
     leaves once per inner step), each rank trains its rows of the global
     batch, exchanged from their owners, and the feedback goes back to the
     slabs that own the leaves.  ``record`` (a list), when given, collects
-    each inner step's global sampled indices."""
-    step = train_step or make_train_step(cfg, net)
+    each inner step's global sampled indices.
+
+    ``learnhealth`` (with ``cfg.learnhealth_interval > 0``) appends each
+    inner step's diagnostic vector: ``-> (state, prios, losses, diags (k,
+    DIAG_SIZE))``; a ``train_step`` given with it must return the vector
+    too."""
+    lh = learnhealth and cfg.learnhealth_interval > 0
+    step = train_step or make_train_step(cfg, net, learnhealth=lh)
     B = cfg.batch_size
 
     def super_step(state: TrainState, arrays, prios: torch.Tensor,
@@ -419,7 +487,7 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
                                   device=prios.device)
         meta = None if cross is None else cross.global_meta(seq_meta,
                                                             first_burn)
-        losses = []
+        losses, diags = [], []
         for j in range(k):
             if cross is None:
                 idx, w, ints = _in_graph_sample(cfg, uniforms[j], prios,
@@ -429,7 +497,10 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
                 d, batch = cross.sample_batch(uniforms[j], prios, meta,
                                               arrays)
                 idx = d.idx
-            state, loss, new_p = step(state, batch)
+            out = step(state, batch)
+            state, loss, new_p = out[:3]
+            if lh:
+                diags.append(out[3])
             # feedback: the exponent the host tree applies (sum_tree.py)
             if cross is None:
                 scatter_last(prios, idx, new_p ** cfg.prio_exponent)
@@ -439,6 +510,8 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
             if record is not None:
                 record.append(idx)
             losses.append(loss)
+        if lh:
+            return state, prios, torch.stack(losses), torch.stack(diags)
         return state, prios, torch.stack(losses)
 
     return super_step

@@ -81,6 +81,7 @@ from r2d2_tpu_torch.telemetry.slab import (
     StatsSlabWriter,
 )
 from r2d2_tpu_torch.utils.resilience import CLOSED, bounded_event_set
+from r2d2_tpu_torch.telemetry.tracing import EVENTS
 from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS
 
 log = logging.getLogger(__name__)
@@ -209,6 +210,14 @@ class ShmBlockProducer:
         if episode_reward is not None:
             self.episodes += 1
             self.episode_reward_sum += float(episode_reward)
+        # capture-window poll and ring flush at block granularity (blocks
+        # are the lineage unit), BEFORE the free-slot wait: a producer
+        # parked on backpressure through a capture's close has still
+        # published its cut event.  flush() is a no-op when nothing new
+        # was recorded
+        EVENTS.poll()
+        EVENTS.flush()
+        t0 = time.perf_counter()
         while True:
             if self.stop_event.is_set():
                 raise FleetStopped
@@ -225,6 +234,12 @@ class ShmBlockProducer:
         k, n_obs, n_steps = write_block(views, block, priorities)
         self.ready.put((slot, self.src, k, n_obs, n_steps, episode_reward))
         self.blocks_sent += 1
+        if block.trace_id and EVENTS.armed:
+            # lineage hop: the free-slot wait (channel backpressure) and
+            # the serialising copy
+            EVENTS.complete("fleet.block_send", t0,
+                            time.perf_counter() - t0,
+                            flow=block.trace_id, fph="t")
 
     def close(self) -> None:
         try:
@@ -356,7 +371,7 @@ def _fleet_worker_main(cfg: Config, action_dim: int, env_factory,
                        spec: _FleetSpec, producer_info, weights_q,
                        stop_event, ctrl_q=None, snap_q=None,
                        restore_snap=None, act_info=None,
-                       stats_info=None) -> None:
+                       stats_info=None, trace_info=None) -> None:
     """Entry point of one fleet subprocess.
 
     Hides the CUDA devices from this process and acts on the CPU (the
@@ -376,7 +391,10 @@ def _fleet_worker_main(cfg: Config, action_dim: int, env_factory,
     weights the client's fallback acts on when its circuit opens.
 
     ``stats_info`` attaches the stats slab: after every run burst the
-    fleet publishes its counters, CRC last, no pickling.
+    fleet publishes its counters, CRC last, no pickling.  ``trace_info``
+    attaches the process-wide event recorder to this fleet's slot of the
+    trace slab (telemetry/tracing.py), polled and flushed at the burst
+    and block cadence.
     """
     started = (time.process_time(), time.time())
     # before anything can create a CUDA context: none of the trainer's
@@ -452,9 +470,15 @@ def _fleet_worker_main(cfg: Config, action_dim: int, env_factory,
                                 src=spec.fleet_id, member_id=spec.member_id)
     stats_writer = (StatsSlabWriter(stats_info)
                     if stats_info is not None else None)
+    if trace_info is not None:
+        EVENTS.attach(trace_info)
     num_lanes = spec.hi - spec.lo
 
     def publish_stats() -> None:
+        if trace_info is not None:
+            # capture-window poll and ring flush ride the burst cadence
+            EVENTS.poll()
+            EVENTS.flush()
         if stats_writer is None:
             return
         # lockstep fleet: one actor iteration steps every lane
@@ -534,6 +558,9 @@ def _fleet_worker_main(cfg: Config, action_dim: int, env_factory,
             client.close()
         if stats_writer is not None:
             stats_writer.close()
+        if trace_info is not None:
+            EVENTS.flush()
+            EVENTS.detach()
         producer.close()
 
 
@@ -641,6 +668,12 @@ class ProcessFleetPlane:
         # one slot per fleet, merged monotone across respawns; plain shm,
         # no queues — a SIGKILLed writer cannot corrupt it
         self.stats_slab = StatsSlab(F, FLEET_STAT_FIELDS)
+        # the cross-process trace slab (telemetry/tracing.py): train()
+        # hands it over before start(); fleet f writes slot
+        # trace_slot_base + f, a respawn re-attaching under its new
+        # incarnation
+        self.trace_slab = None
+        self.trace_slot_base = 0
         self.stats_merger = CounterMerger(F, FLEET_STAT_FIELDS)
         # the log loop and the exporter's health handler both scrape; an
         # unlocked concurrent fold would double-count a respawn's base
@@ -803,6 +836,11 @@ class ProcessFleetPlane:
             if not restored:
                 # respawn or cold spawn: no stale recurrent state survives
                 self.service.reset_shard(f)
+        trace_info = None
+        if self.trace_slab is not None:
+            trace_info = self.trace_slab.writer_info(
+                self.trace_slot_base + f, incarnation=self.restarts[f],
+                name=f"fleet{f}")
         p = self.ctx.Process(
             target=_fleet_worker_main, name=f"fleet{f}",
             # the member's config under a population: the child's envs,
@@ -813,7 +851,8 @@ class ProcessFleetPlane:
                   spec,
                   self.channels[f].producer_info(), self.weight_queues[f],
                   self.stop_event, self.ctrl_queues[f], self.snap_queues[f],
-                  restore_snap, act_info, self.stats_slab.writer_info(f)),
+                  restore_snap, act_info, self.stats_slab.writer_info(f),
+                  trace_info),
             daemon=True)
         p.start()
         self.procs[f] = p
@@ -995,6 +1034,7 @@ class ProcessFleetPlane:
             p = self.procs[f]
             if ch is None:
                 continue
+            t0 = time.perf_counter()
             try:
                 got = ch.recv(timeout=0)
             except CorruptBlockError as e:
@@ -1023,6 +1063,10 @@ class ProcessFleetPlane:
                 self.registry.observe(
                     "pipeline.hop.cut_to_ingest_s",
                     max(0.0, time.time() - block.cut_ts))
+            if block.trace_id and EVENTS.armed:
+                EVENTS.complete("ingest.block", t0,
+                                time.perf_counter() - t0,
+                                flow=block.trace_id, fph="t", arg=src)
             # one shm→ring crossing per block
             HOST_TRANSFERS.count("ingest.block")
             self.blocks_ingested += 1

@@ -44,8 +44,9 @@ module's params while it runs, so the learner's module is never shared);
 on a CUDA device it resolves ``lstm_impl="auto"`` to the fused
 ``lstm_infer`` kernel, one launch per LSTM layer per batch.  Every port
 path issues on the default stream, so a batch queues behind an in-flight
-super-step.  The reference's ``TRANSFER_GUARD.disallow`` window around
-the act is ROADMAP.md A item 10 and is not armed here.
+super-step.  The act runs in a ``TRANSFER_GUARD`` window (``serve.act``)
+whose two declared crossings are those copies, and a capture window marks
+each served batch with a ``serve.batch`` instant carrying its lane count.
 """
 from __future__ import annotations
 
@@ -71,7 +72,8 @@ from r2d2_tpu_torch.utils.resilience import (
     Deadline,
     RetryPolicy,
 )
-from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS
+from r2d2_tpu_torch.telemetry.tracing import EVENTS
+from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, TRANSFER_GUARD
 
 log = logging.getLogger(__name__)
 
@@ -679,7 +681,7 @@ class InferenceService:
         if len(pend) < attached:
             self.partial_batches += 1
             self.registry.inc("serve.partial_batches")
-        with _span(tr, "serve.act"):
+        with _span(tr, "serve.act"), TRANSFER_GUARD.disallow("serve.act"):
             q, new_hidden = self._act_batch(hidden_in, "serve.act_fetch")
         lanes = 0
         with _span(tr, "serve.scatter"):
@@ -724,6 +726,10 @@ class InferenceService:
         self.last_batch_lanes = lanes
         if tr is not None:
             tr.gauge("serve.batch_lanes", lanes)
+        if EVENTS.armed:
+            # capture-window marker: one instant per served cross-fleet
+            # batch, with its lane count, on the trainer track
+            EVENTS.instant("serve.batch", arg=lanes)
         return lanes
 
     # --------------------------------------------------------------- misc

@@ -67,9 +67,9 @@ group, counted in ``prio_batches``).
 
 Everything publishes under ``replay.net.*`` and the plane's verdict
 feeds the three-state ``/healthz`` — a partitioned or reconnecting shard
-is ``degraded``, never silent.  The reference's cross-process trace slab
-is ROADMAP.md A item 10: the lineage hooks stay behind the disarmed
-``EVENTS`` stand-in.
+is ``degraded``, never silent.  Each managed shard process writes its
+slot of the run's cross-process trace slab (telemetry/tracing.py),
+polled and flushed once per event-loop tick.
 """
 from __future__ import annotations
 
@@ -606,18 +606,31 @@ class ShardServer:
 
 def _net_shard_main(cfg: Config, action_dim: int, shard_id: int,
                     epoch: int, host: str, port: int, port_q, stop_event,
-                    restore) -> None:
+                    restore, trace_info=None) -> None:
     """Entry point of one MANAGED (plane-spawned) loopback shard server;
     reports its bound port through ``port_q`` before serving.  Hides
-    every CUDA card from itself first (the shm worker's rule)."""
+    every CUDA card from itself first (the shm worker's rule).
+    ``trace_info`` attaches the event recorder to this shard's slot of
+    the trace slab."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    if trace_info is not None:
+        EVENTS.attach(trace_info)
     srv = ShardServer(cfg, action_dim, shard_id, epoch, host=host,
                       port=port, restore=restore)
     port_q.put(srv.port)
+
+    def tick() -> None:
+        if trace_info is not None:
+            EVENTS.poll()
+            EVENTS.flush()
+
     try:
-        srv.serve_forever(stop_event.is_set)
+        srv.serve_forever(stop_event.is_set, on_tick=tick)
     finally:
         srv.close()
+        if trace_info is not None:
+            EVENTS.flush()
+            EVENTS.detach()
 
 
 def run_shard_server(cfg: Config, action_dim: int, shard_id: int = 0,
@@ -1140,6 +1153,11 @@ class NetShardedReplayPlane:
         self._watch_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self.stats_merger = CounterMerger(self.K, NET_STAT_FIELDS)
+        # the cross-process trace slab (telemetry/tracing.py): train()
+        # hands it over before start(); managed shard s writes slot
+        # trace_slot_base + s
+        self.trace_slab = None
+        self.trace_slot_base = 0
         self.links: List[Optional[ShardLink]] = [None] * self.K
         self.procs: List[Optional[mp.Process]] = [None] * self.K
         self.restarts = [0] * self.K
@@ -1214,10 +1232,16 @@ class NetShardedReplayPlane:
         spawns all first, then binds, so the children's imports
         overlap)."""
         port_q = self.ctx.Queue()
+        trace_info = None
+        if self.trace_slab is not None:
+            trace_info = self.trace_slab.writer_info(
+                self.trace_slot_base + s, incarnation=self.restarts[s],
+                name=f"netshard{s}")
         p = self.ctx.Process(
             target=_net_shard_main, name=f"replay_netshard{s}",
             args=(self.shard_cfg, self.action_dim, s, self.restarts[s],
-                  "127.0.0.1", 0, port_q, self.stop_event, restore),
+                  "127.0.0.1", 0, port_q, self.stop_event, restore,
+                  trace_info),
             daemon=True)
         p.start()
         self.procs[s] = p

@@ -72,8 +72,9 @@ Failure story (composes with the chaos suite):
   and ``--resume`` restores every shard mass-exact.
 
 Everything publishes under the ``replay.shard.*`` telemetry namespace.
-The reference's cross-process trace slab is ROADMAP.md A item 10: the
-lineage hooks stay behind the disarmed ``EVENTS`` stand-in.
+Each shard process writes its slot of the run's cross-process trace slab
+(telemetry/tracing.py; ``trace_slab``/``trace_slot_base``, handed over by
+``train()`` before ``start``), polled and flushed at its publish cadence.
 """
 from __future__ import annotations
 
@@ -319,7 +320,7 @@ class _ShardChannels:
 
 def _shard_worker_main(cfg: Config, action_dim: int, shard_id: int,
                        incarnation: int, info: dict, stop_event,
-                       stats_info, restore) -> None:
+                       stats_info, restore, trace_info=None) -> None:
     """Entry point of one replay shard owner process.
 
     ``cfg`` is the already-sliced shard config (``buffer_capacity / K``);
@@ -362,6 +363,10 @@ def _shard_worker_main(cfg: Config, action_dim: int, shard_id: int,
     fb_q, ctrl_q, snap_q = info["fb"], info["ctrl"], info["snap"]
 
     writer = StatsSlabWriter(stats_info, SHARD_STAT_FIELDS)
+    if trace_info is not None:
+        # this process's slot of the trace slab; capture-window polls and
+        # ring flushes ride the publish cadence below
+        EVENTS.attach(trace_info)
     # session-local counters (start at zero every incarnation, even after
     # a restore — the trainer's CounterMerger folds across respawns)
     counters = dict(blocks=0, corrupt=0, samples=0, prio_updates=0)
@@ -383,6 +388,9 @@ def _shard_worker_main(cfg: Config, action_dim: int, shard_id: int,
         return health["vals"]
 
     def publish() -> None:
+        if trace_info is not None:
+            EVENTS.poll()
+            EVENTS.flush()
         writer.publish(dict(
             tree_mass=buffer.tree.total, size=buffer.size,
             blocks=counters["blocks"],
@@ -519,6 +527,9 @@ def _shard_worker_main(cfg: Config, action_dim: int, shard_id: int,
         publish()
     finally:
         writer.close()
+        if trace_info is not None:
+            EVENTS.flush()
+            EVENTS.detach()
         for shm in (ingest_shm, sample_shm):
             try:
                 shm.close()
@@ -591,6 +602,11 @@ class ShardedReplayPlane:
         self._watch_lock = threading.Lock()
         self.stats_slab = StatsSlab(self.K, SHARD_STAT_FIELDS)
         self.stats_merger = CounterMerger(self.K, SHARD_STAT_FIELDS)
+        # the cross-process trace slab (telemetry/tracing.py): train()
+        # hands it over before start(); shard s writes slot
+        # trace_slot_base + s
+        self.trace_slab = None
+        self.trace_slot_base = 0
         self._stats_lock = threading.Lock()
         self.channels: List[Optional[_ShardChannels]] = [None] * self.K
         self._graveyard: List[_ShardChannels] = []
@@ -666,11 +682,16 @@ class ShardedReplayPlane:
         self._routed[s] = 0
         self._fb_sent[s] = 0
         self._seq[s] = 0
+        trace_info = None
+        if self.trace_slab is not None:
+            trace_info = self.trace_slab.writer_info(
+                self.trace_slot_base + s, incarnation=self.restarts[s],
+                name=f"shard{s}")
         p = self.ctx.Process(
             target=_shard_worker_main, name=f"replay_shard{s}",
             args=(self.shard_cfg, self.action_dim, s, self.restarts[s],
                   self.channels[s].worker_info(), self.stop_event,
-                  self.stats_slab.writer_info(s), restore),
+                  self.stats_slab.writer_info(s), restore, trace_info),
             daemon=True)
         p.start()
         self.procs[s] = p

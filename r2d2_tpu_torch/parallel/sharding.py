@@ -357,7 +357,8 @@ def _check_batch(cfg, table: ShardingTable) -> None:
 def mesh_train_step(cfg, net, table: ShardingTable, state_template=None):
     """THE meshed train step (JAX's ``pjit_train_step``): returns
     ``train_step(state, batch) -> (state, loss, priorities)`` for a DTensor
-    ``state`` in the table layout.
+    ``state`` in the table layout, plus the diagnostic vector (whole and
+    the same on every rank) when ``cfg.learnhealth_interval > 0``.
 
     ``batch`` fields are DTensors sharded over dp, or plain tensors that
     hold this rank's rows (wrapped without communication).  The loss comes
@@ -376,7 +377,8 @@ def mesh_train_step(cfg, net, table: ShardingTable, state_template=None):
     table._need_mesh()
     _check_batch(cfg, table)
     table.state_shardings(state_template)
-    step = make_train_step(cfg, net)
+    lh = cfg.learnhealth_interval > 0
+    step = make_train_step(cfg, net, learnhealth=lh)
     mesh = table.mesh
     batch_pl = table.batch_shardings()
 
@@ -384,7 +386,13 @@ def mesh_train_step(cfg, net, table: ShardingTable, state_template=None):
         batch = {k: v if isinstance(v, DTensor) else DTensor.from_local(
             v, mesh, list(batch_pl[k])) for k, v in batch.items()}
         with implicit_replication():
-            state, loss, priorities = step(state, batch)
+            out = step(state, batch)
+        state, loss, priorities = out[:3]
+        if lh:
+            # the diag vector is whole on every rank: its norms reduce
+            # over every shard, its histograms over the global batch
+            return (state, full(loss), local_rows(priorities),
+                    full(out[3]))
         return state, full(loss), local_rows(priorities)
 
     return train_step
@@ -400,4 +408,5 @@ def mesh_super_step(cfg, net, table: ShardingTable, k: int,
     from r2d2_tpu_torch.learner.step import SuperStep
 
     return SuperStep(cfg, net, k, train_step=mesh_train_step(
-        cfg, net, table, state_template=state_template))
+        cfg, net, table, state_template=state_template),
+        learnhealth=cfg.learnhealth_interval > 0)

@@ -31,7 +31,7 @@ import torch
 
 from r2d2_tpu_torch.config import Config
 from r2d2_tpu_torch.replay.block import slot_layout, slot_views
-from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS
+from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, TRANSFER_GUARD
 
 
 def bucket_sizes(max_batch: int) -> Tuple[int, ...]:
@@ -191,14 +191,18 @@ class ContinuousBatcher:
         return s
 
     def _run(self, s: _Bucket, n: int) -> Tuple[np.ndarray, np.ndarray]:
-        with HOST_TRANSFERS.allowed("serving.act_put"):
-            x = s.put()
-        q, new_hidden = self._act(self._params, x["obs"], x["last_action"],
-                                  x["last_reward"], x["hidden"])
-        b = q.shape[0]
-        packed = torch.cat([q, new_hidden.reshape(b, -1)], dim=1)
-        with HOST_TRANSFERS.allowed("serving.act_fetch"):
-            out = packed.cpu().numpy()
+        # the act's guard window: its two declared crossings are the one
+        # put of the padded rows and the one fetch of (q, new hidden)
+        with TRANSFER_GUARD.disallow("serving.act"):
+            with HOST_TRANSFERS.allowed("serving.act_put"):
+                x = s.put()
+            q, new_hidden = self._act(self._params, x["obs"],
+                                      x["last_action"], x["last_reward"],
+                                      x["hidden"])
+            b = q.shape[0]
+            packed = torch.cat([q, new_hidden.reshape(b, -1)], dim=1)
+            with HOST_TRANSFERS.allowed("serving.act_fetch"):
+                out = packed.cpu().numpy()
         A = self.action_dim
         return out[:n, :A], out[:n, A:].reshape(n, *new_hidden.shape[1:])
 

@@ -15,9 +15,10 @@ Three endpoint contracts, chosen so stock tooling works unmodified:
 
 Trigger routes (``routes=``): the caller may register extra GET paths —
 the port's ``train()`` wires ``/alertz`` (the learning-health alert
-engine's status) through this hook; the reference's ``/tracez`` and
-``/profilez`` capture routes wait for the tracing slab (ROADMAP.md A,
-item 10).  A route handler receives the flat query-param dict and
+engine's status), ``/tracez`` (``?steps=N`` arms a fabric-wide capture
+window of N train steps) and ``/profilez`` (``?secs=S`` arms a
+``torch.profiler`` capture) through this hook; a busy window answers
+409.  Dumps land in ``<checkpoint_dir>/telemetry/``.  A route handler receives the flat query-param dict and
 returns ``(status_code, json_payload)``.
 
 Anything else is 404.  The server binds loopback by default and is

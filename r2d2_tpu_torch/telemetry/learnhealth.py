@@ -1,7 +1,10 @@
 """Learning-health plane, host side: the monitor and the alert engine.
 
-Port of the host half of ``r2d2_tpu/telemetry/learnhealth.py``: the
-diagnostic vector's layout (so a diag row absorbs the same way), the
+Port of ``r2d2_tpu/telemetry/learnhealth.py``: the in-graph diagnostic
+vector (:func:`make_diag_fn`: the paper's ΔQ stored-vs-zero-state
+divergence, |TD| and IS-weight fixed-bucket histograms, grad/update/param
+global norms, target lag, max|Q| and a non-finite sentry, computed on the
+device inside an armed train step), the
 :class:`LearnHealthMonitor` (harvested losses → the NaN sentry and the
 loss-spike EWMA; a non-finite loss trips a clean fabric stop and fires
 the ``nonfinite`` alert at once), the replay data-health math
@@ -10,10 +13,11 @@ the ``nonfinite`` alert at once), the replay data-health math
 ``learnhealth.alert{rule}`` counters, durable ``alerts.jsonl`` rows and
 ``/alertz`` payload, and :func:`read_alerts`.
 
-The in-graph diagnostic vector (the reference's ``make_diag_fn``, with
-its ΔQ re-unroll from a zero state) waits for ROADMAP.md A, item 10: the
-port's ``train()`` refuses ``learnhealth_interval > 0``, so the monitor
-only ever sees losses and the diag-fed rules stay quiet.
+The vector rides each drivetrain's existing result fetch (concatenated
+into the same flat vector), so the per-dispatch ``HOST_TRANSFERS`` counts
+do not change with the diagnostics on.  Module-level code is numpy and
+the standard library only (replay shard subprocesses import this for the
+data-health vocabulary); :func:`make_diag_fn` imports torch.
 """
 from __future__ import annotations
 
@@ -70,6 +74,107 @@ PRIO_EDGES = (1e-3, 3e-3, 0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0)
 def diag_enabled(cfg) -> bool:
     """Whether the train-step drivetrains carry the diagnostic vector."""
     return getattr(cfg, "learnhealth_interval", 0) > 0
+
+
+def make_diag_fn(cfg, net) -> Callable[..., Any]:
+    """The diagnostic bundle of one armed train step.
+
+    Returns ``diag(params, batch, loss, grads, updates, new_params,
+    new_target, aux, q_zero=None) -> (DIAG_SIZE,) f32`` on the loss's
+    device, where ``aux`` is ``loss_and_priorities(..., with_aux=True)``'s
+    ``(td, mask, q_learn, max_abs_q)`` and ``params`` the PRE-update
+    params that produced ``q_learn``.  The train step updates its params
+    in place, so it runs the ΔQ re-unroll first,
+    ``diag.zero_state_unroll(params, batch)``, and passes the result as
+    ``q_zero`` (``params`` is then unused).  ``grads``, ``updates``,
+    ``new_params`` and ``new_target`` are name -> tensor dicts; every
+    norm and the non-finite count cover every leaf (DTensor leaves are
+    reduced over their shards by DTensor).  Call under ``no_grad``.
+
+    ``net`` must be the step's LOSS net (the scan recurrence,
+    ``learner.step._loss_net``).
+    """
+    import torch
+
+    from r2d2_tpu_torch.learner.step import (
+        _gather_time,
+        _unroll,
+        _window_indices,
+    )
+    from r2d2_tpu_torch.models.network import unshard
+    from r2d2_tpu_torch.parallel.sharding import full
+
+    def bucketize(values, weights, edges):
+        # right=False is jnp's side="left", bisect_left: the registry
+        # _Histogram's bucket rule, so the counts merge into a declared
+        # histogram without re-binning
+        e = torch.tensor(edges, dtype=torch.float32, device=values.device)
+        idx = torch.searchsorted(e, values.reshape(-1).contiguous(),
+                                 right=False)
+        return torch.zeros(len(edges) + 1, dtype=torch.float32,
+                           device=values.device).scatter_add_(
+            0, idx, weights.reshape(-1).to(torch.float32))
+
+    def global_norm(tree) -> torch.Tensor:
+        return full(torch.sqrt(sum(torch.sum(v * v)
+                                   for v in tree.values())))
+
+    def nonfinite_count(loss, grads) -> torch.Tensor:
+        total = (~torch.isfinite(loss)).to(torch.float32)
+        for g in grads.values():
+            total = total + full((~torch.isfinite(g)).sum()).to(
+                torch.float32)
+        return total
+
+    def zero_state_unroll(params, batch):
+        # the paper's ΔQ: the SAME window re-unrolled from a zero initial
+        # state with the SAME pre-update params
+        with torch.no_grad():
+            q = _unroll(net, params, dict(
+                batch, hidden=torch.zeros_like(batch["hidden"])))
+        return unshard(q, -1)
+
+    def diag(params, batch, loss, grads, updates, new_params, new_target,
+             aux, q_zero=None):
+        td, mask, q_learn, max_abs_q = aux
+        if q_zero is None:
+            q_zero = zero_state_unroll(params, batch)
+        td, mask, q_learn = full(td), full(mask), full(q_learn)
+        q_zero = full(q_zero)
+        w = full(batch["is_weights"])
+        idx_online, _, m = _window_indices(
+            cfg, full(batch["burn_in"]), full(batch["learning"]),
+            full(batch["forward"]))
+        dq = torch.abs(q_learn - _gather_time(q_zero, idx_online))
+        dq_masked = torch.where(m[:, :, None], dq, torch.zeros_like(dq))
+        denom = torch.clamp(m.sum() * dq.shape[-1], min=1)
+        dq_mean = dq_masked.sum() / denom
+        dq_max = dq_masked.max()
+        abs_td = torch.abs(td)
+        td_abs = torch.where(mask, abs_td, torch.zeros_like(abs_td))
+        td_counts = bucketize(abs_td, mask, TD_ABS_EDGES)
+        is_counts = bucketize(w, torch.ones_like(w), IS_WEIGHT_EDGES)
+        lag = global_norm({k: new_params[k] - new_target[k]
+                           for k in new_params})
+        f32 = torch.float32
+        scalars = torch.stack([
+            torch.ones((), dtype=f32, device=td.device),
+            full(loss).to(f32),
+            nonfinite_count(full(loss), grads),
+            global_norm(grads).to(f32),
+            global_norm(updates).to(f32),
+            global_norm(new_params).to(f32),
+            lag.to(f32),
+            full(max_abs_q).to(f32),
+            dq_mean.to(f32),
+            dq_max.to(f32),
+            td_abs.sum().to(f32),
+            w.sum().to(f32),
+        ])
+        return torch.cat([scalars, td_counts, is_counts])
+
+    diag.zero_state_unroll = zero_state_unroll
+    return diag
 
 
 def empty_diag():

@@ -2,8 +2,9 @@
 
 Port of ``r2d2_tpu/telemetry/plane.py``: the same entry absorption, the
 same metric names.  The guard surfaces it absorbs are the port's
-(``HOST_TRANSFERS`` and ``KERNEL_LAUNCHES``); ``RETRACES`` and
-``TRANSFER_GUARD`` have no counterpart yet (ROADMAP.md A, item 10).
+(``HOST_TRANSFERS``, ``KERNEL_LAUNCHES`` and ``TRANSFER_GUARD``'s
+``window.*``/``trip.*`` counters); ``RETRACES`` has nothing to count in a
+port that compiles nothing (ROADMAP.md A, item 10).
 
 One :class:`Telemetry` object per ``train()`` call, wired by the fabric:
 
@@ -371,12 +372,18 @@ class Telemetry:
             elif rh.get("priorities"):
                 _prio_row(rh["priorities"])
         # the runtime surfaces (utils/trace.py process-wide views): the
-        # counted host<->device crossings and the hand-written kernels'
-        # launches
-        from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+        # counted host<->device crossings, the hand-written kernels'
+        # launches, and the transfer guard's windows and trips (a
+        # non-zero trip is the failure signal)
+        from r2d2_tpu_torch.utils.trace import (
+            HOST_TRANSFERS,
+            KERNEL_LAUNCHES,
+            TRANSFER_GUARD,
+        )
 
         reg.absorb_counters("host_transfers", HOST_TRANSFERS.snapshot())
         reg.absorb_counters("kernel_launches", KERNEL_LAUNCHES.snapshot())
+        reg.absorb_counters("transfer_guard", TRANSFER_GUARD.snapshot())
 
         self.last_entry = entry
         if self.runlog is not None:

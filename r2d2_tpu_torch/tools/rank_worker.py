@@ -140,7 +140,8 @@ def task_collectives(values):
 def task_step(params, batches, cfg_kw, layouts):
     """``len(batches)`` meshed train steps from ``params`` (a port state
     dict) at each mesh shape of ``layouts``; per layout the losses, the
-    priorities (all rows, by dp coordinate) and the final params."""
+    priorities (all rows, by dp coordinate), the learnhealth diag vectors
+    (with ``learnhealth_interval`` in ``cfg_kw``) and the final params."""
     import torch
     import torch.distributed as dist
 
@@ -171,10 +172,13 @@ def task_step(params, batches, cfg_kw, layouts):
         rows = slice(c * per, (c + 1) * per)
         placements = {k: tuple(map(str, v.placements))
                       for k, v in state.params.items()}
-        losses, prios = [], []
+        losses, prios, diags = [], [], []
         for b in batches:
             local = {k: torch.from_numpy(v[rows]) for k, v in b.items()}
-            state, loss, p = step(state, local)
+            out = step(state, local)
+            state, loss, p = out[:3]
+            if len(out) > 3:        # cfg.learnhealth_interval > 0
+                diags.append(_np(out[3]))
             losses.append(float(loss))
             got = [None] * dist.get_world_size()
             dist.all_gather_object(got, (rows.start, _np(p)))
@@ -182,7 +186,7 @@ def task_step(params, batches, cfg_kw, layouts):
             prios.append([seen[s] for s in sorted(seen)])
         full = gather_state(state)
         results[tuple(map(tuple, shape))] = dict(
-            losses=losses, prios=prios, placements=placements,
+            losses=losses, prios=prios, diags=diags, placements=placements,
             params={k: _np(v) for k, v in full.params.items()},
             mu={k: _np(v) for k, v in full.opt_state.mu.items()})
     return results

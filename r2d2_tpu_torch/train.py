@@ -137,29 +137,11 @@ def resolve_device(device=None) -> torch.device:
 
 def check_unported(cfg: Config, use_mesh: bool = False) -> None:
     """Raise ``ValueError`` for a ``train()`` configuration that needs a
-    module the port has not ported yet, naming its ROADMAP.md item."""
+    module the port has not ported yet, naming its ROADMAP.md item: a
+    ``"dp"`` device-ring layout without the learner mesh (item 7a) and a
+    chaos site of item 11."""
     from r2d2_tpu_torch.utils.chaos import parse_spec
 
-    refusals = [
-        (cfg.league_eval and cfg.actor_transport == "anakin",
-         "league_eval is not wired into the anakin transport (the fused "
-         "loop scores itself with its on-device eval lane, "
-         "anakin_eval_interval); the JAX package runs such a config "
-         "without the eval sidecar, and the port refuses it rather than "
-         "drop the sidecar"),
-        (cfg.transfer_guard,
-         "transfer_guard (device<->host transfer guards around the "
-         "dispatches) waits for ROADMAP.md A item 10"),
-        (cfg.learnhealth_interval > 0,
-         "learnhealth_interval > 0 (the in-graph diagnostic vector) waits "
-         "for ROADMAP.md A item 10"),
-        (cfg.trace_steps > 0,
-         "trace_steps > 0 (the tracing slab and its capture controllers) "
-         "waits for ROADMAP.md A item 10"),
-    ]
-    for refused, why in refusals:
-        if refused:
-            raise ValueError(f"r2d2_tpu_torch.train: {why}")
     if cfg.device_replay and not use_mesh:
         from r2d2_tpu_torch.replay.device_ring import resolve_layout
 
@@ -547,15 +529,16 @@ def _device_memory_bytes(device: torch.device) -> Optional[int]:
 
 class _HostScaffold:
     """Host-side scaffolding of the threaded trainer (the reference's
-    ``_HostScaffold`` without ``tracing_loops``: the tracing slab and its
-    ``/tracez``/``/profilez`` controllers are ROADMAP.md A item 10).
+    ``_HostScaffold``).
 
     Owns the stop predicate (event + wall-clock deadline + supervisor
     failure + a tripped learnhealth monitor + the caller's ``stop_fn``),
     the SIGTERM/SIGINT drain-then-save handlers, the learner Heartbeat and
     its stall-watchdog loop, the bounded in-memory log ring, the telemetry
     plane with the supervisor's give-up stamping wired in, the alert
-    engine, and the quiesce/teardown order."""
+    engine, the cross-process trace slab with its ``/tracez`` and
+    ``/profilez`` capture controllers (:meth:`tracing_loops`), and the
+    quiesce/teardown order."""
 
     def __init__(self, cfg: Config, checkpoint_dir: Optional[str],
                  max_wall_seconds: Optional[float] = None,
@@ -573,6 +556,11 @@ class _HostScaffold:
                      if checkpoint_dir else None))
         self.learnhealth = LearnHealthMonitor(cfg, engine=self.alerts)
         self.routes: Dict[str, Any] = {"/alertz": self.alerts.route}
+        # tracing_loops() builds the trace slab and its controllers and
+        # registers the /tracez and /profilez routes
+        self.trace_slab = None
+        self.trace_ctl = None
+        self.profile_ctl = None
         # a thread exhausting its restart budget is stamped straight into
         # the registry by the supervisor itself — the log loop (the usual
         # absorption path) may be the very thread that died
@@ -653,6 +641,71 @@ class _HostScaffold:
         return ([("learner_watch", self._learner_watch)]
                 if self.cfg.learner_stall_timeout > 0 else [])
 
+    def _telemetry_dir(self) -> str:
+        """Where trace and profile dumps land: ``<checkpoint_dir>/
+        telemetry/`` next to the run log, or a one-shot temporary
+        directory for a run without checkpoints."""
+        if self.checkpoint_dir:
+            return os.path.join(self.checkpoint_dir, "telemetry")
+        if not hasattr(self, "_tmp_telemetry_dir"):
+            import tempfile
+
+            self._tmp_telemetry_dir = tempfile.mkdtemp(
+                prefix="r2d2_telemetry_")
+        return self._tmp_telemetry_dir
+
+    def tracing_loops(self, num_slots: int, step_fn: Callable[[], int],
+                      device) -> List[Any]:
+        """Build the run's cross-process trace slab (one event-ring slot
+        per fabric process: trainer, fleets, replay shards), attach the
+        process-wide recorder to slot 0, build the capture controllers
+        (``/tracez`` trace windows, ``/profilez`` profiles of ``device``,
+        boot-time ``cfg.trace_steps``) and return the supervised capture
+        loop.  Call before :meth:`exporter_loops`, which serves the
+        routes registered here."""
+        from r2d2_tpu_torch.telemetry.tracing import (
+            EVENTS,
+            ProfileController,
+            TraceController,
+            TraceSlab,
+        )
+
+        cfg = self.cfg
+        self.trace_slab = TraceSlab(num_slots, cfg.trace_buffer_events)
+        EVENTS.attach(self.trace_slab.writer_info(0, 0, "trainer"))
+        out_dir = self._telemetry_dir()
+        self.trace_ctl = TraceController(self.trace_slab, step_fn, out_dir,
+                                         tracer=EVENTS)
+        self.profile_ctl = ProfileController(out_dir, device=device)
+
+        def tracez(params: Dict[str, str]):
+            if "steps" in params:
+                res = self.trace_ctl.arm(int(params["steps"]))
+                return (409 if "error" in res else 200), res
+            return 200, self.trace_ctl.status()
+
+        def profilez(params: Dict[str, str]):
+            if "secs" in params:
+                res = self.profile_ctl.arm(float(params["secs"]))
+                return (409 if "error" in res else 200), res
+            return 200, self.profile_ctl.status()
+
+        self.routes.update({"/tracez": tracez, "/profilez": profilez})
+        if cfg.trace_steps > 0:
+            self.trace_ctl.arm(cfg.trace_steps)
+
+        def capture_loop():
+            while not self.stop():
+                self.trace_ctl.poll()
+                self.profile_ctl.poll()
+                EVENTS.flush()       # the trainer's ring publishes at the
+                time.sleep(0.1)      # cadence of any other writer
+            # a window still open at shutdown is closed, so its dump is
+            # never lost
+            self.trace_ctl.poll(force=True)
+
+        return [("capture", capture_loop)]
+
     def exporter_loops(self, healthz: Callable[[], Dict[str, Any]]
                        ) -> List[Any]:
         """Arm the HTTP exporter around the trainer's healthz verdict.
@@ -686,6 +739,18 @@ class _HostScaffold:
     def close(self) -> None:
         self.alerts.close()
         self.telemetry.close()
+        if self.trace_slab is not None:
+            # after the planes' shutdown: every subprocess writer is gone,
+            # so the unlink is safe
+            from r2d2_tpu_torch.telemetry.tracing import EVENTS
+
+            EVENTS.detach()
+            self.trace_slab.close()
+        if hasattr(self, "_tmp_telemetry_dir"):
+            try:
+                os.rmdir(self._tmp_telemetry_dir)   # only when no dump
+            except OSError:
+                pass
         for sig, handler in self._prev_handlers.items():
             try:
                 signal.signal(sig, handler)
@@ -983,7 +1048,13 @@ def _train_anakin(cfg: Config, checkpoint_dir: Optional[str] = None,
         except Exception as e:  # never fail the run over snapshot I/O
             log.warning("anakin full-state snapshot failed: %s", e)
 
+    # tracing: the fused loop is one process, so the capture plane is a
+    # single-slot slab — trainer-track spans and the /tracez and
+    # /profilez triggers work unchanged; block lineage does not exist
+    # here (blocks never leave the device)
     loops = ([("log", log_loop)] + scaffold.watch_loops()
+             + scaffold.tracing_loops(1, lambda: plane.training_steps,
+                                      device)
              + scaffold.exporter_loops(healthz))
     try:
         try:
@@ -1125,6 +1196,12 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
                 "envs/anakin.py four-method surface "
                 "(init_state/observe/step/reset_lanes + STATE_KEYS) and "
                 "register it in make_anakin_env")
+        if cfg.league_eval:
+            warnings.warn(
+                "league_eval is not wired into the anakin transport "
+                "(the fused loop has its own on-device eval-lane "
+                "follow-on, ROADMAP item 2) — running without the eval "
+                "sidecar", stacklevel=2)
         with _rank_world(use_mesh, device):
             return _train_anakin(cfg, checkpoint_dir=checkpoint_dir,
                                  resume=resume,
@@ -1177,6 +1254,22 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
         chaos = ChaosInjector(cfg.chaos_spec, seed=cfg.seed)
         if checkpointer is not None:
             checkpointer.chaos = chaos
+
+    # cross-process tracing (telemetry/tracing.py): one event-ring slot
+    # per fabric process — trainer (slot 0), fleets, replay shards —
+    # armed fabric-wide by /tracez or cfg.trace_steps.  Built before the
+    # planes start, so every worker attaches at birth
+    num_fleets = plane.num_fleets if plane is not None else 0
+    shard_procs = replay_plane.K if replay_plane is not None else 0
+    tracing_loops = scaffold.tracing_loops(
+        1 + num_fleets + shard_procs, lambda: buffer.training_steps,
+        learner.device)
+    if plane is not None:
+        plane.trace_slab = scaffold.trace_slab
+        plane.trace_slot_base = 1
+    if shard_procs:
+        replay_plane.trace_slab = scaffold.trace_slab
+        replay_plane.trace_slot_base = 1 + num_fleets
 
     if plane is not None:
         # CRC-failed blocks dropped at ingest surface in buffer.stats()
@@ -1485,6 +1578,7 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
         # ever feed this queue
         loops.append(("priority", priority_loop))
     loops.append(("log", log_loop))
+    loops += tracing_loops
     loops += scaffold.exporter_loops(healthz)
 
     # both run on the learner thread, so their waits poll learner_stop:

@@ -643,3 +643,104 @@ def test_population_trains_on_the_card_while_the_cpu_sidecar_scores(
     assert KERNEL_LAUNCHES.get(KERNEL) == cfg.lstm_layers * (
         svc["batches"] + svc["warmups"])
     assert KERNEL_LAUNCHES.get(CUDACORE_COUNTER) == 0
+
+
+# ------------------------------------------------- telemetry and guards
+
+@pytest.mark.cuda
+def test_transfer_guard_trips_an_undeclared_sync_and_passes_declared(cuda):
+    """Armed, a window turns an undeclared ``.item()`` into
+    TransferGuardTripped naming it; a declared crossing, a non-blocking
+    copy from pinned memory and a copy into pinned memory pass; the mode
+    found before the window comes back after it."""
+    from r2d2_tpu_torch.utils.trace import (
+        HOST_TRANSFERS,
+        TRANSFER_GUARD,
+        TransferGuardTripped,
+    )
+
+    g = TRANSFER_GUARD
+    g.reset()
+    x = torch.arange(8.0, device=cuda)
+    pinned = torch.zeros(8, pin_memory=True)
+    x.sum().item()                      # the context and handles exist
+    before = torch.cuda.get_sync_debug_mode()
+    with g.arm():
+        with pytest.raises(TransferGuardTripped, match="'test.window'"):
+            with g.disallow("test.window"):
+                x.sum().item()
+        with g.disallow("test.window"):
+            y = pinned.to(cuda, non_blocking=True)
+            pinned.copy_(y * 2, non_blocking=True)
+            with HOST_TRANSFERS.allowed("test.fetch"):
+                torch.cuda.synchronize()
+                assert float(x.sum().cpu()) == 28.0
+    assert torch.cuda.get_sync_debug_mode() == before
+    assert g.snapshot() == {"window.test.window": 2,
+                            "trip.test.window": 1}
+
+
+@pytest.mark.cuda
+def test_transfer_guard_lets_another_threads_declared_sync_pass(cuda):
+    """A window open in one thread: a declared fetch in another thread
+    (an inference service's, an actor's) does not trip."""
+    import threading
+
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, TRANSFER_GUARD
+
+    x = torch.ones(4, device=cuda)
+    x.sum().item()
+    got, inside, done = [], threading.Event(), threading.Event()
+
+    def fetcher():
+        inside.wait(10)
+        with HOST_TRANSFERS.allowed("serve.act_fetch"):
+            got.append(float(x.sum().cpu()))
+        done.set()
+
+    th = threading.Thread(target=fetcher)
+    th.start()
+    with TRANSFER_GUARD.arm():
+        with TRANSFER_GUARD.disallow("anakin.dispatch"):
+            inside.set()
+            assert done.wait(10)
+    th.join(10)
+    assert got == [4.0]
+
+
+@pytest.mark.cuda
+def test_armed_diag_on_the_card_matches_the_cpu(cuda):
+    """One armed train step (f32, TF32 off) on the card against the CPU:
+    the scalars within 1e-4 relative, the bucket counts equal."""
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.learner.step import create_train_state, make_train_step
+    from r2d2_tpu_torch.models import create_network
+    from r2d2_tpu_torch.telemetry.learnhealth import DIAG_SCALARS
+
+    cfg = test_config(learnhealth_interval=1, act_device="cpu")
+    rng = np.random.default_rng(2)
+    B, T, L = cfg.batch_size, cfg.seq_len, cfg.learning_steps
+    batch = dict(
+        obs=rng.integers(0, 255, (B, T, *cfg.obs_shape), dtype=np.uint8),
+        last_action=rng.random((B, T, 4)).astype(np.float32),
+        last_reward=rng.random((B, T)).astype(np.float32),
+        hidden=rng.normal(size=(B, 2, 1, cfg.hidden_dim)).astype(np.float32),
+        action=rng.integers(0, 4, (B, L)).astype(np.int32),
+        n_step_reward=rng.normal(size=(B, L)).astype(np.float32),
+        n_step_gamma=np.full((B, L), 0.97, np.float32),
+        burn_in=np.full(B, cfg.burn_in_steps, np.int32),
+        learning=np.full(B, L, np.int32),
+        forward=np.full(B, cfg.forward_steps, np.int32),
+        is_weights=rng.uniform(0.2, 1.0, B).astype(np.float32))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        net = create_network(cfg, 4, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+        state = create_train_state(cfg, net.state_dict())
+        *_, diag = make_train_step(cfg, net, learnhealth=True)(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        out[dev.type] = diag.cpu().numpy()
+    n = len(DIAG_SCALARS)
+    np.testing.assert_allclose(out["cuda"][:n], out["cpu"][:n], rtol=1e-4,
+                               atol=1e-7)
+    np.testing.assert_array_equal(out["cuda"][n:], out["cpu"][n:])

@@ -5,8 +5,11 @@
   back, the log entries written, ``/healthz`` and ``/metrics`` answered on
   an ephemeral port while it trains, the JAX package's metric keys;
 - every branch of the reference's ``train()`` the port has not ported
-  raises ``ValueError`` naming its ROADMAP.md item, and anakin with
-  ``league_eval`` raises where the reference drops the sidecar;
+  raises ``ValueError`` naming its ROADMAP.md item; the configurations
+  the telemetry slice ported (the in-graph diagnostics, the trace slab,
+  the transfer guard) train with their feature live, and anakin with
+  ``league_eval`` warns and trains without the sidecar, as the
+  reference;
 - the chaos grammar and its firing sequence, the console line, the
   telemetry plane's registry absorption and the learning-health monitor
   and alert engine equal the JAX package's on the same inputs.
@@ -15,6 +18,7 @@ Mirrors tests/test_train_end_to_end.py's fabric e2e (slow-marked there:
 the JAX step compiles; the port's does not, so this one takes seconds),
 tests/test_chaos.py, tests/test_telemetry.py and tests/test_learnhealth.py.
 """
+import contextlib
 import http.client
 import json
 import os
@@ -72,8 +76,8 @@ def http_get(port, path):
 def test_train_fabric_feeds_back_logs_and_serves_telemetry(tmp_path):
     """20 updates through the threaded fabric: all 20 priority feedbacks
     reach the buffer, the log loop writes entries (in memory and to the
-    JSONL run log), and the exporter answers /healthz and /metrics on the
-    ephemeral port while the run trains."""
+    JSONL run log), and the exporter answers /healthz, /metrics, /alertz,
+    /tracez and /profilez on the ephemeral port while the run trains."""
     scraped = {}
 
     def log_sink(entry):
@@ -82,6 +86,8 @@ def test_train_fabric_feeds_back_logs_and_serves_telemetry(tmp_path):
             scraped["healthz"] = http_get(port, "/healthz")
             scraped["metrics"] = http_get(port, "/metrics")
             scraped["alertz"] = http_get(port, "/alertz")
+            scraped["tracez"] = http_get(port, "/tracez")
+            scraped["profilez"] = http_get(port, "/profilez")
 
     cfg = cpu_config(training_steps=20, prefetch_batches=2,
                      log_interval=0.2, telemetry_port=-1)
@@ -101,6 +107,9 @@ def test_train_fabric_feeds_back_logs_and_serves_telemetry(tmp_path):
     status, body = scraped["metrics"]
     assert status == 200 and "r2d2_replay_buffer_size" in body
     assert scraped["alertz"][0] == 200
+    for route in ("tracez", "profilez"):
+        status, body = scraped[route]
+        assert status == 200 and json.loads(body)["armed"] is False
     entries = list(read_entries(os.path.join(ck, "telemetry",
                                              "run.jsonl")))
     assert entries and entries[-1]["training_steps"] <= 20
@@ -119,14 +128,8 @@ def test_train_needs_a_device_or_cuda(monkeypatch):
 
 
 REFUSALS = [
-    (dict(actor_transport="anakin", learnhealth_interval=10), "item 10"),
     (dict(device_replay=True, device_ring_layout="dp"), "item 7a"),
-    (dict(learnhealth_interval=10), "item 10"),
-    (dict(trace_steps=5), "item 10"),
-    (dict(transfer_guard=True), "item 10"),
-    # JAX runs this without its sidecar (r2d2_tpu/train.py:1044-1048)
-    (dict(actor_transport="anakin", league_eval=True),
-     "not wired into the anakin transport"),
+    (dict(chaos_spec="kill_session_client:every=1"), "item 11"),
 ]
 
 
@@ -138,15 +141,76 @@ def test_unported_branches_raise_naming_their_roadmap_item(kw, item):
                      verbose=False, device="cpu")
 
 
+ANAKIN = dict(actor_transport="anakin", num_actors=2, superstep_k=2,
+              learning_starts=16, anakin_episode_len=12)
+# the configurations check_unported refused until the telemetry slice
+# (ROADMAP item 10) and C 14; each now trains with its feature live
+FORMERLY_REFUSED = {
+    "anakin-learnhealth": dict(learnhealth_interval=2, **ANAKIN),
+    "learnhealth": dict(learnhealth_interval=2),
+    "trace_steps": dict(trace_steps=3),
+    "transfer_guard": dict(transfer_guard=True),
+    "anakin-transfer_guard": dict(transfer_guard=True, **ANAKIN),
+    "anakin-league_eval": dict(league_eval=True, **ANAKIN),
+}
+
+
+@pytest.mark.parametrize("name", list(FORMERLY_REFUSED))
+def test_formerly_refused_configs_train_with_their_feature_live(
+        name, tmp_path):
+    """The in-graph diagnostics absorb an armed row every 2nd update; a
+    boot-time capture dumps one trace with the trainer's track; the
+    anakin loop arms the transfer guard after its warm-up and counts its
+    windows (the reference arms it in no other transport, so a threaded
+    run counts none); anakin with ``league_eval`` warns, as the reference
+    (r2d2_tpu/train.py:1044-1051), and trains without the sidecar."""
+    from r2d2_tpu_torch.utils.trace import TRANSFER_GUARD
+
+    kw = FORMERLY_REFUSED[name]
+    steps = 8
+    TRANSFER_GUARD.reset()
+    warn = (pytest.warns(UserWarning, match="running without the eval "
+                         "sidecar") if kw.get("league_eval")
+            else contextlib.nullcontext())
+    with warn:
+        m = ttrain.train(cpu_config(training_steps=steps, **kw),
+                         env_factory=(env_factory if "actor_transport"
+                                      not in kw
+                                      else ttrain._default_env_factory),
+                         checkpoint_dir=str(tmp_path), verbose=False,
+                         device="cpu", max_wall_seconds=120)
+    assert m["num_updates"] == steps and np.isfinite(m["mean_loss"])
+    assert not m["fabric_failed"]
+    lh_on = kw.get("learnhealth_interval", 0) > 0
+    assert m["learnhealth"]["armed_steps"] == (steps // 2 if lh_on else 0)
+    dumps = sorted(os.listdir(tmp_path / "telemetry"))
+    traces = [d for d in dumps if d.startswith("trace_")]
+    if kw.get("trace_steps"):
+        assert traces == ["trace_1.json"]
+        with open(tmp_path / "telemetry" / traces[0]) as f:
+            trace = json.load(f)["traceEvents"]
+        names = {e["name"] for e in trace}
+        assert {"process_name", "learner.step_dispatch"} <= names
+    else:
+        assert traces == []
+    windows = TRANSFER_GUARD.snapshot()
+    if kw.get("transfer_guard") and kw.get("actor_transport"):
+        dispatches = steps // kw["superstep_k"]
+        assert windows == {"window.anakin.dispatch": dispatches,
+                           "window.anakin.harvest": dispatches}
+    else:
+        assert windows == {}
+
+
 def test_use_mesh_raises_naming_its_roadmap_item(monkeypatch):
     """The learner mesh refuses only what waits for another ROADMAP item
-    (the in-graph diagnostics, item 10); the anakin mesh and in-graph PER
-    over several ranks (item 7b) pass the check — from torchrun's
-    WORLD_SIZE, before any process group exists — and the anakin mesh
-    trains in a world of one."""
-    with pytest.raises(ValueError, match="item 10"):
+    (the session load generator's chaos sites, item 11); the anakin mesh
+    and in-graph PER over several ranks (item 7b) pass the check — from
+    torchrun's WORLD_SIZE, before any process group exists — and the
+    anakin mesh trains in a world of one."""
+    with pytest.raises(ValueError, match="item 11"):
         ttrain.train(cpu_config(actor_transport="anakin",
-                                learnhealth_interval=10),
+                                chaos_spec="slow_session_client:every=1"),
                      use_mesh=True, verbose=False, device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
     ttrain.check_unported(cpu_config(device_replay=True, in_graph_per=True),

@@ -625,7 +625,11 @@ def test_chaos_kill_eval_sidecar_degrades_health_not_training(tmp_path):
     spawns until its respawn budget runs out; /healthz then answers HTTP
     200 ``degraded`` with ``league.failed``, the learner keeps updating
     after that, and the run drains cleanly with both members' blocks in
-    replay."""
+    replay.
+
+    The run is stopped only once the population rows show both members'
+    blocks ingested: on a loaded host one member's fleet can fill the
+    warm-up alone before the other member's child has started acting."""
     cfg = _league_cfg(chaos_spec="kill_eval_sidecar:every=1,n=1000000")
     failed_at, port, stop = {}, {}, threading.Event()
 
@@ -635,6 +639,10 @@ def test_chaos_kill_eval_sidecar_degrades_health_not_training(tmp_path):
         if failed and "steps" not in failed_at:
             failed_at["steps"] = e["training_steps"]
         failed_at["last"] = e["training_steps"]
+        pop = (((e.get("fleet") or {}).get("population") or {})
+               .get("members") or [])
+        if len(pop) == 2 and all(r["blocks_ingested"] > 0 for r in pop):
+            failed_at["both_members"] = True
 
     th, result = _run(cfg, str(tmp_path), log_sink, stop)
     try:
@@ -646,6 +654,8 @@ def test_chaos_kill_eval_sidecar_degrades_health_not_training(tmp_path):
         assert health["league"]["failed"] is True
         assert poll(lambda: failed_at["last"] > failed_at["steps"], 150), \
             "no learner update after the sidecar failed"
+        assert poll(lambda: "both_members" in failed_at, 150), \
+            "a member's blocks never reached replay"
     finally:
         stop.set()
         th.join(150)

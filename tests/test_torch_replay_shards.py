@@ -83,6 +83,9 @@ def make_block(cfg, tag, priority, local_cls=tblock.LocalBuffer):
     return block, prios, ep
 
 
+FILL_WAIT_S = 120.0
+
+
 def wait_until(pred, timeout=30.0, interval=0.05):
     deadline = time.time() + timeout
     while time.time() < deadline:
@@ -92,15 +95,29 @@ def wait_until(pred, timeout=30.0, interval=0.05):
     return False
 
 
+def shards_up(plane) -> bool:
+    """Every shard process has published its stats once (its event loop
+    runs): over shm a stats-slab reading, over sockets a stats frame."""
+    if hasattr(plane, "stats_slab"):
+        return all(plane.stats_slab.read(s) is not None
+                   for s in range(plane.K))
+    return all(link is not None and link.take_stats() is not None
+               for link in plane.links)
+
+
 def fill_plane(plane, cfg, priorities_per_block,
                local_cls=tblock.LocalBuffer):
+    # a block sent while a shard child is still starting can wait out the
+    # plane's bounded send and be dropped (counted), as designed: add the
+    # blocks once every shard serves
+    assert wait_until(lambda: shards_up(plane), timeout=FILL_WAIT_S)
     for b, p in enumerate(priorities_per_block):
         block, prios, ep = make_block(cfg, 1000 * b, p, local_cls)
         plane.add(block, prios, episode_reward=ep)
     want = len(priorities_per_block) * cfg.block_length
     assert wait_until(
-        lambda: plane.poll_shard_stats()["size_total"] >= want), \
-        plane.poll_shard_stats()
+        lambda: plane.poll_shard_stats()["size_total"] >= want,
+        timeout=FILL_WAIT_S), plane.poll_shard_stats()
 
 
 def oracle_index(cfg, idxes):
@@ -449,12 +466,31 @@ def test_stalled_shard_redistributes_within_deadline():
         plane.shutdown()
 
 
+def _pause(procs, sig):
+    """Send ``sig`` (SIGSTOP or SIGCONT) to every shard process and wait
+    until each one's state says it took effect."""
+    for p in procs:
+        os.kill(p.pid, sig)
+    want_stopped = sig == signal.SIGSTOP
+    for p in procs:
+        def settled():
+            with open(f"/proc/{p.pid}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+            return (state in ("T", "t")) == want_stopped
+        assert wait_until(settled), (p.pid, sig)
+
+
 @pytest.mark.parametrize("transport", ["shm", "socket"])
 def test_a_draw_cut_by_the_stop_counts_apart_from_timeouts(transport):
     """A draw the fabric's stop cuts (ROADMAP C 10): the JAX package's
     plane counts it as K sample timeouts and B redraws that no shard
     caused; the port's counts K sample stops and neither.  Both return no
-    batch, and the next draw is whole."""
+    batch, and the next draw is whole.
+
+    Every shard has answered (the fill waits on each one's published
+    stats) and is then paused for the stop-cut draw, so no response can
+    land between the draw's issue and its first wait: the counts do not
+    depend on how the host schedules the shard processes (ROADMAP C 15)."""
     counts = {}
     for pkg, mod in (("jax", jrs if transport == "shm" else jrn),
                      ("torch", trs if transport == "shm" else trn)):
@@ -467,7 +503,11 @@ def test_a_draw_cut_by_the_stop_counts_apart_from_timeouts(transport):
             fill_plane(plane, cfg, [1.0, 2.0, 3.0, 4.0],
                        jblock.LocalBuffer if pkg == "jax"
                        else tblock.LocalBuffer)
-            assert plane.sample_batch(8, stop=lambda: True) is None
+            _pause(plane.procs, signal.SIGSTOP)
+            try:
+                assert plane.sample_batch(8, stop=lambda: True) is None
+            finally:
+                _pause(plane.procs, signal.SIGCONT)
             counts[pkg] = dict(
                 timeouts=plane.sample_timeouts, redraws=plane.redraws,
                 stops=getattr(plane, "sample_stops", None))
