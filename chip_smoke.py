@@ -77,15 +77,15 @@ Phases (each exits non-zero on failure):
    layers of H=512, batch 64, burn-in 40 + learning 75 + forward 5, blocks
    of 375, remat, bf16 compute, 8 actors) with only the replay size,
    warm-up and run length cut (the ``reduced:`` line), trained by the
-   threaded ``train()`` in this (the main) thread for 24 updates, resumed
-   warm to 28, then its checkpoint served by ``run_server`` in a worker
-   thread to a client process (16 sessions × 4 steps).  Checked: 24
-   updates and 24 priority feedbacks, no thread restarted, every loss
+   threaded ``train()`` in this (the main) thread for 16 updates, resumed
+   warm to 20, then its checkpoint served by ``run_server`` in a worker
+   thread to a client process (16 sessions × 4 steps).  Checked: 16
+   updates and 16 priority feedbacks, no thread restarted, every loss
    finite; the kernel launched twice per actor act (one per layer), the
    CUDA-core one never; ``/healthz`` (``ok``) and ``/metrics`` answered on
-   the run's ephemeral port; the JSONL run log and a complete ``step_24``
+   the run's ephemeral port; the JSONL run log and a complete ``step_16``
    replay snapshot on disk; the resume restores the replay and the actors
-   (counters monotone) and ends at 28 updates; every served new hidden
+   (counters monotone) and ends at 20 updates; every served new hidden
    within 2e-3 of the plain-LSTM act of the same restored params and every
    served q within 2e-3 of their plain head of that hidden (as phase 4);
    the store's accounting quadruple exact; two launches per served batch;
@@ -152,12 +152,12 @@ Phases (each exits non-zero on failure):
 9. process fleets: ``pong_config(game_name="Fake", actor_transport=
    "process", actor_fleets=8)`` — phase 7's preset with its 64 actors in 8
    spawned subprocess fleets of 8 lanes — with the full ring on the card,
-   cut as phase 7 is, trained by ``train()`` for 32 updates in serve mode
+   cut as phase 7 is, trained by ``train()`` for 16 updates in serve mode
    (every env step an act RPC to the trainer's ``InferenceService``, which
-   acts through the kernel at the 64-lane batch) and then 32 in local mode
+   acts through the kernel at the 64-lane batch) and then 16 in local mode
    (each fleet acts through its f32 CPU twin on pumped weights).  First,
    ``/dev/shm`` must have room for the fleets' slabs.  Checked, both modes:
-   32 updates in 8 dispatches, every loss finite and k priority feedbacks
+   16 updates in 4 dispatches, every loss finite and k priority feedbacks
    a dispatch; the buffer's transitions equal the ingested blocks'; 0
    corrupt blocks, 0 fleet restarts, every circuit closed with 0 opens and
    0 local-twin acts, ``/healthz`` ok; each fleet's report (asked for while
@@ -194,7 +194,7 @@ Phases (each exits non-zero on failure):
     the oracle's leaves' weight, and the summed shard mass the oracle's
     tree total to 1e-12 relative, over three draws with priority feedback
     between them.  Then ``train(cfg, device="cuda")`` three times: K = 1
-    (the in-process ring, 16 updates), K = 4 over shm (16 updates, ending
+    (the in-process ring, 8 updates), K = 4 over shm (8 updates, ending
     with the drain-then-save per-shard snapshot, read back into a fresh
     plane mass-exact, its bytes and seconds printed) and K = 4 over
     managed loopback sockets (8 updates).  Checked in each run: every
@@ -329,8 +329,38 @@ Phases (each exits non-zero on failure):
     preset's in-graph super-step with ``learnhealth_interval=2`` returning
     (k, 28) rows, and a meshed world-size-1 step's diag bit for bit its
     meshless one over NCCL.  Prints each part's seconds;
-15. one ``{"kernels": [...]}`` JSON line;
-16. last line: ``{"ok": true, "device": {...}}``.
+15. the edges, as a user runs them: the flagship ``Config(game_name=
+    "Fake")`` at its published widths (nature torso on 21×21×16 frames,
+    H = 512, bf16, batch 64, burn-in 40 + learning 40 + forward 5, 8
+    actors) through ``python -m r2d2_tpu_torch``, cut in warm-up, run
+    length and the end-of-run replay snapshot (the ``reduced:`` line).
+    (a) Two ``replay-shard`` servers (``--port 0``, their ports read from
+    their start lines), then ``eval --follow`` trailing the run.  (b)
+    ``cli.main(["train", ..., "--replay-hosts", ...])`` in this process:
+    the printed JSON line with 8 updates, every loss finite, the
+    checkpoints at 4 and 8 complete, ``lstm_infer`` = layers × acts on
+    the tensor-core route and 0 on the CUDA-core route, each shard's
+    printed summary (after SIGTERM) with its ingested blocks equal to
+    what the trainer routed to it and 0 corrupt.  (c) The evaluator exits
+    0 when its follow timeout runs out, with one record per complete
+    checkpoint in step order, the reference's keys, ``curve.json`` equal
+    to its printed records, and the plot written or skipped for want of
+    matplotlib.  (d) The session load generator's ``main``: 256 sessions
+    over 8 workers against an LRU budget of 192, 8 s a cell, both session
+    chaos sites armed: per cell the accounting exact, ``/healthz`` polled
+    and never ``failing``, kills that abandoned sessions and a reap, 0 <
+    evictions, sessions completed inside every straggler's freeze, and
+    ``lstm_infer`` = layers × (batches + warm-up buckets) on the cell's
+    route only — ``lstm_step_cudacore`` for the float32 cell,
+    ``lstm_step_wgmma`` for bfloat16; prints acts/s and the client
+    p50/p95/p99.  (e) ``serve --port -1 --max-wall-seconds 15`` driven by
+    ``run_load`` for 5 s: its summary serves step 8 with the accounting
+    exact.  (f) The bench through its isolated driver, cut in steps and
+    seconds: the JSON line parses, ``learner_env_frames_per_sec > 0``,
+    ``0 < mfu < 1``, every phase reported and none failed; the line is
+    printed.  Then every phase's seconds;
+16. one ``{"kernels": [...]}`` JSON line;
+17. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -365,8 +395,9 @@ Q_TOL = 2e-3
 # Pong preset's one 64-lane fleet (phase 7)
 CHECK_B = (1, 7, 8, 64, 65, 256)
 TIMED = ((1, 1), (1, 8), (1, 32), (1, 64), (1, 256), (85, 64))
-# rounds of the timing, each taking the designs in turns
-ROUNDS = 4
+# rounds of the timing, each taking the designs in turns (cut from 4 to
+# make room for phase 15; the rounds agree to a few per cent)
+ROUNDS = 2
 # the flagship LSTM layer's input: torso features, last action, reward
 IN_DIM = H + ACTION_DIM + 1
 # the library yardstick runs in bf16 end to end (x @ wi, the gates, h and
@@ -402,9 +433,9 @@ STEP_H = 64
 # the exporter on an ephemeral port and a log entry a second, so that the
 # run's /healthz and /metrics can be read while it trains
 FABRIC_REDUCED = dict(buffer_capacity=37_500, learning_starts=3_750,
-                      training_steps=24, target_net_update_interval=8,
+                      training_steps=16, target_net_update_interval=8,
                       save_interval=8, telemetry_port=-1, log_interval=1.0)
-FABRIC_RESUME_STEPS = 28
+FABRIC_RESUME_STEPS = 20
 # a wall budget that fails the phase rather than let a stuck fabric hang
 FABRIC_WALL_S = 420
 FABRIC_SESSIONS = 16
@@ -431,8 +462,10 @@ ANAKIN_REDUCED = dict(learning_starts=4_096, anakin_eval_interval=2,
 ANAKIN_STEPS, ANAKIN_RESUME_STEPS = 48, 64
 ANAKIN_WALL_S = 300
 ANAKIN_WATCHDOG_S = 420
-# the card checks' own ring: 64 blocks at the full slot shapes (NB >= N)
+# the card checks' own ring: 64 blocks at the full slot shapes (NB >= N),
+# warmed up by one rollout dispatch (8 lanes x 32 steps); phases 8 and 12
 ANAKIN_CHECK_BLOCKS = 64
+ANAKIN_CHECK_STARTS = 256
 # a fused rollout, bf16 on the card against f32 on the CPU: phase 5's
 # limit; a CPU rehearsal of the same comparison (bf16 CPU vs f32 CPU, 32
 # steps of 8 lanes, these shapes) measured 1.1e-3 on q, 1.9e-3 on the
@@ -443,7 +476,7 @@ ANAKIN_ROLL_STEPS = 32
 # actor_fleets=8) with its full ring on the card, cut as phase 7 is
 # (warm-up, run length, cadences); one run per inference mode
 PROCESS_FLEETS = 8
-PROCESS_STEPS = 32
+PROCESS_STEPS = 16
 PROCESS_MODES = ("serve", "local")
 PROCESS_WALL_S = 240
 PROCESS_WATCHDOG_S = 420
@@ -458,7 +491,7 @@ SERVE_CPU_TOL = 2e-2
 REPLAY_SHARDS = 4
 REPLAY_REDUCED = dict(learning_starts=6_400, telemetry_port=-1,
                       log_interval=1.0)
-REPLAY_RUNS = (("k1", dict(replay_shards=1), 16), ("shm", {}, 16),
+REPLAY_RUNS = (("k1", dict(replay_shards=1), 8), ("shm", {}, 8),
                ("socket", dict(replay_transport="socket"), 8))
 REPLAY_WALL_S = 300
 REPLAY_WATCHDOG_S = 900
@@ -558,6 +591,26 @@ GUARD_PAIRS = 4
 GUARD_SERVE_BATCHES = (1, 5, 32)
 GUARD_WALL_S = 240
 TELEMETRY_WATCHDOG_S = 600
+# phase 15: the edges.  The flagship Config(game_name="Fake") through the
+# command line, cut in warm-up as phase 14 (each lane's first block), run
+# length (8 updates, a checkpoint every 4) and no replay snapshot at the
+# run's end; the evaluator trailing it exits after EDGES_FOLLOW_S without
+# a new checkpoint; the load generator EDGES_LOAD_S a cell with both
+# session chaos sites armed (each capped: a kill abandons a worker's 32
+# sessions); serve EDGES_SERVE_WALL_S, driven EDGES_SERVE_LOAD_S; the
+# bench cut in steps and seconds
+EDGES_SETS = dict(learning_starts=3_200, save_interval=4,
+                  replay_snapshot=False)
+EDGES_STEPS = 8
+EDGES_WALL_S = 240
+EDGES_FOLLOW_S = 30
+EDGES_LOAD_S = 6
+EDGES_LOAD_CHAOS = ("kill_session_client:every=50,n=6;"
+                    "slow_session_client:every=40,dur=1.0,n=4")
+EDGES_SERVE_WALL_S = 10
+EDGES_SERVE_LOAD_S = 5
+EDGES_BENCH = dict(steps=5, warmup=1, system_seconds=10.0)
+EDGES_WATCHDOG_S = 900
 # the meshless timings of phases 5 and 7, set as they run, printed beside
 # phase 11's meshed ones
 MESHLESS: dict = {}
@@ -655,13 +708,13 @@ def device_ms(torch, fn, iters: int = 20, name: str = "", tries: int = 3):
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # device activity only (CUPTI): the CPU ops' records are never
+        # read here and cost ~1.7 ms of host time each (6 000 ops: 10.56 s
+        # recorded against 0.34 s, the same device time and events)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        # only device-side events: a CPU op's row repeats the device time
-        # of the kernels it launched
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and name in e.key]
         total = sum(getattr(e, "self_device_time_total", 0.0)
@@ -785,6 +838,7 @@ def phase_kernel(torch, lstm):
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 
+    print(f"reduced: timing rounds {ROUNDS}", flush=True)
     errs = check_designs(torch, lstm, randn)
 
     # the tensor-core kernel at each tile width n, device time
@@ -1159,8 +1213,8 @@ def profile_events(torch, fn, iters: int, tries: int = 3):
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # device activity only, as device_ms
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -2490,7 +2544,8 @@ def anakin_determinism(torch, base) -> dict:
     cuda = torch.device("cuda", torch.cuda.current_device())
     cfg = base.replace(
         buffer_capacity=ANAKIN_CHECK_BLOCKS * base.block_length,
-        learning_starts=1_024, device_replay=True, in_graph_per=True)
+        learning_starts=ANAKIN_CHECK_STARTS, device_replay=True,
+        in_graph_per=True)
 
     def build(seed):
         net = create_network(cfg, TRAIN_ACTIONS, device=cuda,
@@ -2825,7 +2880,8 @@ def phase_anakin(torch, card: str) -> int:
         f" off (no second snapshot); the full ring on the card "
         f"({base.num_blocks} blocks of {base.block_length}, "
         f"{need / 1e9:.2f} GB); grid env episodes of "
-        f"{base.anakin_episode_len} steps, {TRAIN_ACTIONS} actions",
+        f"{base.anakin_episode_len} steps, {TRAIN_ACTIONS} actions; the "
+        f"determinism check's warm-up {ANAKIN_CHECK_STARTS} transitions",
         flush=True)
     anakin_card_vs_cpu(torch, base)
     anakin_determinism(torch, base)
@@ -4423,11 +4479,11 @@ def mesh_draw_parity(torch, card: str, base, mesh, device: str) -> dict:
     arrays = ring.snapshot()
     out = dict(meshless=lone(torch, lambda: plain(
         plain_state, arrays, pa, meta["seq_meta"], meta["first"],
-        generator=gen()), 2), meshed=lone(torch, lambda: meshed(
+        generator=gen())), meshed=lone(torch, lambda: meshed(
             mesh_state, arrays, pb, meta["seq_meta"], meta["first"],
-            generator=gen()), 2))
+            generator=gen())))
     print(f"lone in-graph super-step on {card} (k = {k}, batch "
-          f"{cfg.batch_size}, 2 profiled, 2 timed): "
+          f"{cfg.batch_size}, 1 profiled, 1 timed): "
           + fmt_lone(out["meshless"], out["meshed"]), flush=True)
     return out
 
@@ -4621,7 +4677,8 @@ def mesh_anakin_checks(torch, card: str, base, mesh, device: str) -> dict:
                        if device == "cuda" else None)
     cfg = base.replace(
         buffer_capacity=ANAKIN_CHECK_BLOCKS * base.block_length,
-        learning_starts=1_024, device_replay=True, in_graph_per=True)
+        learning_starts=ANAKIN_CHECK_STARTS, device_replay=True,
+        in_graph_per=True)
     table = ShardingTable(mesh, cfg)
 
     def build(seed, meshed, replicate=False):
@@ -4917,7 +4974,10 @@ def phase_mesh_draw(torch, card: str, device: str = "cuda", ig_base=None,
           f"{data_bytes(ig_cfg, TRAIN_ACTIONS) / 1e9:.2f} GB); (b) anakin: "
           + ", ".join(f"{k_} {getattr(anakin_base, k_)} -> {v}"
                       for k_, v in MESH_ANAKIN_REDUCED.items())
-          + f", the full ring ({an_cfg.num_blocks} blocks)", flush=True)
+          + f", the full ring ({an_cfg.num_blocks} blocks); the parity "
+          f"checks: a lone super-step 1 call profiled and 1 timed, the "
+          f"anakin planes' warm-up {ANAKIN_CHECK_STARTS} transitions",
+          flush=True)
     store = mesh_group(torch, device)     # noqa: F841 (the group's store)
     try:
         if dist.get_backend() != ("nccl" if device == "cuda" else "gloo"):
@@ -6028,6 +6088,490 @@ def phase_telemetry(torch, card: str) -> dict:
                 guarded_serve=d["serve"])
 
 
+# --------------------------------------------------------------------------
+# phase 15: the edges — the command line, the evaluator's follow mode, the
+# session load generator, serving and the bench, as a user runs them
+# --------------------------------------------------------------------------
+
+def edges_sets() -> list:
+    """``--set`` arguments of every phase-15 command: phase 10's warm-up
+    cut (each lane's first block), a checkpoint every 4 updates, no
+    replay snapshot at the run's end (the per-shard snapshot is held in
+    phase 10), the exporter on an ephemeral port."""
+    out = []
+    for k, v in EDGES_SETS.items():
+        out += ["--set", f"{k}={str(v).lower() if isinstance(v, bool) else v}"]
+    return out
+
+
+def start_cli(args: list, logdir: str):
+    """``python -m r2d2_tpu_torch <args>`` from this checkout: its stdout
+    piped as text, its stderr into a file of ``logdir`` (``proc.log``)."""
+    log = os.path.join(logdir, f"{args[0]}_{len(os.listdir(logdir))}.err")
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "r2d2_tpu_torch", *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=err, text=True)
+    proc.log = log
+    return proc
+
+
+def err_tail(proc, n: int = 2000) -> str:
+    with open(proc.log) as f:
+        return f.read()[-n:]
+
+
+def read_until(proc, pred, timeout: float) -> list:
+    """Lines of ``proc``'s stdout up to the first that ``pred`` accepts
+    (returned last), within ``timeout`` seconds; fails otherwise."""
+    got: "queue.Queue" = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            got.put(line)
+            if pred(line):
+                return
+        got.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    lines, deadline = [], time.time() + timeout
+    while time.time() < deadline:
+        try:
+            line = got.get(timeout=0.5)
+        except queue.Empty:
+            continue
+        if line is None:
+            break
+        lines.append(line)
+        if pred(line):
+            return lines
+    fail(f"{proc.args[3:5]}: no line wanted within {timeout:.0f} s; "
+         f"got {lines[-5:]}, stderr {err_tail(proc)}")
+
+
+def finish(proc, timeout: float, what: str) -> tuple:
+    """Wait for ``proc``; (rc, the rest of its stdout, its stderr's
+    tail); kills it past the timeout and fails."""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate(timeout=30)
+        fail(f"{what} did not exit within {timeout:.0f} s: "
+             f"{err_tail(proc)}")
+    return proc.returncode, out, err_tail(proc)
+
+
+def edges_train(torch, card: str, ckdir: str, hosts: str) -> dict:
+    """15(b): ``cli.main(["train", ...])`` in this process, so that the
+    kernel counters see its acts; the run's system read by wrapping
+    ``train._build`` (replay plane, learner) and its metrics by wrapping
+    ``train.train``."""
+    import contextlib
+    import io
+
+    from r2d2_tpu_torch import cli
+    from r2d2_tpu_torch import train
+    from r2d2_tpu_torch.actor import ACTOR_ACT
+    from r2d2_tpu_torch.checkpoint import Checkpointer
+    from r2d2_tpu_torch.evaluate import EVAL_ACT
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+
+    real_build, real_train = train._build, train.train
+    rec = dict(steps=[], metrics=None)
+
+    def capture(*a, **k):
+        sys_ = real_build(*a, **k)
+        rec.update(sys_)
+        step = sys_["learner"]._step_fn
+
+        def timed_step(state, batch):
+            out = step(state, batch)
+            rec["steps"].append(time.perf_counter())
+            return out
+
+        sys_["learner"]._step_fn = timed_step
+        return sys_
+
+    def keep(*a, **k):
+        rec["metrics"] = real_train(*a, **k)
+        return rec["metrics"]
+
+    argv = ["train", "--game", "Fake", "--ckpt-dir", ckdir,
+            "--replay-shards", "2", "--replay-hosts", hosts,
+            "--training-steps", str(EDGES_STEPS), "--quiet",
+            "--max-wall-seconds", str(EDGES_WALL_S), *edges_sets()]
+    KERNEL_LAUNCHES.reset()
+    HOST_TRANSFERS.reset()
+    out = io.StringIO()
+    train._build, train.train = capture, keep
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    finally:
+        train._build, train.train = real_build, real_train
+    run_s = time.perf_counter() - t0
+    launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
+    old = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
+    acts = HOST_TRANSFERS.get(ACTOR_ACT) + HOST_TRANSFERS.get(EVAL_ACT)
+    printed = out.getvalue().strip().splitlines()
+    try:
+        line = json.loads(printed[-1])
+    except (IndexError, ValueError):
+        fail(f"15(b): the train command printed no JSON line: {printed[-5:]}")
+    m = rec["metrics"]
+    lh = m["learnhealth"]
+    if (rc != 0 or line["num_updates"] != EDGES_STEPS
+            or lh["loss_count"] != EDGES_STEPS or lh["nonfinite"]
+            or not np.isfinite(line["mean_loss"]) or m["fabric_failed"]):
+        fail(f"15(b): rc {rc}, printed {line}, learnhealth {lh}, failed "
+             f"{m['fabric_failed']}")
+    ck = Checkpointer(ckdir)
+    want = list(range(EDGES_SETS["save_interval"], EDGES_STEPS + 1,
+                      EDGES_SETS["save_interval"]))
+    if ck.steps() != want or ck.steps(complete=False) != want:
+        fail(f"15(b): complete checkpoints {ck.steps()}, all "
+             f"{ck.steps(complete=False)}; want {want}")
+    cfg = rec["learner"].cfg
+    if launches != cfg.lstm_layers * acts or not acts or old:
+        fail(f"15(b): lstm_infer launched {launches} times (CUDA-core "
+             f"{old}) for {acts} acts, {cfg.lstm_layers} layer")
+    gaps = np.diff(np.asarray(rec["steps"])) * 1e3
+    print(f"15(b) train through the command line on {card}: "
+          f"{' '.join(argv)}; printed {line}; {line['num_updates']} "
+          f"updates in {run_s:.2f} s, losses finite "
+          f"{lh['loss_count']}/{EDGES_STEPS}, checkpoints {ck.steps()} "
+          f"complete; lstm_infer launches {launches} = {cfg.lstm_layers} "
+          f"x {acts} acts, CUDA-core {old}; update interval p50 "
+          f"{pct(gaps, 50):.2f} ms (min {gaps.min():.2f}, max "
+          f"{gaps.max():.2f})", flush=True)
+    return dict(launches=launches, acts=acts, routed=list(
+        rec["replay_plane"]._routed), interval_p50=pct(gaps, 50),
+        seconds=run_s)
+
+
+def edges_load(torch, card: str) -> dict:
+    """15(d): the session load generator's ``main`` in this process, both
+    cells, both session chaos sites armed; the live server polled for its
+    health and completions, the straggler's freezes stamped."""
+    import contextlib
+    import io
+
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.serving import server as server_mod
+    from r2d2_tpu_torch.tools import session_load_gen as slg
+    from r2d2_tpu_torch.utils import chaos as chaos_mod
+    from r2d2_tpu_torch.utils.trace import KERNEL_LAUNCHES
+
+    servers, freezes, polls = [], [], []
+    real_server = server_mod.SessionServer
+    real_slow = chaos_mod.ChaosInjector.session_client_slow_seconds
+
+    class Watched(real_server):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            servers.append(self)
+
+    def stamped_slow(self):
+        dur = real_slow(self)
+        if dur > 0:
+            freezes.append((len(servers) - 1, time.monotonic(), dur))
+        return dur
+
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            if servers:
+                srv = servers[-1]
+                if srv._started and not srv.stop_event.is_set():
+                    polls.append((len(servers) - 1, time.monotonic(),
+                                  srv.store.counts()["completed"],
+                                  srv.healthz()["status"]))
+            time.sleep(0.1)
+
+    argv = ["--sessions", "256", "--workers", "8", "--max-sessions", "192",
+            "--seconds", str(EDGES_LOAD_S), "--chaos", EDGES_LOAD_CHAOS]
+    server_mod.SessionServer = Watched
+    chaos_mod.ChaosInjector.session_client_slow_seconds = stamped_slow
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    out = io.StringIO()
+    KERNEL_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = slg.main(argv)
+    finally:
+        stop.set()
+        watcher.join(5)
+        server_mod.SessionServer = real_server
+        chaos_mod.ChaosInjector.session_client_slow_seconds = real_slow
+    run_s = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+             if ln.startswith("{")]
+    if rc != 0 or len(lines) != 3:
+        fail(f"15(d): load generator rc {rc}, lines {out.getvalue()[-3000:]}")
+    counters = {"float32": lstm.CUDACORE_COUNTER, "bfloat16": lstm.KERNEL}
+    launches = {}
+    for i, c in enumerate(lines[:2]):
+        dt, cl, srv = c["serve_dtype"], c["client"], c["server"]
+        mine = [p for p in polls if p[0] == i]
+        worst = sorted({p[3] for p in mine})
+        want = {counters[dt]: c["lstm_layers"] * (srv["batches"]
+                                                  + c["warmup_batches"])}
+        during = []
+        for _, t, dur in (f for f in freezes if f[0] == i):
+            inside = [p[2] for p in mine if t <= p[1] <= t + dur]
+            if len(inside) >= 2:
+                during.append(inside[-1] - inside[0])
+        if (not c["accounting_ok"] or "failing" in worst or not mine
+                or c["health"] == "failing"):
+            fail(f"15(d) {dt}: accounting {c['accounting_ok']}, health "
+                 f"seen {worst}, final {c['health']}")
+        if not (cl["kills"] and cl["abandoned"] and srv["reaped"]
+                and srv["evicted"] and cl["slow"]):
+            fail(f"15(d) {dt}: kills {cl['kills']} abandoned "
+                 f"{cl['abandoned']} reaped {srv['reaped']} evicted "
+                 f"{srv['evicted']} slows {cl['slow']}")
+        if not during or min(during) <= 0:
+            fail(f"15(d) {dt}: completions while a straggler was frozen "
+                 f"{during} over {len(freezes)} freezes")
+        if c["kernel_launches"] != want:
+            fail(f"15(d) {dt}: launches {c['kernel_launches']}, want {want}"
+                 f" (layers x ({srv['batches']} batches + "
+                 f"{c['warmup_batches']} warm-up))")
+        launches[dt] = want[counters[dt]]
+        print(f"15(d) load generator, {dt} cell on {card}: {cl['acts']} "
+              f"acts, {cl['acts_per_sec']} acts/s, {cl['sessions_per_sec']}"
+              f" sessions/s; client act p50 {cl.get('act_p50_ms')} ms, p95 "
+              f"{cl.get('act_p95_ms')} ms, p99 {cl.get('act_p99_ms')} ms; "
+              f"server: admitted {srv['admitted']} = completed "
+              f"{srv['completed']} + reaped {srv['reaped']} + evicted "
+              f"{srv['evicted']} + live {srv['live']}, {srv['batches']} "
+              f"batches (mean {srv['mean_batch']}); kills {cl['kills']} "
+              f"abandoning {cl['abandoned']}, slows {cl['slow']} with "
+              f"{during} completions inside the freezes; health seen "
+              f"{worst}; launches {c['kernel_launches']}", flush=True)
+    print(f"15(d) took {run_s:.1f} s: {lines[2]}", flush=True)
+    return launches
+
+
+def edges_serve(torch, card: str, ckdir: str, logdir: str) -> dict:
+    """15(e): ``python -m r2d2_tpu_torch serve`` on the run's checkpoints,
+    driven by ``run_load`` for ``EDGES_SERVE_LOAD_S``; its printed summary
+    checked.  Not ``--quiet``: its start line names the ephemeral port."""
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.tools import session_load_gen as slg
+
+    t0 = time.perf_counter()
+    proc = start_cli(["serve", "--game", "Fake", "--ckpt-dir", ckdir,
+                      "--port", "-1", "--max-wall-seconds",
+                      str(EDGES_SERVE_WALL_S), *edges_sets()], logdir)
+    try:
+        lines = read_until(proc, lambda ln: ln.startswith("serving step_"),
+                           180)
+        host, port = lines[-1].split(" on ")[1].split()[0].rsplit(":", 1)
+        cfg = Config(game_name="Fake")
+        load = slg.run_load(cfg, TRAIN_ACTIONS, host, int(port),
+                            sessions=64, workers=4, steps_mean=10,
+                            think_s=0.005, run_seconds=EDGES_SERVE_LOAD_S,
+                            call_timeout=20.0, seed=1)
+        rc, rest, err = finish(proc, EDGES_SERVE_WALL_S + 60, "serve")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    summary = json.loads(rest.strip().splitlines()[-1])
+    if (rc != 0 or summary["step"] != EDGES_STEPS
+            or summary["admitted"] != summary["completed"]
+            + summary["reaped"] + summary["evicted"] + summary["live"]
+            or summary["health"] == "failing" or not load["acts"]):
+        fail(f"15(e): serve rc {rc}, summary {summary}, load {load}, "
+             f"stderr {err}")
+    print(f"15(e) serve through the command line on {card}: "
+          f"{lines[-1].strip()}; run_load {load['acts']} acts "
+          f"({load['acts_per_sec']}/s, p50 {load.get('act_p50_ms')} ms, p99 "
+          f"{load.get('act_p99_ms')} ms); summary {summary}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return summary
+
+
+def edges_bench(torch, card: str) -> dict:
+    """15(f): the port's bench through its isolated driver, cut in steps
+    and seconds; the one JSON line checked and printed."""
+    import contextlib
+    import io
+
+    from r2d2_tpu_torch import bench
+
+    out = io.StringIO()
+    real_run_phase, spent = bench._run_phase, {}
+
+    def timed_phase(phase, timeout_s, extra=(), label=None):
+        t = time.perf_counter()
+        res = real_run_phase(phase, timeout_s, extra, label)
+        spent[label or phase] = round(time.perf_counter() - t, 1)
+        return res
+
+    bench._run_phase = timed_phase
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            bench._main_isolated(**EDGES_BENCH)
+    except SystemExit as e:
+        fail(f"15(f): the bench exited {e.code}: {out.getvalue()[-3000:]}")
+    finally:
+        bench._run_phase = real_run_phase
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    try:
+        result = json.loads(lines[0])
+    except (IndexError, ValueError):
+        fail(f"15(f): no JSON line: {out.getvalue()[-3000:]}")
+    phases = ["value", "learner_fused_env_frames_per_sec",
+              "system_env_frames_per_sec",
+              "system_ingraph_env_frames_per_sec",
+              *(f"{label}_env_frames_per_sec"
+                for label, _ in bench.ACTOR_CELLS)]
+    errors = [k for k in result if k.endswith("_error") or k == "error"
+              or k == "phase_errors"]
+    if (errors or not result["value"] > 0
+            or not 0 < result.get("mfu", 0) < 1
+            or any(result.get(k, -1) < 0 for k in phases)):
+        fail(f"15(f): bench line {result}")
+    print(f"15(f) bench on {card} ({time.perf_counter() - t0:.1f} s; its "
+          f"children's seconds {spent}): " + json.dumps(result), flush=True)
+    return result
+
+
+def phase_edges(torch, card: str) -> dict:
+    """Phase 15: the edges as a user runs them (the module docstring).
+    Returns the kernel's launches by path."""
+    import gc
+    import shutil
+    import tempfile
+
+    from r2d2_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    faulthandler.dump_traceback_later(EDGES_WATCHDOG_S)
+    base = Config(game_name="Fake")
+    print("reduced: " + ", ".join(
+        f"{k} {getattr(base, k)} -> {v}" for k, v in EDGES_SETS.items())
+        + f", training_steps {base.training_steps} -> {EDGES_STEPS}, "
+        f"replay_shards {base.replay_shards} -> 2 (socket servers); the "
+        f"eval follow timeout {EDGES_FOLLOW_S} s; the load generator "
+        f"{EDGES_LOAD_S} s a cell; serve {EDGES_SERVE_WALL_S} s; the bench "
+        f"{EDGES_BENCH} (from 100 / 5 / 75.0)", flush=True)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_edges_")
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_edges_logs_")
+    procs = []
+    try:
+        # (a) two replay shard servers, then the evaluator trailing the run
+        t = time.perf_counter()
+        shards = []
+        for s in range(2):
+            p = start_cli(["replay-shard", "--game", "Fake", "--port", "0",
+                           "--shard-id", str(s), "--replay-shards", "2",
+                           "--action-dim", str(TRAIN_ACTIONS),
+                           "--max-wall-seconds", str(EDGES_WATCHDOG_S),
+                           *edges_sets()], logdir)
+            procs.append(p)
+            shards.append(p)
+        ports = []
+        for s, p in enumerate(shards):
+            line = read_until(p, lambda ln: "serving on" in ln, 120)[-1]
+            ports.append(int(line.split("serving on ")[1].split()[0]
+                             .rsplit(":", 1)[1]))
+        curve_json = os.path.join(ckdir, "curve.json")
+        curve_png = os.path.join(ckdir, "curve.png")
+        ev = start_cli(["eval", "--game", "Fake", "--ckpt-dir", ckdir,
+                        "--follow", "--follow-timeout", str(EDGES_FOLLOW_S),
+                        "--episodes", "1", "--out-json", curve_json,
+                        "--plot", curve_png, *edges_sets()], logdir)
+        procs.append(ev)
+        print(f"15(a) replay-shard servers on ports {ports}, the evaluator "
+              f"following {ckdir} ({time.perf_counter() - t:.1f} s)",
+              flush=True)
+
+        # (b) train through the command line against them
+        run = edges_train(torch, card, ckdir,
+                          ",".join(f"127.0.0.1:{p}" for p in ports))
+        summaries = []
+        for s, p in enumerate(shards):
+            p.terminate()     # SIGTERM: the server prints its summary
+            rc, rest, err = finish(p, 120, f"replay-shard {s}")
+            try:
+                summaries.append(json.loads(rest.strip().splitlines()[-1]))
+            except (IndexError, ValueError):
+                fail(f"15(b): replay-shard {s} rc {rc}, printed "
+                     f"{rest[-500:]}, stderr {err}")
+        blocks = [sm["blocks"] for sm in summaries]
+        if (blocks != run["routed"] or any(sm["corrupt"]
+                                            for sm in summaries)):
+            fail(f"15(b): shards ingested {blocks} blocks (corrupt "
+                 f"{[sm['corrupt'] for sm in summaries]}), the trainer "
+                 f"routed {run['routed']}")
+        print(f"15(b) shard summaries: " + "; ".join(
+            json.dumps(sm) for sm in summaries) + f" — ingested = routed "
+            f"{run['routed']}, 0 corrupt", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the load generator (the evaluator waits out its timeout)
+        t = time.perf_counter()
+        load = edges_load(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) serve through the command line
+        edges_serve(torch, card, ckdir, logdir)
+
+        # (c) the evaluator: one record per complete checkpoint
+        rc, rest, err = finish(ev, EDGES_FOLLOW_S + 120, "eval --follow")
+        recs = [json.loads(ln) for ln in rest.strip().splitlines()
+                if ln.startswith("{")]
+        with open(curve_json) as f:
+            curve = json.load(f)
+        keys = {"step", "env_frames", "minutes", "mean_reward"}
+        if (rc != 0 or [r["step"] for r in recs] != [4, 8]
+                or recs != curve or any(set(r) != keys for r in recs)
+                or not all(np.isfinite(r["mean_reward"]) for r in recs)):
+            fail(f"15(c): eval rc {rc}, records {recs}, curve.json {curve},"
+                 f" stderr {err}")
+        try:
+            import matplotlib  # noqa: F401
+            have_mpl = True
+        except ImportError:
+            have_mpl = False
+        wrote = os.path.exists(curve_png)
+        if wrote != have_mpl:
+            fail(f"15(c): plot written {wrote}, matplotlib {have_mpl}")
+        print(f"15(c) eval --follow on {card}: rc 0, records {recs} = "
+              f"curve.json; the plot "
+              + ("written" if wrote else "skipped: no matplotlib here"),
+              flush=True)
+
+        # (f) the bench
+        bench_line = edges_bench(torch, card)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+        shutil.rmtree(ckdir, ignore_errors=True)
+        shutil.rmtree(logdir, ignore_errors=True)
+    faulthandler.cancel_dump_traceback_later()
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s on {card}: "
+          f"the command-line train's update interval p50 "
+          f"{run['interval_p50']:.2f} ms over socket shards", flush=True)
+    return dict(cli_train=run["launches"], load_f32=load["float32"],
+                load_bf16=load["bfloat16"], bench=bench_line)
+
+
 def main() -> None:
     try:
         import torch
@@ -6061,60 +6605,81 @@ def main() -> None:
     secs = _build.build([lstm.KERNEL], verbose=True)
     print(f"build: {secs} ({time.perf_counter() - t0:.2f} s)", flush=True)
 
+    spent = {}
+
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        spent[label] = round(time.perf_counter() - t, 1)
+        return out
+
     # phase 3: every design against its plain version, and the timings
-    errs, sweep, timings = phase_kernel(torch, lstm)
+    errs, sweep, timings = timed("3", phase_kernel, torch, lstm)
 
     # phase 4: the serving path at full width
-    serve_launches = phase_serving(torch, card)
+    serve_launches = timed("4", phase_serving, torch, card)
 
     # phase 5: the training path at full width
-    train_launches = phase_training(torch, card)
+    train_launches = timed("5", phase_training, torch, card)
 
     # phase 6: the IMPALA-deep fabric, resumed, and its checkpoint served
-    fabric_launches, serve_ckpt_launches = phase_fabric(torch, card)
+    fabric_launches, serve_ckpt_launches = timed("6", phase_fabric, torch,
+                                                 card)
 
     # phase 7: the Pong preset from its full replay ring on the card
-    device_replay_launches, thread_timings = phase_device_replay(torch, card)
+    device_replay_launches, thread_timings = timed(
+        "7", phase_device_replay, torch, card)
 
     # phase 8: anakin, the fused loop, from its full ring on the card
-    anakin_launches = phase_anakin(torch, card)
+    anakin_launches = timed("8", phase_anakin, torch, card)
 
     # phase 9: the Pong preset's actors in subprocess fleets, serve and
     # local inference
-    fleet_launches = phase_process_fleets(torch, card, thread_timings)
+    fleet_launches = timed("9", phase_process_fleets, torch, card,
+                           thread_timings)
 
     # phase 10: the flagship from K replay shards, over shm and sockets
-    replay_launches, _ = phase_replay_shards(torch, card,
-                                             flagship_replay_config())
+    replay_launches, _ = timed("10", phase_replay_shards, torch, card,
+                               flagship_replay_config())
 
     # phase 11: the learner mesh over NCCL, world size 1
-    mesh_launches = phase_mesh(torch, card)
+    mesh_launches = timed("11", phase_mesh, torch, card)
 
     # phase 12: the cross-rank draw, in-graph PER and anakin on the mesh
-    draw_launches = phase_mesh_draw(torch, card)
+    draw_launches = timed("12", phase_mesh_draw, torch, card)
 
     # phase 13: the league, member fleets and the CPU eval sidecar
-    league_launches = phase_league(torch, card)
+    league_launches = timed("13", phase_league, torch, card)
 
     # phase 14: telemetry and guards — the in-graph diagnostics, the
     # cross-process trace with /tracez and /profilez, the transfer guard
-    telemetry_launches = phase_telemetry(torch, card)
+    telemetry_launches = timed("14", phase_telemetry, torch, card)
+
+    # phase 15: the edges — the command line, eval --follow, the session
+    # load generator (its f32 cell on the CUDA-core route), serve, bench
+    edges = timed("15", phase_edges, torch, card)
+    print(f"phase seconds on {card}: {json.dumps(spent)}, in all "
+          f"{sum(spent.values()):.1f} s after the build", flush=True)
 
     head = timings[(1, 256)]
+    launches = (serve_launches + train_launches + fabric_launches
+                + serve_ckpt_launches + device_replay_launches
+                + anakin_launches + fleet_launches["serve"]
+                + fleet_launches["local"] + sum(replay_launches.values())
+                + sum(mesh_launches.values()) + sum(draw_launches.values())
+                + sum(league_launches.values())
+                + sum(telemetry_launches.values()) + edges["cli_train"]
+                + edges["load_bf16"] + edges["load_f32"])
     print(json.dumps({"kernels": [{
         "name": "lstm_infer",
         "route": "cuda",
         "source": "r2d2_tpu_torch/csrc/lstm_infer.cu",
         "replaces": "r2d2_tpu/ops/lstm.py:46",
-        "launches": (serve_launches + train_launches + fabric_launches
-                     + serve_ckpt_launches + device_replay_launches
-                     + anakin_launches + fleet_launches["serve"]
-                     + fleet_launches["local"]
-                     + sum(replay_launches.values())
-                     + sum(mesh_launches.values())
-                     + sum(draw_launches.values())
-                     + sum(league_launches.values())
-                     + sum(telemetry_launches.values())),
+        "launches": launches,
+        # the f32 route's kernel runs only in the load generator's float32
+        # cell; every other path takes the tensor-core route
+        "launches_by_route": {WGMMA_KERNEL: launches - edges["load_f32"],
+                              CUDACORE_KERNEL: edges["load_f32"]},
         "launches_by_path": {"serving": serve_launches,
                              "training": train_launches,
                              "fabric": fabric_launches,
@@ -6137,7 +6702,10 @@ def main() -> None:
                              "telemetry_capture":
                                  telemetry_launches["capture"],
                              "telemetry_guarded_serve":
-                                 telemetry_launches["guarded_serve"]},
+                                 telemetry_launches["guarded_serve"],
+                             "edges_cli_train": edges["cli_train"],
+                             "edges_load_f32": edges["load_f32"],
+                             "edges_load_bf16": edges["load_bf16"]},
         "max_abs_err": errs["tensor_core"][0],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -6161,6 +6729,8 @@ def main() -> None:
         "max_abs_err_by_design": {k: {"per_step": v[0], "whole_unroll": v[1]}
                                   for k, v in errs.items()},
         "tile_sweep_device_ms": sweep,
+        "phase_seconds": spent,
+        "bench": edges["bench"],
         "card": card,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

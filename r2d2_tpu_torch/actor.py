@@ -1,8 +1,9 @@
 """Actors: experience generation against the environment.
 
 Port of ``r2d2_tpu/actor.py``: ``AgentState``, ``fleet_shards``,
-``make_act_fn``, ``_resolve_act_device`` and the lockstep ``VectorActor``
-with ``snapshot``/``restore``.  Under serve mode the act function is a
+``make_act_fn``, ``_resolve_act_device``, the lockstep ``VectorActor``
+with ``snapshot``/``restore``, and ``Actor``, its one-lane form.  Under
+serve mode the act function is a
 :class:`~r2d2_tpu_torch.parallel.inference_service.RemoteActClient`
 (duck-typed here): the actor notes lane resets to it, takes the
 episode-step-cap bootstrap through its no-commit ``peek``, and keeps no
@@ -411,3 +412,14 @@ class VectorActor:
             self.actor_steps += 1
             if self.actor_steps % cfg.actor_update_interval == 0:
                 self._refresh_params()
+
+
+class Actor(VectorActor):
+    """A single-env actor — the reference's unit of deployment
+    (worker.py:500-515), as a 1-lane vector actor.  Used by tests."""
+
+    def __init__(self, cfg: Config, env: Any, epsilon: float, act_fn,
+                 param_store: ParamStore, sink: BlockSink,
+                 rng: Optional[np.random.Generator] = None):
+        super().__init__(cfg, [env], [epsilon], act_fn, param_store, sink,
+                         rng=rng)

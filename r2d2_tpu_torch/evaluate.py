@@ -1,8 +1,8 @@
 """Offline evaluation: greedy rollouts and the checkpoint sweep.
 
 Port of ``run_episodes``, ``evaluate_params`` and ``evaluate_sweep`` from
-``r2d2_tpu/evaluate.py`` (the sweep's follow mode and its plot wait for a
-later slice).  Capability-parity with the reference evaluator
+``r2d2_tpu/evaluate.py``, with the sweep's follow mode and its plot.
+Capability-parity with the reference evaluator
 (test.py:14-88): ``eval_episodes`` rollouts at ``test_epsilon`` per
 checkpoint, reporting env frames (env_steps × frameskip), wall minutes and
 mean reward.  The episodes run in lockstep as one batched act per step, on
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
@@ -91,14 +92,35 @@ def evaluate_sweep(cfg: Config, checkpoint_dir: str,
                    env_factory: Callable[[Config, int], Any],
                    episodes: Optional[int] = None,
                    out_json: Optional[str] = None,
+                   out_plot: Optional[str] = None,
                    action_dim: Optional[int] = None,
+                   follow: bool = False,
+                   follow_timeout: Any = "default",
+                   poll_interval: float = 2.0,
+                   stop: Optional[Callable[[], bool]] = None,
                    device=None) -> List[Dict[str, float]]:
     """Walk every complete checkpoint in save order (test.py:26-40) and
     produce the learning curve: one record per checkpoint with training
     step, env frames (env_steps × frameskip), wall-clock minutes, mean
     reward.  The rollouts act on ``device``, by default where
     ``cfg.act_device`` says (the CUDA device for ``"auto"``; raises without
-    one); ``out_json`` is replaced atomically."""
+    one).
+
+    With ``follow=True`` the sweep trails a concurrent training run the way
+    the reference evaluator does (test.py:26-27's poll-the-next-file walk):
+    after draining the checkpoints already on disk it keeps polling for new
+    ones, evaluating each as it appears, and exits when ``stop()`` reports
+    training finished (with one final drain) or when no new checkpoint has
+    appeared for ``follow_timeout`` seconds.  The timeout defaults to 600
+    when no ``stop`` callback is given (a bare follow call must not poll
+    forever) and to ``None`` — poll until ``stop()`` — when one is.
+    ``out_json`` is replaced atomically, after every record in follow mode
+    so the curve file trails the run too; ``out_plot`` gets the
+    reward-vs-frames and reward-vs-hours image (:func:`_plot_curve`).  A
+    step is picked up only once its metadata sidecar exists: the
+    checkpointer writes that last, so it marks a finished save."""
+    if follow_timeout == "default":
+        follow_timeout = 600.0 if stop is None else None
     ckpt = Checkpointer(checkpoint_dir)
     if action_dim is None:
         action_dim = env_factory(cfg, 0).action_space.n
@@ -108,22 +130,79 @@ def evaluate_sweep(cfg: Config, checkpoint_dir: str,
                          generator=torch.Generator().manual_seed(cfg.seed))
     act_fn = make_host_act_fn(net, EVAL_ACT)
 
-    curve: List[Dict[str, float]] = []
-    for step in ckpt.steps():
+    def _eval_step(step: int) -> Dict[str, float]:
         check_arch_compat(cfg, ckpt.peek_meta(step))
         state, meta = ckpt.restore(step)
         mean_reward = evaluate_params(cfg, net, state.params, env_factory,
                                       episodes=episodes, seed=cfg.seed,
                                       act_fn=act_fn)
-        curve.append(dict(
+        return dict(
             step=step,
             env_frames=int(meta.get("env_steps", 0)) * cfg.frameskip,
             minutes=float(meta.get("minutes", 0.0)),
             mean_reward=mean_reward,
-        ))
-    if out_json:
-        tmp = f"{out_json}.tmp{os.getpid()}"
-        with open(tmp, "w") as f:
-            json.dump(curve, f, indent=2)
-        os.replace(tmp, out_json)
+        )
+
+    def _write(curve: List[Dict[str, float]]) -> None:
+        if out_json:
+            # atomic replace: follow mode invites concurrent readers, who
+            # must never observe a truncated file mid-rewrite
+            tmp = f"{out_json}.tmp{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(curve, f, indent=2)
+            os.replace(tmp, out_json)
+
+    curve: List[Dict[str, float]] = []
+    seen: set = set()
+    last_new = time.monotonic()
+    while True:
+        stopping = stop() if (follow and stop is not None) else False
+        fresh = [s for s in ckpt.steps() if s not in seen]
+        for step in fresh:
+            seen.add(step)
+            curve.append(_eval_step(step))
+            if follow:
+                _write(curve)
+        if fresh:
+            last_new = time.monotonic()
+        if not follow:
+            break
+        if stopping and not fresh:
+            break  # training done and the final drain found nothing new
+        if (follow_timeout is not None and not fresh
+                and time.monotonic() - last_new > follow_timeout):
+            break
+        if not fresh:
+            time.sleep(poll_interval)
+
+    _write(curve)
+    if out_plot:
+        _plot_curve(cfg, curve, out_plot)
     return curve
+
+
+def _plot_curve(cfg: Config, curve: List[Dict[str, float]],
+                path: str) -> bool:
+    """Reward-vs-frames and reward-vs-hours dual plot (test.py:42-58).
+    Matplotlib is optional: without it nothing is written.  Returns whether
+    the image was written."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return False
+    frames = [c["env_frames"] for c in curve]
+    hours = [c["minutes"] / 60.0 for c in curve]
+    rewards = [c["mean_reward"] for c in curve]
+    fig, axes = plt.subplots(1, 2, figsize=(12, 6))
+    fig.suptitle(cfg.game_name)
+    axes[0].plot(frames, rewards)
+    axes[0].set_xlabel("environment frames")
+    axes[0].set_ylabel("average reward")
+    axes[1].plot(hours, rewards)
+    axes[1].set_xlabel("wall-clock hours")
+    axes[1].set_ylabel("average reward")
+    fig.savefig(path)
+    plt.close(fig)
+    return True

@@ -17,6 +17,10 @@ The optimizer is written by hand with optax's arithmetic: the global-norm
 clip scales by ``max_norm / norm`` with no ``+1e-6`` (unlike
 ``torch.nn.utils.clip_grad_norm_``), and Adam has ``eps`` outside the
 square root, ``eps_root = 0`` and bias correction on both moments.  The
+moments keep the params' dtype (optax's ``mu_dtype=None``), and every
+Python scalar meets a tensor rounded to that dtype first, as JAX's weak
+types are, so bf16 params (``cfg.param_dtype``) round where optax's do
+(float32 is unchanged: torch casts a scalar to the op's float32).  The
 step updates the state's tensors in place; a caller that hands parameters
 to another thread publishes a copy (``learner.Learner._publish``).
 
@@ -87,6 +91,16 @@ class Optimizer:
                  b1: float = 0.9, b2: float = 0.999):
         self.lr, self.eps, self.max_norm = lr, eps, max_norm
         self.b1, self.b2 = b1, b2
+        self._rounded: dict = {}
+
+    def _constants(self, dtype: torch.dtype) -> list:
+        """The step-independent scalars, rounded to ``dtype`` once."""
+        if dtype not in self._rounded:
+            self._rounded[dtype] = [
+                _round_to(c, dtype) for c in (
+                    self.max_norm, 1.0 - self.b1, self.b1, 1.0 - self.b2,
+                    self.b2, self.eps, -self.lr)]
+        return self._rounded[dtype]
 
     def init(self, params: Params) -> AdamState:
         return AdamState(
@@ -104,19 +118,30 @@ class Optimizer:
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
         keep = g_norm < self.max_norm
         state.count += 1
-        bc1 = 1.0 - b1 ** state.count
-        bc2 = 1.0 - b2 ** state.count
+        bias = (1.0 - b1 ** state.count, 1.0 - b2 ** state.count)
+        rounded = {}
         for k, g in grads.items():
-            g = torch.where(keep, g, (g / g_norm) * self.max_norm)
-            mu = (1.0 - b1) * g + b1 * state.mu[k]
-            nu = (1.0 - b2) * (g * g) + b2 * state.nu[k]
+            if g.dtype not in rounded:
+                rounded[g.dtype] = (self._constants(g.dtype)
+                                    + [_round_to(c, g.dtype) for c in bias])
+            max_norm, c1, b1_, c2, b2_, eps, neg_lr, bc1, bc2 = rounded[
+                g.dtype]
+            g = torch.where(keep, g, (g / g_norm.to(g.dtype)) * max_norm)
+            mu = c1 * g + b1_ * state.mu[k]
+            nu = c2 * (g * g) + b2_ * state.nu[k]
             state.mu[k].copy_(mu)
             state.nu[k].copy_(nu)
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            step = update * -self.lr
+            update = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            step = update * neg_lr
             params[k].add_(step)
             if updates is not None:
                 updates[k] = step
+
+
+def _round_to(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (a JAX weak-typed scalar meeting an
+    array of that dtype)."""
+    return float(torch.tensor(x, dtype=dtype))
 
 
 def make_optimizer(cfg: Config) -> Optimizer:

@@ -33,7 +33,11 @@ _HEAD = ("adv_hidden", "adv_out", "val_hidden", "val_out")
 
 
 def _leaf(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32))
+    """A flax leaf as a CPU tensor of its dtype: float32, or bfloat16
+    (``ml_dtypes.bfloat16`` numpy, widened exactly and narrowed back)."""
+    x = np.asarray(x)
+    t = torch.from_numpy(np.array(x, dtype=np.float32))
+    return t.to(torch.bfloat16) if x.dtype.name == "bfloat16" else t
 
 
 def _torso_names(layers) -> Dict[str, str]:
@@ -50,8 +54,9 @@ def _torso_names(layers) -> Dict[str, str]:
 
 
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's state dict (float32 CPU tensors) from a flax param tree
-    with or without its top-level ``"params"`` key."""
+    """The port's state dict (CPU tensors in the leaves' dtype, float32 or
+    bfloat16) from a flax param tree with or without its top-level
+    ``"params"`` key."""
     p = tree.get("params", tree)
     out: Dict[str, torch.Tensor] = {}
     names = _torso_names(p["torso"])
@@ -81,9 +86,10 @@ def train_state_from_jax(params: Mapping[str, Any],
                          mu: Mapping[str, Any], nu: Mapping[str, Any],
                          count: int, step: int):
     """The port's :class:`~r2d2_tpu_torch.learner.step.TrainState` (CPU
-    float32 tensors) from a JAX ``TrainState`` as numpy: the flax params
-    and target params, optax ``ScaleByAdamState``'s ``mu``/``nu``/``count``
-    (the clip's state is empty) and the step counter."""
+    tensors in the leaves' dtype) from a JAX ``TrainState`` as numpy: the
+    flax params and target params, optax ``ScaleByAdamState``'s
+    ``mu``/``nu``/``count`` (the clip's state is empty) and the step
+    counter."""
     from r2d2_tpu_torch.learner.step import AdamState, TrainState
 
     return TrainState(

@@ -10,13 +10,14 @@ JAX package's, so tests compare like with like:
   the convolutions and back to NHWC before the flatten, so the torso
   Dense sees the reference's feature order;
 - the recurrent state is ``(B, 2, layers, H)`` float32, axis 1 = (h, c);
-- parameters are float32 (``cfg.param_dtype``) and every layer casts
-  them and its input to ``cfg.compute_dtype`` at use, with the reference's
-  rounding points: a Dense/Conv output is rounded to the compute dtype
-  and its bias added in it (flax's ``dtype=`` semantics), the latent is
-  widened to float32 before the concat, the LSTM input projection is
-  rounded to the compute dtype before ``+ b`` in float32, and the head
-  runs in the compute dtype with ``q`` cast to float32.
+- parameters are kept in ``cfg.param_dtype`` (float32 by default, or
+  bfloat16) and every layer casts them and its input to
+  ``cfg.compute_dtype`` at use, with the reference's rounding points: a
+  Dense/Conv output is rounded to the compute dtype and its bias added in
+  it (flax's ``dtype=`` semantics), the latent is widened to float32
+  before the concat, the LSTM input projection is rounded to the compute
+  dtype before ``+ b`` in float32, and the head runs in the compute dtype
+  with ``q`` cast to float32.
 
 Three torsos: ``nature`` (raw or space-to-depth folded), ``impala`` (the
 deep residual CNN of ``impala_deep_config``) and ``mlp``.  ``cfg.remat``
@@ -383,7 +384,7 @@ class R2D2Network(nn.Module):
 
     ``lstm_impl`` overrides the impl resolved from ``cfg`` (``"reference"``
     is only reachable this way).  Parameters are drawn from ``generator``
-    on the CPU, then moved to ``device``.
+    on the CPU in float32, then moved to ``device`` in ``cfg.param_dtype``.
     """
 
     def __init__(self, cfg: Config, action_dim: int,
@@ -392,9 +393,7 @@ class R2D2Network(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.action_dim = action_dim
-        cd = _dtype(cfg.compute_dtype)
-        if _dtype(cfg.param_dtype) != torch.float32:
-            raise ValueError("the port keeps params in float32")
+        cd, pd = _dtype(cfg.compute_dtype), _dtype(cfg.param_dtype)
         self.compute_dtype = cd
         obs_shape = tuple(cfg.stored_obs_shape)
         H = cfg.hidden_dim
@@ -411,7 +410,10 @@ class R2D2Network(nn.Module):
                        generator, remat=cfg.remat)
              for i in range(cfg.lstm_layers)])
         self.head = DuelingHead(H, action_dim, cd, generator)
-        self.to(device)
+        # drawn in float32, then kept in cfg.param_dtype (the reference
+        # initialises in that dtype; every layer casts to the compute
+        # dtype at use either way)
+        self.to(device=device, dtype=pd)
 
     def _features(self, obs, last_action, last_reward):
         B, T = obs.shape[:2]

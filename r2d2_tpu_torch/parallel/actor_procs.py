@@ -297,11 +297,15 @@ def narrow_bf16(flat: torch.Tensor) -> np.ndarray:
 def pack_params(params: Dict[str, torch.Tensor], dtype: str) -> dict:
     """One host buffer of every parameter, in ``dtype`` ("float32" or
     "bfloat16"), flattened on the parameters' device and fetched in one
-    device→host copy."""
-    bad = [k for k, v in params.items() if v.dtype != torch.float32]
+    device→host copy.  bfloat16 params (``cfg.param_dtype``) are widened
+    to float32 first, which is exact."""
+    bad = [k for k, v in params.items()
+           if v.dtype not in (torch.float32, torch.bfloat16)]
     if bad:
-        raise ValueError(f"the pump ships float32 params; {bad} are not")
-    flat = torch.cat([v.detach().reshape(-1) for v in params.values()])
+        raise ValueError(f"the pump ships float32 or bfloat16 params; "
+                         f"{bad} are neither")
+    flat = torch.cat([v.detach().float().reshape(-1)
+                      for v in params.values()])
     data = (narrow_bf16(flat) if dtype == "bfloat16"
             else flat.cpu().numpy())
     return dict(names=list(params), shapes=[tuple(v.shape)

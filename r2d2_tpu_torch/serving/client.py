@@ -149,6 +149,15 @@ class SessionClient:
         """``(status, q or None)`` for a pipelined :meth:`send_act`."""
         return self._await(sid, seq, timeout)
 
+    def poll_reply(self, sid: int, seq: int
+                   ) -> Optional[Tuple[int, Optional[np.ndarray]]]:
+        """Non-blocking :meth:`recv`: one bounded pump, then ``(status,
+        q)`` if the reply is in, else None — the load generator's
+        event-loop primitive (hundreds of sessions per worker thread
+        without a thread per session)."""
+        self._pump()
+        return self._inbox.pop((sid, seq), None)
+
     def act(self, sid: int, obs: np.ndarray, last_action: np.ndarray,
             last_reward: float, reset: bool = False,
             timeout: Optional[float] = None
@@ -162,3 +171,13 @@ class SessionClient:
             self.sock.close()
         except OSError:
             pass
+
+    def abandon(self) -> None:
+        """Drop the connection abruptly — the ``kill_session_client``
+        chaos shape: no CLOSE for any live session; the server must reap
+        them on the disconnect, never leak their hidden slots."""
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self.close()

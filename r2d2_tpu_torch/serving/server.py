@@ -624,15 +624,16 @@ def run_server(cfg: Config, checkpoint_dir: str,
                verbose: bool = True,
                follow: bool = False,
                follow_poll: float = 2.0,
-               stop_fn: Optional[Callable[[], bool]] = None
-               ) -> Dict[str, Any]:
+               stop_fn: Optional[Callable[[], bool]] = None,
+               device=None) -> Dict[str, Any]:
     """Serve the newest complete checkpoint in ``checkpoint_dir`` until
     SIGTERM/SIGINT (drain, snapshot the live sessions, exit) or the wall
     budget.  Returns the final :meth:`SessionServer.stats` plus the bound
     port, the step served and the health verdict it served with.
 
-    Acts on the CUDA device (``cfg.act_device="cpu"`` asks for the CPU;
-    without a card and without that, it raises).  ``stop_fn``, a
+    Acts on ``device``, by default the CUDA device (``cfg.act_device=
+    "cpu"`` or ``device="cpu"`` asks for the CPU; without a card and
+    without that, it raises).  ``stop_fn``, a
     predicate polled by the wait loop, asks for the same drain-then-
     snapshot exit as a signal — for callers that embed the server in a
     thread, which signals never reach (``train()``'s ``stop_fn``).
@@ -680,7 +681,7 @@ def run_server(cfg: Config, checkpoint_dir: str,
         if callable(close):
             close()
 
-    server = SessionServer(cfg, action_dim)
+    server = SessionServer(cfg, action_dim, device=device)
     stop = threading.Event()
     prev = {}
     if threading.current_thread() is threading.main_thread():

@@ -100,19 +100,16 @@ EnvFactory = Callable[[Config, int], Any]
 # chaos sites train() fires (wedge_dispatch only in the anakin transport,
 # the six fleet and service sites only in the process transport, the
 # seven shard and link sites only with replay_shards > 1 or the socket
-# transport, kill_eval_sidecar only with the league's eval sidecar);
-# every other kind belongs to a plane the port has not ported yet, named
-# here by its ROADMAP.md item
+# transport, kill_eval_sidecar only with the league's eval sidecar).
+# train() accepts any spec, as the reference does; the other two kinds,
+# kill_session_client and slow_session_client, fire in the session load
+# generator (r2d2_tpu_torch/tools/session_load_gen.py), never in a run
 CHAOS_SITES = ("truncate_ckpt", "freeze_learner", "poison_params",
                "wedge_dispatch", "kill_fleet", "garble_block",
                "freeze_service", "drop_act_response", "garble_act_response",
                "stall_pump", "kill_replay_shard", "garble_sample_response",
                "stall_shard", "partition_shard_link", "delay_shard_link",
                "half_open_shard", "garble_net_frame", "kill_eval_sidecar")
-_UNPORTED_CHAOS = {
-    "kill_session_client": "item 11 (the session load generator)",
-    "slow_session_client": "item 11 (the session load generator)",
-}
 
 
 def _default_env_factory(cfg: Config, seed: int):
@@ -138,20 +135,11 @@ def resolve_device(device=None) -> torch.device:
 def check_unported(cfg: Config, use_mesh: bool = False) -> None:
     """Raise ``ValueError`` for a ``train()`` configuration that needs a
     module the port has not ported yet, naming its ROADMAP.md item: a
-    ``"dp"`` device-ring layout without the learner mesh (item 7a) and a
-    chaos site of item 11."""
-    from r2d2_tpu_torch.utils.chaos import parse_spec
-
+    ``"dp"`` device-ring layout without the learner mesh (item 7a)."""
     if cfg.device_replay and not use_mesh:
         from r2d2_tpu_torch.replay.device_ring import resolve_layout
 
         resolve_layout(cfg)     # the dp layout needs the learner mesh
-    for kind in parse_spec(cfg.chaos_spec):
-        if kind not in CHAOS_SITES:
-            raise ValueError(
-                f"r2d2_tpu_torch.train: chaos site {kind!r} belongs to "
-                f"ROADMAP.md A {_UNPORTED_CHAOS[kind]}, not ported; the "
-                f"port's train() fires {CHAOS_SITES}")
 
 
 @contextlib.contextmanager
@@ -1175,8 +1163,9 @@ def train(cfg: Config, env_factory: EnvFactory = _default_env_factory,
     ``resume=True`` restarts warm (host ring only: a device ring's run
     saves learner state alone, and resumes with a cold ring); the process
     fleets hand their actor snapshots over in their shutdown handshake.
-    ``cfg.chaos_spec`` fires the fault sites of :data:`CHAOS_SITES`.  ``profile_dir``
-    captures a ``torch.profiler`` trace of the learner loop.
+    ``cfg.chaos_spec`` fires the fault sites of :data:`CHAOS_SITES`; a
+    spec naming the session sites is accepted and they never fire here.
+    ``profile_dir`` captures a ``torch.profiler`` trace of the learner loop.
 
     Returns the learner's metrics (``num_updates``, ``env_steps``,
     ``minutes``, ``mean_loss``) plus the JAX package's fabric keys.

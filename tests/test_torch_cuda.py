@@ -13,6 +13,7 @@ B = 65 (two 64-row tiles) and at ragged hidden sizes (H = 100, whose gate
 strips start off 16-byte boundaries).  Tolerances (as in chip_smoke.py):
 1e-5 max-abs in float32 with TF32 off, 1e-4 in bfloat16 — both sides round
 the operands at the same points, only the order of the f32 sums differs.
+The session load generator's float32 cell is held to take the f32 route.
 """
 import numpy as np
 import pytest
@@ -744,3 +745,38 @@ def test_armed_diag_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(out["cuda"][:n], out["cpu"][:n], rtol=1e-4,
                                atol=1e-7)
     np.testing.assert_array_equal(out["cuda"][n:], out["cpu"][n:])
+
+
+@pytest.mark.cuda
+def test_f32_load_gen_cell_takes_the_cudacore_route(cuda):
+    """The session load generator's float32 cell at the flagship width
+    for a few seconds: its LSTM runs the f32 route, ``lstm_step_cudacore``,
+    once per layer for every served batch and warm-up bucket, and the
+    tensor-core kernel never."""
+    from r2d2_tpu_torch.models.network import create_network
+    from r2d2_tpu_torch.serving.server import SessionServer
+    from r2d2_tpu_torch.tools import session_load_gen as slg
+
+    A = 9
+    cfg = slg.cell_config("float32", 64, 192)
+    net = create_network(cfg, A, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    before = KERNEL_LAUNCHES.snapshot()
+    srv = SessionServer(cfg, A, device=cuda)
+    srv.publish_params(net.state_dict())
+    srv.warmup()
+    srv.start()
+    try:
+        out = slg.run_load(cfg, A, srv.host, srv.port, sessions=96,
+                           workers=4, steps_mean=8, think_s=0.002,
+                           run_seconds=3.0, call_timeout=20.0, seed=0)
+        stats = srv.stats()
+    finally:
+        srv.stop()
+        srv.close()
+    after = KERNEL_LAUNCHES.snapshot()
+    assert out["acts"] > 0 and stats["act_failures"] == 0
+    assert (after.get(CUDACORE_COUNTER, 0) - before.get(CUDACORE_COUNTER, 0)
+            == cfg.lstm_layers * (stats["batches"]
+                                  + len(srv.batcher.buckets)))
+    assert after.get(KERNEL, 0) == before.get(KERNEL, 0)

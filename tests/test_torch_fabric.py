@@ -129,7 +129,6 @@ def test_train_needs_a_device_or_cuda(monkeypatch):
 
 REFUSALS = [
     (dict(device_replay=True, device_ring_layout="dp"), "item 7a"),
-    (dict(chaos_spec="kill_session_client:every=1"), "item 11"),
 ]
 
 
@@ -152,6 +151,8 @@ FORMERLY_REFUSED = {
     "transfer_guard": dict(transfer_guard=True),
     "anakin-transfer_guard": dict(transfer_guard=True, **ANAKIN),
     "anakin-league_eval": dict(league_eval=True, **ANAKIN),
+    "session_chaos": dict(chaos_spec="kill_session_client:every=1;"
+                                     "slow_session_client:every=1,dur=1"),
 }
 
 
@@ -163,7 +164,9 @@ def test_formerly_refused_configs_train_with_their_feature_live(
     anakin loop arms the transfer guard after its warm-up and counts its
     windows (the reference arms it in no other transport, so a threaded
     run counts none); anakin with ``league_eval`` warns, as the reference
-    (r2d2_tpu/train.py:1044-1051), and trains without the sidecar."""
+    (r2d2_tpu/train.py:1044-1051), and trains without the sidecar; a
+    spec naming the session load generator's sites trains and fires
+    nothing, as the reference's train() (r2d2_tpu/train.py:824-830)."""
     from r2d2_tpu_torch.utils.trace import TRANSFER_GUARD
 
     kw = FORMERLY_REFUSED[name]
@@ -181,6 +184,8 @@ def test_formerly_refused_configs_train_with_their_feature_live(
                          device="cpu", max_wall_seconds=120)
     assert m["num_updates"] == steps and np.isfinite(m["mean_loss"])
     assert not m["fabric_failed"]
+    if "chaos_spec" in kw:
+        assert not any(m["chaos"].values())
     lh_on = kw.get("learnhealth_interval", 0) > 0
     assert m["learnhealth"]["armed_steps"] == (steps // 2 if lh_on else 0)
     dumps = sorted(os.listdir(tmp_path / "telemetry"))
@@ -203,15 +208,15 @@ def test_formerly_refused_configs_train_with_their_feature_live(
 
 
 def test_use_mesh_raises_naming_its_roadmap_item(monkeypatch):
-    """The learner mesh refuses only what waits for another ROADMAP item
-    (the session load generator's chaos sites, item 11); the anakin mesh
-    and in-graph PER over several ranks (item 7b) pass the check — from
-    torchrun's WORLD_SIZE, before any process group exists — and the
-    anakin mesh trains in a world of one."""
-    with pytest.raises(ValueError, match="item 11"):
-        ttrain.train(cpu_config(actor_transport="anakin",
-                                chaos_spec="slow_session_client:every=1"),
-                     use_mesh=True, verbose=False, device="cpu")
+    """The learner mesh refuses nothing the reference accepts: the
+    session load generator's chaos sites (refused until ROADMAP item 11a)
+    pass, the anakin mesh and in-graph PER over several ranks (item 7b)
+    pass the check — from torchrun's WORLD_SIZE, before any process group
+    exists — and the anakin mesh trains in a world of one with the
+    session sites armed, firing none."""
+    ttrain.check_unported(cpu_config(
+        actor_transport="anakin", chaos_spec="slow_session_client:every=1"),
+        use_mesh=True)
     monkeypatch.setenv("WORLD_SIZE", "2")
     ttrain.check_unported(cpu_config(device_replay=True, in_graph_per=True),
                           use_mesh=True)
@@ -220,10 +225,12 @@ def test_use_mesh_raises_naming_its_roadmap_item(monkeypatch):
     monkeypatch.delenv("WORLD_SIZE")
     m = ttrain.train(cpu_config(actor_transport="anakin", num_actors=2,
                                 superstep_k=2, learning_starts=16,
-                                anakin_episode_len=12, training_steps=4),
+                                anakin_episode_len=12, training_steps=4,
+                                chaos_spec="slow_session_client:every=1"),
                      use_mesh=True, verbose=False, device="cpu",
                      max_wall_seconds=120)
     assert m["num_updates"] == 4 and np.isfinite(m["mean_loss"])
+    assert not any(m["chaos"].values())
     assert not any(type(v).__name__ == "DTensor"
                    for v in m["final_params"].values())
 
@@ -254,11 +261,11 @@ def test_use_mesh_trains_at_world_size_one(kw):
 
 
 def test_every_chaos_kind_is_fired_or_refused():
-    """The port's train() fires seventeen sites and names the ROADMAP item
-    of every other kind the grammar knows."""
-    assert set(ttrain.CHAOS_SITES) | set(ttrain._UNPORTED_CHAOS) == set(
-        chaos._KINDS)
-    assert not set(ttrain.CHAOS_SITES) & set(ttrain._UNPORTED_CHAOS)
+    """The port's train() fires eighteen sites and the session load
+    generator the other two kinds the grammar knows."""
+    session = {"kill_session_client", "slow_session_client"}
+    assert set(ttrain.CHAOS_SITES) | session == set(chaos._KINDS)
+    assert not set(ttrain.CHAOS_SITES) & session
     assert chaos._KINDS == jax_chaos._KINDS
 
 
