@@ -77,15 +77,15 @@ Phases (each exits non-zero on failure):
    layers of H=512, batch 64, burn-in 40 + learning 75 + forward 5, blocks
    of 375, remat, bf16 compute, 8 actors) with only the replay size,
    warm-up and run length cut (the ``reduced:`` line), trained by the
-   threaded ``train()`` in this (the main) thread for 16 updates, resumed
-   warm to 20, then its checkpoint served by ``run_server`` in a worker
-   thread to a client process (16 sessions × 4 steps).  Checked: 16
-   updates and 16 priority feedbacks, no thread restarted, every loss
+   threaded ``train()`` in this (the main) thread for 12 updates, resumed
+   warm to 14, then its checkpoint served by ``run_server`` in a worker
+   thread to a client process (16 sessions × 4 steps).  Checked: 12
+   updates and 12 priority feedbacks, no thread restarted, every loss
    finite; the kernel launched twice per actor act (one per layer), the
    CUDA-core one never; ``/healthz`` (``ok``) and ``/metrics`` answered on
-   the run's ephemeral port; the JSONL run log and a complete ``step_16``
+   the run's ephemeral port; the JSONL run log and a complete ``step_12``
    replay snapshot on disk; the resume restores the replay and the actors
-   (counters monotone) and ends at 20 updates; every served new hidden
+   (counters monotone) and ends at 14 updates; every served new hidden
    within 2e-3 of the plain-LSTM act of the same restored params and every
    served q within 2e-3 of their plain head of that hidden (as phase 4);
    the store's accounting quadruple exact; two launches per served batch;
@@ -127,11 +127,11 @@ Phases (each exits non-zero on failure):
    "grid")`` at full width (nature torso on 21×21×16 frames, H = 512,
    bf16, batch 64, burn-in 40 + learning 40 + forward 5, 8 lanes,
    ``superstep_k=8``, ``anakin_env_steps_per_update=4``, episodes of 32)
-   with the full 2 000 000-transition ring on the card, cut only in
-   warm-up, run length, eval cadence and the target/save intervals (the
-   ``reduced:`` line).  First: one 32-step fused rollout of the fake env
-   at ``base_eps = 1`` with seeded draws, bf16 on the card against f32 on
-   the CPU (bytes, actions, integer fields, ``n_step_gamma`` and PER
+   on the card, cut in replay size (500 of the 5 000 blocks, so that the
+   resume reads a 1.58 GB snapshot), warm-up, run length, eval cadence
+   and the target/save intervals (the ``reduced:`` line).  First: one
+   32-step fused rollout of the fake env at ``base_eps = 1`` with seeded
+   draws, bf16 on the card against f32 on the CPU (bytes, actions, integer fields, ``n_step_gamma`` and PER
    metadata identical; q, hiddens and priorities within 2e-2); then, on a
    64-block ring with cuDNN deterministic, two identical super-steps
    bitwise equal and snapshot → restore → dispatch bitwise equal to an
@@ -252,7 +252,7 @@ Phases (each exits non-zero on failure):
     indices, losses, the priority slab and every new param bitwise (cuDNN
     deterministic for the check), with the design's collectives; then
     ``train(cfg, use_mesh=True)`` from the full ring, cut as phase 7's
-    in-graph run (16 updates).  (b) The README's anakin config on the
+    in-graph run (8 updates).  (b) The README's anakin config on the
     mesh: on a 64-block ring at the full slot shapes, the meshed plane's
     warm-up and one training dispatch against the meshless plane's —
     every payload array, the losses and every param bitwise, with the
@@ -278,10 +278,11 @@ Phases (each exits non-zero on failure):
     lanes in two member fleets of 4, each under its member's config and
     epsilon ladder, acting through the trainer's service and the kernel
     at B = 8) trained by ``train(cfg, device="cuda")`` from the full
-    5 000-block host ring, cut in warm-up as phase 10, with a checkpoint
-    every 4 updates, until the eval sidecar (a CPU subprocess with the
-    card hidden) has scored both members on 2 complete checkpoints and
-    the learner has taken 12 updates, under a wall budget that fails the
+    5 000-block host ring, cut in warm-up as phase 14 (each lane's first
+    block), with a checkpoint every 4 updates, until the eval sidecar (a
+    CPU subprocess with the card hidden) has scored both members on 2
+    complete checkpoints and the learner has taken 8 updates, under a
+    wall budget that fails the
     phase (the ``reduced:`` line).  Checked: every loss finite; both
     members' blocks in replay and in the population rows (member 1 the
     ``low_resource`` preset); ``league.jsonl`` with >= 2 complete sweeps,
@@ -359,8 +360,29 @@ Phases (each exits non-zero on failure):
     seconds: the JSON line parses, ``learner_env_frames_per_sec > 0``,
     ``0 < mfu < 1``, every phase reported and none failed; the line is
     printed.  Then every phase's seconds;
-16. one ``{"kernels": [...]}`` JSON line;
-17. last line: ``{"ok": true, "device": {...}}``.
+16. graftlint, the soak and r2d2_top: (a) ``python -m
+    r2d2_tpu_torch.analysis r2d2_tpu_torch --baseline
+    GRAFTLINT_TORCH_BASELINE.json`` in a subprocess on this machine, which
+    has no JAX: exit 0, and the number of files, findings and
+    suppressions printed.  (b) The port's ``tools/soak.py`` ``main`` in
+    this process, ``SOAK_MINUTES`` in each drivetrain (host-sampled, then
+    ``--ingraph``; cut from the reference's 20-minute default, the
+    ``reduced:`` line), at the reference soak's own config (``test_config``
+    at H = 128 in float32, 32 actors in two thread fleets, device replay,
+    k = 4): each prints ``SOAK PASS`` with no fabric failure, exact
+    priority accounting and no decay, and ``lstm_infer`` = layers × acts,
+    all on ``lstm_step_cudacore`` and none on ``lstm_step_wgmma``; prints
+    updates/s (mid and last third) and env steps.  (c) The flagship
+    ``Config(game_name="Fake")`` at its published widths through
+    ``cli.main(["train", ..., "--device", "cuda"])`` with a telemetry port
+    and a checkpoint dir, cut as phase 15: while it trains, ``python -m
+    r2d2_tpu_torch.tools.r2d2_top --once --url`` renders a frame whose
+    first line is ``format_entry`` of ``/statusz``'s ``last_entry``;
+    after it, ``r2d2_top --once <ckpt_dir>`` renders the run log's last
+    entry; ``lstm_infer`` = layers × acts on ``lstm_step_wgmma``, 0 on
+    the CUDA-core route.  Prints the frames and the phase's seconds;
+17. one ``{"kernels": [...]}`` JSON line;
+18. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -396,8 +418,9 @@ Q_TOL = 2e-3
 CHECK_B = (1, 7, 8, 64, 65, 256)
 TIMED = ((1, 1), (1, 8), (1, 32), (1, 64), (1, 256), (85, 64))
 # rounds of the timing, each taking the designs in turns (cut from 4 to
-# make room for phase 15; the rounds agree to a few per cent)
-ROUNDS = 2
+# 2 to make room for phase 15, to 1 for phase 16; the rounds agree to a
+# few per cent)
+ROUNDS = 1
 # the flagship LSTM layer's input: torso features, last action, reward
 IN_DIM = H + ACTION_DIM + 1
 # the library yardstick runs in bf16 end to end (x @ wi, the gates, h and
@@ -433,9 +456,9 @@ STEP_H = 64
 # the exporter on an ephemeral port and a log entry a second, so that the
 # run's /healthz and /metrics can be read while it trains
 FABRIC_REDUCED = dict(buffer_capacity=37_500, learning_starts=3_750,
-                      training_steps=16, target_net_update_interval=8,
+                      training_steps=12, target_net_update_interval=8,
                       save_interval=8, telemetry_port=-1, log_interval=1.0)
-FABRIC_RESUME_STEPS = 20
+FABRIC_RESUME_STEPS = 14
 # a wall budget that fails the phase rather than let a stuck fabric hang
 FABRIC_WALL_S = 420
 FABRIC_SESSIONS = 16
@@ -453,13 +476,17 @@ DISPATCH_PUT_MAX_BYTES = 10_000
 SAMPLER_W_RTOL = 1e-6
 CHECK_RING_BLOCKS = 4
 # phase 8: the README's anakin Config(game_name="Fake", actor_transport=
-# "anakin", anakin_env="grid") with its full ring on the card, cut only in
+# "anakin", anakin_env="grid") on the card, cut in ring size (ANAKIN_RING),
 # warm-up, run length (6 dispatches of k = 8, resumed for 2 more), the
 # eval cadence (so that the lane fires) and the target/save intervals; the
-# resumed run writes no second 15.8 GB snapshot
+# resumed run writes no second snapshot
 ANAKIN_REDUCED = dict(learning_starts=4_096, anakin_eval_interval=2,
                       target_net_update_interval=16, save_interval=24)
 ANAKIN_STEPS, ANAKIN_RESUME_STEPS = 48, 64
+# the runs' ring: 500 blocks of the full slot shapes (cut from 5 000), so
+# that the full-state snapshot the resume reads is 1.58 GB, not 15.80 GB
+# (its write and read took 22–23 s and 31–36 s)
+ANAKIN_RING = 200_000
 ANAKIN_WALL_S = 300
 ANAKIN_WATCHDOG_S = 420
 # the card checks' own ring: 64 blocks at the full slot shapes (NB >= N),
@@ -517,12 +544,12 @@ MESH_WALL_S = 240
 # phase 12: the cross-rank draw at world size 1 over NCCL.  (a) The Pong
 # preset with in-graph PER on the mesh, its ring this rank's dp slab (the
 # whole ring at dp = 1), cut as phase 7's in-graph run in warm-up and
-# cadences, 16 updates; (b) the README's anakin config on the mesh, cut as
+# cadences, 8 updates; (b) the README's anakin config on the mesh, cut as
 # phase 8 in warm-up and eval cadence, 2 dispatches of k = 8, no replay
 # snapshot (the plane's snapshot is checked on the 64-block ring)
 MESH_IG_REDUCED = dict(device_ring_layout="dp", learning_starts=25_600,
-                       training_steps=16, target_net_update_interval=8,
-                       save_interval=16, telemetry_port=-1,
+                       training_steps=8, target_net_update_interval=8,
+                       save_interval=8, telemetry_port=-1,
                        log_interval=1.0)
 MESH_ANAKIN_REDUCED = dict(learning_starts=4_096, anakin_eval_interval=2,
                            training_steps=16, target_net_update_interval=8,
@@ -534,16 +561,17 @@ MESH_DRAW_WATCHDOG_S = 420
 # phase 13: the league — the flagship's 8 lanes in two member fleets (the
 # base and the low_resource member preset) acting through the service,
 # the eval sidecar scoring both members on every complete checkpoint.
-# Cut as phase 10 in warm-up; the run trains until the sidecar has scored
+# Cut as phase 14 in warm-up (each lane's first block; 6 400 until PR 14);
+# the run trains until the sidecar has scored
 # two complete sweeps and the learner has taken LEAGUE_MIN_UPDATES, and
 # the chaos drill until the learner updates after the sidecar's budget
 # ran out.  A wall budget fails the phase rather than hang it
 LEAGUE_SPEC = ('[{"name": "base"}, {"name": "low", '
                '"preset": "low_resource"}]')
-LEAGUE_REDUCED = dict(learning_starts=6_400, save_interval=4,
+LEAGUE_REDUCED = dict(learning_starts=3_200, save_interval=4,
                       keep_checkpoints=4, league_eval_interval=0.5,
                       telemetry_port=-1, log_interval=0.5)
-LEAGUE_MIN_UPDATES = 12
+LEAGUE_MIN_UPDATES = 8
 LEAGUE_SWEEPS = 2
 # the chaos drill: a shorter warm-up, and this many updates after the
 # sidecar's budget ran out
@@ -611,6 +639,18 @@ EDGES_SERVE_WALL_S = 10
 EDGES_SERVE_LOAD_S = 5
 EDGES_BENCH = dict(steps=5, warmup=1, system_seconds=10.0)
 EDGES_WATCHDOG_S = 900
+# phase 16: graftlint over the checkout; the soak (the reference's own
+# config: test_config at H = 128, f32, two thread fleets, device replay,
+# k = 4) for SOAK_MINUTES in each drivetrain, cut from its 20-minute
+# default; the flagship through the command line, cut as phase 15 (each
+# lane's first block, 8 updates, no replay snapshot), a log entry a
+# second so that /statusz has one while it runs
+SOAK_MINUTES = 1.0
+TOP_SETS = dict(learning_starts=3_200, save_interval=4,
+                replay_snapshot=False, log_interval=1.0)
+TOP_STEPS = 8
+TOP_WALL_S = 240
+LINT_WATCHDOG_S = 600
 # the meshless timings of phases 5 and 7, set as they run, printed beside
 # phase 11's meshed ones
 MESHLESS: dict = {}
@@ -2614,7 +2654,7 @@ def anakin_determinism(torch, base) -> dict:
 
 def anakin_run(torch, card: str, cfg, ckdir: str, need: int,
                resume: bool, prior=None) -> dict:
-    """One ``train()`` run of phase 8 on the full ring, its invariants and
+    """One ``train()`` run of phase 8 on its cut ring, its invariants and
     timings; the first run also profiles a training dispatch and a
     rollout dispatch alone.  Returns the counters and numbers; the run's
     ring is only referenced from this frame, so it is freed when it
@@ -2843,8 +2883,8 @@ def anakin_run(torch, card: str, cfg, ckdir: str, need: int,
 
 
 def phase_anakin(torch, card: str) -> int:
-    """Phase 8: the README's anakin config at full width, trained from its
-    full ring by ``train()``, resumed; before it, the fused rollout card
+    """Phase 8: the README's anakin config at full width, trained from a
+    ring of ``ANAKIN_RING`` transitions by ``train()``, resumed; before it, the fused rollout card
     vs CPU and the determinism and snapshot checks.  Returns the kernel's
     launches over the phase's main path (0: the anakin actor acts through
     the scan recurrence, as JAX's does)."""
@@ -2871,15 +2911,16 @@ def phase_anakin(torch, card: str) -> int:
     got = {k: getattr(base, k) for k in literal}
     if got != literal:
         fail(f"the README's anakin Config is not the flagship: {got}")
-    need = data_bytes(base.replace(device_replay=True, in_graph_per=True),
-                      TRAIN_ACTIONS)
+    run_base = base.replace(buffer_capacity=ANAKIN_RING)
+    need = data_bytes(run_base.replace(device_replay=True,
+                                       in_graph_per=True), TRAIN_ACTIONS)
     print("reduced: " + ", ".join(
         f"{k} {getattr(base, k)} -> {v}" for k, v in ANAKIN_REDUCED.items())
         + f", training_steps {base.training_steps} -> {ANAKIN_STEPS} (6 "
         f"dispatches), resumed to {ANAKIN_RESUME_STEPS} with replay_snapshot"
-        f" off (no second snapshot); the full ring on the card "
-        f"({base.num_blocks} blocks of {base.block_length}, "
-        f"{need / 1e9:.2f} GB); grid env episodes of "
+        f" off (no second snapshot); buffer_capacity {base.buffer_capacity}"
+        f" -> {ANAKIN_RING} on the card ({run_base.num_blocks} blocks of "
+        f"{base.block_length}, {need / 1e9:.2f} GB); grid env episodes of "
         f"{base.anakin_episode_len} steps, {TRAIN_ACTIONS} actions; the "
         f"determinism check's warm-up {ANAKIN_CHECK_STARTS} transitions",
         flush=True)
@@ -2889,12 +2930,12 @@ def phase_anakin(torch, card: str) -> int:
     torch.cuda.empty_cache()
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_anakin_")
     try:
-        first = anakin_run(torch, card, base.replace(
+        first = anakin_run(torch, card, run_base.replace(
             training_steps=ANAKIN_STEPS, **ANAKIN_REDUCED), ckdir, need,
             resume=False)
         gc.collect()
         torch.cuda.empty_cache()
-        second = anakin_run(torch, card, base.replace(
+        second = anakin_run(torch, card, run_base.replace(
             training_steps=ANAKIN_RESUME_STEPS, replay_snapshot=False,
             **ANAKIN_REDUCED), ckdir, need, resume=True,
             prior=first["counters"])
@@ -6572,6 +6613,244 @@ def phase_edges(torch, card: str) -> dict:
                 load_bf16=load["bfloat16"], bench=bench_line)
 
 
+def lint_checkout(card: str) -> dict:
+    """16(a): the port's analyzer over the checkout, in a subprocess on
+    this machine (which has no JAX), against the committed baseline: exit
+    0 means no drift from its 0 findings and its reasoned suppressions."""
+    import re
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    gate = subprocess.run(
+        [sys.executable, "-m", "r2d2_tpu_torch.analysis", "r2d2_tpu_torch",
+         "--baseline", "GRAFTLINT_TORCH_BASELINE.json"],
+        cwd=root, capture_output=True, text=True, timeout=120)
+    last = gate.stdout.strip().splitlines()[-1] if gate.stdout else ""
+    files = re.search(r"across (\d+) files", last)
+    with open(os.path.join(root, "GRAFTLINT_TORCH_BASELINE.json")) as f:
+        pinned = json.load(f)
+    if (gate.returncode != 0 or not files or pinned["findings"]
+            or not last.startswith("graftlint: 0 drift line(s)")):
+        fail(f"16(a): the analyzer exited {gate.returncode}: "
+             f"{gate.stdout[-3000:]} {gate.stderr[-3000:]}")
+    out = dict(files=int(files.group(1)), findings=0,
+               suppressions=sum(p["count"] for p in pinned["suppressions"]))
+    print(f"16(a) graftlint on {card}'s host (no JAX installed): {last}; "
+          f"{out['files']} files, {out['findings']} findings, "
+          f"{out['suppressions']} suppressions "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    return out
+
+
+def soak_run_card(torch, card: str, ingraph: bool) -> dict:
+    """16(b): ``tools/soak.py``'s ``main`` in this process on the card;
+    its printed verdict and summary file checked, and the kernel's
+    launches counted on the CUDA-core route (the soak computes in
+    float32)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from r2d2_tpu_torch.actor import ACTOR_ACT
+    from r2d2_tpu_torch.evaluate import EVAL_ACT
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.tools import soak
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+
+    label = "soak_ingraph" if ingraph else "soak_host"
+    cfg = soak.soak_config(ingraph)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_soak_") as d:
+        out_path = os.path.join(d, "soak.json")
+        buf = io.StringIO()
+        KERNEL_LAUNCHES.reset()
+        HOST_TRANSFERS.reset()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = soak.main(SOAK_MINUTES, ingraph=ingraph, out=out_path)
+        run_s = time.perf_counter() - t
+        launches = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
+        wgmma = KERNEL_LAUNCHES.get(lstm.KERNEL)
+        acts = HOST_TRANSFERS.get(ACTOR_ACT) + HOST_TRANSFERS.get(EVAL_ACT)
+        printed = buf.getvalue()
+        if rc != 0 or printed.rstrip().splitlines()[-1] != "SOAK PASS":
+            fail(f"16(b) {label}: rc {rc}: {printed[-3000:]}")
+        with open(out_path) as f:
+            summary = json.load(f)
+        with open(os.path.join(d, "soak.telemetry.jsonl")) as f:
+            entries = len(f.readlines())
+    if (summary["fabric_failed"] or not summary["priority_accounting_exact"]
+            or not summary["no_throughput_decay"]
+            or not summary["num_updates"]):
+        fail(f"16(b) {label}: summary {summary}")
+    if (launches != cfg.lstm_layers * acts or not acts or wgmma
+            or cfg.compute_dtype != "float32"):
+        fail(f"16(b) {label}: lstm_infer launched {launches} times on the "
+             f"CUDA-core route ({wgmma} on the tensor-core route) for "
+             f"{acts} acts, {cfg.lstm_layers} layer, {cfg.compute_dtype}")
+    print(f"16(b) soak {label} on {card}, {SOAK_MINUTES} min (H = "
+          f"{cfg.hidden_dim}, {cfg.compute_dtype}, {cfg.num_actors} actors "
+          f"in {cfg.actor_fleets} fleets, k = {cfg.superstep_k}): SOAK PASS "
+          f"in {run_s:.1f} s; {summary['num_updates']} updates, "
+          f"{summary['env_steps']} env steps, updates/s mid "
+          f"{summary['updates_per_sec_mid']} last "
+          f"{summary['updates_per_sec_last']}, {entries} log entries; "
+          f"lstm_infer launches {launches} = {cfg.lstm_layers} x {acts} acts"
+          f" on lstm_step_cudacore, {wgmma} on lstm_step_wgmma", flush=True)
+    return dict(launches=launches, seconds=run_s, summary=summary)
+
+
+def top_frame(args: list) -> str:
+    """``python -m r2d2_tpu_torch.tools.r2d2_top --once <args>`` from this
+    checkout: its frame; fails on a non-zero exit."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "r2d2_tpu_torch.tools.r2d2_top", "--once",
+         *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0:
+        fail(f"16(c): r2d2_top {args} exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    return proc.stdout.rstrip("\n")
+
+
+def top_live(torch, card: str) -> dict:
+    """16(c): the flagship through ``cli.main(["train", ..., "--device",
+    "cuda"])`` in this process with a telemetry port; while it trains,
+    ``r2d2_top --once --url`` in its own process renders ``/statusz``;
+    after it, ``r2d2_top --once <ckpt_dir>`` the run log."""
+    import contextlib
+    import io
+    import shutil
+    import socket
+    import tempfile
+
+    from r2d2_tpu_torch import cli
+    from r2d2_tpu_torch.actor import ACTOR_ACT
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.evaluate import EVAL_ACT
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.telemetry.console import format_entry
+    from r2d2_tpu_torch.telemetry.runlog import tail_entry
+    from r2d2_tpu_torch.tools import r2d2_top
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_top_")
+    live: dict = {}
+    stop = threading.Event()
+
+    def watch():
+        # the run's first entry on /statusz, then one frame around two
+        # scrapes of it (an entry a second: the frame is one of the two)
+        while not stop.is_set():
+            try:
+                before = r2d2_top.fetch_statusz(url)
+            except OSError:
+                time.sleep(0.2)
+                continue
+            if not before.get("last_entry"):
+                time.sleep(0.2)
+                continue
+            try:
+                frame = top_frame(["--url", url])
+                after = r2d2_top.fetch_statusz(url)
+            except (OSError, SystemExit) as e:
+                live["error"] = repr(e)
+                return
+            live.update(frame=frame, entries=[before["last_entry"],
+                                              after["last_entry"]])
+            return
+
+    sets = []
+    for k, v in TOP_SETS.items():
+        sets += ["--set", f"{k}={str(v).lower() if isinstance(v, bool) else v}"]
+    argv = ["train", "--game", "Fake", "--ckpt-dir", ckdir,
+            "--training-steps", str(TOP_STEPS), "--quiet",
+            "--max-wall-seconds", str(TOP_WALL_S), "--telemetry-port",
+            str(port), "--device", "cuda", *sets]
+    watcher = threading.Thread(target=watch, daemon=True)
+    KERNEL_LAUNCHES.reset()
+    HOST_TRANSFERS.reset()
+    out = io.StringIO()
+    t = time.perf_counter()
+    try:
+        watcher.start()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        run_s = time.perf_counter() - t
+        stop.set()
+        watcher.join(60)
+        launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
+        old = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
+        acts = HOST_TRANSFERS.get(ACTOR_ACT) + HOST_TRANSFERS.get(EVAL_ACT)
+        log_path = os.path.join(ckdir, "telemetry", "run.jsonl")
+        last = tail_entry(log_path)
+        after_frame = top_frame([ckdir])
+    finally:
+        stop.set()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    printed = out.getvalue().strip().splitlines()
+    try:
+        line = json.loads(printed[-1])
+    except (IndexError, ValueError):
+        fail(f"16(c): the train command printed no JSON line: {printed[-5:]}")
+    if rc != 0 or line["num_updates"] != TOP_STEPS:
+        fail(f"16(c): rc {rc}, printed {line}")
+    if "frame" not in live:
+        fail(f"16(c): no live frame from {url}: {live}")
+    first = live["frame"].splitlines()[0]
+    if first not in {format_entry(e) for e in live["entries"]}:
+        fail(f"16(c): the live frame's first line {first!r} is not "
+             f"format_entry of /statusz's last_entry {live['entries']}")
+    if not last or after_frame != r2d2_top.render(last):
+        fail(f"16(c): r2d2_top on the run log gave {after_frame!r}, want "
+             f"{r2d2_top.render(last)!r}")
+    layers = Config(game_name="Fake").lstm_layers
+    if launches != layers * acts or not acts or old:
+        fail(f"16(c): lstm_infer launched {launches} times on the "
+             f"tensor-core route (CUDA-core {old}) for {acts} acts, "
+             f"{layers} layer")
+    print(f"16(c) r2d2_top on a live flagship run on {card} ({' '.join(argv)};"
+          f" {line['num_updates']} updates in {run_s:.1f} s): the frame from "
+          f"/statusz:\n{live['frame']}\nand from the run log after it:\n"
+          f"{after_frame}\nlstm_infer launches {launches} = {layers} x "
+          f"{acts} acts on lstm_step_wgmma, CUDA-core {old}", flush=True)
+    return dict(launches=launches, seconds=run_s)
+
+
+def phase_lint_soak_top(torch, card: str) -> dict:
+    """Phase 16: graftlint over the checkout, the soak's fabric in both
+    drivetrains, r2d2_top on a live flagship run (the module docstring).
+    Returns the kernel's launches by path."""
+    import gc
+
+    t_phase = time.perf_counter()
+    faulthandler.dump_traceback_later(LINT_WATCHDOG_S)
+    print(f"reduced: the soak 20.0 -> {SOAK_MINUTES} minutes a drivetrain; "
+          f"the flagship run " + ", ".join(
+              f"{k} -> {v}" for k, v in TOP_SETS.items())
+          + f", training_steps -> {TOP_STEPS}", flush=True)
+    lint = lint_checkout(card)
+    runs = {}
+    for ingraph in (False, True):
+        r = soak_run_card(torch, card, ingraph)
+        runs["soak_ingraph" if ingraph else "soak_host"] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    top = top_live(torch, card)
+    faulthandler.cancel_dump_traceback_later()
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s on {card}: "
+          f"the analyzer's {lint['files']} files clean, soaks "
+          f"{runs['soak_host']['seconds']:.1f} / "
+          f"{runs['soak_ingraph']['seconds']:.1f} s, the live run "
+          f"{top['seconds']:.1f} s", flush=True)
+    return dict(soak_host=runs["soak_host"]["launches"],
+                soak_ingraph=runs["soak_ingraph"]["launches"],
+                top_flagship=top["launches"], lint=lint)
+
+
 def main() -> None:
     try:
         import torch
@@ -6658,6 +6937,10 @@ def main() -> None:
     # phase 15: the edges — the command line, eval --follow, the session
     # load generator (its f32 cell on the CUDA-core route), serve, bench
     edges = timed("15", phase_edges, torch, card)
+
+    # phase 16: graftlint over the checkout, the soak's fabric (its f32
+    # config on the CUDA-core route) and r2d2_top on a live flagship run
+    late = timed("16", phase_lint_soak_top, torch, card)
     print(f"phase seconds on {card}: {json.dumps(spent)}, in all "
           f"{sum(spent.values()):.1f} s after the build", flush=True)
 
@@ -6669,17 +6952,21 @@ def main() -> None:
                 + sum(mesh_launches.values()) + sum(draw_launches.values())
                 + sum(league_launches.values())
                 + sum(telemetry_launches.values()) + edges["cli_train"]
-                + edges["load_bf16"] + edges["load_f32"])
+                + edges["load_bf16"] + edges["load_f32"]
+                + late["soak_host"] + late["soak_ingraph"]
+                + late["top_flagship"])
+    cudacore = edges["load_f32"] + late["soak_host"] + late["soak_ingraph"]
     print(json.dumps({"kernels": [{
         "name": "lstm_infer",
         "route": "cuda",
         "source": "r2d2_tpu_torch/csrc/lstm_infer.cu",
         "replaces": "r2d2_tpu/ops/lstm.py:46",
         "launches": launches,
-        # the f32 route's kernel runs only in the load generator's float32
-        # cell; every other path takes the tensor-core route
-        "launches_by_route": {WGMMA_KERNEL: launches - edges["load_f32"],
-                              CUDACORE_KERNEL: edges["load_f32"]},
+        # the f32 route's kernel runs in the load generator's float32
+        # cell and the soak's two runs; every other path takes the
+        # tensor-core route
+        "launches_by_route": {WGMMA_KERNEL: launches - cudacore,
+                              CUDACORE_KERNEL: cudacore},
         "launches_by_path": {"serving": serve_launches,
                              "training": train_launches,
                              "fabric": fabric_launches,
@@ -6705,7 +6992,10 @@ def main() -> None:
                                  telemetry_launches["guarded_serve"],
                              "edges_cli_train": edges["cli_train"],
                              "edges_load_f32": edges["load_f32"],
-                             "edges_load_bf16": edges["load_bf16"]},
+                             "edges_load_bf16": edges["load_bf16"],
+                             "soak_host": late["soak_host"],
+                             "soak_ingraph": late["soak_ingraph"],
+                             "top_flagship": late["top_flagship"]},
         "max_abs_err": errs["tensor_core"][0],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -6731,6 +7021,7 @@ def main() -> None:
         "tile_sweep_device_ms": sweep,
         "phase_seconds": spent,
         "bench": edges["bench"],
+        "graftlint": late["lint"],
         "card": card,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

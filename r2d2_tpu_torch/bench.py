@@ -175,7 +175,7 @@ def _actor_plane_bench(iterations: int = 400, num_lanes: int = 64,
     # bare Threads by design: bounded measurement workers, started and
     # joined inside this one timed window — a Supervisor restart would
     # silently rerun part of the workload and corrupt the timing
-    threads = [threading.Thread(target=a.run,
+    threads = [threading.Thread(target=a.run,  # graftlint: disable=thread-discipline -- bounded, joined below; a restart would corrupt the measurement
                                 kwargs=dict(max_steps=iterations))
                for a in actors[1:]]
     t0 = time.perf_counter()

@@ -348,7 +348,7 @@ class Config:
                                       # "pallas" is the fused CUDA
                                       # inference kernel (ops/lstm.py);
                                       # "auto" picks it on a CUDA device
-    pallas_interpret: bool = False    # run pallas kernels interpreted (CPU tests)
+    pallas_interpret: bool = False    # no effect in the port  # graftlint: disable=config-integrity -- kept so the field set stays the reference Config's (build_config is held to the reference's field for field); the port has no interpreted kernel: on the CPU the wrapper runs its plain version
     transfer_guard: bool = False      # arm the transfer guard's
                                       # windows around every declared
                                       # dispatch/harvest site: an

@@ -1408,7 +1408,7 @@ def run_anakin_loop(learner: Any, plane: AnakinPlane,
 
         # a bounded-join fetch, abandoned on a hard wedge by design: a
         # supervised restart would block on the same dead device again
-        t = threading.Thread(target=run, name="anakin-harvest", daemon=True)
+        t = threading.Thread(target=run, name="anakin-harvest", daemon=True)  # graftlint: disable=thread-discipline -- bounded-join fetch; abandoned on a hard wedge BY DESIGN, a Supervisor restart would re-block on the dead device
         t.start()
         t.join(budget.remaining())
         if t.is_alive():
@@ -1544,7 +1544,7 @@ def _bounded(fn, name: str, seconds: float, what: str) -> None:
         except Exception:
             log.exception("%s failed", what)
 
-    t = threading.Thread(target=run, name=name, daemon=True)
+    t = threading.Thread(target=run, name=name, daemon=True)  # graftlint: disable=thread-discipline -- one best-effort bounded-join step at abort (the snapshot or the epilogue save); nothing to supervise after it
     t.start()
     t.join(seconds)
     if not done.is_set():

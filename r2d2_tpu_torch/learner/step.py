@@ -182,7 +182,12 @@ def _window_indices(cfg: Config, burn_in, learning, forward):
 
 
 def _gather_time(q_seq: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    # q_seq: (B, T, A); idx: (B, L) int64 → (B, L, A)
+    # q_seq: (B, T, A); idx: (B, L) int64 → (B, L, A).  A negative index
+    # counts from the end, as in jnp.take_along_axis: a row drawn from a
+    # zero-priority leaf (a descent's float error) has burn_in = learning
+    # = forward = 0, so its last valid target index is -1; the row is
+    # masked out of the loss and the priorities (ROADMAP.md C 20)
+    idx = torch.where(idx < 0, idx + q_seq.shape[1], idx)
     return torch.gather(q_seq, 1,
                         idx[:, :, None].expand(-1, -1, q_seq.shape[2]))
 

@@ -439,14 +439,18 @@ def _fleet_worker_main(cfg: Config, action_dim: int, env_factory,
             # a local-mode fleet's
             return make_host_act_fn(fleet_act_net(cfg, action_dim))
 
+        # a circuit transition reaches the trainer's health when it
+        # happens, not at the end of the burst (ROADMAP.md C 17); the
+        # client first acts inside actor.run, after publish_stats exists
         client = RemoteActClient(cfg, action_dim, spec.hi - spec.lo,
                                  act_info, stop_event, src=spec.fleet_id,
                                  param_store=store,
-                                 local_act_factory=local_act_factory)
+                                 local_act_factory=local_act_factory,
+                                 on_state_change=lambda: publish_stats())
         act_fn = client
         if weights_q is not None:
             # a dead drain costs staleness of the FALLBACK weights only
-            threading.Thread(target=weight_drain, daemon=True,
+            threading.Thread(target=weight_drain, daemon=True,  # graftlint: disable=thread-discipline -- stale fallback weights, not wedges, are the worst a dead drain causes
                              name=f"fleet{spec.fleet_id}-weights").start()
     else:
         deadline = time.time() + 120.0
@@ -466,7 +470,7 @@ def _fleet_worker_main(cfg: Config, action_dim: int, env_factory,
         pumped["version"] = version0
         # a dead drain leaves acting on the last version (bounded
         # staleness); the watchdog's restart budget covers anything worse
-        threading.Thread(target=weight_drain, daemon=True,
+        threading.Thread(target=weight_drain, daemon=True,  # graftlint: disable=thread-discipline -- stale weights, not wedges, are the worst a dead drain causes
                          name=f"fleet{spec.fleet_id}-weights").start()
         act_fn = _TimedAct(make_host_act_fn(fleet_act_net(cfg, action_dim)))
 

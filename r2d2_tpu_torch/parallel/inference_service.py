@@ -57,7 +57,7 @@ import threading
 import time
 from multiprocessing import shared_memory
 from queue import Empty
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -138,7 +138,7 @@ def act_response_crc(views: dict, seq: int, mode: int) -> int:
 
 
 def _span(tracer, name: str):
-    return tracer.span(name) if tracer is not None else (
+    return tracer.span(name) if tracer is not None else (  # graftlint: disable=telemetry-discipline -- nullable-tracer pass-through; every call site passes a literal
         contextlib.nullcontext())
 
 
@@ -185,13 +185,19 @@ class RemoteActClient:
     authoritative carry (consumed by resyncs and the local fallback).
     The returned arrays are slab views (remote) or fresh arrays (local),
     valid until the next call.  Waits poll ``stop_event``.
-    ``stats`` holds the slab-published ``resilience.*`` counters."""
+    ``stats`` holds the slab-published ``resilience.*`` counters;
+    ``on_state_change``, when given, is called after every circuit
+    transition, so the fleet publishes its circuit state when it changes
+    (the reference publishes it only at the end of a 256-step burst,
+    which under load can start and end a whole degraded window:
+    ROADMAP.md C 17)."""
 
     def __init__(self, cfg: Config, action_dim: int, num_lanes: int,
                  info: Tuple[str, Any, Any], stop_event, src: int = 0,
                  param_store=None, local_act_factory=None,
                  retry: Optional[RetryPolicy] = None,
-                 breaker: Optional[CircuitBreaker] = None):
+                 breaker: Optional[CircuitBreaker] = None,
+                 on_state_change: Optional[Callable[[], None]] = None):
         name, self.req_q, self.rsp_q = info
         self.cfg = cfg
         self.shm = shared_memory.SharedMemory(name=name)
@@ -217,6 +223,7 @@ class RemoteActClient:
             on_transition=self._on_transition)
         self.stats = dict(act_retries=0, circuit_opens=0, local_acts=0,
                           circuit_state=float(CLOSED))
+        self._on_state_change = on_state_change
         # (wall-clock end, seconds) of the recent answered attempts: the
         # act-RPC round trip, reported when the trainer probes the fleet
         self.rtts: collections.deque = collections.deque(maxlen=8192)
@@ -238,6 +245,8 @@ class RemoteActClient:
             log.warning("fleet%d: act circuit CLOSED — re-attached to the "
                         "inference service (hidden resynced from the "
                         "fleet's carry)", self.src)
+        if self._on_state_change is not None:
+            self._on_state_change()
 
     # --------------------------------------------------- VectorActor hooks
     def note_reset(self, lane: int) -> None:

@@ -766,7 +766,7 @@ class ShardLink:
         # per-link receiver owned by the link lifecycle: bounded polls,
         # stopped by the _closed flag and joined in close() (a Supervisor
         # restart loop would fight the link's own reconnect state machine)
-        self._rx = threading.Thread(
+        self._rx = threading.Thread(  # graftlint: disable=thread-discipline -- per-link receiver owned by the link lifecycle: bounded 0.05s polls, stopped by the _closed flag and joined in close(); a Supervisor restart loop would fight the link's own reconnect state machine
             target=self._rx_loop, daemon=True, name=f"replay-net-rx{s}")
         self._rx.start()
 

@@ -56,7 +56,7 @@ def _emit_flows(name: str, trace_ids: np.ndarray, fph: str) -> None:
     for tid in np.unique(trace_ids):
         if tid == 0:
             continue
-        EVENTS.instant(name, flow=int(tid), fph=fph)
+        EVENTS.instant(name, flow=int(tid), fph=fph)  # graftlint: disable=telemetry-discipline -- pass-through helper; call sites pass literal names
         seen += 1
         if seen >= _FLOW_CAP:
             break

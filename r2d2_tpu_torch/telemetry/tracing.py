@@ -441,6 +441,12 @@ class TraceController:
 
     GRACE_SECONDS = 0.6       # post-disarm window for writers to notice
                               # the control word and flush their final CRC
+    # a subprocess writer polls the control word once a burst of its loop
+    # (a fleet: 256 actor steps), which on a loaded host outlasts the
+    # grace and the reference's four re-reads 0.3 s apart; a slot still
+    # torn is re-read until it settles, for at most this long
+    # (ROADMAP.md C 18)
+    SETTLE_SECONDS = 10.0
     MAX_CAPTURE_SECONDS = 120.0
 
     def __init__(self, slab: TraceSlab, step_fn: Callable[[], int],
@@ -516,9 +522,10 @@ class TraceController:
             # has not polled the disarm word yet), not corruption —
             # re-read until the slab settles; only a slot that stays
             # torn is dropped
-            for _ in range(4):
+            settle = time.monotonic() + self.SETTLE_SECONDS
+            while True:
                 tracks, dropped = self.slab.harvest()
-                if dropped == 0:
+                if dropped == 0 or time.monotonic() >= settle:
                     break
                 time.sleep(0.3)
             trace = merge_tracks(tracks)

@@ -89,6 +89,8 @@ from r2d2_tpu_torch.envs.fake import FakeAtariEnv
 from r2d2_tpu_torch.telemetry.runlog import artifact_log
 from r2d2_tpu_torch.train import train
 
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 A = 4
 
 
@@ -175,8 +177,9 @@ def session_soak(opts) -> int:
     from r2d2_tpu_torch.utils.chaos import ChaosInjector
     from r2d2_tpu_torch.utils.supervisor import Supervisor
 
-    # the reference first runs its graftlint preflight here; the port's
-    # waits for ROADMAP.md A item 11b (graftlint over r2d2_tpu_torch/)
+    from r2d2_tpu_torch.analysis import preflight
+
+    preflight(ROOT)
     cfg = test_config(serve_max_sessions=48, serve_max_batch=16,
                       serve_session_idle_s=3.0,
                       serve_request_deadline=5.0, **_device_kw(opts))
@@ -292,11 +295,13 @@ def session_soak(opts) -> int:
 
 
 def main(argv=None) -> int:
+    from r2d2_tpu_torch.analysis import preflight
+
     opts = parse_args(argv)
     if opts.sessions:
         return session_soak(opts)
-    # the reference fails fast here on a dirty tree (its graftlint
-    # preflight); the port's waits for ROADMAP.md A item 11b
+    # fail fast on a dirty tree before hours of kill/resume cycles
+    preflight(ROOT)
     anakin, shards, nethost = opts.anakin, opts.shards, opts.nethost
     process, serve, league, trace = (opts.process, opts.serve, opts.league,
                                      opts.trace)

@@ -10,10 +10,11 @@ group at its own deadline.
 
 Rendezvous is a ``FileStore`` in the caller's directory, never a fixed
 port, so many groups can start at once.  Each rank runs one intra-op
-thread.
+thread.  With ``device="cuda"`` each rank takes card ``R`` (NCCL);
+otherwise the cards are hidden and the group runs over gloo.
 
     python -m r2d2_tpu_torch.tools.rank_worker TASK --rank R --world W \\
-        --dir DIR [--deadline SECONDS]
+        --dir DIR [--deadline SECONDS] [--device {cpu,cuda}]
 
 reads ``DIR/args.pkl`` (the task's keyword arguments) and writes
 ``DIR/rank{R}.pkl``.
@@ -31,8 +32,8 @@ from typing import Any, Dict, List
 
 
 def run_ranks(task: str, world: int, workdir: str,
-              kwargs: Dict[str, Any] = None, timeout: float = 120.0
-              ) -> List[Any]:
+              kwargs: Dict[str, Any] = None, timeout: float = 120.0,
+              device: str = "cpu") -> List[Any]:
     """Start ``world`` ranks of ``task`` and return their results in rank
     order.  Raises with every rank's stderr if a rank fails or the group
     outlives ``timeout`` (then every rank is killed)."""
@@ -43,8 +44,10 @@ def run_ranks(task: str, world: int, workdir: str,
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     path = os.environ.get("PYTHONPATH")
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+    env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=root + (os.pathsep + path if path else ""))
+    if device != "cuda":
+        env["CUDA_VISIBLE_DEVICES"] = ""
     env.pop("WORLD_SIZE", None)
     env.pop("RANK", None)
     procs = []
@@ -53,8 +56,10 @@ def run_ranks(task: str, world: int, workdir: str,
         procs.append((subprocess.Popen(
             [sys.executable, "-m", "r2d2_tpu_torch.tools.rank_worker", task,
              "--rank", str(r), "--world", str(world), "--dir", workdir,
-             "--deadline", str(max(5.0, timeout - 5.0))],
-            stdout=err, stderr=subprocess.STDOUT, env=env), err))
+             "--deadline", str(max(5.0, timeout - 5.0)),
+             "--device", device],
+            stdout=err, stderr=subprocess.STDOUT,
+            env=dict(env, LOCAL_RANK=str(r))), err))
     end = time.monotonic() + timeout
     failed = None
     try:
@@ -432,6 +437,26 @@ def task_anakin(cfg_kw, dispatches, seed=0, snap_path=None,
     return out
 
 
+def task_soak(minutes, ingraph, device, log_path, log_interval=10.0):
+    """``tools/soak.py``'s run on this rank of its dp mesh; rank 0
+    appends the stats entries to ``log_path``."""
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.telemetry.runlog import RunLog
+    from r2d2_tpu_torch.tools import soak
+
+    log = (RunLog(os.path.dirname(log_path) or ".",
+                  os.path.basename(log_path))
+           if dist.get_rank() == 0 else None)
+    try:
+        return soak.soak_run(minutes, ingraph, True, device,
+                             log_sink=log.append if log else None,
+                             log_interval=log_interval)
+    finally:
+        if log is not None:
+            log.close()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("task")
@@ -439,6 +464,7 @@ def main(argv=None) -> int:
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--dir", required=True)
     ap.add_argument("--deadline", type=float, default=115.0)
+    ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
     a = ap.parse_args(argv)
     faulthandler.dump_traceback_later(a.deadline, exit=True)
 
@@ -452,7 +478,7 @@ def main(argv=None) -> int:
         kwargs = pickle.load(f)
     store = dist.FileStore(os.path.join(a.dir, "store"), a.world)
     init_distributed(store=store, world_size=a.world, rank=a.rank,
-                     device="cpu")
+                     device=a.device)
     try:
         result = globals()[f"task_{a.task}"](**kwargs)
         with open(os.path.join(a.dir, f"rank{a.rank}.pkl"), "wb") as f:

@@ -179,7 +179,7 @@ def run_cell(name, make_plane, cfg, blocks):
                 i += 1
 
         # a bounded producer: stop-event, joined before the cell exits
-        th = threading.Thread(target=producer, daemon=True)
+        th = threading.Thread(target=producer, daemon=True)  # graftlint: disable=thread-discipline -- bounded measured bench producer, stop-event + joined before the cell exits
         th.start()
         batches = 0
         t0 = time.perf_counter()

@@ -48,7 +48,7 @@ def bounded_event_set(event, timeout: float = 2.0, name: str = "") -> bool:
     regardless.  The trainer never *reads* a child-shared event (it
     mirrors the flag in a plain bool); this bounds the one write a
     graceful drain needs."""
-    t = threading.Thread(target=event.set, daemon=True,
+    t = threading.Thread(target=event.set, daemon=True,  # graftlint: disable=thread-discipline -- the whole point is a thread the caller can ABANDON when a SIGKILL-corrupted event lock never comes free; supervision would add a restart loop around an unbounded wait
                          name=f"event-set-{name}" if name else "event-set")
     t.start()
     t.join(timeout)

@@ -118,7 +118,7 @@ class Tracer:
                 stat.update(dt, self._alpha)
             events = self._event_sink
             if events.armed:
-                events.complete(name, t0, dt)
+                events.complete(name, t0, dt)  # graftlint: disable=telemetry-discipline -- pass-through bridge; span() call sites pass literal names
 
     def gauge(self, name: str, value: float) -> None:
         with self._lock:

@@ -13,7 +13,8 @@ B = 65 (two 64-row tiles) and at ragged hidden sizes (H = 100, whose gate
 strips start off 16-byte boundaries).  Tolerances (as in chip_smoke.py):
 1e-5 max-abs in float32 with TF32 off, 1e-4 in bfloat16 — both sides round
 the operands at the same points, only the order of the f32 sums differs.
-The session load generator's float32 cell is held to take the f32 route.
+The session load generator's float32 cell and the soak are held to take the
+f32 route.
 """
 import numpy as np
 import pytest
@@ -779,4 +780,35 @@ def test_f32_load_gen_cell_takes_the_cudacore_route(cuda):
     assert (after.get(CUDACORE_COUNTER, 0) - before.get(CUDACORE_COUNTER, 0)
             == cfg.lstm_layers * (stats["batches"]
                                   + len(srv.batcher.buckets)))
+    assert after.get(KERNEL, 0) == before.get(KERNEL, 0)
+
+
+@pytest.mark.cuda
+def test_soak_on_the_card_takes_the_cudacore_route(cuda, tmp_path,
+                                                   capsys):
+    """``tools/soak.py`` for 0.3 minutes on the card, host-sampled: SOAK
+    PASS, and its float32 LSTM runs ``lstm_step_cudacore`` once per layer
+    for every actor act, the tensor-core kernel never."""
+    import json
+
+    from r2d2_tpu_torch.actor import ACTOR_ACT
+    from r2d2_tpu_torch.evaluate import EVAL_ACT
+    from r2d2_tpu_torch.tools import soak
+    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS
+
+    cfg = soak.soak_config()
+    assert cfg.compute_dtype == "float32"
+    before = KERNEL_LAUNCHES.snapshot()
+    acts0 = HOST_TRANSFERS.get(ACTOR_ACT) + HOST_TRANSFERS.get(EVAL_ACT)
+    out = str(tmp_path / "soak.json")
+    assert soak.main(0.3, out=out) == 0
+    assert capsys.readouterr().out.rstrip().endswith("SOAK PASS")
+    after = KERNEL_LAUNCHES.snapshot()
+    acts = HOST_TRANSFERS.get(ACTOR_ACT) + HOST_TRANSFERS.get(EVAL_ACT) - acts0
+    with open(out) as f:
+        summary = json.load(f)
+    assert summary["num_updates"] > 0 and summary["priority_accounting_exact"]
+    assert acts > 0
+    assert (after.get(CUDACORE_COUNTER, 0) - before.get(CUDACORE_COUNTER, 0)
+            == cfg.lstm_layers * acts)
     assert after.get(KERNEL, 0) == before.get(KERNEL, 0)

@@ -45,7 +45,7 @@ from r2d2_tpu_torch.models import create_network, params_from_flax
 from r2d2_tpu_torch.parallel import actor_procs as taps
 from r2d2_tpu_torch.parallel import inference_service as tis
 from r2d2_tpu_torch.utils.chaos import ChaosInjector
-from r2d2_tpu_torch.utils.resilience import CLOSED
+from r2d2_tpu_torch.utils.resilience import CLOSED, HALF_OPEN, OPEN
 from r2d2_tpu_torch.utils.store import ParamStore
 from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS
 
@@ -318,6 +318,44 @@ def test_failover_cycle_blocks_bit_exact_and_reattach():
         assert_streams_equal(got_local, got_serve)
         np.testing.assert_array_equal(a1.hidden, a2.hidden)
         np.testing.assert_array_equal(svc.hidden, a2.hidden)
+    finally:
+        client.close()
+        svc.close()
+
+
+def test_circuit_transitions_are_published_when_they_happen():
+    """ROADMAP.md C 17: the client calls ``on_state_change`` after every
+    circuit transition, with ``stats`` already carrying the new state, so
+    a fleet publishes an open circuit when it opens and a closed one when
+    it re-attaches — not only at the end of its burst."""
+    cfg = serve_cfg(act_response_timeout=0.2)
+    params = port_params(cfg)
+    svc = started_service(cfg, params)
+    ch = svc.make_channel(0)
+    published = []
+    client = tis.RemoteActClient(
+        cfg, A, 2, ch.producer_info(), mp.get_context("spawn").Event(),
+        param_store=ParamStore(params),
+        local_act_factory=lambda: local_twin(cfg),
+        on_state_change=lambda: published.append(
+            (client.stats["circuit_state"], client.stats["circuit_opens"])))
+    actor = VectorActor(taps.fleet_act_config(cfg), long_envs(cfg, 2),
+                        [0.4, 0.3], client, ParamStore(),
+                        sink=lambda b, p, e: None,
+                        rng=np.random.default_rng(5))
+    try:
+        actor.run(max_steps=3)             # nobody serves: the circuit opens
+        assert published and published[0] == (float(OPEN), 1)
+        assert client.breaker.state != CLOSED
+        deadline = time.time() + 120
+        while client.breaker.state != CLOSED:
+            pump_while(svc, lambda: actor.run(max_steps=2))
+            assert time.time() < deadline, "never re-attached"
+            time.sleep(0.05)
+        assert published[-1][0] == float(CLOSED)
+        assert len(published) >= 2
+        assert all(p[0] == float(OPEN) for p in published[:-1]
+                   if p[0] != float(HALF_OPEN))
     finally:
         client.close()
         svc.close()

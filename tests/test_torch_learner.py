@@ -140,12 +140,20 @@ def test_window_indices_and_mixed_priorities_match_jax():
         rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("zero_row", [False, True])
 @pytest.mark.parametrize("fused", [False, True])
-def test_loss_priorities_and_grads_match_jax(fused):
+def test_loss_priorities_and_grads_match_jax(fused, zero_row):
+    """``zero_row``: one row drawn from a zero-priority leaf (a descent's
+    float error lands on a block's unused sequence slot), whose meta is
+    all zeros, so its last valid target index is -1: JAX's gather counts
+    it from the end, the port's must too (ROADMAP.md C 20)."""
     jcfg = jax_test_config(fused_double_unroll=fused)
     cfg = port_test_config(fused_double_unroll=fused)
     jnet, params, target = jax_setup(jcfg)
     batch = make_batch(jcfg, np.random.default_rng(7), B=8)
+    if zero_row:
+        for k in ("burn_in", "learning", "forward"):
+            batch[k][0] = 0
     (jloss, jprios), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jstep.loss_and_priorities(
             jcfg, jnet, p, target, {k: jnp.asarray(v)

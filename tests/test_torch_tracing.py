@@ -18,6 +18,7 @@ import importlib
 import json
 import os
 import threading
+import time
 
 import jax
 import numpy as np
@@ -305,6 +306,46 @@ def test_trace_controller_dumps_a_capture(tmp_path):
         assert names == {"trainer", "fleet0"}
         assert ctl.last["dropped_slabs"] == 0
         assert ctl.arm(1)["capture_id"] == 2
+    finally:
+        fleet.detach()
+        ev.detach()
+        slab.close()
+
+
+def test_capture_waits_for_a_writer_that_polls_the_disarm_late(tmp_path):
+    """ROADMAP.md C 18: a fleet polls the disarm word only at the end of
+    its burst, so at the window's close its slot can be torn (events
+    recorded after its last flush) for longer than the grace and the
+    reference's four re-reads; the harvest re-reads until the writer's
+    flush lands and keeps its track."""
+    steps = [0]
+    slab = ttr.TraceSlab(2, CAP)
+    ev = ttr.EventTracer()
+    ev.attach(slab.writer_info(0, 0, "trainer"))
+    fleet = ttr.EventTracer()
+    fleet.attach(slab.writer_info(1, 0, "fleet0"))
+    ctl = ttr.TraceController(slab, lambda: steps[0], str(tmp_path),
+                              tracer=ev)
+    ctl.GRACE_SECONDS = 0.01
+    try:
+        assert ctl.arm(1)["armed"]
+        fleet.poll()
+        record(fleet)
+        fleet.flush()
+        fleet.instant("mid.burst")      # recorded after the flush: torn
+        steps[0] = 1
+        late = threading.Timer(2.0, lambda: (fleet.poll(), fleet.flush()))
+        late.start()
+        t0 = time.monotonic()
+        path = ctl.poll()
+        late.join(5)
+        assert 2.0 <= time.monotonic() - t0 < ctl.SETTLE_SECONDS
+        assert ctl.last["dropped_slabs"] == 0 and ctl.last["tracks"] == 2
+        with open(path) as f:
+            trace = json.load(f)
+        names = {e["args"]["name"] for e in trace["traceEvents"]
+                 if e["name"] == "process_name"}
+        assert names == {"trainer", "fleet0"}
     finally:
         fleet.detach()
         ev.detach()
