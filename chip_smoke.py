@@ -16,8 +16,11 @@ Phases (each exits non-zero on failure):
    the card, H=512, B in {1, 7, 8, 64, 65, 256} (65 crosses a 64-row tile;
    8 is the actor fleet's batch),
    T in {1, 85}, TF32 off: the tensor-core kernel (bf16 ``wh``, the main
-   path), the CUDA-core kernel in float32 (the f32 route) and in bfloat16
-   (the first design, kept for comparison).  Each step, taken from the
+   path), the f32 kernel ``lstm_step_f32`` (the f32 route: TMA, h
+   multicast across a cluster, f32 FMAs) and the first CUDA-core design in
+   bfloat16 (kept for comparison; "the CUDA-core kernel" or "route" in
+   the phases below is the f32 route, ``lstm_step_f32``, counted under
+   ``CUDACORE_COUNTER``).  Each step, taken from the
    kernel's own state, must match the plain step to 1e-5 max-abs in
    float32 and 1e-4 in bfloat16 (the operands are rounded at the same
    points, only the order of the f32 sums differs), the one-launch unroll
@@ -33,7 +36,17 @@ Phases (each exits non-zero on failure):
    both kernels and the plain version, and of the layer step (``x @ wi +
    b`` then the kernel) against one library call for the same layer step
    (``torch.lstm_cell`` at T=1, cuDNN ``nn.LSTM`` at T=85, both in bf16,
-   held to the plain layer to a loose ``LIB_TOL``); and the bound;
+   held to the plain layer to a loose ``LIB_TOL``); and the bound.  Then
+   the f32 route at its main-path shapes, (T, B, H) = (1, 16, 128) (the
+   reference soak's) and (1, 1), (1, 8), (1, 32), (1, 64), (1, 256) at
+   H=512 (the load generator's float32 cell): per call and device time of
+   the f32 kernel beside the first design in f32, the plain version, the
+   layer step and ``torch.lstm_cell`` in f32 with TF32 off, and
+   ``lstm_bound_ms(..., "float32")``; the kernel and the first design
+   held to the plain version (1e-5), the library call to the plain layer
+   step (``F32_LIB_TOL``); before that, the f32 kernel's device time at
+   (1, 16) H=128, (1, 64) and (1, 256) H=512 with ``f32_plan``'s cluster,
+   then its units a block, varied;
 4. full-width serving: the flagship ``Config()`` (nature torso over
    84×84 frames space-to-depth folded, H=512, bfloat16 compute,
    ``serve_max_batch=256`` so 9 buckets, 9 actions) with seeded random
@@ -235,7 +248,9 @@ Phases (each exits non-zero on failure):
     back to this rank's buffer; ``lstm_infer`` launched lstm_layers x
     acts, the CUDA-core kernel never, none by an update alone; the target
     synced at step 8 and not 7; one collective gate per update or
-    dispatch and one min-density agreement per super-step; in the ring
+    dispatch, one min-density agreement per super-step, and one
+    ``group_broadcast`` of the dp group's rows per update or super-step
+    (over a group of one: the path a spanning dp group takes); in the ring
     run the slab on the card and ``/healthz`` ok; the train_sync run's
     checkpoint restored without a mesh bitwise.  Prints the update and
     dispatch interval p50 beside phase 5's and phase 7's meshless values,
@@ -264,7 +279,9 @@ Phases (each exits non-zero on failure):
     k = 8).  Checked in both runs: the backend ``nccl`` and a DTensor
     state; every loss finite; the target synced at step 8 and not 7; the
     collectives ``CROSS_RANK_CALLS`` counts equal to the design's count
-    per inner step and per actor step; one result fetch per dispatch (and
+    per inner step and per actor step, and ``group_broadcast`` one per
+    inner step in (a) (the leader's rows to its dp group, here of one) and
+    none in (b); one result fetch per dispatch (and
     per rollout); ``lstm_infer`` launched layers × acts in (a), 0 in (b),
     the CUDA-core kernel never; in (b) the second dispatch clean under
     ``set_sync_debug_mode("error")``; ``/healthz`` ok.  Prints a lone
@@ -352,7 +369,7 @@ Phases (each exits non-zero on failure):
     and never ``failing``, kills that abandoned sessions and a reap, 0 <
     evictions, sessions completed inside every straggler's freeze, and
     ``lstm_infer`` = layers × (batches + warm-up buckets) on the cell's
-    route only — ``lstm_step_cudacore`` for the float32 cell,
+    route only — ``lstm_step_f32`` for the float32 cell,
     ``lstm_step_wgmma`` for bfloat16; prints acts/s and the client
     p50/p95/p99.  (e) ``serve --port -1 --max-wall-seconds 15`` driven by
     ``run_load`` for 5 s: its summary serves step 8 with the accounting
@@ -371,7 +388,7 @@ Phases (each exits non-zero on failure):
     at H = 128 in float32, 32 actors in two thread fleets, device replay,
     k = 4): each prints ``SOAK PASS`` with no fabric failure, exact
     priority accounting and no decay, and ``lstm_infer`` = layers × acts,
-    all on ``lstm_step_cudacore`` and none on ``lstm_step_wgmma``; prints
+    all on ``lstm_step_f32`` and none on ``lstm_step_wgmma``; prints
     updates/s (mid and last third) and env steps.  (c) The flagship
     ``Config(game_name="Fake")`` at its published widths through
     ``cli.main(["train", ..., "--device", "cuda"])`` with a telemetry port
@@ -381,7 +398,9 @@ Phases (each exits non-zero on failure):
     after it, ``r2d2_top --once <ckpt_dir>`` renders the run log's last
     entry; ``lstm_infer`` = layers × acts on ``lstm_step_wgmma``, 0 on
     the CUDA-core route.  Prints the frames and the phase's seconds;
-17. one ``{"kernels": [...]}`` JSON line;
+17. one ``{"kernels": [...]}`` JSON line: the tensor-core route
+    (``lstm_infer``, bf16 ``wh``) and the f32 route (``lstm_infer_f32``)
+    each with its launches, error, times, bound and library call;
 18. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -417,6 +436,16 @@ Q_TOL = 2e-3
 # Pong preset's one 64-lane fleet (phase 7)
 CHECK_B = (1, 7, 8, 64, 65, 256)
 TIMED = ((1, 1), (1, 8), (1, 32), (1, 64), (1, 256), (85, 64))
+# the f32 route's main-path shapes, (T, B, H): the reference soak's config
+# (H = 128, 16 lanes a fleet) and the load generator's float32 cell at the
+# flagship width over its buckets
+F32_TIMED = ((1, 16, 128), (1, 1, 512), (1, 8, 512), (1, 32, 512),
+             (1, 64, 512), (1, 256, 512))
+# torch.lstm_cell in f32 (TF32 off) against the plain f32 layer step: the
+# same f32 arithmetic in another order
+F32_LIB_TOL = 1e-4
+# the f32 kernel's cluster and units swept at these (B, H)
+F32_SWEEP = ((16, 128), (64, 512), (256, 512))
 # rounds of the timing, each taking the designs in turns (cut from 4 to
 # 2 to make room for phase 15, to 1 for phase 16; the rounds agree to a
 # few per cent)
@@ -427,9 +456,12 @@ IN_DIM = H + ACTION_DIM + 1
 # c all rounded to bf16 each step), the plain layer in f32 around a bf16
 # product: a loose bound, far below the O(1) of a wrong gate order
 LIB_TOL = {1: 6e-2, 85: 2.5e-1}
-# the two designs' kernels, as the profiler names them
+# the kernels, as the profiler names them: the two routes' (bf16 wh: the
+# tensor-core kernel; f32 wh: the f32 kernel) and the first CUDA-core
+# design, kept only as a comparison column
 WGMMA_KERNEL = "lstm_step_wgmma"
-CUDACORE_KERNEL = "lstm_step_cudacore"
+CUDACORE_KERNEL = "lstm_step_f32"
+PR1_KERNEL = "lstm_step_cudacore"
 # phase 5: the flagship Config(game_name="Fake") cut only in replay size,
 # warm-up and run length, so that a target sync and two saves happen
 TRAIN_REDUCED = dict(buffer_capacity=40_000, learning_starts=4_000,
@@ -631,21 +663,24 @@ EDGES_SETS = dict(learning_starts=3_200, save_interval=4,
                   replay_snapshot=False)
 EDGES_STEPS = 8
 EDGES_WALL_S = 240
-EDGES_FOLLOW_S = 30
+EDGES_FOLLOW_S = 20
 EDGES_LOAD_S = 6
 EDGES_LOAD_CHAOS = ("kill_session_client:every=50,n=6;"
                     "slow_session_client:every=40,dur=1.0,n=4")
 EDGES_SERVE_WALL_S = 10
 EDGES_SERVE_LOAD_S = 5
-EDGES_BENCH = dict(steps=5, warmup=1, system_seconds=10.0)
+EDGES_BENCH = dict(steps=5, warmup=1, system_seconds=5.0)
 EDGES_WATCHDOG_S = 900
 # phase 16: graftlint over the checkout; the soak (the reference's own
 # config: test_config at H = 128, f32, two thread fleets, device replay,
 # k = 4) for SOAK_MINUTES in each drivetrain, cut from its 20-minute
 # default; the flagship through the command line, cut as phase 15 (each
 # lane's first block, 8 updates, no replay snapshot), a log entry a
-# second so that /statusz has one while it runs
-SOAK_MINUTES = 1.0
+# second so that /statusz has one while it runs.  The soak's stats
+# entries come every SOAK_LOG_S (the reference's 10 s), so that its
+# decay check still compares medians of two entries a third
+SOAK_MINUTES = 0.75
+SOAK_LOG_S = 7.5
 TOP_SETS = dict(learning_starts=3_200, save_interval=4,
                 replay_snapshot=False, log_interval=1.0)
 TOP_STEPS = 8
@@ -768,14 +803,16 @@ def fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def lstm_bound_ms(T: int, B: int, dtype: str) -> tuple:
+def lstm_bound_ms(T: int, B: int, dtype: str, hidden: int = H) -> tuple:
     """The least time for the unroll's work on an H100: the bytes it must
     move (xp, wh, h0, c0 in; hs, c_T out; each once) over HBM bandwidth,
-    against the recurrent product's FLOPs over the dtype's peak."""
+    against the recurrent product's FLOPs over the dtype's peak (f32: the
+    CUDA cores' 67 TFLOP/s), at hidden size ``hidden``."""
+    Hd = hidden
     wbytes = 2 if dtype == "bfloat16" else 4
-    nbytes = (T * B * 4 * H * 4 + H * 4 * H * wbytes + 2 * B * H * 4
-              + T * B * H * 4 + B * H * 4)
-    flops = 2.0 * T * B * H * 4 * H
+    nbytes = (T * B * 4 * Hd * 4 + Hd * 4 * Hd * wbytes + 2 * B * Hd * 4
+              + T * B * Hd * 4 + B * Hd * 4)
+    flops = 2.0 * T * B * Hd * 4 * Hd
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -789,7 +826,7 @@ def check_designs(torch, lstm, randn):
     Returns {design: (per-step error, whole-unroll error)}."""
     designs = (("tensor_core", lstm.lstm_unroll_cuda, torch.bfloat16),
                ("cuda_core_f32", lstm.lstm_unroll_cuda, torch.float32),
-               ("cuda_core_bf16", lstm._lstm_unroll_cudacore, torch.bfloat16))
+               ("cuda_core_bf16", lstm._lstm_unroll_pr1, torch.bfloat16))
     errs = {name: [0.0, 0.0] for name, _, _ in designs}
     for T in (1, 85):
         for B in CHECK_B:
@@ -898,11 +935,123 @@ def phase_kernel(torch, lstm):
             for n in lstm.UNITS_PER_GATE)
             + f"; launch_plan picks n={base.n}", flush=True)
 
+    # the f32 kernel at f32_plan's tile with the cluster and then the
+    # units a block varied, device time
+    for B, Hd in F32_SWEEP:
+        xp = randn(1, B, 4 * Hd, scale=0.5)
+        wh = randn(Hd, 4 * Hd, scale=Hd ** -0.5)
+        h0, c0 = randn(B, Hd, scale=0.5), randn(B, Hd, scale=0.5)
+        base = lstm.f32_plan(B, Hd)
+        plans = {f"cluster={c}": base._replace(cluster=c)
+                 for c in (1, 2, 4, 8) if base.grid[0] % c == 0}
+        for n in lstm.F32_UNITS:
+            try:
+                p = lstm.f32_plan_for(n, base.rows, B, Hd)
+            except ValueError:
+                continue
+            plans[f"n={n}"] = p._replace(cluster=base.cluster if
+                                         p.grid[0] % base.cluster == 0
+                                         else 1)
+        got = {}
+        for k, p in plans.items():
+            got[k], _ = device_ms(torch, lambda: lstm._lstm_unroll_cudacore(
+                xp, wh, h0, c0, p), name=CUDACORE_KERNEL)
+            sweep[f"f32 B={B} H={Hd} {k}"] = got[k]
+        print(f"f32 tile sweep (1, {B}) H={Hd}, device ms per call, at "
+              f"f32_plan's n={base.n} rows={base.rows} rr={base.rr} "
+              f"ks={base.ks} cluster={base.cluster} with one parameter "
+              "varied: " + ", ".join(f"{k} {fmt(v)}" for k, v in got.items()),
+              flush=True)
+
     timings = {}
     with torch.inference_mode():
         for T, B in TIMED:
             timings[(T, B)] = time_shape(torch, lstm, randn, T, B)
+        for T, B, Hd in F32_TIMED:
+            timings[("f32", T, B, Hd)] = time_f32_shape(torch, lstm, randn,
+                                                        T, B, Hd)
     return errs, sweep, timings
+
+
+def time_f32_shape(torch, lstm, randn, T: int, B: int, Hd: int) -> dict:
+    """One f32 shape of the f32 route at hidden size ``Hd``, each run the
+    mean over ``ROUNDS`` rounds that take the runs in turns: time per
+    call with the launch (CUDA events) and device time (profiler) of the
+    route's kernel (``lstm_step_f32``), the first CUDA-core design in
+    f32, the plain version, the layer step (x @ wi + b, then the kernel)
+    and ``torch.lstm_cell`` in f32 (TF32 off) for the same layer step;
+    the bound.  The route and the first design are held to the plain
+    version (1e-5) and the library call to the plain layer step
+    (``F32_LIB_TOL``) on the inputs they are timed on."""
+    in_dim = Hd + ACTION_DIM + 1
+    x = randn(T, B, in_dim, scale=0.5)
+    wi = randn(in_dim, 4 * Hd, scale=in_dim ** -0.5)
+    wh = randn(Hd, 4 * Hd, scale=Hd ** -0.5)
+    b = randn(4 * Hd, scale=0.1)
+    h0, c0 = randn(B, Hd, scale=0.5), randn(B, Hd, scale=0.5)
+    xp = (x @ wi + b).contiguous()
+    w_ih, w_hh = wi.t().contiguous(), wh.t().contiguous()
+    zero = torch.zeros_like(b)
+
+    def library():
+        return torch.lstm_cell(x[0], (h0, c0), w_ih, w_hh, b, zero)
+
+    _, ph, pc = lstm.lstm_unroll_reference(xp, wh, h0, c0, torch.float32)
+    errs = {}
+    for k, fn in (("route", lstm.lstm_unroll_cuda),
+                  ("pr1", lstm._lstm_unroll_pr1)):
+        _, kh, kc = fn(xp, wh, h0, c0)
+        errs[k] = max((kh - ph).abs().max().item(),
+                      (kc - pc).abs().max().item())
+    lh, lc = library()
+    errs["library"] = max((lh - ph).abs().max().item(),
+                          (lc - pc).abs().max().item())
+    if errs["route"] > F32_TOL or errs["pr1"] > F32_TOL or not (
+            errs["library"] <= F32_LIB_TOL):
+        fail(f"f32 route at ({T}, {B}) H={Hd}: vs plain {errs}")
+    runs = {
+        "": (lambda: lstm.lstm_unroll_cuda(xp, wh, h0, c0),
+             CUDACORE_KERNEL),
+        "pr1_": (lambda: lstm._lstm_unroll_pr1(xp, wh, h0, c0), PR1_KERNEL),
+        "plain_": (lambda: lstm.lstm_unroll_reference(
+            xp, wh, h0, c0, torch.float32), ""),
+        "layer_step_": (lambda: lstm.lstm_unroll_cuda(
+            (x @ wi + b).contiguous(), wh, h0, c0), ""),
+        "library_": (library, ""),
+    }
+    got = {f"{k}{m}": [] for k in runs for m in ("ms", "device_ms")}
+    for r in range(ROUNDS):
+        for k in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            fn, name = runs[k]
+            d, _ = device_ms(torch, fn, iters=20, name=name)
+            if d is None:
+                fail(f"no f32 device time for {k or 'kernel'} at ({T}, {B})"
+                     f" H={Hd}")
+            got[f"{k}device_ms"].append(d)
+            got[f"{k}ms"].append(bench_ms(torch, fn, reps=5, iters=20))
+    out = {k: float(np.mean(v)) for k, v in got.items()}
+    bound, by = lstm_bound_ms(T, B, "float32", Hd)
+    plan = lstm.f32_plan(B, Hd)
+    out.update(max_abs_err=errs["route"], pr1_max_abs_err=errs["pr1"],
+               library_max_abs_err=errs["library"], bound_ms=bound,
+               bound_by=by, share_of_bound=bound / out["device_ms"],
+               pr1_share_of_bound=bound / out["pr1_device_ms"],
+               plan=plan._asdict())
+    print(f"lstm_infer f32 time ({T}, {B}) H={Hd}, mean of {ROUNDS} rounds, "
+          f"per call / device: f32 kernel (n={plan.n}, rows={plan.rows}, "
+          f"rr={plan.rr}, cluster={plan.cluster}, grid={plan.grid}) "
+          f"{out['ms']:.4f} / {out['device_ms']:.4f} ms; the first design "
+          f"{out['pr1_ms']:.4f} / {out['pr1_device_ms']:.4f} ms; plain "
+          f"{out['plain_ms']:.4f} / {out['plain_device_ms']:.4f} ms; layer "
+          f"step (x @ wi + b, kernel) {out['layer_step_ms']:.4f} / "
+          f"{out['layer_step_device_ms']:.4f} ms against torch.lstm_cell "
+          f"f32 {out['library_ms']:.4f} / {out['library_device_ms']:.4f} ms;"
+          f" bound {bound:.5f} ms ({by}), share of bound "
+          f"{out['share_of_bound']:.1%} (first design "
+          f"{out['pr1_share_of_bound']:.1%}); vs plain: kernel "
+          f"{errs['route']:.2e}, first design {errs['pr1']:.2e}, "
+          f"lstm_cell {errs['library']:.2e}", flush=True)
+    return out
 
 
 def time_shape(torch, lstm, randn, T: int, B: int) -> dict:
@@ -930,8 +1079,8 @@ def time_shape(torch, lstm, randn, T: int, B: int) -> dict:
 
     runs = {
         "": (lambda: lstm.lstm_unroll_cuda(xp, whb, h0, c0), WGMMA_KERNEL),
-        "cudacore_": (lambda: lstm._lstm_unroll_cudacore(xp, whb, h0, c0),
-                      CUDACORE_KERNEL),
+        "cudacore_": (lambda: lstm._lstm_unroll_pr1(xp, whb, h0, c0),
+                      PR1_KERNEL),
         "plain_": (lambda: lstm.lstm_unroll_reference(
             xp, wh, h0, c0, torch.bfloat16), ""),
         "layer_step_": (lambda: lstm.lstm_unroll_cuda(
@@ -1517,7 +1666,7 @@ def phase_training(torch, card: str) -> int:
         act_dev = sum(ms for _, ms, _ in act_events)
         kern = [(ms, n) for k, ms, n in act_events if WGMMA_KERNEL in k]
         if (not kern or kern[0][1] != cfg.lstm_layers
-                or any("lstm_step_cudacore" in k for k, _, _ in act_events)):
+                or any(CUDACORE_KERNEL in k for k, _, _ in act_events)):
             fail(f"an actor iteration ran {kern} tensor-core LSTM kernels")
 
         def one_update():
@@ -4209,6 +4358,11 @@ def mesh_run(torch, card: str, cfg, label: str, ckdir: str,
     if not sync and calls.get("min_density") != n:
         fail(f"{label}: {calls.get('min_density')} min-density agreements "
              f"for {n} super-steps")
+    # the dp group's broadcast, over a group of one: one an update (sync)
+    # or a super-step (the device ring)
+    if calls.get("group_broadcast") != n:
+        fail(f"{label}: {calls.get('group_broadcast')} group broadcasts "
+             f"for {n} updates or dispatches")
     if launches != cfg.lstm_layers * acts or not acts or old:
         fail(f"{label}: lstm_infer launched {launches} times (CUDA-core "
              f"{old}) for {acts} acts, {cfg.lstm_layers} layer")
@@ -4440,13 +4594,15 @@ def mesh_draw_parity(torch, card: str, base, mesh, device: str) -> dict:
     against the meshless one from the same ring, state and generator
     seed: sampled indices, losses, the priority slab and every new param
     bitwise (cuDNN deterministic for this check only), with the design's
-    collectives; then each alone, timed."""
+    collectives, the leader's rows broadcast to its dp group (of one)
+    each inner step; then each alone, timed."""
     from r2d2_tpu_torch.learner.step import (
         create_train_state,
         make_in_graph_per_super_step_fn,
     )
     from r2d2_tpu_torch.models import create_network
     from r2d2_tpu_torch.parallel.cross_rank import CROSS_RANK_CALLS, CrossRank
+    from r2d2_tpu_torch.parallel.distributed import COLLECTIVE_CALLS, dp_group
     from r2d2_tpu_torch.parallel.sharding import (
         ShardingTable,
         gather_state,
@@ -4473,7 +4629,7 @@ def mesh_draw_parity(torch, card: str, base, mesh, device: str) -> dict:
     table = ShardingTable(mesh, cfg)
     step = mesh_train_step(cfg, net, table, state_template=mesh_state)
     mesh_state = table.place_state(mesh_state)
-    cross = CrossRank(cfg, mesh, cfg.num_blocks)
+    cross = CrossRank(cfg, mesh, cfg.num_blocks, span=dp_group(mesh))
     plain = make_in_graph_per_super_step_fn(cfg, net, k)
     meshed = make_in_graph_per_super_step_fn(cfg, net, k, train_step=step,
                                              cross=cross)
@@ -4491,10 +4647,12 @@ def mesh_draw_parity(torch, card: str, base, mesh, device: str) -> dict:
                                     meta["seq_meta"], meta["first"],
                                     generator=gen(), record=ra)
         CROSS_RANK_CALLS.clear()
+        COLLECTIVE_CALLS.clear()
         mesh_state, pb, lb = meshed(mesh_state, ring.snapshot(), pb,
                                     meta["seq_meta"], meta["first"],
                                     generator=gen(), record=rb)
         calls = dict(CROSS_RANK_CALLS)
+        broadcasts = COLLECTIVE_CALLS.get("group_broadcast", 0)
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = det
@@ -4508,11 +4666,13 @@ def mesh_draw_parity(torch, card: str, base, mesh, device: str) -> dict:
           f"{k}: sampled indices equal {same_idx}, losses meshed "
           f"{lb.tolist()} vs meshless {la.tolist()}, priority slab max-abs "
           f"{(pa - pb).abs().max().item():.3e}; bitwise {bitwise} (cuDNN "
-          f"deterministic for this check only); collectives {calls}",
-          flush=True)
+          f"deterministic for this check only); collectives {calls}, "
+          f"group broadcasts {broadcasts}", flush=True)
     if not bitwise:
         fail("the meshed in-graph super-step is not the meshless one bit "
              "for bit")
+    if broadcasts != k:
+        fail(f"mesh in-graph: {broadcasts} group broadcasts for k = {k}")
     if calls != draw_calls(k, 1):
         fail(f"mesh in-graph: collectives {calls}, the design counts "
              f"{draw_calls(k, 1)}")
@@ -4545,6 +4705,7 @@ def mesh_ig_run(torch, card: str, cfg, device: str) -> dict:
     from r2d2_tpu_torch.learner import step as step_mod
     from r2d2_tpu_torch.ops import lstm
     from r2d2_tpu_torch.parallel.cross_rank import CROSS_RANK_CALLS
+    from r2d2_tpu_torch.parallel.distributed import COLLECTIVE_CALLS
     from r2d2_tpu_torch.parallel.sharding import full
     from r2d2_tpu_torch.replay.replay_buffer import data_bytes
     from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
@@ -4605,6 +4766,7 @@ def mesh_ig_run(torch, card: str, cfg, device: str) -> dict:
     KERNEL_LAUNCHES.reset()
     HOST_TRANSFERS.reset()
     CROSS_RANK_CALLS.clear()
+    COLLECTIVE_CALLS.clear()
     torch.cuda.reset_peak_memory_stats()
     train._build, step_mod.make_train_step = capture, recording_mts
     t0 = time.perf_counter()
@@ -4624,6 +4786,7 @@ def mesh_ig_run(torch, card: str, cfg, device: str) -> dict:
     old = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
     acts = HOST_TRANSFERS.get(ACTOR_ACT) + HOST_TRANSFERS.get(EVAL_ACT)
     calls = dict(CROSS_RANK_CALLS)
+    broadcasts = COLLECTIVE_CALLS.get("group_broadcast", 0)
     learner, ring, rcfg = rec["learner"], rec["ring"], rec["cfg"]
     stamps, n = rec["stamps"], len(rec["stamps"])
     fetches = HOST_TRANSFERS.get("learner.result_fetch")
@@ -4654,6 +4817,10 @@ def mesh_ig_run(torch, card: str, cfg, device: str) -> dict:
     if calls != draw_calls(k, n):
         bad.append(f"collectives {calls}, the design counts "
                    f"{draw_calls(k, n)} for {n} dispatches")
+    # the leader's rows to its dp group (a group of one): one an inner step
+    if broadcasts != n * k:
+        bad.append(f"{broadcasts} group broadcasts for {n} dispatches of "
+                   f"k={k}")
     if fetches != n or learner.gate_counts["go"] != n:
         bad.append(f"{fetches} result fetches, gates "
                    f"{dict(learner.gate_counts)} for {n} dispatches")
@@ -4680,6 +4847,7 @@ def mesh_ig_run(torch, card: str, cfg, device: str) -> dict:
           f" of k={k} in {run_s:.2f} s, losses finite, mean loss "
           f"{m['mean_loss']:.5f}; backend {dist.get_backend()}, DTensor "
           f"state; collectives {calls} = the design's for {n} dispatches; "
+          f"group broadcasts {broadcasts} = {n} x {k}; "
           f"{fetches} result fetches; gates {dict(learner.gate_counts)}; "
           f"lstm_infer launches {launches} = {cfg.lstm_layers} x {acts} "
           f"acts, CUDA-core {old}; target == online after step 7 "
@@ -4820,6 +4988,7 @@ def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
     from r2d2_tpu_torch.learner import step as step_mod
     from r2d2_tpu_torch.ops import lstm
     from r2d2_tpu_torch.parallel.cross_rank import CROSS_RANK_CALLS
+    from r2d2_tpu_torch.parallel.distributed import COLLECTIVE_CALLS
     from r2d2_tpu_torch.parallel.sharding import full
     from r2d2_tpu_torch.replay.replay_buffer import data_bytes
     from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
@@ -4890,6 +5059,7 @@ def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
     KERNEL_LAUNCHES.reset()
     HOST_TRANSFERS.reset()
     CROSS_RANK_CALLS.clear()
+    COLLECTIVE_CALLS.clear()
     torch.cuda.reset_peak_memory_stats()
     anakin.run_anakin_loop, step_mod.make_train_step = loop, recording_mts
     t0 = time.perf_counter()
@@ -4935,6 +5105,10 @@ def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
                    f"{n_roll} rollouts and {n_disp} dispatches")
     if calls != want_calls:
         bad.append(f"collectives {calls}, the design counts {want_calls}")
+    # every rank of a dp group steps the group's lanes: nothing broadcast
+    if COLLECTIVE_CALLS.get("group_broadcast", 0):
+        bad.append(f"{COLLECTIVE_CALLS['group_broadcast']} group "
+                   "broadcasts in anakin")
     blt = int(plane.state["block_learning_total"].sum())
     if plane.fill != blt or plane.fill < cfg.learning_starts:
         bad.append(f"fill {plane.fill} != block_learning_total sum {blt}")
@@ -4966,7 +5140,8 @@ def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
           f"{n_disp} dispatches of k={k} after {n_roll} rollouts, "
           f"{run_s:.2f} s; backend {dist.get_backend()}, DTensor state; "
           f"result fetches {HOST_TRANSFERS.get(fetches)} = {n_roll} + "
-          f"{n_disp}; collectives {calls} = the design's; dispatch 2 under "
+          f"{n_disp}; collectives {calls} = the design's, no group "
+          f"broadcast; dispatch 2 under "
           f"set_sync_debug_mode('error'): clean; losses finite, mean "
           f"{m['mean_loss']:.5f}; eval episodes "
           f"{plane.eval_episodes_total}; fill {plane.fill} = sum of "
@@ -6396,7 +6571,9 @@ def edges_load(torch, card: str) -> dict:
               f"batches (mean {srv['mean_batch']}); kills {cl['kills']} "
               f"abandoning {cl['abandoned']}, slows {cl['slow']} with "
               f"{during} completions inside the freezes; health seen "
-              f"{worst}; launches {c['kernel_launches']}", flush=True)
+              f"{worst}; launches {c['kernel_launches']} on "
+              f"{CUDACORE_KERNEL if dt == 'float32' else WGMMA_KERNEL}",
+              flush=True)
     print(f"15(d) took {run_s:.1f} s: {lines[2]}", flush=True)
     return launches
 
@@ -6645,8 +6822,8 @@ def lint_checkout(card: str) -> dict:
 def soak_run_card(torch, card: str, ingraph: bool) -> dict:
     """16(b): ``tools/soak.py``'s ``main`` in this process on the card;
     its printed verdict and summary file checked, and the kernel's
-    launches counted on the CUDA-core route (the soak computes in
-    float32)."""
+    launches counted on the f32 route (``lstm_step_f32``: the soak
+    computes in float32)."""
     import contextlib
     import io
     import tempfile
@@ -6666,7 +6843,8 @@ def soak_run_card(torch, card: str, ingraph: bool) -> dict:
         HOST_TRANSFERS.reset()
         t = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            rc = soak.main(SOAK_MINUTES, ingraph=ingraph, out=out_path)
+            rc = soak.main(SOAK_MINUTES, ingraph=ingraph, out=out_path,
+                           log_interval=SOAK_LOG_S)
         run_s = time.perf_counter() - t
         launches = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
         wgmma = KERNEL_LAUNCHES.get(lstm.KERNEL)
@@ -6685,7 +6863,7 @@ def soak_run_card(torch, card: str, ingraph: bool) -> dict:
     if (launches != cfg.lstm_layers * acts or not acts or wgmma
             or cfg.compute_dtype != "float32"):
         fail(f"16(b) {label}: lstm_infer launched {launches} times on the "
-             f"CUDA-core route ({wgmma} on the tensor-core route) for "
+             f"f32 route ({wgmma} on the tensor-core route) for "
              f"{acts} acts, {cfg.lstm_layers} layer, {cfg.compute_dtype}")
     print(f"16(b) soak {label} on {card}, {SOAK_MINUTES} min (H = "
           f"{cfg.hidden_dim}, {cfg.compute_dtype}, {cfg.num_actors} actors "
@@ -6695,7 +6873,7 @@ def soak_run_card(torch, card: str, ingraph: bool) -> dict:
           f"{summary['updates_per_sec_mid']} last "
           f"{summary['updates_per_sec_last']}, {entries} log entries; "
           f"lstm_infer launches {launches} = {cfg.lstm_layers} x {acts} acts"
-          f" on lstm_step_cudacore, {wgmma} on lstm_step_wgmma", flush=True)
+          f" on {CUDACORE_KERNEL}, {wgmma} on {WGMMA_KERNEL}", flush=True)
     return dict(launches=launches, seconds=run_s, summary=summary)
 
 
@@ -6828,7 +7006,8 @@ def phase_lint_soak_top(torch, card: str) -> dict:
 
     t_phase = time.perf_counter()
     faulthandler.dump_traceback_later(LINT_WATCHDOG_S)
-    print(f"reduced: the soak 20.0 -> {SOAK_MINUTES} minutes a drivetrain; "
+    print(f"reduced: the soak 20.0 -> {SOAK_MINUTES} minutes a drivetrain, "
+          f"a stats entry every 10.0 -> {SOAK_LOG_S} s; "
           f"the flagship run " + ", ".join(
               f"{k} -> {v}" for k, v in TOP_SETS.items())
           + f", training_steps -> {TOP_STEPS}", flush=True)
@@ -6935,16 +7114,17 @@ def main() -> None:
     telemetry_launches = timed("14", phase_telemetry, torch, card)
 
     # phase 15: the edges — the command line, eval --follow, the session
-    # load generator (its f32 cell on the CUDA-core route), serve, bench
+    # load generator (its f32 cell on lstm_step_f32), serve, bench
     edges = timed("15", phase_edges, torch, card)
 
     # phase 16: graftlint over the checkout, the soak's fabric (its f32
-    # config on the CUDA-core route) and r2d2_top on a live flagship run
+    # config on lstm_step_f32) and r2d2_top on a live flagship run
     late = timed("16", phase_lint_soak_top, torch, card)
     print(f"phase seconds on {card}: {json.dumps(spent)}, in all "
           f"{sum(spent.values()):.1f} s after the build", flush=True)
 
     head = timings[(1, 256)]
+    f32_head = timings[("f32",) + F32_TIMED[0]]
     launches = (serve_launches + train_launches + fabric_launches
                 + serve_ckpt_launches + device_replay_launches
                 + anakin_launches + fleet_launches["serve"]
@@ -6961,10 +7141,10 @@ def main() -> None:
         "route": "cuda",
         "source": "r2d2_tpu_torch/csrc/lstm_infer.cu",
         "replaces": "r2d2_tpu/ops/lstm.py:46",
-        "launches": launches,
-        # the f32 route's kernel runs in the load generator's float32
-        # cell and the soak's two runs; every other path takes the
-        # tensor-core route
+        # the tensor-core route (bf16 wh, lstm_step_wgmma); the f32
+        # route's kernel, which runs in the load generator's float32 cell
+        # and the soak's two runs, is the next entry
+        "launches": launches - cudacore,
         "launches_by_route": {WGMMA_KERNEL: launches - cudacore,
                               CUDACORE_KERNEL: cudacore},
         "launches_by_path": {"serving": serve_launches,
@@ -7015,13 +7195,47 @@ def main() -> None:
                  "the recurrence), ms and plain_ms the recurrence alone; "
                  f"bf16 wh, H={H}, mean of {ROUNDS} rounds",
         "shape": {"T": 1, "B": 256, "H": H, "wh": "bfloat16"},
-        "by_shape": {f"T={T} B={B}": v for (T, B), v in timings.items()},
+        "by_shape": {f"T={k[0]} B={k[1]}": v for k, v in timings.items()
+                     if len(k) == 2},
         "max_abs_err_by_design": {k: {"per_step": v[0], "whole_unroll": v[1]}
                                   for k, v in errs.items()},
         "tile_sweep_device_ms": sweep,
         "phase_seconds": spent,
         "bench": edges["bench"],
         "graftlint": late["lint"],
+        "card": card,
+    }, {
+        "name": "lstm_infer_f32",
+        "route": "cuda",
+        "source": "r2d2_tpu_torch/csrc/lstm_infer.cu",
+        "replaces": "r2d2_tpu/ops/lstm.py:46",
+        # the f32 route (f32 wh, lstm_step_f32): the load generator's
+        # float32 cell and the soak's two runs
+        "launches": cudacore,
+        "launches_by_path": {"edges_load_f32": edges["load_f32"],
+                             "soak_host": late["soak_host"],
+                             "soak_ingraph": late["soak_ingraph"]},
+        "max_abs_err": max(errs["cuda_core_f32"][0], max(
+            v["max_abs_err"] for k, v in timings.items() if len(k) == 4)),
+        "ms": f32_head["ms"],
+        "plain_ms": f32_head["plain_ms"],
+        "bound_ms": f32_head["bound_ms"],
+        "bound_by": f32_head["bound_by"],
+        "library_ms": f32_head["library_ms"],
+        "layer_step_ms": f32_head["layer_step_ms"],
+        "device_ms": f32_head["device_ms"],
+        "pr1_ms": f32_head["pr1_ms"],
+        "pr1_device_ms": f32_head["pr1_device_ms"],
+        "plain_device_ms": f32_head["plain_device_ms"],
+        "library_device_ms": f32_head["library_device_ms"],
+        "layer_step_device_ms": f32_head["layer_step_device_ms"],
+        "checked": True,
+        "times": "as the first entry's; library_ms is torch.lstm_cell in "
+                 "f32 with TF32 off; pr1_* the first CUDA-core design in "
+                 f"f32; mean of {ROUNDS} rounds",
+        "shape": dict(zip(("T", "B", "H"), F32_TIMED[0]), wh="float32"),
+        "by_shape": {f"T={k[1]} B={k[2]} H={k[3]}": v
+                     for k, v in timings.items() if len(k) == 4},
         "card": card,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

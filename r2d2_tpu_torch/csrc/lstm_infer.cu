@@ -54,10 +54,35 @@
 // boundary below and copy the strips into place (kRaggedBox).  No H that
 // the repo's configurations use is ragged in that way.
 //
-// CUDA-core route (f32 wh, lstm_step_cudacore; also bf16 for comparison):
-// the first design, kept because tensor cores have no exact f32 product
-// (TF32 keeps 10 bits).  One block per 32 output columns x 8 batch rows;
-// 8 warps split K and load 8 rows of wh at a time from L2; f32 FMAs.
+// f32 route (f32 wh, lstm_step_f32): on the CUDA cores, because tensor
+// cores have no exact f32 product (TF32 keeps 10 bits), so f32 FMAs.  Its
+// main paths are the soak's fleets (H = 128, B = 16) and the session load
+// generator's float32 cell (H = 512, B <= 256).  f32 wh is 4 MiB at
+// H = 512 and a step does 2*B*H*4H flops: bound by bytes up to B of about
+// 40, by the CUDA cores' 67 TFLOP/s beyond.  What the first design (below)
+// lost time on, and what this one does instead:
+//   1. few blocks at small B (8 blocks at H = 128, B = 16): here a block
+//      owns n units of all four gates over a row tile, with n and the
+//      tile picked by ops/lstm.py:f32_plan for at least 64 blocks, and K
+//      is split over up to 16 groups of threads, so a step waits on a
+//      chain of one or a few 32-row stages, not on all of K;
+//   2. wh re-read for every 8 batch rows: here once per row tile (8 to
+//      32 rows; up to 64 fit);
+//   3. one 4-byte load per lane: here TMA brings the four f32 strips of
+//      each stage into shared memory (f32 tensor map, one mbarrier a
+//      stage, every stage in flight at once), and the stage's h box comes
+//      by TMA multicast to the 2 blocks of a cluster that share the row
+//      tile (clusters of 4 or 8 over blocks of 100 KB or more doubled the
+//      time on the H100);
+//   4. the K split summed through shared memory for every column: here
+//      each thread sums its k run for RR rows x 4 gates of one unit in
+//      registers, and only the K groups' sums meet in shared memory.
+// The cell runs in registers in the thread that holds all four gates.
+//
+// The first CUDA-core design (lstm_step_cudacore, f32 or bf16 wh): kept
+// only as the comparison column of the card's timings, no path launches
+// it.  One block per 32 output columns x 8 batch rows; 8 warps split K
+// and load 8 rows of wh at a time from L2; f32 FMAs.
 //
 // The plain C interface is loaded with ctypes (r2d2_tpu_torch/ops/_build.py);
 // the Python wrapper (ops/lstm.py) validates devices, dtypes, shapes,
@@ -74,7 +99,7 @@
 namespace {
 
 // ----------------------------------------------------------------------
-// CUDA-core route
+// The first CUDA-core design (comparison only)
 // ----------------------------------------------------------------------
 
 constexpr int kCols = 32;   // output columns per block: one per lane
@@ -760,6 +785,394 @@ int run_wgmma(const float* xp, const __nv_bfloat16* wh, const float* h0,
   return 0;
 }
 
+// ----------------------------------------------------------------------
+// f32 route
+// ----------------------------------------------------------------------
+
+constexpr int kF32K = 32;          // K rows per stage: one 128-byte h box row
+constexpr int kF32MinBox = 4;      // TMA's narrowest f32 box: 16 bytes
+constexpr int kF32MaxThreads = 512;
+constexpr int kF32MaxGroups = 16;
+
+__host__ __device__ constexpr int f32_stages(int H) {
+  return (H + kF32K - 1) / kF32K;
+}
+
+// the width of a block's wh boxes: its n units, or TMA's 16 bytes when n
+// is narrower (the block then reads only its own columns of the box)
+__host__ __device__ constexpr int f32_box(int n) {
+  return n < kF32MinBox ? kF32MinBox : n;
+}
+
+// Shared memory of one block, in bytes: per stage the h box (rows x 32
+// f32, 128-byte swizzle), four wh boxes (32 x box f32) and one mbarrier,
+// plus the alignment slack.  ops/lstm.py:_f32_smem_bytes computes the same.
+constexpr size_t f32_smem_bytes(int n, int rows, int H) {
+  return kAlign + static_cast<size_t>(f32_stages(H)) *
+                      (static_cast<size_t>(rows) * 128 +
+                       4 * static_cast<size_t>(f32_box(n)) * kF32K * 4 + 8);
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// one 3-D box of h (x = k, y = batch row, z = step) into shared memory
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int x, int y, int z,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the same box into the same offset of every block of the cluster named in
+// mask, completion counted on the mbarrier at bar's offset in each
+__device__ __forceinline__ void tma_load_3d_multicast(
+    void* dst, const CUtensorMap* map, int x, int y, int z, uint64_t* bar,
+    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x),
+      "r"(y), "r"(z), "h"(mask)
+      : "memory");
+}
+
+// One step with f32 wh.  A block owns n hidden units with all four of
+// their gates and a tile of `rows` batch rows, and splits K over ks groups
+// of threads.  Thread t of group q = t / (n*G) holds unit t % n and the RR
+// rows ((t % (n*G)) / n) + G*i of the tile (G = rows / RR), for all four
+// gates, in registers, summed over group q's run of stages; the groups'
+// sums meet in shared memory, and group 0 runs the cell.  All of K
+// sits in shared memory at once, one stage of 32 K rows per mbarrier:
+// the four wh boxes of a stage come by TMA to this block, and the stage's
+// h box (rows x 32, 128-byte swizzle) comes by TMA multicast from one
+// block of the cluster to all of it (the cluster's blocks share the row
+// tile; block q of the cluster issues the stages s with s % cluster == q).
+// The swizzle puts the 16-byte chunk c of row r at chunk c ^ (r % 8), so
+// the eight rows a warp reads at one k are in eight different banks.
+// Rows past B, K past H and columns past 4H come in as TMA's zeros; units
+// past H are computed and dropped.  The products are plain f32 FMAs in
+// ascending k.
+template <int RR>
+__global__ void __launch_bounds__(kF32MaxThreads)
+    lstm_step_f32(const __grid_constant__ CUtensorMap wh_map,  // (H, 4H)
+                  const __grid_constant__ CUtensorMap h_map,   // (T, B, H)
+                  int h_step,                      // h_in = h_map[h_step]
+                  const float* __restrict__ xp,    // (B, 4H), step t
+                  float* __restrict__ c,           // (B, H), in place
+                  float* __restrict__ h_out,       // (B, H) = hs[t]
+                  int B, int H, int n, int rows, int ks, int cluster) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) &
+      ~static_cast<uintptr_t>(kAlign - 1));
+  const int stages = f32_stages(H);
+  const int bw = f32_box(n);
+  const uint32_t h_box = static_cast<uint32_t>(rows) * 128;
+  const uint32_t w_box = static_cast<uint32_t>(bw) * kF32K * 4;
+  uint8_t* h_sm = smem;                            // [stages][rows][32]
+  uint8_t* w_sm = h_sm + stages * h_box;           // [stages][4][32][bw]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(w_sm + stages * 4 * w_box);
+
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * n;
+  const int b0 = blockIdx.y * rows;
+  const int nr = min(rows, B - b0);
+  const int G = rows / RR;
+  const int group = n * G;       // threads of one K group
+  const int q = tid / group;     // this thread's K group
+  const int slot = tid - q * group;
+  const int ju = slot % n;
+  const int rg = slot / n;
+  const int j = j0 + ju;
+  // group q's stages, [s_lo, s_hi)
+  const int per = (stages + ks - 1) / ks;
+  const int s_lo = q * per;
+  const int s_hi = min(stages, s_lo + per);
+  // the block's boxes start at the 16-byte boundary at or below j0
+  const int x0 = j0 & ~(kF32MinBox - 1);
+  const int col = j0 - x0 + ju;
+
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&wh_map))
+                 : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&h_map))
+                 : "memory");
+    for (int s = 0; s < stages; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // every block's mbarriers exist before any block's multicast lands
+  cluster_sync();
+  if (tid == 0) {
+    const int me = static_cast<int>(cluster_rank());
+    const uint16_t all = static_cast<uint16_t>((1u << cluster) - 1);
+    for (int s = 0; s < stages; ++s) {
+      // the peers' h boxes may land before this arrival: the mbarrier's
+      // phase ends only when both the arrival and the bytes are in
+      mbar_expect_tx(&bars[s], h_box + 4 * w_box);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        tma_load_2d(w_sm + (s * 4 + g) * w_box, &wh_map, g * H + x0,
+                    s * kF32K, &bars[s]);
+      }
+      if (s % cluster == me) {
+        if (cluster == 1) {
+          tma_load_3d(h_sm + s * h_box, &h_map, s * kF32K, b0, h_step,
+                      &bars[s]);
+        } else {
+          tma_load_3d_multicast(h_sm + s * h_box, &h_map, s * kF32K, b0,
+                                h_step, &bars[s], all);
+        }
+      }
+    }
+  }
+
+  // the epilogue's operands (group 0's), loaded while the copies are in
+  // flight
+  const size_t H4 = 4 * static_cast<size_t>(H);
+  float xv[RR][4];
+  float cv[RR];
+#pragma unroll
+  for (int i = 0; i < RR; ++i) {
+    const int r = rg + G * i;
+    const bool own = q == 0 && r < nr && j < H;
+    const size_t b = static_cast<size_t>(b0 + r);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      xv[i][g] = own ? xp[b * H4 + static_cast<size_t>(g) * H + j] : 0.0f;
+    }
+    cv[i] = own ? c[b * H + j] : 0.0f;
+  }
+
+  float acc[RR][4];
+#pragma unroll
+  for (int i = 0; i < RR; ++i) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) acc[i][g] = 0.0f;
+  }
+  for (int s = s_lo; s < s_hi; ++s) {
+    mbar_wait(&bars[s], 0);
+    const float* hb = reinterpret_cast<const float*>(h_sm + s * h_box);
+    const float* wb = reinterpret_cast<const float*>(w_sm + s * 4 * w_box);
+#pragma unroll 4
+    for (int kc = 0; kc < kF32K / 4; ++kc) {
+      float4 hv[RR];
+#pragma unroll
+      for (int i = 0; i < RR; ++i) {
+        const int r = rg + G * i;
+        hv[i] = *reinterpret_cast<const float4*>(hb + r * kF32K +
+                                                 ((kc ^ (r & 7)) << 2));
+      }
+      float wv[4][4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          wv[g][e] = wb[(g * kF32K + kc * 4 + e) * bw + col];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RR; ++i) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          acc[i][g] = fmaf(hv[i].x, wv[g][0], acc[i][g]);
+          acc[i][g] = fmaf(hv[i].y, wv[g][1], acc[i][g]);
+          acc[i][g] = fmaf(hv[i].z, wv[g][2], acc[i][g]);
+          acc[i][g] = fmaf(hv[i].w, wv[g][3], acc[i][g]);
+        }
+      }
+    }
+  }
+
+  if (ks > 1) {
+    // every stage has landed (each was waited on by its group), so the
+    // tiles' shared memory holds the groups' sums: [q][i][g][slot]
+    float* part = reinterpret_cast<float*>(smem);
+    __syncthreads();
+    if (q > 0) {
+#pragma unroll
+      for (int i = 0; i < RR; ++i) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          part[((q * RR + i) * 4 + g) * group + slot] = acc[i][g];
+        }
+      }
+    }
+    __syncthreads();
+    if (q == 0) {
+      for (int p = 1; p < ks; ++p) {
+#pragma unroll
+        for (int i = 0; i < RR; ++i) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            acc[i][g] += part[((p * RR + i) * 4 + g) * group + slot];
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RR; ++i) {
+    const int r = rg + G * i;
+    if (q != 0 || r >= nr || j >= H) continue;
+    const size_t b = static_cast<size_t>(b0 + r);
+    const float si = sigmoid_f(acc[i][0] + xv[i][0]);
+    const float sf = sigmoid_f(acc[i][1] + xv[i][1]);
+    const float tg = tanhf(acc[i][2] + xv[i][2]);
+    const float so = sigmoid_f(acc[i][3] + xv[i][3]);
+    const float c_new = sf * cv[i] + si * tg;
+    c[b * H + j] = c_new;
+    h_out[b * H + j] = so * tanhf(c_new);
+  }
+  // no block leaves while a multicast it shares may still be in flight
+  cluster_sync();
+}
+
+// The f32 tensor maps.  wh: x = column (4H), y = row (H), boxes of
+// f32_box(n) columns x 32 rows, no swizzle.  h: x = k (H), y = batch row
+// (B), z = step, boxes of 32 x rows x 1 with the 128-byte swizzle.  Both
+// read zeros out of bounds.  The last map of each kind is kept per thread
+// and reused while the caller passes the same buffer and shape.
+struct MapKey {
+  const void* ptr = nullptr;
+  int a = 0, b = 0, c = 0, d = 0;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && a == o.a && b == o.b && c == o.c && d == o.d;
+  }
+};
+
+int encode_f32(const MapKey& key, int rank, const cuuint64_t* dims,
+               const cuuint64_t* strides, const cuuint32_t* box,
+               CUtensorMapSwizzle swizzle, CUtensorMap* out) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kNoEncoder;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = encode(
+      out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(key.ptr),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kBadMap;
+}
+
+int wh_f32_map(const float* wh, int H, int n, CUtensorMap* out) {
+  thread_local MapKey last;
+  thread_local CUtensorMap map;
+  const MapKey key{wh, H, f32_box(n), 0, 0};
+  if (!(last == key)) {
+    const cuuint64_t dims[2] = {4 * static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(H)};
+    const cuuint64_t strides[1] = {16 * static_cast<cuuint64_t>(H)};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(f32_box(n)),
+                               static_cast<cuuint32_t>(kF32K)};
+    const int err = encode_f32(key, 2, dims, strides, box,
+                               CU_TENSOR_MAP_SWIZZLE_NONE, &map);
+    if (err != 0) return err;
+    last = key;
+  }
+  *out = map;
+  return 0;
+}
+
+// slot 0 holds h0's map, slot 1 the map of hs
+int h_f32_map(int slot, const float* h, int T, int B, int H, int rows,
+              CUtensorMap* out) {
+  thread_local MapKey last[2];
+  thread_local CUtensorMap map[2];
+  const MapKey key{h, T, B, H, rows};
+  if (!(last[slot] == key)) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(B),
+                                static_cast<cuuint64_t>(T)};
+    const cuuint64_t strides[2] = {
+        4 * static_cast<cuuint64_t>(H),
+        4 * static_cast<cuuint64_t>(H) * static_cast<cuuint64_t>(B)};
+    const cuuint32_t box[3] = {static_cast<cuuint32_t>(kF32K),
+                               static_cast<cuuint32_t>(rows), 1};
+    const int err = encode_f32(key, 3, dims, strides, box,
+                               CU_TENSOR_MAP_SWIZZLE_128B, &map[slot]);
+    if (err != 0) return err;
+    last[slot] = key;
+  }
+  *out = map[slot];
+  return 0;
+}
+
+template <int RR>
+cudaError_t allow_f32_smem() {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) {
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(lstm_step_f32<RR>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
+  if (err == cudaSuccess && dev < kMaxDevices) {
+    done[dev].store(true, std::memory_order_release);
+  }
+  return err;
+}
+
+template <int RR>
+int run_f32(const float* xp, const float* wh, const float* h0, float* c,
+            float* hs, int T, int B, int H, int n, int rows, int ks,
+            int cluster, dim3 grid, cudaStream_t stream) {
+  const cudaError_t set = allow_f32_smem<RR>();
+  if (set != cudaSuccess) return static_cast<int>(set);
+  CUtensorMap w_map, h0_map, hs_map;
+  int enc = wh_f32_map(wh, H, n, &w_map);
+  if (enc == 0) enc = h_f32_map(0, h0, 1, B, H, rows, &h0_map);
+  if (enc == 0 && T > 1) enc = h_f32_map(1, hs, T, B, H, rows, &hs_map);
+  if (enc != 0) return enc;
+  if (T == 1) hs_map = h0_map;
+
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(static_cast<unsigned>(ks * n * rows / RR));
+  cfg.dynamicSmemBytes = f32_smem_bytes(n, rows, H);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const size_t step_in = static_cast<size_t>(B) * 4 * H;
+  const size_t step_out = static_cast<size_t>(B) * H;
+  for (int t = 0; t < T; ++t) {
+    // step t reads h0, or the h that step t - 1 wrote into hs
+    const cudaError_t err = cudaLaunchKernelEx(
+        &cfg, lstm_step_f32<RR>, w_map, t == 0 ? h0_map : hs_map,
+        t == 0 ? 0 : t - 1, xp + t * step_in, c, hs + t * step_out, B, H, n,
+        rows, ks, cluster);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaError_t last = cudaGetLastError();
+    if (last != cudaSuccess) return static_cast<int>(last);
+  }
+  return 0;
+}
+
 }  // namespace
 
 // Largest H whose CUDA-core shared-memory tile fits the default 48 KB.
@@ -774,8 +1187,9 @@ extern "C" long long lstm_infer_wgmma_smem(int n, int H) {
       wgmma_smem_bytes(n, padded_k(H), ragged_gates(H)));
 }
 
-// CUDA-core route.  xp (T, B, 4H) f32; wh (H, 4H) bf16 when wh_bf16 else
-// f32; h0 (B, H) f32; c (B, H) f32 holding c0 on entry and c_T on return;
+// The first CUDA-core design.  xp (T, B, 4H) f32; wh (H, 4H) bf16 when
+// wh_bf16 else f32; h0 (B, H) f32; c (B, H) f32 holding c0 on entry and
+// c_T on return;
 // hs (T, B, H) f32.  Returns the cudaError_t of the first launch that
 // failed, else 0.
 extern "C" int lstm_infer_cudacore(const void* xp, const void* wh,
@@ -830,6 +1244,60 @@ extern "C" int lstm_infer_wgmma(const void* xp, const void* wh,
     case 8: return run_wgmma<8, false>(x, w, h, cc, out, T, B, H, grid, s);
     case 16: return run_wgmma<16, false>(x, w, h, cc, out, T, B, H, grid, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Shared memory the f32 route asks for at (n, rows, H), for the same check.
+extern "C" long long lstm_infer_f32_smem(int n, int rows, int H) {
+  return static_cast<long long>(f32_smem_bytes(n, rows, H));
+}
+
+// f32 route, f32 wh only; the same buffers as above.  The plan (n units
+// per gate per block, `rows` batch rows per block, rr rows per thread, ks
+// groups that split K, the cluster size and the grid) comes from
+// ops/lstm.py:f32_plan; the grid
+// must cover every (row, unit) once, (ceil(H/n), ceil(B/rows)), and the
+// cluster must divide its x.  Also re-checked here: what TMA needs (H % 4
+// == 0 so that every box starts on 16 bytes; xp, wh, h0 and hs 16-byte
+// aligned) and the shared-memory limit.  Returns 0, a cudaError_t, or one
+// of the negative codes above.
+extern "C" int lstm_infer_f32(const void* xp, const void* wh, const void* h0,
+                              void* c, void* hs, int T, int B, int H, int n,
+                              int rows, int rr, int ks, int cluster,
+                              int grid_x, int grid_y, void* stream) {
+  const auto misaligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+  };
+  const bool n_ok = n == 1 || n == 2 || n == 4 || n == 8 || n == 16;
+  const bool rows_ok = rows == 8 || rows == 16 || rows == 32 || rows == 64;
+  const bool rr_ok = (rr == 1 || rr == 2 || rr == 4) && rows % rr == 0;
+  if (T < 1 || B < 1 || H < 4 || H % 4 != 0 || !n_ok || !rows_ok || !rr_ok ||
+      ks < 1 || ks > kF32MaxGroups || ks > f32_stages(H) ||
+      ks * n * rows / rr > kF32MaxThreads ||
+      !(cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) ||
+      grid_x != (H + n - 1) / n || grid_x % cluster != 0 ||
+      grid_y != (B + rows - 1) / rows ||
+      lstm_infer_f32_smem(n, rows, H) > kMaxSmem || misaligned(xp) ||
+      misaligned(wh) || misaligned(h0) || misaligned(hs)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(grid_x, grid_y);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const float*>(xp);
+  const auto* w = static_cast<const float*>(wh);
+  const auto* h = static_cast<const float*>(h0);
+  auto* cc = static_cast<float*>(c);
+  auto* out = static_cast<float*>(hs);
+  switch (rr) {
+    case 1:
+      return run_f32<1>(x, w, h, cc, out, T, B, H, n, rows, ks, cluster,
+                          grid, s);
+    case 2:
+      return run_f32<2>(x, w, h, cc, out, T, B, H, n, rows, ks, cluster,
+                          grid, s);
+    default:
+      return run_f32<4>(x, w, h, cc, out, T, B, H, n, rows, ks, cluster,
+                          grid, s);
   }
 }
 

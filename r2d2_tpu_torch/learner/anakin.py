@@ -74,6 +74,14 @@ implicitly) the port issues the moves itself, through
   trajectory is the same;
 - the actor steps read plain local views of the replicated params
   (:func:`acting_params`); the eval lane runs whole on every rank;
+- when a dp group spans ranks (fsdp or tp across ranks), every rank of
+  the group steps the group's lanes from their global streams and holds
+  a replica of the group's slab, as JAX replicates the ring over tp: each
+  (fsdp, tp) position runs the draw, the routing and the feedback over
+  its own dp axis of the mesh, identically, and nothing is broadcast.
+  The params the lanes act on are gathered whole (a collective) at the
+  start of a dispatch and again after each train step, where a dp-only
+  mesh reads them in place;
 - the snapshot is layout-free: ``write_state`` gathers every split entry
   and rank 0 writes the global arrays; ``read_state`` keeps this rank's
   rows, so a dp = 2 snapshot resumes at dp = 1 and the other way round.
@@ -849,6 +857,9 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
             uniforms = sample_uniforms(cfg.seed, dispatch_idx, k, B,
                                        prios.device)
         params = acting_params(train_state.params)
+        # whole copies of split params do not follow the step's in-place
+        # update: take them again after each step
+        regather = params_split(train_state.params)
         losses, diags = [], []
         for i in range(k):
             for e in range(E):
@@ -867,6 +878,8 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
                 idx = d.idx
             out = step(train_state, batch)
             train_state, loss, new_p = out[:3]
+            if regather:
+                params = acting_params(train_state.params)
             if lh:
                 diags.append(out[3])
             if cross is None:
@@ -894,20 +907,27 @@ def acting_params(params: Dict[str, torch.Tensor]
     no copy and no collective, updated in place by the train step as the
     meshless params are (a placement over an axis of size 1 holds the
     whole tensor).  A parameter split over several ranks (fsdp or tp
-    across ranks, which the meshed trainers refuse) raises."""
+    across ranks) is gathered whole: a collective every rank makes at the
+    same point, and a copy that the step does not update
+    (:func:`params_split`)."""
     from torch.distributed.tensor import DTensor
 
     out = {}
     for k, v in params.items():
         if isinstance(v, DTensor):
             local = v.to_local()
-            if local.shape != v.shape:
-                raise ValueError(
-                    f"param {k!r} is split {v.placements}; the anakin "
-                    "actor acts on whole params (a dp-only mesh)")
-            v = local
+            v = local if local.shape == v.shape else v.full_tensor()
         out[k] = v
     return out
+
+
+def params_split(params: Dict[str, torch.Tensor]) -> bool:
+    """Whether any parameter is split over several ranks, so that
+    :func:`acting_params` gathers a copy of it."""
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(v, DTensor) and v.to_local().shape != v.shape
+               for v in params.values())
 
 
 def make_anakin_rollout(cfg: Config, net: R2D2Network, env: Any,
@@ -1066,14 +1086,14 @@ class AnakinPlane:
         instead, the JAX package's replicated lane axis: the same
         trajectory, nothing routed.  Returns ``(lanes, train_step)``."""
         from r2d2_tpu_torch.parallel.cross_rank import CrossRank
-        from r2d2_tpu_torch.parallel.distributed import owned_dp_groups
         from r2d2_tpu_torch.parallel.sharding import mesh_train_step
 
         cfg, mesh = self.cfg, self.table.mesh
         if state_template is None:
             raise ValueError("a meshed AnakinPlane needs state_template "
                              "(the learner's TrainState) for its step")
-        owned_dp_groups(mesh)       # a dp group spanning ranks: refused
+        # over this rank's dp axis of the mesh: with a dp group that spans
+        # ranks, every (fsdp, tp) position holds replicas of the slabs
         self.cross = CrossRank(cfg, mesh, self.ring.cfg.num_blocks)
         dp, nb = self.cross.dp, self.cross.nb
         N = cfg.num_actors
@@ -1274,9 +1294,12 @@ class AnakinPlane:
         ``Checkpointer.save_replay`` writer contract).  Returns the
         JSON-able meta :meth:`read_state` validates against.  On the mesh
         every rank calls it (the gathers are collectives) and rank 0
-        alone writes the layout-free global state."""
+        alone writes the layout-free global state (its replicas at other
+        fsdp or tp positions hold the same)."""
+        import torch.distributed as dist
+
         flat = self._payload()
-        if self.cross is None or self.cross.rank == 0:
+        if self.cross is None or dist.get_rank() == 0:
             with open(path, "wb") as f:  # savez must not append .npz
                 np.savez(f, **flat)
         return dict(

@@ -8,12 +8,16 @@ learning-health ``monitor`` hook and the ``poison_params`` chaos drill).
 
 With a ``mesh`` (``train(cfg, use_mesh=True)``) the state is DTensors in
 the sharding table's layout (parallel/sharding.py) and the learner is one
-rank of the meshed learner: it samples this rank's rows of the global
-batch from its own buffer, feeds back this rank's priorities, publishes
-full plain clones to its actors, and agrees every stop and "not ready"
-with its peers through one collective gate per update or dispatch — the
-JAX package's multi-host learner, which is the port's only meshed path
-(one device per rank), even at world size 1.
+rank of the meshed learner: the leader of its dp group
+(``distributed.dp_group``) samples the group's rows of the global batch
+from its own buffer, broadcasts them to the group's other ranks
+(``group_broadcast``, issued over a group of one too) and feeds back the
+group's priorities; a peer (a rank of the group that is not its leader)
+has no buffer and trains on the rows it receives.  Every rank publishes
+full plain clones and agrees every stop and "not ready" with all the
+others through one collective gate per update or dispatch — the JAX
+package's multi-host learner, which is the port's only meshed path (one
+device per rank), even at world size 1.
 
 Capability-parity with the reference learner's ``run`` (worker.py:300-381):
 staged batch prefetch, periodic weight publication, periodic
@@ -162,11 +166,13 @@ class Learner:
                  param_store: Optional[ParamStore] = None,
                  checkpointer: Optional[Checkpointer] = None,
                  start_env_steps: int = 0, start_minutes: float = 0.0,
-                 mesh: Any = None, table: Any = None):
+                 mesh: Any = None, table: Any = None, span: Any = None):
         """The learner runs on ``net``'s device; ``state`` is moved there.
         With a ``mesh`` (a ``DeviceMesh`` of the learner's ranks) the state
         is placed through ``table`` (default: the table over ``mesh`` and
-        ``cfg``) and every update runs the meshed step."""
+        ``cfg``), every update runs the meshed step, and ``span`` is this
+        rank's dp group (default: ``distributed.dp_group(mesh)``, made
+        here, a collective)."""
         self.cfg = cfg
         self.net = net
         self.device = next(net.parameters()).device
@@ -186,6 +192,12 @@ class Learner:
         # mesh: one gate per update or dispatch
         self.gate_counts: collections.Counter = collections.Counter()
         self.mesh, self.table = mesh, table
+        # this rank's dp group under a mesh; a peer holds no data plane
+        self.span = span
+        if mesh is not None and span is None:
+            from r2d2_tpu_torch.parallel.distributed import dp_group
+
+            self.span = dp_group(mesh)
         state = place_state(state, self.device)
         if mesh is None:
             self._step_fn = make_train_step(cfg, net, learnhealth=self._lh)
@@ -219,6 +231,20 @@ class Learner:
     @property
     def num_updates(self) -> int:
         return self.state.step
+
+    @property
+    def is_peer(self) -> bool:
+        """A rank of a dp group that is not its leader: it trains on the
+        rows its leader broadcasts and runs no data plane."""
+        return self.span is not None and not self.span.is_leader
+
+    def _share(self, tensors, tag: str):
+        """The leader's tensors on every rank of its dp group
+        (``group_broadcast``; a peer passes None)."""
+        from r2d2_tpu_torch.parallel.distributed import group_broadcast
+
+        return group_broadcast(self.span, None if self.is_peer else tensors,
+                               tag=tag)
 
     def full_params(self) -> Dict[str, torch.Tensor]:
         """The online params as full plain tensors (under a mesh gathered
@@ -260,9 +286,9 @@ class Learner:
         copies (from pinned memory without blocking, on a CUDA device):
         one copy of the whole buffer for a :func:`packed_batch`, else one
         per field.  Each copy ticks ``learner.batch_h2d``.  Under a mesh
-        the batch holds this rank's rows, which become its shard of the
-        global dp-sharded batch (``host_local_batch``: no communication,
-        so the prefetch thread may do it)."""
+        the batch holds the dp group's rows, which :meth:`run` broadcasts
+        to the group and wraps as its shard of the global dp-sharded
+        batch, on the learner thread."""
         host = {k: batch[k] for k in batch
                 if k not in DEVICE_BATCH_KEYS and k != PACKED_KEY}
         cuda = self.device.type == "cuda"
@@ -284,11 +310,19 @@ class Learner:
                         t = t.pin_memory()
                     HOST_TRANSFERS.count("learner.batch_h2d")
                     dev[k] = t.to(self.device, non_blocking=cuda)
-        if self.mesh is not None:
-            from r2d2_tpu_torch.parallel.distributed import host_local_batch
-
-            dev = host_local_batch(self.mesh, dev, self._batch_shardings)
         return dev, host
+
+    def _group_batch(self, dev: Optional[Dict[str, torch.Tensor]]
+                     ) -> Dict[str, Any]:
+        """The dp group's staged rows (the leader's ``dev``; None on a
+        peer) on every rank of the group, as this rank's shard of the
+        global dp-sharded batch."""
+        from r2d2_tpu_torch.parallel.distributed import host_local_batch
+
+        got = self._share(None if dev is None else
+                          [dev[k] for k in DEVICE_BATCH_KEYS], "batch")
+        return host_local_batch(self.mesh, dict(zip(DEVICE_BATCH_KEYS, got)),
+                                self._batch_shardings)
 
     def run(self, batch_source: BatchSource,
             priority_sink: Optional[PrioritySink] = None,
@@ -303,12 +337,18 @@ class Learner:
         ≤ pipeline steps (0 = fully synchronous, the train_sync setting).
         ``tracer`` (default: the learner's own) records per-stage spans:
         batch wait, step dispatch, the device→host result sync, publish
-        and checkpoint save."""
+        and checkpoint save.
+
+        Under a mesh a peer passes no ``batch_source``: it takes each
+        update's rows from its leader."""
         cfg = self.cfg
         tracer = tracer or self.tracer
         t0 = time.time()
         target = cfg.training_steps if max_steps is None else (
             self.num_updates + max_steps)
+        peer = self.is_peer
+        if peer:
+            priority_sink = None
 
         # prefetch_batches == 0 → fully synchronous staging (deterministic;
         # used by train_sync and tests).  Otherwise a Supervisor-managed
@@ -317,7 +357,10 @@ class Learner:
         # an exhausted restart budget ends the stream.
         pf_sup = None
         done = threading.Event()
-        if cfg.prefetch_batches > 0:
+        if peer:
+            def next_item():
+                return None, {}
+        elif cfg.prefetch_batches > 0:
             from r2d2_tpu_torch.utils.supervisor import Supervisor
 
             staged: "queue.Queue" = queue.Queue(maxsize=cfg.prefetch_batches)
@@ -401,6 +444,8 @@ class Learner:
                 if stopping or item is None:
                     break
                 dev_batch, host = item
+                if self.mesh is not None:
+                    dev_batch = self._group_batch(dev_batch)
                 with tracer.span("learner.step_dispatch"), \
                         TRANSFER_GUARD.disallow("learner.dispatch"):
                     out = self._step_fn(self.state, dev_batch)
@@ -440,12 +485,14 @@ class Learner:
         )
 
     def _sum_env_steps(self) -> None:
-        """Under a mesh the run's env steps are every rank's."""
+        """Under a mesh the run's env steps are every leader's (a peer
+        runs no actors)."""
         if self.mesh is not None:
             from r2d2_tpu_torch.parallel.distributed import sync_counter
 
-            self.env_steps = sync_counter(self.env_steps, "sum",
-                                          tag="env_steps")
+            self.env_steps = sync_counter(
+                0 if self.is_peer else self.env_steps, "sum",
+                tag="env_steps")
 
     def _agree(self, stopping: bool, ready: bool) -> str:
         """The collective gate's decision: "break" when any rank stops,
@@ -463,9 +510,10 @@ class Learner:
     def _collective_gate(self, buffer, stop):
         """The meshed device drivetrains' gate(): every super-step is a
         collective, so whether to make it is decided by all ranks
-        together (:meth:`_agree`)."""
+        together (:meth:`_agree`).  A peer (no buffer) is always ready."""
         def gate() -> str:
-            return self._agree(stop is not None and stop(), buffer.ready)
+            return self._agree(stop is not None and stop(),
+                               buffer is None or buffer.ready)
         return gate
 
     # ------------------------------------------------ device-ring drivetrain
@@ -497,6 +545,9 @@ class Learner:
         t0 = time.time()
         target = cfg.training_steps if max_steps is None else (
             self.num_updates + max_steps)
+        if self.is_peer:
+            # a peer of a dp group: no buffer, ring or feedback of its own
+            buffer = ring = priority_sink = None
         if cfg.in_graph_per:
             return self._run_device_in_graph_per(buffer, ring, k, target,
                                                  t0, stop, tracer)
@@ -528,10 +579,13 @@ class Learner:
         4. feeds its rows of the priorities back to its own buffer —
            feedback never crosses ranks.
 
-        Batch bytes never leave the rank's device; only the gradient
-        reductions and the two small agreements cross ranks.  Step 2's
-        draw and gathers run under the buffer lock (the device_ring
-        contract)."""
+        Batch bytes never leave the dp group; only the gradient
+        reductions, the two small agreements and the group's broadcast
+        cross ranks.  Step 2's draw and gathers run under the buffer lock
+        (the device_ring contract).  Steps 2 and 4 are the leader's: it
+        broadcasts the k gathered batches to its dp group in one
+        ``group_broadcast`` a super-step, and a peer (``buffer`` and
+        ``ring`` None) trains on them."""
         return self._run_host_sampled(buffer, ring, priority_sink, k,
                                       target, t0, tracer,
                                       self._collective_gate(buffer, stop),
@@ -558,6 +612,16 @@ class Learner:
                                             learnhealth=self._lh)
         beta = cfg.importance_sampling_exponent
         losses_hist: deque = deque(maxlen=100)   # bounded, see run()
+        peer = multihost and self.is_peer
+
+        def share(batches):
+            # the k gathered batches, one (k, B, ...) tensor a field, on
+            # every rank of the dp group
+            got = self._share(None if batches is None else [
+                torch.stack([b[f] for b in batches])
+                for f in DEVICE_BATCH_KEYS], "super_batch")
+            return [{f: t[j] for f, t in zip(DEVICE_BATCH_KEYS, got)}
+                    for j in range(k)]
 
         def dispatch(ints, weights):
             with tracer.span("learner.gather_dispatch"):
@@ -574,12 +638,26 @@ class Learner:
 
         def sample():
             with TRANSFER_GUARD.disallow("learner.dispatch"):
-                with tracer.span("learner.sample_meta"):
-                    meta = buffer.sample_meta(k, batch_size=B,
-                                              dispatch=dispatch,
-                                              raw_densities=multihost)
+                if peer:
+                    # the leaders' agreement on the k minimum densities
+                    # spans every rank: a peer adds nothing to the min
+                    from r2d2_tpu_torch.parallel.distributed import (
+                        sync_min_array,
+                    )
+
+                    sync_min_array(np.full(k, np.inf), tag="min_density")
+                    meta = dict(env_steps=self.env_steps)
+                    batches = share(None)
+                else:
+                    with tracer.span("learner.sample_meta"):
+                        meta = buffer.sample_meta(k, batch_size=B,
+                                                  dispatch=dispatch,
+                                                  raw_densities=multihost)
+                    batches = meta.pop("dispatched")
+                    if multihost:
+                        batches = share(batches)
                 with tracer.span("learner.step_dispatch"):
-                    out = super_step.run(self.state, meta.pop("dispatched"))
+                    out = super_step.run(self.state, batches)
             # the diag rows ride with the losses (prepare)
             meta["dispatched"] = ((out[0], (out[1], out[3]), out[2])
                                   if self._lh else out)
@@ -665,13 +743,26 @@ class Learner:
         generator alike and passes the collective gate before each
         dispatch, so the uniforms stay in lockstep (JAX's note: its
         dispatch counters advance together for the same reason); each
-        rank holds its own buffer lock over its issue."""
+        rank holds its own buffer lock over its issue.
+
+        When a dp group spans ranks only its leader holds the slab: the
+        draw runs over the leaders (their dp axis of the mesh), and each
+        inner step the leader broadcasts its rows and their leaf indices
+        to its group (``group_broadcast``, issued over a group of one
+        too); a peer (``buffer`` and ``ring`` None) trains on them and
+        feeds nothing back."""
         cfg = self.cfg
         cross = None
-        if self.mesh is not None:
+        peer = self.is_peer
+        if peer:
+            from r2d2_tpu_torch.parallel.cross_rank import GroupPeer
+
+            cross = GroupPeer(self.span)
+        elif self.mesh is not None:
             from r2d2_tpu_torch.parallel.cross_rank import CrossRank
 
-            cross = CrossRank(cfg, self.mesh, ring.cfg.num_blocks)
+            cross = CrossRank(cfg, self.mesh, ring.cfg.num_blocks,
+                              span=self.span)
         super_step = make_in_graph_per_super_step_fn(
             cfg, self.net, k, train_step=(
                 None if self.mesh is None else self._step_fn), cross=cross,
@@ -683,6 +774,10 @@ class Learner:
         def sample():
             with tracer.span("learner.step_dispatch"), \
                     TRANSFER_GUARD.disallow("learner.dispatch"):
+                if peer:
+                    out = super_step(self.state, None, None, None, None)
+                    return dict(dispatched=(out[0], out[2:], None),
+                                env_steps=self.env_steps)
                 with buffer.lock:
                     with tracer.span("learner.dispatch_lock"):
                         meta = ring.per_meta()
@@ -711,7 +806,8 @@ class Learner:
             self._note_results(losses_np, flat[k:].reshape(k, DIAG_SIZE)
                                if self._lh else None)
             self.env_steps = int(meta["env_steps"])
-            buffer.note_updates(losses_np.shape[0], losses_np.sum())
+            if buffer is not None:
+                buffer.note_updates(losses_np.shape[0], losses_np.sum())
             losses_hist.extend(losses_np.tolist())
 
         gate = (self._ready_gate(buffer, stop) if self.mesh is None

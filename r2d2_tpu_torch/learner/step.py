@@ -496,8 +496,11 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
     rank's leaves (``seq_meta`` and ``first`` gathered once per call, the
     leaves once per inner step), each rank trains its rows of the global
     batch, exchanged from their owners, and the feedback goes back to the
-    slabs that own the leaves.  ``record`` (a list), when given, collects
-    each inner step's global sampled indices.
+    slabs that own the leaves.  On a peer of a dp group that spans ranks
+    ``cross`` is a :class:`~r2d2_tpu_torch.parallel.cross_rank.GroupPeer`,
+    the ring arguments are None and no uniforms are drawn: each inner
+    step's rows come from the group's leader.  ``record`` (a list), when
+    given, collects each inner step's global sampled indices.
 
     ``learnhealth`` (with ``cfg.learnhealth_interval > 0``) appends each
     inner step's diagnostic vector: ``-> (state, prios, losses, diags (k,
@@ -512,7 +515,7 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
                    generator: Optional[torch.Generator] = None,
                    uniforms: Optional[torch.Tensor] = None,
                    record: Optional[list] = None):
-        if uniforms is None:
+        if uniforms is None and prios is not None:
             uniforms = torch.rand((k, B), generator=generator,
                                   device=prios.device)
         meta = None if cross is None else cross.global_meta(seq_meta,
@@ -524,8 +527,9 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
                                                 seq_meta, first_burn)
                 batch = gather_batch(cfg, arrays, ints, w)
             else:
-                d, batch = cross.sample_batch(uniforms[j], prios, meta,
-                                              arrays)
+                d, batch = cross.sample_batch(
+                    None if uniforms is None else uniforms[j], prios, meta,
+                    arrays)
                 idx = d.idx
             out = step(state, batch)
             state, loss, new_p = out[:3]

@@ -21,7 +21,10 @@ Dispatch: :func:`lstm_unroll_infer` launches the CUDA kernel for tensors
 on a CUDA device and runs :func:`lstm_unroll_reference` for tensors on the
 CPU.  On the card, ``wh``'s dtype picks the route: bf16 goes to the
 tensor-core kernel (TMA and ``wgmma``, tiled by :func:`launch_plan`), f32
-to the CUDA-core kernel.  A CUDA input that the kernel cannot take raises;
+to the f32 kernel (TMA, h multicast across a cluster, f32 FMAs, tiled by
+:func:`f32_plan`).  The first CUDA-core design (:func:`_lstm_unroll_pr1`)
+stays only as the comparison column of the card's timings.  A CUDA input
+that the kernel cannot take raises;
 nothing falls back to the plain version.  The unroll is not
 differentiable (the reference retired its backward kernel): ``backward``
 raises.
@@ -93,8 +96,26 @@ _RAGGED_BOX = 16
 UNITS_PER_GATE = (8, 16)
 
 # KERNEL_LAUNCHES names: the tensor-core kernel counts under KERNEL, the
-# CUDA-core kernel under its own name
+# f32 route's kernel (lstm_step_f32) under CUDACORE_COUNTER, the first
+# CUDA-core design (lstm_step_cudacore, kept for comparison) under
+# PR1_COUNTER
 CUDACORE_COUNTER = f"{KERNEL}_cudacore"
+PR1_COUNTER = f"{KERNEL}_cudacore_pr1"
+
+# the f32 route's tiles (csrc/lstm_infer.cu:lstm_step_f32): 32 K rows a
+# stage (one 128-byte swizzled h row), boxes at least 16 bytes wide, at
+# most 512 threads and 16 K groups a block, and grids of at least this
+# many blocks where the units allow.  Chosen from a sweep of every tile
+# on the H100 (PERF.md §6, PR 15): the most units a block that keeps 64
+# blocks, 8-row tiles up to B = 32, clusters of 2 (clusters of 4 or 8
+# over blocks of 100 KB and more doubled the time)
+F32_STAGE_K = 32
+F32_UNITS = (1, 2, 4, 8, 16)
+F32_ROW_TILES = (8, 16, 32, 64)
+F32_MAX_THREADS = 512
+F32_MAX_GROUPS = 16
+F32_TARGET_BLOCKS = 64
+F32_CLUSTER = 2
 
 # The C side keeps the last tensor map it encoded for ``wh``, one per
 # thread and kernel instantiation (n, ragged gates), keyed on wh's address
@@ -168,6 +189,88 @@ def plan_for(n: int, B: int, H: int) -> LaunchPlan:
     return LaunchPlan(n, (-(-H // n), -(-B // ROW_TILE)), smem)
 
 
+class F32Plan(NamedTuple):
+    """Tiles of one f32 step: ``n`` hidden units (of all four gates) per
+    block, ``rows`` batch rows per block, ``rr`` of them per thread, ``ks``
+    groups of threads that split K, the cluster that shares one h tile by
+    multicast, the grid (hidden tiles, row tiles), the block's threads
+    (``ks * n * rows / rr``) and its dynamic shared memory in bytes."""
+    n: int
+    rows: int
+    rr: int
+    ks: int
+    cluster: int
+    grid: Tuple[int, int]
+    threads: int
+    smem_bytes: int
+
+
+def _f32_smem_bytes(n: int, rows: int, H: int) -> int:
+    # the kernel's count (lstm_infer.cu:f32_smem_bytes): alignment slack,
+    # then per 32-row stage the swizzled h box (rows x 128 bytes), four wh
+    # boxes (32 x max(n, 4) f32) and one mbarrier
+    stages = -(-H // F32_STAGE_K)
+    return _SMEM_ALIGN + stages * (rows * 128 + 4 * max(n, 4)
+                                   * F32_STAGE_K * 4 + 8)
+
+
+@functools.lru_cache(maxsize=None)
+def f32_plan(B: int, H: int) -> F32Plan:
+    """The f32 route's tiles for batch ``B`` and hidden size ``H``.
+
+    The row tile is 8 rows up to B = 32, 16 up to 64 and 32 beyond: small
+    tiles keep a thread's rows real and the grid wide.  ``n`` is the most
+    units that leave ``F32_TARGET_BLOCKS`` blocks (more units a block read
+    each h tile for more columns), then halves while the block's shared
+    memory (all of K: the h tile and the four strips) does not fit; the
+    row tile halves after it.  At H = 128, B = 16: 64 blocks of 4 units ×
+    8 rows; at H = 512: n = 8 up to B = 8, 16 beyond.  Raises when
+    ``H % 4 != 0`` (every TMA box must start on 16 bytes) or when no tile
+    fits a block."""
+    if B < 1 or H < 1:
+        raise ValueError(f"f32_plan needs B, H >= 1, got B={B} H={H}")
+    if H % 4:
+        raise ValueError(f"the f32 route needs H % 4 == 0 for its TMA "
+                         f"boxes, got H={H}")
+    rows = 8 if B <= 32 else 16 if B <= 64 else 32
+    tiles = -(-B // rows)
+    n = next((u for u in F32_UNITS[::-1]
+              if -(-H // u) * tiles >= F32_TARGET_BLOCKS), F32_UNITS[0])
+    while n > F32_UNITS[0] and _f32_smem_bytes(n, rows, H) > MAX_SMEM:
+        n //= 2
+    while rows > F32_ROW_TILES[0] and _f32_smem_bytes(n, rows, H) > MAX_SMEM:
+        rows //= 2
+    return f32_plan_for(n, rows, B, H)
+
+
+def f32_plan_for(n: int, rows: int, B: int, H: int) -> F32Plan:
+    """The f32 plan at a given ``n`` and row tile: ``rr`` the most rows a
+    thread takes (up to 4) that still leaves a warp's worth of threads,
+    ``ks`` the K groups that fill the block up to ``F32_MAX_THREADS``
+    threads (at most ``F32_MAX_GROUPS``, at most one a stage: each
+    group's chain of stages is what a step waits on), a cluster of
+    ``F32_CLUSTER`` where it divides the hidden tiles (else none), the
+    grid that covers (B, H) once and the shared memory.  Raises when the
+    tile is not one the kernel has or does not fit a block."""
+    if n not in F32_UNITS or rows not in F32_ROW_TILES or H % 4:
+        raise ValueError(f"no f32 tile at n={n} rows={rows} H={H}")
+    smem = _f32_smem_bytes(n, rows, H)
+    if smem > MAX_SMEM:
+        raise ValueError(f"hidden size {H} needs {smem} bytes of shared-"
+                         f"memory per block at n={n}, rows={rows}, more "
+                         f"than {MAX_SMEM}")
+    rr = next((r for r in (4, 2) if n * rows // r >= 32), 1)
+    while n * rows // rr > F32_MAX_THREADS:
+        rr *= 2
+    group = n * rows // rr
+    ks = max(1, min(F32_MAX_GROUPS, -(-H // F32_STAGE_K),
+                    F32_MAX_THREADS // group))
+    grid_x = -(-H // n)
+    cluster = F32_CLUSTER if grid_x % F32_CLUSTER == 0 else 1
+    return F32Plan(n, rows, rr, ks, cluster, (grid_x, -(-B // rows)),
+                   ks * group, smem)
+
+
 _lib = None
 
 
@@ -189,6 +292,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lstm_infer_wgmma.restype = i
     lib.lstm_infer_wgmma_smem.argtypes = [i, i]
     lib.lstm_infer_wgmma_smem.restype = ctypes.c_longlong
+    lib.lstm_infer_f32.argtypes = [p, p, p, p, p] + [i] * 10 + [p]
+    lib.lstm_infer_f32.restype = i
+    lib.lstm_infer_f32_smem.argtypes = [i, i, i]
+    lib.lstm_infer_f32_smem.restype = ctypes.c_longlong
     lib.lstm_infer_max_hidden.argtypes = []
     lib.lstm_infer_max_hidden.restype = i
     lib.lstm_infer_error_string.argtypes = [i]
@@ -264,11 +371,37 @@ def _launch_wgmma(xp: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
 
 
 def _lstm_unroll_cudacore(xp: torch.Tensor, wh: torch.Tensor,
-                          h0: torch.Tensor, c0: torch.Tensor) -> Unroll:
-    """The CUDA-core kernel (the first design) for f32 or bf16 ``wh``.
-    ``lstm_unroll_cuda`` takes it for f32; bf16 reaches it only from the
-    card-side comparisons (``chip_smoke.py``, ``tests/test_torch_cuda.py``)
-    that time the two designs in turns."""
+                          h0: torch.Tensor, c0: torch.Tensor,
+                          plan: F32Plan = None) -> Unroll:
+    """The f32 route: ``lstm_step_f32`` at ``plan`` (default
+    :func:`f32_plan`'s tiles) for f32 ``wh``, on inputs that pass
+    :func:`_check`, :func:`_check_tma` and H % 4 == 0.  Counts under
+    ``CUDACORE_COUNTER``."""
+    _check(xp, wh, h0, c0)
+    if wh.dtype != torch.float32:
+        raise TypeError(f"the f32 route takes f32 wh, got {wh.dtype}")
+    _check_tma(wh)
+    _on_one_card(xp, wh, h0, c0)
+    T, B, H4 = xp.shape
+    H = H4 // 4
+    if plan is None:
+        plan = f32_plan(B, H)
+
+    def call(lib, hs, c, stream):
+        return lib.lstm_infer_f32(
+            xp.data_ptr(), wh.data_ptr(), h0.data_ptr(), c.data_ptr(),
+            hs.data_ptr(), T, B, H, plan.n, plan.rows, plan.rr, plan.ks,
+            plan.cluster, plan.grid[0], plan.grid[1], stream)
+
+    return _launch(CUDACORE_COUNTER, xp, wh, h0, c0, call)
+
+
+def _lstm_unroll_pr1(xp: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
+                     c0: torch.Tensor) -> Unroll:
+    """The first CUDA-core design (``lstm_step_cudacore``) for f32 or bf16
+    ``wh``.  No path of the port launches it: it is the comparison column
+    of the card-side timings (``chip_smoke.py``,
+    ``tests/test_torch_cuda.py``).  Counts under ``PR1_COUNTER``."""
     _check(xp, wh, h0, c0)
     _on_one_card(xp, wh, h0, c0)
     T, B, H4 = xp.shape
@@ -282,18 +415,18 @@ def _lstm_unroll_cudacore(xp: torch.Tensor, wh: torch.Tensor,
             xp.data_ptr(), wh.data_ptr(), int(wh.dtype == torch.bfloat16),
             h0.data_ptr(), c.data_ptr(), hs.data_ptr(), T, B, H, stream)
 
-    return _launch(CUDACORE_COUNTER, xp, wh, h0, c0, call)
+    return _launch(PR1_COUNTER, xp, wh, h0, c0, call)
 
 
 def lstm_unroll_cuda(xp: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
                      c0: torch.Tensor) -> Unroll:
     """Launch the CUDA kernel of ``wh``'s dtype (the compute dtype): the
-    CUDA-core kernel for f32 (tensor cores have no exact f32 product: TF32
-    keeps 10 bits), the tensor-core kernel for bf16.  All inputs must be
-    contiguous on one CUDA device, and a bf16 ``wh`` must suit TMA
-    (:func:`_check_tma`); anything else raises.  Ticks the kernel's
-    ``KERNEL_LAUNCHES`` counter (``KERNEL`` or ``CUDACORE_COUNTER``) once
-    per call (one call runs T step launches)."""
+    f32 kernel for f32 (tensor cores have no exact f32 product: TF32 keeps
+    10 bits), the tensor-core kernel for bf16.  All inputs must be
+    contiguous on one CUDA device, and ``wh`` must suit TMA
+    (:func:`_check_tma`; f32 also H % 4 == 0); anything else raises.
+    Ticks the kernel's ``KERNEL_LAUNCHES`` counter (``KERNEL`` or
+    ``CUDACORE_COUNTER``) once per call (one call runs T step launches)."""
     if wh.dtype == torch.float32:
         return _lstm_unroll_cudacore(xp, wh, h0, c0)
     _check(xp, wh, h0, c0)

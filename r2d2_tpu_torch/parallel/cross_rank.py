@@ -31,6 +31,15 @@ every rank in the same order (a collective one rank skips hangs all):
   global row order, so ``scatter_last``'s last-write-wins gives the slab
   a world of one would.
 
+When a dp group spans ranks (fsdp or tp across ranks) the in-graph
+draw runs over the groups' leaders — the leaders' dp axis of the mesh —
+and a leader's ``CrossRank`` (built with ``span=``, its dp group) then
+broadcasts each inner step's rows and their leaf indices to its group in
+one ``group_broadcast`` (``parallel/distributed.py``, issued over a group
+of one too); a peer's :class:`GroupPeer` receives them and writes no
+feedback.  A peer's own dp axis is another slice of the mesh, so a peer
+never enters the leaders' draw.
+
 For the anakin loop, :meth:`CrossRank.gather_cuts` and
 :meth:`CrossRank.route_blocks` move freshly cut blocks to the owners of
 their ring slots (``learner/anakin.py``), and :meth:`CrossRank.
@@ -54,7 +63,9 @@ from r2d2_tpu_torch.learner.step import _in_graph_sample_raw
 from r2d2_tpu_torch.parallel.distributed import (
     _check_thread,
     dp_rows_for_process,
+    group_broadcast,
 )
+from r2d2_tpu_torch.parallel.sharding import DEVICE_BATCH_KEYS
 from r2d2_tpu_torch.replay.device_ring import gather_batch
 
 # collectives issued by this module, by operation ("all_gather",
@@ -96,13 +107,17 @@ class CrossRank:
 
     ``slab_blocks`` is ``NB_r``, the blocks of one rank's slab (the
     ring's ``num_blocks / dp``); rank ``d`` of the dp group owns global
-    blocks ``[d·NB_r, (d+1)·NB_r)``.  Each rank holds one dp group (the
-    port's one device per rank; ``dp_rows_for_process`` refuses a group
-    over several ranks)."""
+    blocks ``[d·NB_r, (d+1)·NB_r)``.  The group is this rank's dp axis of
+    the mesh: over the dp groups' leaders on a leader, over the replicas
+    of the same slabs on a rank at another (fsdp, tp) position (anakin,
+    where every rank of a group holds the group's slab).  ``span`` (the
+    leader's dp group, ``distributed.dp_group``) makes :meth:`sample_batch`
+    broadcast each inner step's rows to the group's peers."""
 
-    def __init__(self, cfg, mesh, slab_blocks: int):
+    def __init__(self, cfg, mesh, slab_blocks: int, span=None):
         self.cfg = cfg
         self.mesh = mesh
+        self.span = span
         self.group = mesh.get_group("dp")
         self.dp = dist.get_world_size(self.group)
         self.rank = mesh.get_local_rank("dp")
@@ -188,9 +203,14 @@ class CrossRank:
                      ) -> Tuple[Draw, Dict[str, torch.Tensor]]:
         """One inner step's draw and this rank's rows: the global leaves,
         the draw over them and ``meta`` (from :meth:`global_meta`), and
-        the row exchange."""
+        the row exchange; with ``span``, the rows and their leaf indices
+        broadcast to the dp group's peers."""
         d = self.draw(u, self.global_leaves(prios), *meta)
-        return d, self.exchange_rows(arrays, d)
+        rows = self.exchange_rows(arrays, d)
+        if self.span is not None:
+            group_broadcast(self.span, [rows[k] for k in DEVICE_BATCH_KEYS]
+                            + [d.idx], tag="in_graph")
+        return d, rows
 
     def scatter_feedback(self, prios: torch.Tensor, idx: torch.Tensor,
                          vals: torch.Tensor) -> None:
@@ -241,3 +261,27 @@ class CrossRank:
                                        device=rows.device))
         return self.all_to_all(send.reshape(self.dp * n, -1)).reshape(
             self.dp * n, -1)
+
+
+class GroupPeer:
+    """A peer's side of the in-graph draw (the ``cross`` hook of
+    ``make_in_graph_per_super_step_fn`` on a rank of a dp group that is
+    not its leader): no meta, no draw, no feedback; each inner step's rows
+    and leaf indices come from the leader's :meth:`CrossRank.sample_batch`
+    in one ``group_broadcast``."""
+
+    def __init__(self, span):
+        self.span = span
+
+    def global_meta(self, seq_meta, first):
+        return None
+
+    def sample_batch(self, u, prios, meta, arrays
+                     ) -> Tuple[Draw, Dict[str, torch.Tensor]]:
+        got = group_broadcast(self.span, None, tag="in_graph")
+        rows = dict(zip(DEVICE_BATCH_KEYS, got[:-1]))
+        return Draw(idx=got[-1], q=None, w=rows["is_weights"], ints=None,
+                    rows=None), rows
+
+    def scatter_feedback(self, prios, idx, vals) -> None:
+        return None

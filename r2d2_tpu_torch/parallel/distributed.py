@@ -1,20 +1,25 @@
 """Multi-rank runtime: process bring-up and the per-rank data plane.
 
 Port of ``r2d2_tpu/parallel/distributed.py``.  PyTorch runs one process
-per device, so every dp group of the learner mesh is one rank and the
-JAX package's *multi-host* path is the port's only meshed path:
+per device, so the JAX package's *multi-host* path is the port's only
+meshed path, and a dp group (the ranks that share one dp coordinate, over
+the fsdp and tp axes) holds ``fsdp × tp`` ranks:
 
 - **Bring-up**: :func:`init_distributed` joins the default process group
   from torchrun's variables (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
   ``MASTER_ADDR``, ``MASTER_PORT``): NCCL on ``cuda:LOCAL_RANK``, gloo
   when the caller asks for the CPU.  The device is never chosen by what
   happens to be present.
-- **Data plane**: replay stays per rank.  ``cfg.batch_size`` is the
-  global batch; each rank samples :func:`host_batch_size` rows from its
-  own buffer and :func:`host_local_batch` wraps them as this rank's shard
-  of one dp-sharded DTensor batch, with no communication.  The step's
-  priorities come back through :func:`local_rows` — this rank's rows
-  only, so feedback pairs with the indices this rank sampled.
+- **Data plane**: one per dp group, on the group's leader (its lowest
+  rank, :func:`dp_group`), as the JAX package keeps one per dp group with
+  the rows replicated over fsdp and tp.  ``cfg.batch_size`` is the global
+  batch; the leader samples :func:`host_batch_size` rows from its own
+  buffer and :func:`group_broadcast` sends the staged rows to its peers,
+  which hold no replay; every rank then wraps them with
+  :func:`host_local_batch` as its shard of one dp-sharded DTensor batch.
+  The step's priorities come back through :func:`local_rows` — the
+  group's rows, so the leader's feedback pairs with the indices it
+  sampled.
 - **Agreement**: :func:`sync_counter` and :func:`sync_min_array` reduce
   small host values over every rank (the learner's stop/ready gate, the
   global min density of a draw, the ring decision).  With a process group
@@ -31,7 +36,7 @@ from __future__ import annotations
 import collections
 import os
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -152,27 +157,140 @@ def _dp_coordinate(mesh) -> int:
 
 
 def owned_dp_groups(mesh) -> slice:
-    """The dp groups this rank owns: one, its own dp coordinate.
-
-    Raises (JAX's topology rule) when a dp group spans several ranks —
-    any fsdp or tp axis larger than 1 in a world of several ranks, since
-    a rank holds one device: the group's ranks would each sample their
-    own rows for one shard of the batch."""
-    names = mesh.mesh_dim_names
-    spread = mesh.size() // mesh.size(names.index("dp"))
-    if spread > 1:
-        raise RuntimeError(
-            f"each dp group spans {spread} ranks (fsdp × tp); the per-rank "
-            "data plane needs every dp group on one rank, as the JAX "
-            "package's multi-host data plane does: train with a dp-only "
-            "mesh_shape (the meshed step itself runs at any layout)")
+    """The dp groups this rank belongs to: one, its own dp coordinate, at
+    any layout (the group's other ranks, over fsdp and tp, share it)."""
     c = _dp_coordinate(mesh)
     return slice(c, c + 1)
 
 
+class DpGroup:
+    """This rank's dp group: ``index`` (its dp coordinate), ``ranks`` (the
+    group's global ranks, ascending), ``leader`` (the lowest of them, the
+    one rank of the group that runs the data plane), ``rank`` (this one)
+    and ``group`` (the process group over ``ranks``).  ``layouts`` keeps,
+    per :func:`group_broadcast` tag, the shapes and dtypes its first call
+    agreed."""
+
+    def __init__(self, index: int, ranks: Sequence[int], rank: int,
+                 group: Any):
+        self.index, self.ranks, self.rank = index, tuple(ranks), rank
+        self.leader = self.ranks[0]
+        self.group = group
+        self.layouts: Dict[str, list] = {}
+
+    @property
+    def is_leader(self) -> bool:
+        return self.rank == self.leader
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+def dp_group(mesh) -> DpGroup:
+    """This rank's dp group of ``mesh``: one process group per dp group
+    (``dist.new_group`` over the ranks that share a dp coordinate, read
+    from ``mesh.mesh``).  Collective: every rank calls it at the same
+    point, as every rank creates every group in the same order (dp
+    coordinate ascending) or the bring-up hangs."""
+    axis = mesh.mesh_dim_names.index("dp")
+    layout = mesh.mesh.movedim(axis, 0).reshape(mesh.size(axis), -1)
+    me = dist.get_rank()
+    mine = None
+    for d in range(layout.shape[0]):
+        ranks = sorted(int(r) for r in layout[d])
+        pg = dist.new_group(ranks)
+        if me in ranks:
+            mine = DpGroup(d, ranks, me, pg)
+    if mine is None:
+        raise RuntimeError(f"rank {me} holds no position in the mesh")
+    return mine
+
+
+# the dtypes a group_broadcast layout can name, by code
+_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16,
+           torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64,
+           torch.bool)
+_ALIGN = 16
+
+
+def _layout_offsets(layout) -> List[int]:
+    offs, at = [], 0
+    for shape, dtype in layout:
+        offs.append(at)
+        n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        at += -(-n // _ALIGN) * _ALIGN
+    return offs + [at]
+
+
+def group_broadcast(span: DpGroup, tensors: Optional[Sequence[torch.Tensor]]
+                    = None, tag: str = "batch") -> List[torch.Tensor]:
+    """The leader's ``tensors`` on every rank of its dp group, in one
+    ``broadcast`` of one packed byte buffer over the group's process
+    group.  The leader passes its tensors and gets them back as they are;
+    a peer passes nothing and gets new tensors on the collective device.
+    The first call of a ``tag`` first broadcasts the shapes and dtypes
+    (kept in ``span.layouts``); a later leader call whose tensors do not
+    match them raises.  Issued over a group of one too, so a world of one
+    runs the path a larger one does.  Learner thread only; counted once a
+    call under ``"group_broadcast"`` in :data:`COLLECTIVE_CALLS`."""
+    _check_thread()
+    dev = _collective_device()
+    leader = span.is_leader
+    if leader == (tensors is None):
+        raise ValueError("the dp group's leader passes the tensors, its "
+                         "peers pass none")
+    layout = span.layouts.get(tag)
+    if leader:
+        mine = [(tuple(t.shape), t.dtype) for t in tensors]
+        if layout is not None and layout != mine:
+            raise ValueError(f"group_broadcast {tag!r}: the layout changed "
+                             f"from {layout} to {mine}")
+    if layout is None:
+        # the layout, once a tag: its length, then per tensor the dtype's
+        # code, the rank and the dims (only a peer reads it back)
+        if leader:
+            head = [len(mine)]
+            for shape, dtype in mine:
+                head += [_DTYPES.index(dtype), len(shape), *shape]
+            n = torch.tensor([len(head)], dtype=torch.int64, device=dev)
+        else:
+            n = torch.zeros(1, dtype=torch.int64, device=dev)
+        dist.broadcast(n, src=span.leader, group=span.group)
+        head_t = (torch.tensor(head, dtype=torch.int64, device=dev) if leader
+                  else torch.zeros(int(n.item()), dtype=torch.int64,
+                                   device=dev))
+        dist.broadcast(head_t, src=span.leader, group=span.group)
+        if leader:
+            layout = mine
+        else:
+            head, layout, at = head_t.tolist(), [], 1
+            for _ in range(head[0]):
+                code, nd = head[at], head[at + 1]
+                layout.append((tuple(head[at + 2:at + 2 + nd]),
+                               _DTYPES[code]))
+                at += 2 + nd
+        span.layouts[tag] = layout
+    offs = _layout_offsets(layout)
+    buf = torch.empty(offs[-1], dtype=torch.uint8, device=dev)
+    if leader:
+        for t, o in zip(tensors, offs):
+            flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
+            buf[o:o + flat.numel()].copy_(flat)
+    dist.broadcast(buf, src=span.leader, group=span.group)
+    COLLECTIVE_CALLS["group_broadcast"] += 1
+    if leader:
+        return list(tensors)
+    out = []
+    for (shape, dtype), o in zip(layout, offs):
+        n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        out.append(buf[o:o + n].view(dtype).view(shape))
+    return out
+
+
 def dp_rows_for_process(mesh, global_batch: int) -> slice:
-    """The contiguous rows of the global batch this rank's dp group owns
-    (raises, as :func:`owned_dp_groups`, when the group spans ranks)."""
+    """The contiguous rows of the global batch this rank's dp group
+    owns."""
     owned = owned_dp_groups(mesh)
     per = global_batch // mesh.size(mesh.mesh_dim_names.index("dp"))
     return slice(owned.start * per, owned.stop * per)

@@ -437,6 +437,203 @@ def task_anakin(cfg_kw, dispatches, seed=0, snap_path=None,
     return out
 
 
+def task_span(layouts, params, batches, ring, uniforms, anakin_kw,
+              dispatches):
+    """Each of ``layouts`` (mesh shapes over this world) in turn, on this
+    rank: ``Learner.run`` over ``batches`` (global batches; a dp group's
+    leader stages its dp rows, a peer passes no source); one meshed
+    in-graph super-step over this dp group's slab of ``ring`` with
+    ``uniforms`` (k, B) (the leader's slab; a peer passes none); and the
+    anakin plane of ``anakin_kw`` for ``dispatches`` dispatches.  Per
+    layout: the dp coordinate and leadership, the batch each step saw,
+    the losses, the fed-back priorities, the drawn indices and the slab's
+    leaves, the anakin payload and params, and the ``group_broadcast``
+    calls of each part."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.learner.anakin import AnakinPlane
+    from r2d2_tpu_torch.learner.learner import DEVICE_BATCH_KEYS, Learner
+    from r2d2_tpu_torch.learner.step import (
+        create_train_state,
+        make_in_graph_per_super_step_fn,
+    )
+    from r2d2_tpu_torch.models.network import create_network
+    from r2d2_tpu_torch.parallel.cross_rank import CrossRank, GroupPeer
+    from r2d2_tpu_torch.parallel.distributed import (
+        COLLECTIVE_CALLS,
+        dp_group,
+    )
+    from r2d2_tpu_torch.parallel.mesh import make_mesh
+    from r2d2_tpu_torch.parallel.sharding import (
+        ShardingTable,
+        gather_state,
+        mesh_train_step,
+    )
+    from r2d2_tpu_torch.replay.device_ring import (
+        DeviceRing,
+        ring_slice_config,
+    )
+
+    def state_of(cfg):
+        return create_train_state(
+            cfg, {k: torch.from_numpy(v) for k, v in params.items()})
+
+    def broadcasts():
+        return COLLECTIVE_CALLS.get("group_broadcast", 0)
+
+    results = {}
+    for shape in layouts:
+        out = {}
+        # --- the host-staged drivetrain
+        cfg = test_config(mesh_shape=tuple(map(tuple, shape)),
+                          superstep_pipeline=0)
+        mesh = make_mesh(cfg, "cpu")
+        net = create_network(cfg, 4, device="cpu", lstm_impl="scan")
+        learner = Learner(cfg, net, state_of(cfg), mesh=mesh)
+        span = learner.span
+        dp = mesh.size(mesh.mesh_dim_names.index("dp"))
+        per = cfg.batch_size // dp
+        rows = slice(span.index * per, (span.index + 1) * per)
+        out.update(dp_index=span.index, leader=span.is_leader,
+                   group=span.ranks)
+        seen, losses, fed = [], [], []
+        step = learner._step_fn
+
+        def recording(state, batch, step=step, seen=seen, losses=losses):
+            seen.append({k: _np(v.to_local()) for k, v in batch.items()})
+            res = step(state, batch)
+            losses.append(float(res[1]))
+            return res
+        learner._step_fn = recording
+        feed = iter(batches)
+
+        def source(rows=rows, feed=feed):
+            b = next(feed, None)
+            if b is None:
+                return None
+            got = {k: np.ascontiguousarray(b[k][rows])
+                   for k in DEVICE_BATCH_KEYS}
+            got.update(idxes=np.arange(rows.start, rows.stop),
+                       block_ptr=0, env_steps=0)
+            return got
+
+        b0 = broadcasts()
+        learner.run(None if learner.is_peer else source,
+                    None if learner.is_peer
+                    else (lambda i, p, o, loss, fed=fed: fed.append(
+                        (i.copy(), np.array(p)))),
+                    max_steps=len(batches))
+        out.update(seen=seen, losses=losses, fed=fed,
+                   host_broadcasts=broadcasts() - b0,
+                   params={k: _np(v) for k, v in
+                           learner.full_params().items()})
+
+        # --- one in-graph super-step over the leaders' slabs
+        icfg = test_config(device_replay=True, in_graph_per=True,
+                           mesh_shape=tuple(map(tuple, shape)))
+        imesh = make_mesh(icfg, "cpu")
+        ispan = dp_group(imesh)
+        state = state_of(icfg)
+        table = ShardingTable(imesh, icfg)
+        istep = mesh_train_step(icfg, net, table, state_template=state)
+        state = table.place_state(state)
+        if ispan.is_leader:
+            nb = icfg.num_blocks // dp
+            cross = CrossRank(icfg, imesh, nb, span=ispan)
+            arrays = {k: _slab(v, dp, ispan.index)
+                      for k, v in ring["arrays"].items()}
+            prios, seq_meta, first = (_slab(ring[k], dp, ispan.index)
+                                      for k in ("prios", "seq_meta",
+                                                "first"))
+            u = torch.from_numpy(uniforms)
+        else:
+            cross = GroupPeer(ispan)
+            arrays = prios = seq_meta = first = u = None
+        fn = make_in_graph_per_super_step_fn(icfg, net, len(uniforms),
+                                             train_step=istep, cross=cross)
+        drawn = []
+        b0 = broadcasts()
+        state, leaves, ilosses = fn(state, arrays, prios, seq_meta, first,
+                                    uniforms=u, record=drawn)
+        out["in_graph"] = dict(
+            idx=[_np(i) for i in drawn], losses=_np(ilosses),
+            leaves=None if leaves is None else _np(leaves),
+            broadcasts=broadcasts() - b0,
+            params={k: _np(v) for k, v in gather_state(state)
+                    .params.items()})
+
+        # --- anakin: every rank of a group steps the group's lanes
+        acfg = test_config(mesh_shape=tuple(map(tuple, shape)),
+                           **anakin_kw)
+        amesh = make_mesh(acfg, "cpu")
+        atable = ShardingTable(amesh, acfg)
+        anet = create_network(acfg, 4, device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+        alearner = Learner(acfg, anet,
+                           create_train_state(acfg, anet.state_dict()),
+                           mesh=amesh, table=atable)
+        aring = DeviceRing(ring_slice_config(acfg, dp), 4, device="cpu",
+                           layout="dp")
+        plane = AnakinPlane(acfg, anet, 4, aring, table=atable,
+                            state_template=alearner.state)
+        b0 = broadcasts()
+        while not plane.ready:
+            plane.rollout_step(alearner.state.params)
+        alosses = []
+        for _ in range(dispatches):
+            alearner.state, res = plane.dispatch(alearner.state)
+            alosses.append(plane.harvest(res).tolist())
+        # this rank's replica of its dp group's slab, before the gathers
+        slab = {k: _np(v) for k, v in plane._payload_tensors().items()
+                if k.startswith(("ring_", "per_"))}
+        out["anakin"] = dict(
+            losses=alosses, slab=slab, payload=plane._payload(),
+            broadcasts=broadcasts() - b0,
+            counters={k: getattr(plane, k) for k in plane._COUNTER_FIELDS},
+            params={k: _np(v) for k, v in
+                    alearner.full_params().items()})
+        results[tuple(map(tuple, shape))] = out
+        dist.barrier()
+    return results
+
+
+def task_span_train(runs, device="cpu"):
+    """``train(cfg, use_mesh=True, device=device)`` (``train_sync`` where
+    a run says ``sync``) for each of ``runs`` (config keywords), one after
+    another on this rank, with the collectives each issued.  On the CPU
+    the actors act there too; on the card they act through the kernel."""
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch import train as ttrain
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.parallel.distributed import COLLECTIVE_CALLS
+
+    out = []
+    for run in runs:
+        kw = dict(game_name="Fake", **run)
+        if device == "cpu":
+            kw.setdefault("act_device", "cpu")
+        sync = kw.pop("sync", False)
+        cfg = test_config(**kw)
+        COLLECTIVE_CALLS.clear()
+        if sync:
+            m = ttrain.train_sync(cfg, use_mesh=True, device=device)
+        else:
+            m = ttrain.train(cfg, use_mesh=True, device=device,
+                             verbose=False, max_wall_seconds=90)
+        keep = ("num_updates", "env_steps", "mean_loss", "buffer_size",
+                "buffer_training_steps", "fabric_failed", "peer")
+        got = {k: m.get(k) for k in keep}
+        got["params"] = {k: _np(v) for k, v in m["final_params"].items()}
+        got["collectives"] = dict(COLLECTIVE_CALLS)
+        out.append(got)
+        dist.barrier()
+    return out
+
+
 def task_soak(minutes, ingraph, device, log_path, log_interval=10.0):
     """``tools/soak.py``'s run on this rank of its dp mesh; rank 0
     appends the stats entries to ``log_path``."""

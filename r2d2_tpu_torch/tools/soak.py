@@ -23,24 +23,25 @@ one kernel is built once by ``ops/_build.py``), so it has no counterpart.
 priority feedback never crosses the host, and note_updates keeps the
 accounting check exact.
 
-``--dp`` soaks the dp-sharded ring composition on the learner mesh: 4
-ranks at dp = 4, one process each (``tools/rank_worker.py``), over gloo
-on the CPU, or over NCCL with one card a rank; with ``--ingraph`` that is
-the cross-rank in-graph PER fabric (global stratified sampling over the
-dp-sharded PER leaves).  The reference soaks dp = 4 x tp = 2 on one host
-(8 forced host devices in one process).  The port runs one rank per
-device and its per-rank data plane needs every dp group on one rank (JAX's
-multi-host rule, ``parallel/distributed.py:owned_dp_groups``), so a tp
-axis across ranks is refused there; the port keeps the reference's dp
-axis, the same ring split and the same rows a dp group.  With ``--device
-cuda`` and fewer than 4 cards it exits non-zero, naming the 4 ranks it
-needs; it never drops to the CPU or to dp = 1.  Every rank's accounting
-is checked; the decay check and the telemetry artifact read rank 0's
-entries.  ``--log-interval`` (the reference's 10 s by default) sets the
-stats entries' period: the decay check compares medians of the entries'
-updates/s, so an entry must hold several super-steps for the check to
-resolve a 20 % change (the ``--dp`` soak on an 8-core CPU trains at
-under one update a second in super-steps of k = 4, and wants 30 s).
+``--dp`` soaks the reference's layout: the dp-sharded ring composition
+on the learner mesh at dp = 4 x tp = 2 (the reference's 8 forced host
+devices in one process), here 8 ranks, one process each
+(``tools/rank_worker.py``), over gloo on the CPU, or over NCCL with one
+card a rank; with ``--ingraph`` that is the cross-rank in-graph PER
+fabric (global stratified sampling over the dp-sharded PER leaves).  Each
+dp group spans two ranks: its leader (the lower rank) runs the group's
+actors, slab of the ring and priority feedback and broadcasts each
+update's rows to its peer, which trains on them and has no buffer.  With
+``--device cuda`` and fewer than 8 cards it exits non-zero, naming the 8
+ranks it needs; it never drops to the CPU or to fewer ranks.  Every
+rank's accounting is checked — a leader's buffer counts one feedback per
+update, a peer's counts none —; the decay check and the telemetry
+artifact read rank 0's entries.  ``--log-interval`` (the reference's 10 s
+by default) sets the stats entries' period: the decay check compares
+medians of the entries' updates/s, so an entry must hold several
+super-steps for the check to resolve a 20 % change (the ``--dp`` soak on
+an 8-core CPU trains at under one update a second in super-steps of
+k = 4, and wants 30 s).
 
 The analyzer's preflight over ``r2d2_tpu_torch`` runs first: a dirty
 tree fails the soak before it burns its budget.
@@ -62,7 +63,9 @@ from r2d2_tpu_torch.telemetry.runlog import artifact_log, read_entries
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-DP_RANKS = 4
+# the reference's --dp mesh (tools/soak.py:78-79), one rank a device
+DP_SHAPE = (("dp", 4), ("tp", 2))
+DP_RANKS = 8
 # the keys of a rank's metrics the checks and the summary read
 RANK_KEYS = ("num_updates", "env_steps", "fabric_failed",
              "buffer_training_steps", "health")
@@ -70,8 +73,8 @@ RANK_KEYS = ("num_updates", "env_steps", "fabric_failed",
 
 def soak_config(ingraph: bool = False, dp: bool = False,
                 device: str = "cuda", log_interval: float = 10.0):
-    """The reference soak's configuration (``tools/soak.py:69-79``), with
-    ``--dp``'s mesh the port's (module docstring)."""
+    """The reference soak's configuration (``tools/soak.py:69-79``),
+    ``--dp``'s mesh included."""
     return test_config(
         game_name="Fake", num_actors=32, hidden_dim=128,
         obs_shape=(24, 24, 1), torso="mlp", batch_size=32,
@@ -82,8 +85,8 @@ def soak_config(ingraph: bool = False, dp: bool = False,
         actor_fleets=2, env_workers=2,
         training_steps=10**9, log_interval=log_interval,
         **(dict(act_device="cpu") if device == "cpu" else {}),
-        **(dict(device_ring_layout="dp",
-                mesh_shape=(("dp", DP_RANKS),)) if dp else {}))
+        **(dict(device_ring_layout="dp", mesh_shape=DP_SHAPE)
+           if dp else {}))
 
 
 def env_factory(c, s):
@@ -94,14 +97,15 @@ def env_factory(c, s):
 def soak_run(minutes: float, ingraph: bool, dp: bool, device: str,
              log_sink=None, log_interval: float = 10.0) -> dict:
     """One rank's (or the lone process's) training run: ``train()`` for
-    ``minutes`` of wall clock, with the metrics the checks read."""
+    ``minutes`` of wall clock, with the metrics the checks read and
+    whether the rank is a dp group's peer."""
     from r2d2_tpu_torch.train import train
 
     m = train(soak_config(ingraph, dp, device, log_interval),
               env_factory=env_factory,
               use_mesh=dp, max_wall_seconds=minutes * 60.0, verbose=False,
               log_sink=log_sink, device="cpu" if device == "cpu" else None)
-    return {k: m[k] for k in RANK_KEYS}
+    return dict({k: m[k] for k in RANK_KEYS}, peer=bool(m.get("peer")))
 
 
 def _require_cards() -> None:
@@ -111,9 +115,9 @@ def _require_cards() -> None:
 
     n = torch.cuda.device_count()
     if n < DP_RANKS:
-        sys.exit(f"--dp soaks dp={DP_RANKS}: {DP_RANKS} ranks, one card "
-                 f"each, and this machine has {n}; run it with {DP_RANKS} "
-                 f"cards, or on the CPU with --device cpu")
+        sys.exit(f"--dp soaks dp = 4 x tp = 2: {DP_RANKS} ranks, one "
+                 f"card each, and this machine has {n}; run it with "
+                 f"{DP_RANKS} cards, or on the CPU with --device cpu")
 
 
 def _dp_ranks(minutes: float, ingraph: bool, device: str,
@@ -174,8 +178,11 @@ def main(minutes: float = 20.0, ingraph: bool = False, dp: bool = False,
         mid = last = None
         ok_decay = False
     ok_failures = not any(r["fabric_failed"] for r in ranks)
-    ok_priorities = all(r["buffer_training_steps"] == r["num_updates"]
-                        for r in ranks)
+    # a leader feeds back once per update; a peer has no buffer
+    ok_priorities = all(
+        r["buffer_training_steps"] == (0 if r.get("peer")
+                                       else r["num_updates"])
+        for r in ranks)
 
     summary = dict(
         minutes=round(wall / 60.0, 1),

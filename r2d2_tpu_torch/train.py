@@ -183,40 +183,47 @@ def _build(cfg: Config, env_factory: EnvFactory,
     ``in_graph_per`` is off when no ring was built.
 
     ``use_mesh`` (the default process group is up, :func:`_rank_world`):
-    one learner mesh (``make_mesh``) and one ``ShardingTable`` per
-    bring-up; this rank samples ``host_batch_size`` rows of the global
-    batch; its replay (host ring, shard plane or device ring) is its dp
-    group's slab of the global ring (``ring_slice_config``); its envs and
-    actors draw from streams offset by the rank (rank 0's are the
-    meshless run's).  Whether the ranks replay from device rings is
-    decided by all of them together, so no rank runs a drivetrain its
+    one learner mesh (``make_mesh``), one ``ShardingTable`` and this
+    rank's dp group (``dp_group``) per bring-up.  The leader of a dp
+    group (its lowest rank) runs the group's data plane: it samples
+    ``host_batch_size`` rows of the global batch for the group, its
+    replay (host ring, shard plane or device ring) is its dp group's slab
+    of the global ring (``ring_slice_config``), and its envs and actors
+    draw from streams offset by the dp coordinate (dp group 0's are the
+    meshless run's), so a dp group's experience is the same at any fsdp ×
+    tp.  A peer (``sys["peer"]``) builds the learner alone: no envs,
+    actors, fleets or replay.  Whether the ranks replay from device rings
+    is decided by all of them together, so no rank runs a drivetrain its
     peers do not."""
     device = resolve_device(device)
-    mesh = table = None
-    host_bs, dp, rank, world = cfg.batch_size, 1, 0, 1
+    mesh = table = span = None
+    host_bs, dp, peer = cfg.batch_size, 1, False
     actor_cfg = cfg
     if use_mesh:
-        import torch.distributed as dist
-
-        from r2d2_tpu_torch.parallel.distributed import host_batch_size
+        from r2d2_tpu_torch.parallel.distributed import (
+            dp_group,
+            host_batch_size,
+        )
         from r2d2_tpu_torch.parallel.mesh import make_mesh
         from r2d2_tpu_torch.parallel.sharding import ShardingTable
 
         mesh = make_mesh(cfg, device.type)
         table = ShardingTable(mesh, cfg)
-        # cfg.batch_size is the GLOBAL batch; this rank samples its dp
-        # share from its own replay
+        span = dp_group(mesh)
+        peer = not span.is_leader
+        # cfg.batch_size is the GLOBAL batch; the group's leader samples
+        # its dp share from its own replay
         host_bs = host_batch_size(cfg, mesh)
-        dp, rank, world = (table.sizes["dp"], dist.get_rank(),
-                           dist.get_world_size())
-        if rank:
-            # each rank's actors explore their own streams (the JAX
+        dp = table.sizes["dp"]
+        if span.index:
+            # each dp group's actors explore their own streams (the JAX
             # package seeds every host's alike: identical experience)
-            actor_cfg = cfg.replace(seed=cfg.seed + 1_000_003 * rank)
+            actor_cfg = cfg.replace(seed=cfg.seed + 1_000_003 * span.index)
     process = cfg.actor_transport == "process"
-    if process:
-        # the fleets own the envs in their subprocesses; the trainer only
-        # needs the action space to size the network and replay layouts
+    if process or peer:
+        # the fleets own the envs in their subprocesses, and a peer runs
+        # none; the trainer only needs the action space to size the
+        # network and replay layouts
         probe = env_factory(cfg, cfg.seed)
         action_dim = probe.action_space.n
         _close_env(probe)
@@ -246,16 +253,23 @@ def _build(cfg: Config, env_factory: EnvFactory,
         start_minutes = float(meta.get("minutes", 0.0))
 
     param_store = ParamStore()
-    ring = None
+    ring = layout = None
     # this rank's share of the replay: the whole ring without a mesh, its
     # dp group's slab under one
     replay_cfg = cfg
     if mesh is not None:
-        from r2d2_tpu_torch.replay.device_ring import ring_slice_config
+        from r2d2_tpu_torch.replay.device_ring import (
+            DeviceRing,
+            ring_slice_config,
+        )
 
         replay_cfg = ring_slice_config(cfg, dp)
     if cfg.device_replay and mesh is not None:
-        ring = _mesh_ring(cfg, replay_cfg, mesh, action_dim, device)
+        # a peer joins the agreement and builds no ring
+        layout = _mesh_ring_layout(cfg, replay_cfg, mesh, action_dim, device)
+        if layout is not None and not peer:
+            ring = DeviceRing(replay_cfg, action_dim, device=device,
+                              layout=layout)
     elif cfg.device_replay:
         from r2d2_tpu_torch.replay.device_ring import DeviceRing
 
@@ -271,7 +285,7 @@ def _build(cfg: Config, env_factory: EnvFactory,
                 "to fit", stacklevel=2)
         else:
             ring = DeviceRing(cfg, action_dim, device=device)
-    if cfg.in_graph_per and ring is None:
+    if cfg.in_graph_per and ring is None and layout is None:
         # the ring fallback above degrades the PER plane with it: device
         # PER cannot run on host replay (ReplayBuffer would fail fast),
         # and the reference's behaviour here is host replay, not a crash
@@ -287,7 +301,20 @@ def _build(cfg: Config, env_factory: EnvFactory,
     learner = Learner(cfg, net, state, param_store=param_store,
                       checkpointer=checkpointer,
                       start_env_steps=start_env_steps,
-                      start_minutes=start_minutes, mesh=mesh, table=table)
+                      start_minutes=start_minutes, mesh=mesh, table=table,
+                      span=span)
+    # one replay snapshot per run: a mesh of several dp groups has several
+    # replays and neither writes nor reads one, as in the JAX package
+    # (its full save needs a single process)
+    single_replay = dp == 1
+    if peer:
+        return dict(cfg=cfg, envs=[], action_dim=action_dim, net=net,
+                    act_net=None, learner=learner, buffer=None, actors=[],
+                    actor=None, plane=None, replay_plane=None,
+                    param_store=param_store, checkpointer=checkpointer,
+                    host_bs=host_bs, restored_replay=False, ring=None,
+                    device_plane=layout is not None, mesh=mesh, table=table,
+                    single_replay=single_replay, peer=True)
     replay_plane = None
     if cfg.replay_transport == "socket":
         # cross-host replay fabric (parallel/replay_net.py): the shard RPCs
@@ -372,10 +399,6 @@ def _build(cfg: Config, env_factory: EnvFactory,
     # Loaded AFTER everything is built so a failure here degrades to the
     # plain learner-state resume above instead of killing bring-up
     restored_replay = False
-    # one replay snapshot per run: a mesh of several ranks has several
-    # replays and neither writes nor reads one, as in the JAX package
-    # (its full save needs a single process)
-    single_replay = world == 1
     if checkpointer is not None and resume and single_replay:
         rep = checkpointer.restore_replay()
         if rep is not None and ring is not None:
@@ -409,8 +432,8 @@ def _build(cfg: Config, env_factory: EnvFactory,
                 replay_plane=replay_plane,
                 param_store=param_store, checkpointer=checkpointer,
                 host_bs=host_bs, restored_replay=restored_replay,
-                ring=ring, mesh=mesh, table=table,
-                single_replay=single_replay)
+                ring=ring, device_plane=ring is not None, mesh=mesh,
+                table=table, single_replay=single_replay, peer=False)
 
 
 def _close_env(env) -> None:
@@ -454,20 +477,22 @@ def _probe_members(cfg: Config, members, env_factory: EnvFactory,
                 "population")
 
 
-def _mesh_ring(cfg: Config, replay_cfg: Config, mesh, action_dim: int,
-               device: torch.device):
-    """This rank's device ring under the learner mesh, or None (host
-    staging).  The layout follows ``resolve_layout``'s rules, agreed over
-    the ranks ("auto" reads each rank's own card); a ``"dp"`` ring is this
-    rank's slab of ``num_blocks / dp`` blocks.  The ring-or-staging choice
-    is collective (one ``sync_counter`` min), as in the JAX package: the
-    two drivetrains issue different collectives, so one rank failing its
-    memory guard moves every rank to host staging instead of deadlocking
-    them."""
+def _mesh_ring_layout(cfg: Config, replay_cfg: Config, mesh,
+                      action_dim: int, device: torch.device
+                      ) -> Optional[str]:
+    """The layout of the dp group leaders' device rings under the learner
+    mesh, or None (host staging).  The layout follows ``resolve_layout``'s
+    rules, agreed over the ranks ("auto" reads each rank's own card); a
+    ``"dp"`` ring is the dp group's slab of ``num_blocks / dp`` blocks.
+    The ring-or-staging choice is collective (one ``sync_counter`` min),
+    as in the JAX package: the two drivetrains issue different
+    collectives, so one rank failing its memory guard moves every rank to
+    host staging instead of deadlocking them.  Every rank votes as if it
+    held the ring, the peers of a dp group too."""
     import torch.distributed as dist
 
     from r2d2_tpu_torch.parallel.distributed import sync_counter
-    from r2d2_tpu_torch.replay.device_ring import DeviceRing, resolve_layout
+    from r2d2_tpu_torch.replay.device_ring import resolve_layout
 
     need, dev_cap = data_bytes(cfg, action_dim), _device_memory_bytes(device)
     cap = dev_cap if dev_cap is not None else _available_host_bytes()
@@ -486,8 +511,7 @@ def _mesh_ring(cfg: Config, replay_cfg: Config, mesh, action_dim: int,
     per_rank = data_bytes(replay_cfg, action_dim)
     fits = cap is None or per_rank <= 0.8 * cap
     if sync_counter(int(fits and not whole_each), "min", tag="ring") > 0:
-        return DeviceRing(replay_cfg, action_dim, device=device,
-                          layout=layout)
+        return layout
     warnings.warn(
         "meshed device_replay disabled (on at least one rank): "
         f"layout={layout}, ring {per_rank / 1e9:.1f} GB per rank"
@@ -788,6 +812,8 @@ def _train_sync(cfg: Config, env_factory: EnvFactory,
                 ) -> Dict[str, Any]:
     sys = _build(cfg, env_factory, checkpoint_dir, resume, device=device,
                  use_mesh=use_mesh)
+    if sys["peer"]:
+        return _train_peer(sys, sync=True)
     actor: VectorActor = sys["actor"]
     buffer: ReplayBuffer = sys["buffer"]
     learner: Learner = sys["learner"]
@@ -814,6 +840,64 @@ def _train_sync(cfg: Config, env_factory: EnvFactory,
                    buffer_size=len(buffer),
                    final_params=learner.full_params())
     return metrics
+
+
+def _train_peer(sys: Dict[str, Any], sync: bool = False,
+                max_wall_seconds: Optional[float] = None,
+                max_thread_restarts: int = 3,
+                stop_fn: Optional[Callable[[], bool]] = None,
+                tracer: Optional[Tracer] = None) -> Dict[str, Any]:
+    """A peer of a dp group that spans ranks (``sys["peer"]``): the
+    learner alone, on the rows its leader broadcasts, in the drivetrain
+    every rank agreed on — ``Learner.run`` on host-staged batches, or
+    ``run_device`` under a device ring.  It runs no actors, replay,
+    feedback, snapshots, telemetry files or tracing: its metrics are the
+    learner's, with an empty data plane (``buffer_size`` and
+    ``buffer_training_steps`` 0).  ``sync`` is :func:`train_sync`'s
+    peer: no scaffold, no stop but the leaders'."""
+    learner: Learner = sys["learner"]
+    empty = dict(buffer_size=0, buffer_training_steps=0, peer=True)
+    if sync:
+        metrics = learner.run(None)
+        metrics.update(empty, losses=[], episode_returns=[],
+                       final_params=learner.full_params())
+        return metrics
+    tracer = tracer or Tracer()
+    scaffold = _HostScaffold(sys["cfg"], None,
+                             max_wall_seconds=max_wall_seconds,
+                             max_thread_restarts=max_thread_restarts,
+                             stop_fn=stop_fn)
+    learner.monitor = scaffold.learnhealth
+    heartbeat, stop = scaffold.heartbeat, scaffold.stop
+
+    def learner_stop() -> bool:
+        heartbeat.beat()
+        return stop()
+
+    scaffold.install_signals()
+    try:
+        try:
+            scaffold.start(scaffold.watch_loops())
+            if sys["device_plane"]:
+                metrics = learner.run_device(None, None, stop=learner_stop,
+                                             tracer=tracer)
+            else:
+                metrics = learner.run(None, stop=learner_stop,
+                                      tracer=tracer)
+        finally:
+            scaffold.quiesce()
+        metrics.update(empty, logs=[], final_params=learner.full_params(),
+                       restored_replay=False,
+                       learner_stalled=scaffold.stall["stalled"],
+                       trace=tracer.snapshot(),
+                       health=scaffold.supervisor.health(),
+                       telemetry_port=None,
+                       fabric_failed=scaffold.supervisor.any_failed,
+                       learnhealth=scaffold.learnhealth.snapshot(),
+                       alerts=scaffold.alerts.counts(), healthz={})
+        return metrics
+    finally:
+        scaffold.close()
 
 
 # --------------------------------------------------------------------------
@@ -853,8 +937,9 @@ def _train_anakin(cfg: Config, checkpoint_dir: Optional[str] = None,
     share of the lanes, blocks routed to the slabs that own their slots
     (or, when the lanes do not split over dp, every lane on every rank),
     the global draw — with one collective stop gate per dispatch.  A dp
-    group over several ranks (fsdp or tp across ranks) is refused, as in
-    :func:`train`'s other drivetrains.  The full-state snapshot is
+    group over several ranks (fsdp or tp across ranks) steps the group's
+    lanes on every one of its ranks, each holding a replica of the
+    group's slab (``learner/anakin.py``).  The full-state snapshot is
     written at world size 1 only (the JAX package's rule), and read at
     any mesh shape."""
     from r2d2_tpu_torch.learner.anakin import AnakinPlane, run_anakin_loop
@@ -1216,6 +1301,10 @@ def _train_fabric(cfg: Config, env_factory: EnvFactory,
     arguments, in its order)."""
     sys = _build(cfg, env_factory, checkpoint_dir, resume, device=device,
                  use_mesh=use_mesh)
+    if sys["peer"]:
+        return _train_peer(sys, max_wall_seconds=max_wall_seconds,
+                           max_thread_restarts=max_thread_restarts,
+                           stop_fn=stop_fn, tracer=tracer)
     cfg = sys["cfg"]     # the effective config (in_graph_per may be off)
     actors: List[VectorActor] = sys["actors"]
     buffer: ReplayBuffer = sys["buffer"]

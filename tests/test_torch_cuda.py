@@ -7,10 +7,13 @@ package, so it runs on a machine that has only PyTorch:
         tests/test_torch_cuda.py
 
 Both routes are held to the plain version: the tensor-core kernel (bf16
-``wh``) and the CUDA-core kernel (f32 ``wh``, and bf16 through the private
-``_lstm_unroll_cudacore``, the first design kept for comparison), at
-B = 65 (two 64-row tiles) and at ragged hidden sizes (H = 100, whose gate
-strips start off 16-byte boundaries).  Tolerances (as in chip_smoke.py):
+``wh``) and the f32 kernel (f32 ``wh``, ``lstm_step_f32``: TMA, h multicast
+across a cluster, f32 FMAs), at B = 65 (two 64-row tiles) and at ragged
+hidden sizes (H = 100, whose gate strips start off 16-byte boundaries);
+the f32 kernel also step by step at every B of {1, 7, 8, 16, 64, 65, 256},
+H of {128, 512, 100} and T of {1, 85}.  The first CUDA-core design
+(``_lstm_unroll_pr1``, f32 or bf16) is kept for comparison and held to
+its numerics.  Tolerances (as in chip_smoke.py):
 1e-5 max-abs in float32 with TF32 off, 1e-4 in bfloat16 — both sides round
 the operands at the same points, only the order of the f32 sums differs.
 The session load generator's float32 cell and the soak are held to take the
@@ -24,7 +27,9 @@ from r2d2_tpu_torch.ops import lstm as lstm_ops
 from r2d2_tpu_torch.ops.lstm import (
     CUDACORE_COUNTER,
     KERNEL,
-    _lstm_unroll_cudacore,
+    PR1_COUNTER,
+    _lstm_unroll_pr1,
+    f32_plan,
     launch_plan,
     lstm_unroll_cuda,
     lstm_unroll_reference,
@@ -73,28 +78,92 @@ def test_kernel_matches_reference(cuda, T, B, H, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,B,H", [(1, 7, 512), (4, 65, 512), (3, 5, 100)])
 def test_cudacore_bf16_keeps_the_first_designs_numerics(cuda, T, B, H):
-    """The CUDA-core kernel in bf16 is the first design unchanged: h rounded
-    to bf16, exact products, f32 sums, each step within 1e-4 of the plain
-    step; deterministic; counted under its own name, never the tensor-core
-    kernel's."""
+    """The first CUDA-core design in bf16 is unchanged: h rounded to bf16,
+    exact products, f32 sums, each step within 1e-4 of the plain step;
+    deterministic; counted under its own name, never a route's kernel's."""
     xp, wh, h0, c0 = _inputs(T, B, H, seed=7 * T + B, device=cuda)
     whb = wh.to(torch.bfloat16)
-    before = {k: KERNEL_LAUNCHES.get(k) for k in (KERNEL, CUDACORE_COUNTER)}
-    got = _lstm_unroll_cudacore(xp, whb, h0, c0)
-    again = _lstm_unroll_cudacore(xp, whb, h0, c0)
-    assert KERNEL_LAUNCHES.get(CUDACORE_COUNTER) == before[CUDACORE_COUNTER] + 2
+    names = (KERNEL, CUDACORE_COUNTER, PR1_COUNTER)
+    before = {k: KERNEL_LAUNCHES.get(k) for k in names}
+    got = _lstm_unroll_pr1(xp, whb, h0, c0)
+    again = _lstm_unroll_pr1(xp, whb, h0, c0)
+    assert KERNEL_LAUNCHES.get(PR1_COUNTER) == before[PR1_COUNTER] + 2
     assert KERNEL_LAUNCHES.get(KERNEL) == before[KERNEL]
+    assert KERNEL_LAUNCHES.get(CUDACORE_COUNTER) == before[CUDACORE_COUNTER]
     for g, a in zip(got, again):
         assert torch.equal(g, a)
     h, c = h0, c0
     for t in range(T):
-        _, h1, c1 = _lstm_unroll_cudacore(xp[t:t + 1], whb, h, c)
+        _, h1, c1 = _lstm_unroll_pr1(xp[t:t + 1], whb, h, c)
         _, h2, c2 = lstm_unroll_reference(xp[t:t + 1], wh, h, c,
                                           torch.bfloat16)
         assert torch.equal(h1, got[0][t])
         assert (h1 - h2).abs().max().item() <= TOL[torch.bfloat16]
         assert (c1 - c2).abs().max().item() <= TOL[torch.bfloat16]
         h, c = h1, c1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 85])
+@pytest.mark.parametrize("H", [128, 512, 100])
+@pytest.mark.parametrize("B", [1, 7, 8, 16, 64, 65, 256])
+def test_f32_kernel_matches_plain_step_by_step(cuda, T, B, H):
+    """The f32 route's kernel (``lstm_step_f32`` at ``f32_plan``'s tiles)
+    against the plain version in f32 with TF32 off: every step within 1e-5
+    of the plain step from the same (h, c), the whole unroll within the
+    whole-unroll limit (1e-5); a T-step launch equals T one-step launches
+    bit for bit (the hs tensor map's step index), and each call counts one
+    launch of the route, none of the first design."""
+    xp, wh, h0, c0 = _inputs(T, B, H, seed=T * B + H, device=cuda)
+    before = {k: KERNEL_LAUNCHES.get(k) for k in (CUDACORE_COUNTER,
+                                                  PR1_COUNTER)}
+    hs, hT, cT = lstm_unroll_cuda(xp, wh, h0, c0)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES.get(CUDACORE_COUNTER) == (
+        before[CUDACORE_COUNTER] + 1)
+    want = lstm_unroll_reference(xp, wh, h0, c0, torch.float32)
+    for g, w in zip((hs, hT, cT), want):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() <= TOL[torch.float32]
+    h, c = h0, c0
+    for t in range(T):
+        _, h1, c1 = lstm_unroll_cuda(xp[t:t + 1], wh, h, c)
+        _, h2, c2 = lstm_unroll_reference(xp[t:t + 1], wh, h, c,
+                                          torch.float32)
+        assert torch.equal(h1, hs[t])
+        assert (h1 - h2).abs().max().item() <= TOL[torch.float32]
+        assert (c1 - c2).abs().max().item() <= TOL[torch.float32]
+        h, c = h1, c1
+    assert torch.equal(c, cT)
+    assert KERNEL_LAUNCHES.get(CUDACORE_COUNTER) == (
+        before[CUDACORE_COUNTER] + 1 + T)
+    assert KERNEL_LAUNCHES.get(PR1_COUNTER) == before[PR1_COUNTER]
+
+
+@pytest.mark.cuda
+def test_f32_plan_matches_the_kernels_smem_count(cuda):
+    lib = lstm_ops._library()
+    for H in (16, 32, 36, 64, 100, 128, 256, 512, 1024):
+        for B in (1, 2, 7, 8, 16, 32, 64, 65, 128, 256):
+            plan = f32_plan(B, H)
+            assert lib.lstm_infer_f32_smem(plan.n, plan.rows, H) == (
+                plan.smem_bytes)
+
+
+@pytest.mark.cuda
+def test_f32_kernel_refuses_a_plan_that_is_not_f32_plans(cuda):
+    """The C entry point refuses a grid that would leave a (row, unit)
+    uncovered or add an empty block, and a cluster that does not divide
+    the grid's hidden tiles."""
+    B, H = 65, 512
+    xp, wh, h0, c0 = _inputs(1, B, H, seed=3, device=cuda)
+    plan = f32_plan(B, H)
+    bad = [plan._replace(grid=(plan.grid[0] - 1, plan.grid[1])),
+           plan._replace(grid=(plan.grid[0], plan.grid[1] + 1)),
+           plan._replace(cluster=3)]
+    for p in bad:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            lstm_ops._lstm_unroll_cudacore(xp, wh, h0, c0, p)
 
 
 @pytest.mark.cuda
@@ -130,9 +199,12 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         flat = torch.zeros(16 * 64 + 1, dtype=torch.bfloat16, device=cuda)
         lstm_unroll_cuda(xp, flat[1:].view(16, 64), h0, c0)
-    big = _inputs(1, 1, 1600, seed=0, device=cuda)
+    # all of K sits in shared memory: H = 2600 fits no f32 tile
+    big = _inputs(1, 1, 2600, seed=0, device=cuda)
     with pytest.raises(ValueError, match="shared-memory"):
         lstm_unroll_cuda(*big)
+    with pytest.raises(ValueError, match="H % 4 == 0"):
+        lstm_unroll_cuda(*_inputs(1, 2, 18, seed=0, device=cuda))
 
 
 @pytest.mark.cuda
@@ -751,7 +823,7 @@ def test_armed_diag_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.cuda
 def test_f32_load_gen_cell_takes_the_cudacore_route(cuda):
     """The session load generator's float32 cell at the flagship width
-    for a few seconds: its LSTM runs the f32 route, ``lstm_step_cudacore``,
+    for a few seconds: its LSTM runs the f32 route, ``lstm_step_f32``,
     once per layer for every served batch and warm-up bucket, and the
     tensor-core kernel never."""
     from r2d2_tpu_torch.models.network import create_network
@@ -787,8 +859,8 @@ def test_f32_load_gen_cell_takes_the_cudacore_route(cuda):
 def test_soak_on_the_card_takes_the_cudacore_route(cuda, tmp_path,
                                                    capsys):
     """``tools/soak.py`` for 0.3 minutes on the card, host-sampled: SOAK
-    PASS, and its float32 LSTM runs ``lstm_step_cudacore`` once per layer
-    for every actor act, the tensor-core kernel never."""
+    PASS, and its float32 LSTM runs the f32 route, ``lstm_step_f32``,
+    once per layer for every actor act, the tensor-core kernel never."""
     import json
 
     from r2d2_tpu_torch.actor import ACTOR_ACT
@@ -812,3 +884,59 @@ def test_soak_on_the_card_takes_the_cudacore_route(cuda, tmp_path,
     assert (after.get(CUDACORE_COUNTER, 0) - before.get(CUDACORE_COUNTER, 0)
             == cfg.lstm_layers * acts)
     assert after.get(KERNEL, 0) == before.get(KERNEL, 0)
+
+
+# a dp group over two cards, in every drivetrain (tests/test_torch_mesh_
+# span.py's slow runs, here over NCCL)
+SPAN_TP = (("dp", 2), ("tp", 2))
+SPAN_RUNS = [
+    dict(sync=True, mesh_shape=SPAN_TP, training_steps=8),
+    dict(mesh_shape=SPAN_TP, training_steps=8, log_interval=0.2),
+    dict(mesh_shape=SPAN_TP, device_replay=True, superstep_k=2,
+         device_ring_layout="dp", training_steps=8, log_interval=0.2),
+    dict(mesh_shape=SPAN_TP, device_replay=True, in_graph_per=True,
+         superstep_k=2, device_ring_layout="dp", training_steps=8,
+         log_interval=0.2),
+    dict(mesh_shape=SPAN_TP, actor_transport="anakin", device_replay=True,
+         in_graph_per=True, num_actors=4, superstep_k=2,
+         anakin_episode_len=12, learning_starts=16, device_ring_layout="dp",
+         training_steps=8, log_interval=0.2),
+]
+
+
+@pytest.mark.cuda
+def test_dp_groups_over_two_cards_train_over_nccl(cuda, tmp_path):
+    """dp = 2 x tp = 2 over four cards and NCCL, one rank a card: train()
+    (and ``train_sync``) in the host ring, the device-ring super-step,
+    in-graph PER and anakin.  Every rank takes every update and ends with
+    the same params, the same collectives; the ranks 1 and 3 are peers
+    with no buffer, the leaders' buffers count one feedback an update
+    (anakin: every rank steps its group's lanes); and ``train_sync``'s
+    params at dp = 2 x tp = 2 equal dp = 2's on two of the cards to the
+    learner tolerance (1e-4 of the largest).  Needs four cards."""
+    from r2d2_tpu_torch.tools.rank_worker import run_ranks
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    four = run_ranks("span_train", 4, str(tmp_path / "four"),
+                     dict(runs=SPAN_RUNS, device="cuda"), timeout=900,
+                     device="cuda")
+    for i, run in enumerate(SPAN_RUNS):
+        ranks = [r[i] for r in four]
+        anakin = run.get("actor_transport") == "anakin"
+        for rank, r in enumerate(ranks):
+            peer = rank % 2 == 1 and not anakin
+            assert r["num_updates"] >= run["training_steps"], (run, r)
+            assert not r["fabric_failed"] and bool(r["peer"]) == peer
+            assert r["collectives"] == ranks[0]["collectives"]
+            for k, v in r["params"].items():
+                np.testing.assert_array_equal(v, ranks[0]["params"][k])
+            if not run.get("sync"):
+                assert r["buffer_training_steps"] == (
+                    0 if peer else r["num_updates"])
+    two = run_ranks("span_train", 2, str(tmp_path / "two"),
+                    dict(runs=[dict(SPAN_RUNS[0], mesh_shape=(("dp", 2),))],
+                         device="cuda"), timeout=600, device="cuda")
+    for k, v in two[0][0]["params"].items():
+        np.testing.assert_allclose(four[0][0]["params"][k], v, rtol=0,
+                                   atol=1e-4 * np.abs(v).max(), err_msg=k)

@@ -12,8 +12,8 @@ summation order differs, amplified by nothing larger than the gates).
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
 and ``chip_smoke.py`` hold them against the plain version there.  What
 surrounds them is tested here: the tensor-core route's tile plan
-(``launch_plan``), the choice of route by dtype, and the checks the
-wrapper makes before anything is built.
+(``launch_plan``), the f32 route's (``f32_plan``), the choice of route by
+dtype, and the checks the wrapper makes before anything is built.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +26,8 @@ from r2d2_tpu_torch.ops.lstm import (
     MAX_SMEM,
     ROW_TILE,
     UNITS_PER_GATE,
+    f32_plan,
+    f32_plan_for,
     launch_plan,
     lstm_unroll_cuda,
     lstm_unroll_infer,
@@ -170,6 +172,71 @@ def test_launch_plan_spreads_small_buckets_over_many_blocks():
     assert launch_plan(256, 512).grid == (32, 4)
     with pytest.raises(ValueError, match="shared-memory"):
         launch_plan(1, 1600)
+
+
+# the f32 route's main-path shapes: the reference soak's H = 128, B = 16,
+# and the load generator's float32 cell at H = 512 over its buckets
+F32_MAIN = [(16, 128), (1, 512), (8, 512), (16, 512), (32, 512),
+            (64, 512), (256, 512)]
+
+
+@pytest.mark.parametrize("B,H", F32_MAIN + [(7, 100), (65, 512), (3, 16),
+                                            (9, 36), (2, 1536)])
+def test_f32_plan_covers_every_row_and_unit_once(B, H):
+    """Block (x, y) owns units [x*n, x*n+n) of all four gates and rows
+    [y*rows, (y+1)*rows): the grid covers each (row, unit) exactly once
+    with no empty block; the cluster divides the hidden tiles; the threads
+    are n * rows / rr with rr dividing the row tile; the shared memory (all
+    of K: per 32-row stage the swizzled h box, four wh boxes at least 16
+    bytes wide, one mbarrier) fits a block."""
+    p = f32_plan(B, H)
+    cover = np.zeros((B, H), np.int64)
+    for x in range(p.grid[0]):
+        for y in range(p.grid[1]):
+            owned = cover[y * p.rows:(y + 1) * p.rows,
+                          x * p.n:(x + 1) * p.n]
+            assert owned.size
+            owned += 1
+    assert (cover == 1).all()
+    assert p.grid[0] % p.cluster == 0 and p.cluster in (1, 2)
+    assert p.rows % p.rr == 0
+    assert p.threads == p.ks * p.n * p.rows // p.rr
+    assert p.threads <= lstm_ops.F32_MAX_THREADS
+    assert 1 <= p.ks <= min(16, -(-H // 32))
+    stages = -(-H // 32)
+    assert p.smem_bytes == 1024 + stages * (p.rows * 128
+                                            + 4 * max(p.n, 4) * 128 + 8)
+    assert p.smem_bytes <= MAX_SMEM
+    assert p == f32_plan_for(p.n, p.rows, B, H)
+
+
+def test_f32_plan_at_the_main_path_shapes():
+    """The soak's (16, 128) runs 64 blocks of 4 units x 8 rows in
+    clusters of 2 that share each h box by multicast; H = 512 takes the
+    most units that keep 64 blocks (8, then 16 from B = 16) over 8-row
+    tiles up to B = 32, 16 and 32 rows beyond; K groups fill the blocks
+    to 512 threads, one stage a group where they can; a shape whose K
+    does not fit a block, and an H that is not a multiple of 4, raise."""
+    want = {(16, 128): (4, 8, (32, 2)), (1, 512): (8, 8, (64, 1)),
+            (8, 512): (8, 8, (64, 1)), (16, 512): (16, 8, (32, 2)),
+            (32, 512): (16, 8, (32, 4)), (64, 512): (16, 16, (32, 4)),
+            (256, 512): (16, 32, (32, 8))}
+    for (B, H), (n, rows, grid) in want.items():
+        p = f32_plan(B, H)
+        assert (p.n, p.rows, p.grid, p.cluster) == (n, rows, grid, 2)
+    # the soak's four stages, one a group: a step waits on one stage
+    assert f32_plan(16, 128).ks == 4
+    # H = 512: 512 threads a block, K split over up to 16 groups
+    assert [f32_plan(B, 512).ks for B in (1, 32, 64, 256)] == [16, 16, 8, 4]
+    # 13 hidden tiles of 8 at H = 100: no cluster divides them
+    assert f32_plan(7, 100).cluster == 2
+    assert f32_plan_for(8, 8, 7, 100).cluster == 1
+    with pytest.raises(ValueError, match="shared-memory"):
+        f32_plan(1, 2600)
+    with pytest.raises(ValueError, match="H % 4 == 0"):
+        f32_plan(4, 18)
+    with pytest.raises(ValueError, match="no f32 tile"):
+        f32_plan_for(3, 8, 4, 16)
 
 
 # the training path's batches at the flagship width: the actor fleet's

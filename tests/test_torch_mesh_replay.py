@@ -300,7 +300,9 @@ def test_two_rank_train_sync_checkpoint_restores_without_a_mesh(tmp_path):
     for r in (r0, r1):
         assert r["num_updates"] == steps
         assert r["fed"] == [port_test_config().batch_size // 2] * steps
-        assert r["collectives"] == {"gate": steps, "env_steps": 1}
+        # each update's rows go to the rank's dp group, here of one
+        assert r["collectives"] == {"gate": steps, "group_broadcast": steps,
+                                    "env_steps": 1}
     assert r0["first_block"] != r1["first_block"]
     state, meta = Checkpointer(ck).restore()
     assert state.step == steps

@@ -11,7 +11,8 @@ reference tools (``tools/r2d2_top.py``, ``tools/soak.py``), on the CPU.
 - The soak's configuration field for field the reference's, its three
   checks and its summary keys driven with ``train`` replaced, and its
   ``--dp`` refusal without the cards it needs.  The slow-marked tests run
-  a real CPU soak and the ``--dp`` soak over 4 gloo ranks.
+  a real CPU soak and the ``--dp`` soak over 8 gloo ranks (dp = 4 x
+  tp = 2).
 """
 import ast
 import contextlib
@@ -174,9 +175,11 @@ def test_soak_config_is_the_references():
         assert got == want
     cpu = soak.soak_config(device="cpu")
     assert cpu.act_device == "cpu"
+    # --dp: the reference's own layout (tools/soak.py:78-79), 8 ranks
     dp = soak.soak_config(dp=True)
     assert dp.device_ring_layout == "dp" and dp.mesh_shape == (
-        ("dp", soak.DP_RANKS),)
+        ("dp", 4), ("tp", 2))
+    assert soak.DP_RANKS == 8
 
 
 def _ref_summary_keys():
@@ -297,13 +300,14 @@ def test_soak_on_the_cpu(ingraph, tmp_path):
 @pytest.mark.slow
 @pytest.mark.timeout(600)
 def test_soak_dp_over_gloo_ranks(tmp_path):
-    """``--dp`` over 4 gloo ranks for five minutes: every rank's priority
-    accounting exact, no fabric failure, updates taken, no throughput
-    decay, rank 0's entries in the artifact.  On an 8-core host the 4
-    ranks train at 0.6–0.8 updates/s in super-steps of k = 4, so the
-    entries are 30 s long: each holds about five super-steps, and the
-    thirds' medians resolve a 20 % change (at the reference's 10 s an
-    entry holds one or two, and the medians differ by that quantum)."""
+    """``--dp`` over 8 gloo ranks (the reference's dp = 4 x tp = 2) for
+    five minutes: every rank's priority accounting exact (a leader's
+    buffer one feedback an update, a peer's none), no fabric failure,
+    updates taken, no throughput decay, rank 0's entries in the artifact.
+    The entries are 30 s long: each holds several super-steps of k = 4,
+    so the thirds' medians resolve a 20 % change (at the reference's 10 s
+    an entry holds one or two, and the medians differ by that
+    quantum)."""
     out = str(tmp_path / "soak.json")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
