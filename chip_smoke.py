@@ -80,11 +80,17 @@ Phases (each exits non-zero on failure):
    after 7; the latest checkpoint restoring into a fresh learner bit for
    bit; a finite greedy return; the profiler finding the tensor-core
    kernel in an actor iteration and no LSTM kernel in a learner update;
-   and one learner step at a reduced width (mlp torso, H=64) in bf16 on
-   the card against float32 on the CPU (``STEP_LOSS_RTOL``,
-   ``STEP_PRIO_ATOL``).  Prints env steps/s while filling, the learner
-   update's wall clock, device time, idle share and top device ops, and
-   the host and device time of an actor iteration;
+   the learner's 16 updates (and the profiled ones) replayed from one
+   CUDA-graph capture of ``learner.train_step``; from one state at step 6
+   and one batch, graphed updates 7, 8 and 9 bit for bit the eager
+   step's (loss, priorities, params, Adam moments, target, counters;
+   cuDNN deterministic); and one learner step at a reduced width (mlp
+   torso, H=64) in bf16 on the card against float32 on the CPU
+   (``STEP_LOSS_RTOL``, ``STEP_PRIO_ATOL``).  Prints env steps/s while
+   filling, the learner update's wall clock, device time, idle share and
+   top device ops, a lone graphed update's host issue, wall, device time
+   and kernel nodes beside the eager one's, and the host and device time
+   of an actor iteration;
 6. the IMPALA-deep fabric at full width: ``impala_deep_config(game_name=
    "Fake")`` (the IMPALA residual CNN over raw 84×84 frames, two LSTM
    layers of H=512, batch 64, burn-in 40 + learning 75 + forward 5, blocks
@@ -120,8 +126,11 @@ Phases (each exits non-zero on failure):
    like the host ring's ``_gather_rows``; the in-graph sampler over the
    full ring's 50 000 leaves draws the same indices and ints as on the
    CPU for the same uniforms, weights within 1e-6; one host-sampled
-   super-step equals k sequential train steps bit for bit (cuDNN
-   deterministic for that check only).  Then ``train()`` on the main
+   super-step, replayed from its CUDA graph, equals k sequential eager
+   train steps bit for bit, and the graphed in-graph super-step equals
+   its eager run from the same ring, state and generator seed (sampled
+   indices, losses, the leaves, params), for two dispatches (cuDNN
+   deterministic for these checks only).  Then ``train()`` on the main
    thread, 32 updates with ``in_graph_per=True`` and 16 with it off, under
    a wall budget.  Checked: the ring built on the card (no fallback
    warning, ``in_graph_per`` kept) with ``nbytes() == data_bytes``;
@@ -131,10 +140,12 @@ Phases (each exits non-zero on failure):
    only drawn leaves and every padding leaf still 0 (in-graph); the
    kernel launched once per act (one layer), the CUDA-core one never, and
    no LSTM kernel in a profiled super-step; the checkpoint at 16 written
-   and no replay snapshot.  Prints env steps/s while filling and while
-   training, the dispatch interval p50, the lock hold per in-graph
-   dispatch, a profiled super-step's host wall clock, device time, idle
-   share and top device ops, ring and peak GB, and the phase's seconds;
+   and no replay snapshot; the run's super-step captured once.  Prints
+   env steps/s while filling and while training, the dispatch interval
+   p50, the lock hold per in-graph dispatch, a lone graphed super-step's
+   host issue, wall clock, device time and kernel nodes beside the same
+   super-step issued eagerly, its top device ops, ring and peak GB, and
+   the phase's seconds;
 8. anakin, the fused env → act → cut → write → train loop: the README's
    ``Config(game_name="Fake", actor_transport="anakin", anakin_env=
    "grid")`` at full width (nature torso on 21×21×16 frames, H = 512,
@@ -332,12 +343,15 @@ Phases (each exits non-zero on failure):
     the update interval p50 with and without the diagnostics and in the
     capture window, and a lone step's device time armed and disarmed;
     (c) phase 10's flagship over two shm shards with ``actor_transport=
-    "process"``, two fleets through the service: ``GET /tracez?steps=4``
+    "process"``, two fleets through the service: ``GET /tracez?steps=32``
     (200, then 409 while busy) dumps one trace with one track per process
     (fleets and shards in distinct pids), a block flow across fleet,
     trainer and shard, ``serve.batch`` instants and no torn slot, and no
     child holds the card; ``GET /profilez?secs=1`` (200, then 409) writes
-    a ``torch.profiler`` trace holding ``lstm_step_wgmma``; (d) phase 8's
+    a ``torch.profiler`` trace holding ``lstm_step_wgmma`` (a window
+    without it first prints its heaviest kernels and each fleet's env
+    steps and blocks across the window, acting or waiting; ROADMAP C 21);
+    (d) phase 8's
     anakin config with ``transfer_guard=True``, cut to two dispatches:
     its windows counted and none tripped; on a 64-block plane at the same
     widths, a guarded dispatch's cost against an unguarded one and an
@@ -345,7 +359,8 @@ Phases (each exits non-zero on failure):
     ``TransferGuardTripped`` naming it; phase 4's served act under an
     armed guard (``window.serving.act`` counted, no trip); (e) the Pong
     preset's in-graph super-step with ``learnhealth_interval=2`` returning
-    (k, 28) rows, and a meshed world-size-1 step's diag bit for bit its
+    (k, 28) rows from its two CUDA graphs (the armed and the disarmed
+    inner step), and a meshed world-size-1 step's diag bit for bit its
     meshless one over NCCL.  Prints each part's seconds;
 15. the edges, as a user runs them: the flagship ``Config(game_name=
     "Fake")`` at its published widths (nature torso on 21×21×16 frames,
@@ -364,14 +379,16 @@ Phases (each exits non-zero on failure):
     checkpoint in step order, the reference's keys, ``curve.json`` equal
     to its printed records, and the plot written or skipped for want of
     matplotlib.  (d) The session load generator's ``main``: 256 sessions
-    over 8 workers against an LRU budget of 192, 8 s a cell, both session
-    chaos sites armed: per cell the accounting exact, ``/healthz`` polled
-    and never ``failing``, kills that abandoned sessions and a reap, 0 <
-    evictions, sessions completed inside every straggler's freeze, and
+    over 8 workers against an LRU budget of 192, 5 s a cell, both session
+    chaos sites armed, in three cells: the reference's ``float32`` and
+    ``bfloat16`` params, both computed in bf16, and ``float32_compute``:
+    per cell the accounting exact, ``/healthz`` polled and never
+    ``failing``, kills that abandoned sessions and a reap, 0 < evictions,
+    sessions completed inside every straggler's freeze, and
     ``lstm_infer`` = layers × (batches + warm-up buckets) on the cell's
-    route only — ``lstm_step_f32`` for the float32 cell,
-    ``lstm_step_wgmma`` for bfloat16; prints acts/s and the client
-    p50/p95/p99.  (e) ``serve --port -1 --max-wall-seconds 15`` driven by
+    route only — ``lstm_step_wgmma`` for the two bf16-compute cells,
+    ``lstm_step_f32`` for ``float32_compute``; prints acts/s and the
+    client p50/p95/p99.  (e) ``serve --port -1 --max-wall-seconds 15`` driven by
     ``run_load`` for 5 s: its summary serves step 8 with the accounting
     exact.  (f) The bench through its isolated driver, cut in steps and
     seconds: the JSON line parses, ``learner_env_frames_per_sec > 0``,
@@ -398,6 +415,11 @@ Phases (each exits non-zero on failure):
     after it, ``r2d2_top --once <ckpt_dir>`` renders the run log's last
     entry; ``lstm_infer`` = layers × acts on ``lstm_step_wgmma``, 0 on
     the CUDA-core route.  Prints the frames and the phase's seconds;
+After each of phases 5–16 the script prints ``RETRACES.counts()`` (each
+entry point's traces: on the card the learner steps' CUDA-graph captures,
+elsewhere new input signatures) and fails when an entry point went past
+its budget, as the JAX package's end-to-end tests assert;
+
 17. one ``{"kernels": [...]}`` JSON line: the tensor-core route
     (``lstm_infer``, bf16 ``wh``) and the f32 route (``lstm_infer_f32``)
     each with its launches, error, times, bound and library call;
@@ -632,13 +654,16 @@ LH_PLAIN_STEPS = 8
 LH_WALL_S = 240
 LH_COST_ITERS = 2
 # (c) the flagship over two shm shards with two fleets through the
-# service, cut in warm-up as (b); a capture of 4 updates through
-# /tracez, then a 1 s profile through /profilez
+# service, cut in warm-up as (b); a capture of 32 updates through
+# /tracez, then a 1 s profile through /profilez.  The window must hold a
+# block's chain from fleet to shard: 4 updates spanned about a second
+# when the update was issued op by op, 32 do since it replays a CUDA
+# graph (≈25 ms an update)
 CAPTURE_REDUCED = dict(replay_shards=2, actor_transport="process",
                        actor_fleets=2, actor_inference="serve",
                        learning_starts=3_200, telemetry_port=-1,
                        log_interval=0.5)
-CAPTURE_STEPS = 4
+CAPTURE_STEPS = 32
 CAPTURE_ATTEMPTS = 10
 PROFILE_SECS = 1.0
 CAPTURE_WALL_S = 240
@@ -664,12 +689,12 @@ EDGES_SETS = dict(learning_starts=3_200, save_interval=4,
 EDGES_STEPS = 8
 EDGES_WALL_S = 240
 EDGES_FOLLOW_S = 20
-EDGES_LOAD_S = 6
+EDGES_LOAD_S = 5
 EDGES_LOAD_CHAOS = ("kill_session_client:every=50,n=6;"
                     "slow_session_client:every=40,dur=1.0,n=4")
 EDGES_SERVE_WALL_S = 10
 EDGES_SERVE_LOAD_S = 5
-EDGES_BENCH = dict(steps=5, warmup=1, system_seconds=5.0)
+EDGES_BENCH = dict(steps=5, warmup=1, system_seconds=4.0)
 EDGES_WATCHDOG_S = 900
 # phase 16: graftlint over the checkout; the soak (the reference's own
 # config: test_config at H = 128, f32, two thread fleets, device replay,
@@ -679,8 +704,8 @@ EDGES_WATCHDOG_S = 900
 # second so that /statusz has one while it runs.  The soak's stats
 # entries come every SOAK_LOG_S (the reference's 10 s), so that its
 # decay check still compares medians of two entries a third
-SOAK_MINUTES = 0.75
-SOAK_LOG_S = 7.5
+SOAK_MINUTES = 0.6
+SOAK_LOG_S = 6.0
 TOP_SETS = dict(learning_starts=3_200, save_interval=4,
                 replay_snapshot=False, log_interval=1.0)
 TOP_STEPS = 8
@@ -1496,6 +1521,123 @@ def learner_step_card_vs_cpu(torch) -> dict:
     return dict(loss_rel_err=loss_rel, prio_max_abs_err=prio_err)
 
 
+def states_equal(torch, a, b) -> bool:
+    """Two train states equal bit for bit: host mirrors, device counters,
+    params, target params and Adam's moments."""
+    return (a.step == b.step and a.opt_state.count == b.opt_state.count
+            and torch.equal(a.step_t, b.step_t)
+            and torch.equal(a.opt_state.count_t, b.opt_state.count_t)
+            and all(torch.equal(x[k], y[k])
+                    for x, y in ((a.params, b.params),
+                                 (a.target_params, b.target_params),
+                                 (a.opt_state.mu, b.opt_state.mu),
+                                 (a.opt_state.nu, b.opt_state.nu))
+                    for k in x))
+
+
+def graph_vs_eager(torch, graphed, eager, iters: int = 3) -> tuple:
+    """A lone call of a graphed entry and of its eager twin, timed in one
+    call of this script: per call the host's issue (no synchronisation
+    inside), the host wall clock, the device time and the device events
+    (for a graph, its kernel nodes) from ``lone``, and the span of the
+    stream's work by CUDA events."""
+    out = []
+    for fn in (graphed, eager):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        issue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(dict(lone(torch, fn, iters), issue=issue,
+                        span=start.elapsed_time(end) / iters))
+    return tuple(out)
+
+
+def fmt_graph(g: dict, e: dict) -> str:
+    return (f"host wall {g['wall']:.2f} ms graphed vs {e['wall']:.2f} ms "
+            f"eager (issue {g['issue']:.2f} vs {e['issue']:.2f} ms), device "
+            f"{g['device']:.3f} vs {e['device']:.3f} ms (stream span "
+            f"{g['span']:.3f} vs {e['span']:.3f} ms), {g['events']:.0f} "
+            f"kernel nodes replayed vs {e['events']:.0f} device events "
+            f"issued, device idle {1 - g['device'] / g['wall']:.1%} vs "
+            f"{1 - e['device'] / e['wall']:.1%}")
+
+
+def retraces_line(label: str) -> None:
+    """A training phase's retrace counts, and its failure when an entry
+    point traced (on the card: captured) past its budget, as the JAX
+    package's end-to-end tests assert."""
+    from r2d2_tpu_torch.utils.trace import RETRACES
+
+    print(f"phase {label} retraces (max traces per entry point): "
+          f"{json.dumps(RETRACES.counts(), sort_keys=True)}", flush=True)
+    if RETRACES.over_budget():
+        fail(f"phase {label}: entry points past their retrace budgets: "
+             f"{RETRACES.over_budget()}")
+
+
+def graphed_update_checks(torch, card: str, cfg, net) -> dict:
+    """Phase 5's graphed ``learner.train_step`` against the plain step at
+    the flagship width: from one state at step 6 and one batch, updates
+    7, 8 and 9 (the target sync at 8 inside) bit for bit in loss,
+    priorities, every param, Adam moment and the target (cuDNN
+    deterministic); one capture; then a lone update of each, timed."""
+    from r2d2_tpu_torch.learner.graphs import make_learner_step
+    from r2d2_tpu_torch.learner.step import (
+        create_train_state,
+        make_train_step,
+    )
+    from r2d2_tpu_torch.utils.trace import RetraceGuard
+
+    def at_six():
+        # the host mirrors at 6; the device counters come from them
+        st = create_train_state(cfg, net.state_dict())
+        st.step = st.opt_state.count = 6
+        return st
+
+    guard = RetraceGuard()
+    graphed = make_learner_step(cfg, net, guard=guard)
+    eager = make_train_step(cfg, net)
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in step_batch(cfg, seed=7).items()}
+    a, b = at_six(), at_six()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for n in (7, 8, 9):
+            ga, gb = graphed(a, batch), eager(b, batch)
+            a, b = ga[0], gb[0]
+            same = (all(torch.equal(x, y) for x, y in zip(ga[1:], gb[1:]))
+                    and states_equal(torch, a, b))
+            synced = all(torch.equal(a.params[k], a.target_params[k])
+                         for k in a.params)
+            if not same or a.step != n or synced != (n == 8):
+                fail(f"the graphed update {n} is not the eager one bit for "
+                     f"bit (loss {ga[1].item()} vs {gb[1].item()}, step "
+                     f"{a.step}, target synced {synced})")
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    if guard.counts() != {"learner.train_step": 1}:
+        fail(f"graphed update captures: {guard.counts()}")
+    g, e = graph_vs_eager(torch, lambda: graphed(a, batch),
+                          lambda: eager(b, batch))
+    print(f"graphed learner.train_step on {card}: updates 7, 8, 9 (the "
+          "target sync at 8) bit for bit the eager step's in loss, "
+          "priorities, params, target params, Adam moments and counters "
+          "(cuDNN deterministic for the check), 1 capture; a lone update "
+          "(the staged batch on the card): " + fmt_graph(g, e), flush=True)
+    return dict(graphed=g, eager=e)
+
+
 def phase_training(torch, card: str) -> int:
     """Phase 5: ``train_sync`` at the flagship width on the card."""
     import shutil
@@ -1508,7 +1650,11 @@ def phase_training(torch, card: str) -> int:
     from r2d2_tpu_torch.evaluate import EVAL_ACT, evaluate_params
     from r2d2_tpu_torch.learner.learner import Learner
     from r2d2_tpu_torch.ops import lstm
-    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+    from r2d2_tpu_torch.utils.trace import (
+        HOST_TRANSFERS,
+        KERNEL_LAUNCHES,
+        RETRACES,
+    )
 
     t_phase = time.perf_counter()
     base = Config(game_name="Fake")
@@ -1695,6 +1841,17 @@ def phase_training(torch, card: str) -> int:
               "device ops (ms per update, count): " + "; ".join(
                   f"{short_kernel_name(k)} {ms:.3f} ({n:.0f})"
                   for k, ms, n in upd_events[:5]), flush=True)
+        # the run's learner replayed one captured graph for its updates
+        traces = built["step"].graphs.entry.traces
+        if (built["step"].graphs.captures != 1 or traces != 1
+                or RETRACES.counts().get("learner.train_step") != 1):
+            fail(f"train_sync's learner.train_step: {traces} traces, "
+                 f"{built['step'].graphs.captures} captures, process-wide "
+                 f"{RETRACES.counts()}")
+        print(f"train_sync's learner.train_step on {card}: "
+              f"{cfg.training_steps} updates (and the profiled ones) from 1 "
+              "CUDA-graph capture", flush=True)
+        graphed_update_checks(torch, card, cfg, built["net"])
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     learner_step_card_vs_cpu(torch)
@@ -1737,11 +1894,15 @@ def served_vs_plain(torch, cfg, action_dim, served, params, bucket) -> dict:
       (3.906e-03 at |q| >= 0.5) however small ``hidden`` is: these two are
       printed, and the two above are the checks."""
     from r2d2_tpu_torch.actor import make_act_fn
+    from r2d2_tpu_torch.serving.batcher import bucket_sizes
     from r2d2_tpu_torch.models import create_network
 
     plain = create_network(cfg, action_dim, device="cuda",
                            lstm_impl="reference")
-    plain_act = make_act_fn(plain)
+    # the reference act runs at every bucket shape the server formed: one
+    # trace a bucket, as the server's own act (its budget)
+    plain_act = make_act_fn(plain, retrace_budget=len(
+        bucket_sizes(cfg.serve_max_batch)) + 1)
     gparams = {k: v.to("cuda") for k, v in params.items()}
     head = {k[len("head."):]: v for k, v in gparams.items()
             if k.startswith("head.")}
@@ -2200,8 +2361,10 @@ def scripted_blocks(cfg, n_blocks: int, seed: int = 0):
 def device_ring_checks(torch, base) -> dict:
     """Phase 7's checks on the card before the fabric runs: the device
     gather against the host ring, the in-graph sampler against its CPU
-    run, and a super-step against k sequential train steps."""
+    run, the graphed super-step against k sequential eager train steps,
+    and the graphed in-graph super-step against its eager run."""
     from r2d2_tpu_torch.learner import step as step_mod
+    from r2d2_tpu_torch.utils.trace import RetraceGuard
     from r2d2_tpu_torch.models import create_network
     from r2d2_tpu_torch.replay.device_ring import (
         DeviceRing,
@@ -2272,15 +2435,16 @@ def device_ring_checks(torch, base) -> dict:
           f"max relative error {w_err:.3e} (tol {SAMPLER_W_RTOL:.0e})",
           flush=True)
 
-    # one host-sampled super-step against k sequential train steps on the
-    # same bundles, bit for bit: cuDNN's conv weight gradients may
-    # otherwise pick algorithms with atomics, so deterministic for this
-    # check only
+    # one host-sampled super-step (k replays of its CUDA graph) against k
+    # sequential eager train steps on the same bundles, bit for bit:
+    # cuDNN's conv weight gradients may otherwise pick algorithms with
+    # atomics, so deterministic for this check only
     net = create_network(cfg, TRAIN_ACTIONS, device=cuda,
                          generator=torch.Generator().manual_seed(5))
     fused = step_mod.create_train_state(cfg, net.state_dict())
     seq = step_mod.create_train_state(cfg, net.state_dict())
-    super_step = step_mod.make_super_step_fn(cfg, net, k)
+    super_step = step_mod.make_super_step_fn(cfg, net, k,
+                                             guard=RetraceGuard())
     train_step = step_mod.make_train_step(cfg, net)
     was = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -2304,15 +2468,81 @@ def device_ring_checks(torch, base) -> dict:
                                  (fused.opt_state.mu, seq.opt_state.mu),
                                  (fused.opt_state.nu, seq.opt_state.nu))
                     for n in a))
-    if not (same and torch.isfinite(losses).all()):
-        fail(f"a super-step is not k sequential steps bit for bit (losses "
-             f"{losses.tolist()} vs {[x.item() for x in seq_losses]})")
-    print(f"super-step (k={k}) vs {k} sequential train steps on the card: "
-          f"losses {fmt_list(losses.tolist())}, priorities, params, target "
-          "params and Adam moments bit for bit equal (cuDNN deterministic)",
-          flush=True)
+    if not (same and torch.isfinite(losses).all()
+            and super_step.graphs.captures == 1):
+        fail(f"a graphed super-step is not k sequential steps bit for bit "
+             f"(losses {losses.tolist()} vs "
+             f"{[x.item() for x in seq_losses]}, "
+             f"{super_step.graphs.captures} captures)")
+    print(f"graphed super-step (k={k}, 1 capture) vs {k} sequential eager "
+          f"train steps on the card: losses {fmt_list(losses.tolist())}, "
+          "priorities, params, target params and Adam moments bit for bit "
+          "equal (cuDNN deterministic)", flush=True)
+    in_graph_graph_check(torch, base, net)
     return dict(gather_bitwise=True, sampler_w_rel_err=w_err,
                 superstep_bitwise=True)
+
+
+def in_graph_graph_check(torch, base, net) -> None:
+    """The graphed in-graph PER super-step (sample, gather, step and
+    scatter, one CUDA graph an inner step) against the same super-step
+    run eagerly, from the same ring of a few blocks at the full slot
+    shapes, state and generator seed, for two dispatches: sampled
+    indices, losses, the priority slab and every param bit for bit (cuDNN
+    deterministic for the check)."""
+    from r2d2_tpu_torch.learner import step as step_mod
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing
+    from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+    from r2d2_tpu_torch.utils.trace import RetraceGuard
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    cfg = base.replace(buffer_capacity=CHECK_RING_BLOCKS * base.block_length,
+                       learning_starts=base.block_length, in_graph_per=True)
+    k = cfg.superstep_k
+    ring = DeviceRing(cfg, TRAIN_ACTIONS, device=cuda)
+    buf = ReplayBuffer(cfg, TRAIN_ACTIONS, rng=np.random.default_rng(3),
+                       device_ring=ring)
+    for blk, prios in scripted_blocks(cfg, CHECK_RING_BLOCKS + 2):
+        buf.add(blk, prios, None)
+    meta = ring.per_meta()
+    graphed = step_mod.make_in_graph_per_super_step_fn(
+        cfg, net, k, guard=RetraceGuard())
+    eager = step_mod.make_in_graph_per_super_step_fn(
+        cfg, net, k, train_step=step_mod.make_train_step(cfg, net),
+        guard=RetraceGuard())
+    states = [step_mod.create_train_state(cfg, net.state_dict())
+              for _ in range(2)]
+    leaves = [ring.take_prios().clone() for _ in range(2)]
+    gens = [torch.Generator(device=cuda).manual_seed(cfg.seed)
+            for _ in range(2)]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        same, drawn = True, 0
+        for _ in range(2):
+            recs, losses = ([], []), []
+            for i, fn in enumerate((graphed, eager)):
+                out = fn(states[i], ring.snapshot(), leaves[i],
+                         meta["seq_meta"], meta["first"], generator=gens[i],
+                         record=recs[i])
+                losses.append(out[2])
+            drawn += sum(int(x.numel()) for x in recs[0])
+            same = (same and len(recs[0]) == k
+                    and all(torch.equal(x, y) for x, y in zip(*recs))
+                    and torch.equal(*losses)
+                    and torch.equal(*leaves)
+                    and states_equal(torch, *states))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    if not same or graphed.graphs.captures != 1:
+        fail(f"the graphed in-graph super-step is not the eager one bit for "
+             f"bit ({graphed.graphs.captures} captures)")
+    print(f"graphed in-graph PER super-step (k={k}, 1 capture) vs the eager "
+          f"one on the card, 2 dispatches from one {cfg.num_blocks}-block "
+          f"ring, state and generator seed: {drawn} sampled indices, "
+          "losses, the priority slab, params, target params and Adam "
+          "moments bit for bit equal (cuDNN deterministic)", flush=True)
 
 
 def device_replay_run(torch, card: str, cfg, need: int) -> tuple:
@@ -2329,14 +2559,20 @@ def device_replay_run(torch, card: str, cfg, need: int) -> tuple:
     from r2d2_tpu_torch import train
     from r2d2_tpu_torch.actor import ACTOR_ACT
     from r2d2_tpu_torch.checkpoint import Checkpointer
+    from r2d2_tpu_torch.learner import learner as learner_mod
     from r2d2_tpu_torch.learner import step as step_mod
     from r2d2_tpu_torch.ops import lstm
     from r2d2_tpu_torch.replay.device_ring import to_device
-    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+    from r2d2_tpu_torch.utils.trace import (
+        HOST_TRANSFERS,
+        KERNEL_LAUNCHES,
+        RETRACES,
+        RetraceGuard,
+    )
 
     in_graph, steps, k = cfg.in_graph_per, cfg.training_steps, cfg.superstep_k
     real_build = train._build
-    real_sample = step_mod._in_graph_sample
+    real_ig = learner_mod.make_in_graph_per_super_step_fn
 
     rec = dict(dispatches=[], start=None, leaves=[], drawn=[])
 
@@ -2385,10 +2621,16 @@ def device_replay_run(torch, card: str, cfg, need: int) -> tuple:
             ring.per_meta, ring.put_prios = meta_before, prios_after
         return sys_
 
-    def drawing(*args, **kw):
-        out = real_sample(*args, **kw)
-        rec["drawn"].append(out[0])
-        return out
+    def recording_ig(*args, **kw):
+        # the learner's in-graph super-step, each inner step's sampled
+        # indices recorded (copies of the graph's output, on the card)
+        fn = real_ig(*args, **kw)
+
+        def super_step(*a, **kw_):
+            return fn(*a, record=rec["drawn"], **kw_)
+        super_step.graphs = fn.graphs
+        rec["super_step"] = super_step
+        return super_step
 
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_device_ring_")
     try:
@@ -2396,7 +2638,7 @@ def device_replay_run(torch, card: str, cfg, need: int) -> tuple:
         HOST_TRANSFERS.reset()
         torch.cuda.reset_peak_memory_stats()
         train._build = capture
-        step_mod._in_graph_sample = drawing
+        learner_mod.make_in_graph_per_super_step_fn = recording_ig
         t0 = time.perf_counter()
         try:
             with warnings.catch_warnings(record=True) as caught:
@@ -2406,7 +2648,7 @@ def device_replay_run(torch, card: str, cfg, need: int) -> tuple:
                                 verbose=False)
         finally:
             train._build = real_build
-            step_mod._in_graph_sample = real_sample
+            learner_mod.make_in_graph_per_super_step_fn = real_ig
         run_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
@@ -2511,44 +2753,58 @@ def device_replay_run(torch, card: str, cfg, need: int) -> tuple:
               f"{issue[0]:.2f}{hold}; ring {ring.nbytes() / 1e9:.2f} GB,"
               f" peak allocated {peak / 1e9:.2f} GB", flush=True)
 
-        # one super-step profiled, the fabric stopped
+        # the run's learner replayed its captured graphs: one capture of
+        # the inner step (no diagnostics in this config)
+        name = ("learner.in_graph_per_super_step" if in_graph
+                else "learner.super_step")
+        run_traces = (rec["super_step"].graphs.captures if in_graph
+                      else RETRACES.counts().get(name))
+        if run_traces != 1:
+            fail(f"{mode}: {name} captured {run_traces} times in the run")
+
+        # a lone super-step, the fabric stopped: graphed (as the run's
+        # learner) against the same super-step issued eagerly
+        eager_step = step_mod.make_train_step(cfg, learner.net)
         if in_graph:
-            fn = step_mod.make_in_graph_per_super_step_fn(
-                cfg, learner.net, k)
+            fns = [step_mod.make_in_graph_per_super_step_fn(
+                cfg, learner.net, k, train_step=ts, guard=RetraceGuard())
+                for ts in (None, eager_step)]
             gen = torch.Generator(device=learner.device).manual_seed(1)
             per = ring.per_meta()
 
-            def one_super():
+            def one_super(fn):
                 fn(learner.state, ring.snapshot(), ring.take_prios(),
                    per["seq_meta"], per["first"], generator=gen)
         else:
-            fn = step_mod.make_super_step_fn(cfg, learner.net, k)
+            fns = [step_mod.SuperStep(cfg, learner.net, k, train_step=ts,
+                                      guard=RetraceGuard())
+                   for ts in (None, eager_step)]
 
-            def one_super():
+            def one_super(fn):
                 meta = buffer.sample_meta(k)
                 fn(learner.state, ring.snapshot(),
                    to_device(meta["ints"], learner.device),
                    to_device(meta["is_weights"], learner.device))
-        events = profile_events(torch, one_super, 1)
-        wall = wall_ms(torch, one_super, 1)
-        # the issue alone (no synchronisation inside): its wall clock and
-        # the CPU time of the issuing thread
+        events = profile_events(torch, lambda: one_super(fns[0]), 1)
+        if events is None:
+            fail(f"{mode}: no device time in a graphed super-step")
+        if any("lstm_step" in name for name, _, _ in events):
+            fail(f"{mode}: a super-step launched an lstm_infer kernel")
+        g, e = graph_vs_eager(torch, lambda: one_super(fns[0]),
+                              lambda: one_super(fns[1]), iters=1)
+        # the graphed issue alone: its wall clock and the CPU time of the
+        # issuing thread
         t0, c0 = time.perf_counter(), time.thread_time()
-        one_super()
+        one_super(fns[0])
         issue_ms = (time.perf_counter() - t0) * 1e3
         issue_cpu_ms = (time.thread_time() - c0) * 1e3
         torch.cuda.synchronize()
-        if events is None:
-            fail(f"{mode}: no device time in a super-step")
-        if any("lstm_step" in name for name, _, _ in events):
-            fail(f"{mode}: a super-step launched an lstm_infer kernel")
-        dev_ms = sum(ms for _, ms, _ in events)
-        print(f"super-step ({mode}, k={k}, 1 profiled) on {card}: host "
-              f"wall {wall:.2f} ms (its issue {issue_ms:.2f} ms, of which "
-              f"{issue_cpu_ms:.2f} ms on the CPU), device {dev_ms:.3f} ms "
-              f"in {sum(n for _, _, n in events):.0f} device events, "
-              f"device idle {1 - dev_ms / wall:.1%}; no lstm_infer "
-              "kernel; top 5 device ops (ms per super-step, count): "
+        wall = g["wall"]
+        print(f"super-step ({mode}, k={k}, one alone) on {card}: "
+              + fmt_graph(g, e) + "; the graphed issue "
+              f"{issue_ms:.2f} ms, {issue_cpu_ms:.2f} ms of it on the CPU; "
+              "no lstm_infer kernel; top 5 device ops of the graph (ms per "
+              "super-step, count): "
               + "; ".join(f"{short_kernel_name(n)} {ms:.3f} ({c:.0f})"
                           for n, ms, c in events[:5]), flush=True)
         (l0, p0), (l1, p1) = d[0][4], d[-1][4]
@@ -2563,6 +2819,8 @@ def device_replay_run(torch, card: str, cfg, need: int) -> tuple:
               f"{(p1 - p0) / span:.2f}", flush=True)
         return launches, dict(
             issue_ms=issue_ms, issue_cpu_ms=issue_cpu_ms,
+            eager_super_ms=e["wall"], device_ms=g["device"],
+            eager_device_ms=e["device"],
             issue_p50=float(np.percentile(issue, 50)),
             issue_cpu_p50=float(np.percentile(issue_cpu, 50)),
             interval_p50=float(np.percentile(gaps, 50)),
@@ -5879,6 +6137,47 @@ def lh_fabric(torch, card: str, device: str = "cuda", base=None) -> dict:
                 armed_ms=a_ms, disarmed_ms=d_ms)
 
 
+def fleet_states(rec: dict):
+    """Each fleet's env steps (its stats slab) and blocks ingested, and
+    the service's served batches, now; None before the plane exists."""
+    plane = rec.get("plane")
+    if plane is None:
+        return None
+    rows = plane.poll_fleet_stats()["per_fleet"]
+    return dict(env_steps=[int(r["env_steps"]) for r in rows],
+                blocks=list(plane.blocks_per_fleet),
+                batches=(plane.service.batches
+                         if plane.service is not None else None))
+
+
+def fmt_fleet_states(before, after) -> str:
+    """A fleet stepping its envs in the window was acting; one that took
+    no env step and sent no block was waiting (on its act replies, or on
+    replay to take its blocks)."""
+    if before is None or after is None:
+        return f"not read ({before}, {after})"
+    parts = []
+    for f, (e0, e1, b0, b1) in enumerate(zip(
+            before["env_steps"], after["env_steps"], before["blocks"],
+            after["blocks"])):
+        parts.append(f"fleet {f} env steps {e0} -> {e1}, blocks {b0} -> "
+                     f"{b1}: {'acting' if e1 > e0 else 'waiting'}")
+    return "; ".join(parts) + (f"; service batches {before['batches']} -> "
+                               f"{after['batches']}")
+
+
+def heaviest_kernels(events: list, n: int = 8) -> list:
+    """The device kernels of a Chrome trace with the most time: (name, ms,
+    count), longest first."""
+    by = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "dur" in e:
+            ms, c = by.get(e["name"], (0.0, 0))
+            by[e["name"]] = (ms + e["dur"] / 1e3, c + 1)
+    return sorted(((k, ms, c) for k, (ms, c) in by.items()),
+                  key=lambda x: -x[1])[:n]
+
+
 def capture_run(torch, card: str, device: str = "cuda", base=None) -> dict:
     """(c): the flagship over two shm replay shards with two fleets in
     serve mode; a capture armed through ``GET /tracez?steps=`` and a
@@ -5947,6 +6246,7 @@ def capture_run(torch, card: str, device: str = "cuda", base=None) -> dict:
                     break
             for attempt in range(2):
                 t0 = time.perf_counter()
+                rec["fleets_before"] = fleet_states(rec)
                 rec["profile_arm"] = http_get(
                     port, f"/profilez?secs={PROFILE_SECS}")
                 rec["profile_busy"] = http_get(
@@ -5956,6 +6256,7 @@ def capture_run(torch, card: str, device: str = "cuda", base=None) -> dict:
                     if not status["armed"] and status["last"]:
                         rec["profile"] = status["last"]
                         rec["profile_s"] = time.perf_counter() - t0
+                        rec["fleets_after"] = fleet_states(rec)
                         break
                     time.sleep(0.1)
                 if "path" in rec.get("profile", {}):
@@ -5988,11 +6289,13 @@ def capture_run(torch, card: str, device: str = "cuda", base=None) -> dict:
             fail(f"/tracez answered {rec['arm']} then {rec['busy']}")
         tr = trace_summary(rec["trace"]["path"])
         prof = rec.get("profile", {})
-        kernels = 0
+        kernels, heaviest = 0, []
         if "path" in prof:
             with open(prof["path"]) as f:
-                kernels = sum(1 for e in json.load(f).get("traceEvents", [])
-                              if WGMMA_KERNEL in str(e.get("name", "")))
+                events = json.load(f).get("traceEvents", [])
+            kernels = sum(1 for e in events
+                          if WGMMA_KERNEL in str(e.get("name", "")))
+            heaviest = heaviest_kernels(events)
     finally:
         train._build = real_build
         shutil.rmtree(ckdir, ignore_errors=True)
@@ -6012,6 +6315,16 @@ def capture_run(torch, card: str, device: str = "cuda", base=None) -> dict:
     if not procs or any(p["device"] for p in procs):
         fail(f"a fleet or shard child holds the card: {procs} "
              f"{rec.get('procs_error')}")
+    if "path" in prof and not kernels:
+        # ROADMAP C 21: name what the window held before failing on it
+        print(f"/profilez window without {WGMMA_KERNEL}: its heaviest "
+              "device kernels (ms, count): " + "; ".join(
+                  f"{short_kernel_name(n, 60)} {ms:.3f} ({c})"
+                  for n, ms, c in heaviest) + "; the fleets (env steps "
+              "and blocks ingested before -> after the window, and what "
+              "that makes them): " + fmt_fleet_states(
+                  rec.get("fleets_before"), rec.get("fleets_after")),
+              flush=True)
     if (rec["profile_arm"][0] != 200 or rec["profile_busy"][0] != 409
             or "path" not in prof or not kernels):
         fail(f"/profilez: {rec['profile_arm']} then {rec['profile_busy']}, "
@@ -6219,13 +6532,16 @@ def ig_and_mesh_diag(torch, card: str, device: str = "cuda", pong=None,
         ring.take_prios(), meta["seq_meta"], meta["first"], generator=gen)
     d = diags.float().cpu().numpy()
     want = (np.arange(1, k + 1) % 2) == 0
+    captures = fn.graphs.captures if device == "cuda" else 2
     if (d.shape != (k, DIAG_SIZE) or not np.array_equal(d[:, 0] == 1, want)
-            or np.any(d[~want] != 0) or not np.isfinite(d).all()):
+            or np.any(d[~want] != 0) or not np.isfinite(d).all()
+            or captures != 2):
         fail(f"in-graph super-step diag rows {d.shape}: armed "
-             f"{d[:, 0].tolist()}")
+             f"{d[:, 0].tolist()}, {captures} captures")
     print(f"in-graph super-step on {card} (Pong widths, k = {k}, "
           f"{CHECK_RING_BLOCKS}-block ring at the full slot shapes, "
-          f"learnhealth_interval 2): diag rows {d.shape}, armed "
+          f"learnhealth_interval 2): diag rows {d.shape} from the armed and "
+          f"the disarmed CUDA graphs ({captures} captures), armed "
           f"{d[:, 0].tolist()}, dq_mean {d[want, 8].tolist()}", flush=True)
     del ring, buf
 
@@ -6470,9 +6786,12 @@ def edges_train(torch, card: str, ckdir: str, hosts: str) -> dict:
 
 
 def edges_load(torch, card: str) -> dict:
-    """15(d): the session load generator's ``main`` in this process, both
-    cells, both session chaos sites armed; the live server polled for its
-    health and completions, the straggler's freezes stamped."""
+    """15(d): the session load generator's ``main`` in this process, its
+    three cells (the reference's ``float32`` and ``bfloat16`` params, both
+    computed in bf16 on ``lstm_step_wgmma``, and ``float32_compute`` on
+    ``lstm_step_f32``), both session chaos sites armed; the live server
+    polled for its health and completions, the straggler's freezes
+    stamped.  Returns each cell's launches."""
     import contextlib
     import io
 
@@ -6529,16 +6848,19 @@ def edges_load(torch, card: str) -> dict:
     run_s = time.perf_counter() - t0
     lines = [json.loads(ln) for ln in out.getvalue().splitlines()
              if ln.startswith("{")]
-    if rc != 0 or len(lines) != 3:
+    if rc != 0 or len(lines) != len(slg.CELLS) + 1:
         fail(f"15(d): load generator rc {rc}, lines {out.getvalue()[-3000:]}")
-    counters = {"float32": lstm.CUDACORE_COUNTER, "bfloat16": lstm.KERNEL}
+    # the cell's route: the compute dtype picks the kernel
+    counters = {"bfloat16": lstm.KERNEL, "float32": lstm.CUDACORE_COUNTER}
+    kernels = {"bfloat16": WGMMA_KERNEL, "float32": CUDACORE_KERNEL}
     launches = {}
-    for i, c in enumerate(lines[:2]):
-        dt, cl, srv = c["serve_dtype"], c["client"], c["server"]
+    for i, c in enumerate(lines[:-1]):
+        dt, cl, srv = c["cell"], c["client"], c["server"]
+        counter = counters[c["compute_dtype"]]
         mine = [p for p in polls if p[0] == i]
         worst = sorted({p[3] for p in mine})
-        want = {counters[dt]: c["lstm_layers"] * (srv["batches"]
-                                                  + c["warmup_batches"])}
+        want = {counter: c["lstm_layers"] * (srv["batches"]
+                                             + c["warmup_batches"])}
         during = []
         for _, t, dur in (f for f in freezes if f[0] == i):
             inside = [p[2] for p in mine if t <= p[1] <= t + dur]
@@ -6560,8 +6882,9 @@ def edges_load(torch, card: str) -> dict:
             fail(f"15(d) {dt}: launches {c['kernel_launches']}, want {want}"
                  f" (layers x ({srv['batches']} batches + "
                  f"{c['warmup_batches']} warm-up))")
-        launches[dt] = want[counters[dt]]
-        print(f"15(d) load generator, {dt} cell on {card}: {cl['acts']} "
+        launches[dt] = want[counter]
+        print(f"15(d) load generator, {dt} cell (params {c['serve_dtype']},"
+              f" compute {c['compute_dtype']}) on {card}: {cl['acts']} "
               f"acts, {cl['acts_per_sec']} acts/s, {cl['sessions_per_sec']}"
               f" sessions/s; client act p50 {cl.get('act_p50_ms')} ms, p95 "
               f"{cl.get('act_p95_ms')} ms, p99 {cl.get('act_p99_ms')} ms; "
@@ -6572,9 +6895,8 @@ def edges_load(torch, card: str) -> dict:
               f"abandoning {cl['abandoned']}, slows {cl['slow']} with "
               f"{during} completions inside the freezes; health seen "
               f"{worst}; launches {c['kernel_launches']} on "
-              f"{CUDACORE_KERNEL if dt == 'float32' else WGMMA_KERNEL}",
-              flush=True)
-    print(f"15(d) took {run_s:.1f} s: {lines[2]}", flush=True)
+              f"{kernels[c['compute_dtype']]}", flush=True)
+    print(f"15(d) took {run_s:.1f} s: {lines[-1]}", flush=True)
     return launches
 
 
@@ -6786,8 +7108,12 @@ def phase_edges(torch, card: str) -> dict:
     print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s on {card}: "
           f"the command-line train's update interval p50 "
           f"{run['interval_p50']:.2f} ms over socket shards", flush=True)
-    return dict(cli_train=run["launches"], load_f32=load["float32"],
-                load_bf16=load["bfloat16"], bench=bench_line)
+    # by route: the f32-compute cell on lstm_step_f32, the reference's
+    # two cells (bf16 compute) on lstm_step_wgmma
+    return dict(cli_train=run["launches"],
+                load_f32=load["float32_compute"],
+                load_bf16=load["float32"] + load["bfloat16"],
+                load_cells=load, bench=bench_line)
 
 
 def lint_checkout(card: str) -> dict:
@@ -7069,6 +7395,8 @@ def main() -> None:
         t = time.perf_counter()
         out = fn(*args)
         spent[label] = round(time.perf_counter() - t, 1)
+        if int(label) >= 5:
+            retraces_line(label)
         return out
 
     # phase 3: every design against its plain version, and the timings

@@ -42,7 +42,7 @@ from r2d2_tpu_torch.models.network import R2D2Network
 from r2d2_tpu_torch.replay.block import Block, VectorLocalBuffer
 from r2d2_tpu_torch.telemetry.tracing import EVENTS
 from r2d2_tpu_torch.utils.store import ParamStore
-from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS
+from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, RETRACES
 
 ActFn = Callable[..., tuple]
 # HOST_TRANSFERS name of the actors' acts (one per lockstep forward)
@@ -110,13 +110,22 @@ def _resolve_act_device(spec: str, device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def make_act_fn(net: R2D2Network) -> ActFn:
+def make_act_fn(net: R2D2Network, *, retrace_name: str = "actor.act",
+                retrace_budget: Optional[int] = None) -> ActFn:
     """Batched single-step inference:
     ``act(params, obs (B,*obs) u8, last_action (B,A) f32, last_reward (B,)
     f32, hidden (B,2,layers,H) f32) -> (q (B,A) f32, new hidden)``, all
     tensors on ``net``'s device.  ``params`` is a state dict of ``net``
     (what :meth:`ContinuousBatcher.publish` holds), so a new snapshot is a
-    new dict, never an in-place write under a running batch."""
+    new dict, never an in-place write under a running batch.
+
+    Retrace-guarded (utils/trace.py) as ``retrace_name`` with
+    ``retrace_budget`` (default: one fixed lane batch, budget 2), as JAX's
+    ``make_act_fn``: a new input signature counts a trace, so shape or
+    dtype drift in the hot loop shows.  The session tier's batcher
+    registers as ``serving.act`` with a bucket-count budget.  The act runs
+    eagerly; its CUDA graph per bucket is ROADMAP.md A's fourth host-bound
+    cut."""
 
     def act(params: Mapping[str, torch.Tensor], obs, last_action,
             last_reward, hidden):
@@ -124,16 +133,17 @@ def make_act_fn(net: R2D2Network) -> ActFn:
             return functional_call(net, params,
                                    (obs, last_action, last_reward, hidden))
 
-    return act
+    return RETRACES.wrap(retrace_name, act, budget=retrace_budget)
 
 
-def make_host_act_fn(net: R2D2Network, name: str = ACTOR_ACT) -> ActFn:
+def make_host_act_fn(net: R2D2Network, name: str = ACTOR_ACT, *,
+                     retrace_name: str = "actor.act") -> ActFn:
     """:func:`make_act_fn` for callers that hold numpy arrays (the vector
     actor, the evaluator): the four inputs go to ``net``'s device, and
     ``(q, new hidden)`` come back as numpy in ONE device→host copy, counted
     under ``HOST_TRANSFERS[name]`` (one per act, so a run can count its
     acts).  ``params`` must already be on that device."""
-    act = make_act_fn(net)
+    act = make_act_fn(net, retrace_name=retrace_name)
     device = next(net.parameters()).device
 
     def act_host(params, obs, last_action, last_reward, hidden):

@@ -181,7 +181,7 @@ def _sidecar_main(cfg: Config, checkpoint_dir: str, action_dim: int,
     # one CPU act twin for every member (the arch fields are population-
     # invariant): float32, the plain recurrence, the fleets' twin
     net = create_network(fleet_act_config(cfg), action_dim, device="cpu")
-    act_fn = make_host_act_fn(net, LEAGUE_ACT)
+    act_fn = make_host_act_fn(net, LEAGUE_ACT, retrace_name="league.act")
     path = league_path(checkpoint_dir)
     # the checkpoint cursor IS the league file: a respawn re-reads it and
     # never re-scores a (step, member) pair its predecessor committed

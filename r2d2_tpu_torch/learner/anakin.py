@@ -131,7 +131,12 @@ from r2d2_tpu_torch.replay.device_ring import gather_batch
 from r2d2_tpu_torch.utils.math import epsilon_ladder
 from r2d2_tpu_torch.utils.resilience import Deadline
 from r2d2_tpu_torch.telemetry.learnhealth import DIAG_SIZE, diag_enabled
-from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, TRANSFER_GUARD, Tracer
+from r2d2_tpu_torch.utils.trace import (
+    HOST_TRANSFERS,
+    RETRACES,
+    TRANSFER_GUARD,
+    Tracer,
+)
 
 log = logging.getLogger(__name__)
 
@@ -897,7 +902,9 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
         return (train_state, ast, arrays, prios, seq_meta, first,
                 torch.cat(parts))
 
-    return super_step
+    # retrace-guarded (utils/trace.py) by input signature: it runs
+    # eagerly, and its CUDA graph is ROADMAP.md A's second host-bound cut
+    return RETRACES.wrap("learner.anakin_super_step", super_step)
 
 
 def acting_params(params: Dict[str, torch.Tensor]
@@ -951,7 +958,7 @@ def make_anakin_rollout(cfg: Config, net: R2D2Network, env: Any,
         ast = _sum_lane_deltas(ast, cross, replicated)
         return ast, arrays, prios, seq_meta, first, _stats_vec(ast)
 
-    return rollout
+    return RETRACES.wrap("learner.anakin_rollout", rollout)
 
 
 def make_debug_rollout(cfg: Config, net: R2D2Network, env: Any,

@@ -1,0 +1,210 @@
+"""CUDA-graph captures of the learner's steps (ROADMAP.md A item 10).
+
+JAX compiles each learner entry point into one program and dispatches it
+in microseconds; the port issues the same step from Python, op by op, and
+on a card the host's issue is the time (PERF.md §5).  The counterpart of
+JAX's compiled program is a captured CUDA graph: the step's kernels
+recorded once against tensors at fixed addresses, then replayed with one
+launch.  :class:`StepGraphs` holds the graphs of one entry point and
+counts each capture as one trace of it in the retrace guard
+(utils/trace.py): ``learner.train_step`` (:func:`make_learner_step`),
+``learner.super_step`` and ``learner.in_graph_per_super_step``
+(learner/step.py).
+
+A graph runs one train step (with the super-steps' gather, or their
+sample, gather and priority scatter) and reads:
+
+- the train state, written in place: params, target params, Adam's
+  moments and the two device counters (learner/step.py);
+- ``fixed`` tensors it only reads (the replay ring, the PER metadata) and
+  ``scratch`` tensors it writes in place (the PER leaves);
+- ``inputs``, copied into the graph's own input tensors before each
+  replay (a staged batch, a super-step's index row and weights, a row of
+  uniforms).
+
+Every tensor of the first three must stay at its address for the graph's
+lifetime: a graph is keyed by those addresses, so a state or ring that
+moved is captured anew and counted, and the guard's budget catches it.
+The learnhealth arming is a host decision (the step's host mirror knows
+each step's number): an armed and a disarmed step are two graphs of the
+entry, within its budget of 2, so the diagnostic rows come out as JAX's
+``lax.cond`` gives them.
+
+A capture warms the step up once on copies of the state and scratch (the
+step writes them in place; the warm-up makes the library handles and
+workspaces of the side stream), then records it on that side stream in
+``thread_local`` mode, so the acting threads keep launching their kernels
+and copies meanwhile; both run under ``TRANSFER_GUARD.allow()``, as JAX
+arms its guard after the first compile.  A replay runs on the caller's
+stream and returns copies of the graph's outputs, which the next replay
+overwrites.  A capture and a launch hold ``utils/trace.PROFILER_LOCK``,
+which ``device_profile`` holds to start and stop ``torch.profiler``: on
+the card a profiler stopped on one thread while another launched a graph
+hung both.  A capture that fails raises: nothing runs the step eagerly on
+a card in its place.  Off a card (and for an entry that is not captured:
+the meshed steps) the step runs eagerly, and a trace is the first call
+with a new input signature, what ``jax.jit`` retraces on.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from r2d2_tpu_torch.utils.trace import (
+    PROFILER_LOCK,
+    RETRACES,
+    TRANSFER_GUARD,
+    signature,
+)
+
+# body(state, fixed, scratch, inputs) -> the step's output tensors
+Body = Callable[[Any, Any, Sequence[Any], Dict[str, torch.Tensor]],
+                Tuple[torch.Tensor, ...]]
+
+
+def _state_tensors(state) -> list:
+    opt = state.opt_state
+    return ([state.step_t, opt.count_t] + list(state.params.values())
+            + list(state.target_params.values()) + list(opt.mu.values())
+            + list(opt.nu.values()))
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+def _clone_state(state):
+    """A state of copies of ``state``'s tensors (the warm-up's)."""
+    def c(d):
+        return {k: v.clone() for k, v in d.items()}
+
+    opt = state.opt_state
+    return dataclasses.replace(
+        state, params=c(state.params), target_params=c(state.target_params),
+        step_t=state.step_t.clone(),
+        opt_state=dataclasses.replace(opt, mu=c(opt.mu), nu=c(opt.nu),
+                                      count_t=opt.count_t.clone()))
+
+
+def _mirror_copy(state):
+    """``state``'s tensors under host mirrors of their own: the step a
+    capture records advances these, not the caller's."""
+    return dataclasses.replace(
+        state, opt_state=dataclasses.replace(state.opt_state))
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: Any
+    inputs: Dict[str, torch.Tensor]
+    outputs: Tuple[torch.Tensor, ...]
+
+
+class StepGraphs:
+    """The programs of one learner entry point: CUDA graphs of one train
+    step on a card, keyed by the learnhealth arming and the addresses and
+    shapes of what they read; the eager step elsewhere, or when
+    ``capture`` is False.  ``guard`` (default :data:`RETRACES`) counts
+    each capture, or each new eager signature, under ``name``."""
+
+    def __init__(self, name: str, capture: bool = True, guard=None):
+        self.entry = (guard or RETRACES).register(name)
+        self.capture = capture
+        self._seen: set = set()
+        self._graphs: Dict[Any, _Graph] = {}
+        self._pool = None
+        self._stream = None
+
+    @property
+    def captures(self) -> int:
+        return len(self._graphs)
+
+    def run(self, body: Body, state, fixed=(), scratch: Sequence = (),
+            inputs: Optional[Dict[str, torch.Tensor]] = None,
+            armed: bool = False) -> Tuple[torch.Tensor, ...]:
+        """One step: ``body(state, fixed, scratch, inputs)``'s outputs,
+        from a replay of its graph on a card, else from the eager call.
+        Either way the step's host mirrors advance by one."""
+        from r2d2_tpu_torch.learner.step import place_counters
+
+        inputs = inputs or {}
+        device = next(iter(state.params.values())).device
+        place_counters(state, device)
+        if not (self.capture and device.type == "cuda"):
+            key = (armed, signature((state, fixed, scratch, inputs)))
+            if key not in self._seen:
+                self._seen.add(key)
+                self.entry.traces += 1
+            return tuple(body(state, fixed, scratch, inputs))
+        key = (armed,
+               tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in
+                     _state_tensors(state) + _leaves(fixed)
+                     + _leaves(scratch)),
+               tuple((k, tuple(v.shape), v.dtype)
+                     for k, v in inputs.items()))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._capture(body, state, fixed,
+                                                  scratch, inputs)
+        for k, v in inputs.items():
+            g.inputs[k].copy_(v)
+        with PROFILER_LOCK:
+            g.graph.replay()
+        state.step += 1
+        state.opt_state.count += 1
+        return tuple(o.clone() for o in g.outputs)
+
+    def _capture(self, body: Body, state, fixed, scratch, inputs) -> _Graph:
+        with TRANSFER_GUARD.allow():
+            if self._stream is None:
+                self._stream = torch.cuda.Stream()
+            side = self._stream
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                body(_clone_state(state), fixed,
+                     [None if t is None else t.clone() for t in scratch],
+                     {k: v.clone() for k, v in inputs.items()})
+            torch.cuda.current_stream().wait_stream(side)
+            static = {k: torch.empty_like(v) for k, v in inputs.items()}
+            graph = torch.cuda.CUDAGraph()
+            with PROFILER_LOCK, torch.cuda.graph(
+                    graph, pool=self._pool, stream=side,
+                    capture_error_mode="thread_local"):
+                outputs = tuple(body(_mirror_copy(state), fixed, scratch,
+                                     static))
+            if self._pool is None:
+                self._pool = graph.pool()
+            self.entry.traces += 1
+        return _Graph(graph, static, outputs)
+
+
+def make_learner_step(cfg, net, learnhealth: bool = False, guard=None):
+    """The learner's train step, ``learner.train_step``: the plain step
+    (:func:`~r2d2_tpu_torch.learner.step.make_train_step`, same signature
+    and results) replayed as a CUDA graph on a card, with the staged batch
+    copied into the graph's inputs; eager elsewhere.  ``graphs`` is its
+    :class:`StepGraphs`."""
+    from r2d2_tpu_torch.learner.step import make_train_step
+
+    step = make_train_step(cfg, net, learnhealth=learnhealth)
+    interval = (cfg.learnhealth_interval
+                if learnhealth and cfg.learnhealth_interval > 0 else 0)
+    graphs = StepGraphs("learner.train_step", guard=guard)
+
+    def body(state, fixed, scratch, batch):
+        return step(state, batch)[1:]
+
+    def train_step(state, batch):
+        armed = interval > 0 and (state.step + 1) % interval == 0
+        return (state,) + graphs.run(body, state, inputs=batch, armed=armed)
+
+    train_step.graphs = graphs
+    return train_step

@@ -35,6 +35,9 @@ only drives data and cadences.
   on the host.
 - Weight publication is a versioned snapshot (ParamStore): a detached
   clone, because the step updates the parameters in place.
+- On a card the meshless steps replay as CUDA graphs (learner/graphs.py):
+  the train step, and each inner step of both super-steps.  The state is
+  placed once, here, and never rebound: a graph reads it at its address.
 """
 from __future__ import annotations
 
@@ -50,11 +53,12 @@ import torch
 
 from r2d2_tpu_torch.checkpoint import Checkpointer, arch_meta
 from r2d2_tpu_torch.config import Config
+from r2d2_tpu_torch.learner.graphs import make_learner_step
 from r2d2_tpu_torch.learner.step import (
     TrainState,
     make_in_graph_per_super_step_fn,
     make_super_step_fn,
-    make_train_step,
+    place_counters,
 )
 from r2d2_tpu_torch.models.network import R2D2Network
 from r2d2_tpu_torch.replay.device_ring import to_device
@@ -126,7 +130,7 @@ def global_is_weights(q: np.ndarray, beta: float,
 
 def place_state(state: TrainState, device: torch.device) -> TrainState:
     """``state`` with every tensor on ``device`` (no copy where it is
-    already there)."""
+    already there), its device counters included."""
     def on(d):
         return {k: v.to(device) for k, v in d.items()}
 
@@ -134,7 +138,7 @@ def place_state(state: TrainState, device: torch.device) -> TrainState:
     state.target_params = on(state.target_params)
     state.opt_state.mu = on(state.opt_state.mu)
     state.opt_state.nu = on(state.opt_state.nu)
-    return state
+    return place_counters(state, device)
 
 
 class _Result:
@@ -200,7 +204,7 @@ class Learner:
             self.span = dp_group(mesh)
         state = place_state(state, self.device)
         if mesh is None:
-            self._step_fn = make_train_step(cfg, net, learnhealth=self._lh)
+            self._step_fn = make_learner_step(cfg, net, learnhealth=self._lh)
         else:
             from r2d2_tpu_torch.parallel.sharding import (
                 ShardingTable,
@@ -536,9 +540,12 @@ class Learner:
 
         The k gathers are enqueued under the buffer lock, as
         ``sample_meta``'s ``dispatch`` callback, so they read the ring
-        before any later write lands (device_ring's contract); the k steps
-        are issued after the lock is released, since they read only the
-        gathered batches."""
+        before any later write lands (device_ring's contract).  Meshless,
+        the whole super-step is issued there: on a card k graph replays
+        (learner/graphs.py), each gathering its batch and stepping on it.
+        Under a mesh the k steps are issued after the lock is released and
+        the group's broadcast, since they read only the gathered
+        batches."""
         cfg = self.cfg
         tracer = tracer or self.tracer
         k = cfg.superstep_k
@@ -634,7 +641,11 @@ class Learner:
                                          ints.nbytes + weights.nbytes)
                     d_ints = to_device(ints, self.device)
                     d_w = to_device(weights, self.device)
-                return super_step.gather(ring.snapshot(), d_ints, d_w)
+                if multihost:
+                    return super_step.gather(ring.snapshot(), d_ints, d_w)
+                with tracer.span("learner.step_dispatch"):
+                    return super_step(self.state, ring.snapshot(), d_ints,
+                                      d_w)
 
         def sample():
             with TRANSFER_GUARD.disallow("learner.dispatch"):
@@ -647,17 +658,19 @@ class Learner:
 
                     sync_min_array(np.full(k, np.inf), tag="min_density")
                     meta = dict(env_steps=self.env_steps)
-                    batches = share(None)
+                    out = share(None)
                 else:
                     with tracer.span("learner.sample_meta"):
                         meta = buffer.sample_meta(k, batch_size=B,
                                                   dispatch=dispatch,
                                                   raw_densities=multihost)
-                    batches = meta.pop("dispatched")
+                    # meshless: the super-step's results; else the batches
+                    out = meta.pop("dispatched")
                     if multihost:
-                        batches = share(batches)
-                with tracer.span("learner.step_dispatch"):
-                    out = super_step.run(self.state, batches)
+                        out = share(out)
+                if multihost:
+                    with tracer.span("learner.step_dispatch"):
+                        out = super_step.run(self.state, out)
             # the diag rows ride with the losses (prepare)
             meta["dispatched"] = ((out[0], (out[1], out[3]), out[2])
                                   if self._lh else out)
@@ -731,9 +744,11 @@ class Learner:
         ``learner.dispatch_lock`` span): step j+1 samples from priorities
         step j scattered, so an actor's ``commit_per`` enqueued between
         them could be overwritten by a stale scatter.  JAX issues the
-        super-step as one asynchronous dispatch, in microseconds; here
-        the host issues each inner step's kernels, and the hold is that
-        long (capturing the super-step in a CUDA graph would shrink it).
+        super-step as one asynchronous dispatch, in microseconds; on a
+        card the port replays one CUDA graph an inner step
+        (learner/graphs.py), and the hold is those k replays; the first
+        dispatch also captures them.  Under a mesh the host issues each
+        inner step's kernels, and the hold is that long.
 
         Under a mesh, at every world size, the ring is this rank's slab
         and the draw is global (parallel/cross_rank.py): every rank draws
@@ -765,8 +780,8 @@ class Learner:
                               span=self.span)
         super_step = make_in_graph_per_super_step_fn(
             cfg, self.net, k, train_step=(
-                None if self.mesh is None else self._step_fn), cross=cross,
-            learnhealth=self._lh)
+                None if self.mesh is None else self._step_fn.__wrapped__),
+            cross=cross, learnhealth=self._lh)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(cfg.seed)
         losses_hist: deque = deque(maxlen=100)

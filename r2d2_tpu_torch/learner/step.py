@@ -16,7 +16,9 @@ max/mean computed on the device.
 The optimizer is written by hand with optax's arithmetic: the global-norm
 clip scales by ``max_norm / norm`` with no ``+1e-6`` (unlike
 ``torch.nn.utils.clip_grad_norm_``), and Adam has ``eps`` outside the
-square root, ``eps_root = 0`` and bias correction on both moments.  The
+square root, ``eps_root = 0`` and bias correction on both moments,
+computed in float32 on the device from its int32 count and cast to each
+moment's dtype, as optax computes it.  The
 moments keep the params' dtype (optax's ``mu_dtype=None``), and every
 Python scalar meets a tensor rounded to that dtype first, as JAX's weak
 types are, so bf16 params (``cfg.param_dtype``) round where optax's do
@@ -24,10 +26,20 @@ types are, so bf16 params (``cfg.param_dtype``) round where optax's do
 step updates the state's tensors in place; a caller that hands parameters
 to another thread publishes a copy (``learner.Learner._publish``).
 
+The step counter and Adam's count live on the device (``TrainState.
+step_t``, ``AdamState.count_t``, int32 as JAX's), and the hard target sync
+is a ``torch.where`` on the device counter, as JAX's ``jnp.where(sync,
+...)``: the step reads no host state, so a CUDA graph can replay it
+(learner/graphs.py).  ``TrainState.step`` and ``AdamState.count`` are
+their host mirrors, advanced with them, for checkpoints, the learner's
+cadences and the tests.  A state is built from the mirrors alone (fresh,
+restored or converted) and gets its device counters from them when it is
+placed (:func:`place_counters`, at the latest at its first step).
+
 With ``learnhealth`` (and ``cfg.learnhealth_interval > 0``) the step also
 returns the ``(DIAG_SIZE,)`` diagnostic vector: armed when the new step
-count is a multiple of the interval — decided from the host step counter,
-so the predicate costs no sync — and zeros otherwise; the ΔQ zero-state
+count is a multiple of the interval — decided from the host mirror, so
+the predicate costs no sync — and zeros otherwise; the ΔQ zero-state
 re-unroll runs on armed steps only.
 
 The super-steps (:class:`SuperStep`, :func:`make_in_graph_per_super_step_fn`)
@@ -69,18 +81,37 @@ def inverse_value_rescale(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
 
 @dataclasses.dataclass
 class AdamState:
-    """optax ``ScaleByAdamState``: the step count and both moments."""
+    """optax ``ScaleByAdamState``: the step count and both moments.
+    ``count`` is the host mirror of the device count ``count_t``."""
     count: int
     mu: Params
     nu: Params
+    count_t: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
 class TrainState:
+    """``step`` is the host mirror of the device counter ``step_t``."""
     step: int
     params: Params
     target_params: Params
     opt_state: AdamState
+    step_t: Optional[torch.Tensor] = None
+
+
+def place_counters(state: TrainState, device: torch.device) -> TrainState:
+    """``state`` with its device counters on ``device``: made from the
+    host mirrors where missing, moved where elsewhere."""
+    opt = state.opt_state
+    if state.step_t is None:
+        state.step_t = torch.full((), state.step, dtype=torch.int32,
+                                  device=device)
+    if opt.count_t is None:
+        opt.count_t = torch.full((), opt.count, dtype=torch.int32,
+                                 device=device)
+    state.step_t = state.step_t.to(device)
+    opt.count_t = opt.count_t.to(device)
+    return state
 
 
 class Optimizer:
@@ -110,20 +141,25 @@ class Optimizer:
     @torch.no_grad()
     def update(self, grads: Params, state: AdamState,
                params: Params, updates: Optional[Params] = None) -> None:
-        """Clip ``grads`` by their global norm, advance ``state`` and
-        apply the Adam step to ``params``, all in place.  ``updates``, when
-        given, collects each parameter's step (optax's ``updates``: the
-        values added to the parameters)."""
-        b1, b2 = self.b1, self.b2
+        """Clip ``grads`` by their global norm, advance ``state`` (the
+        device count and its host mirror) and apply the Adam step to
+        ``params``, all in place.  ``updates``, when given, collects each
+        parameter's step (optax's ``updates``: the values added to the
+        parameters)."""
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
         keep = g_norm < self.max_norm
         state.count += 1
-        bias = (1.0 - b1 ** state.count, 1.0 - b2 ** state.count)
+        state.count_t.add_(1)
+        # optax's bias_correction: 1 - decay ** count in float32, cast to
+        # the moment's dtype
+        count = state.count_t.float()
+        bias = (1.0 - torch.pow(self.b1, count),
+                1.0 - torch.pow(self.b2, count))
         rounded = {}
         for k, g in grads.items():
             if g.dtype not in rounded:
                 rounded[g.dtype] = (self._constants(g.dtype)
-                                    + [_round_to(c, g.dtype) for c in bias])
+                                    + [c.to(g.dtype) for c in bias])
             max_norm, c1, b1_, c2, b2_, eps, neg_lr, bc1, bc2 = rounded[
                 g.dtype]
             g = torch.where(keep, g, (g / g_norm.to(g.dtype)) * max_norm)
@@ -290,9 +326,12 @@ def make_train_step(cfg: Config, net: R2D2Network,
                     learnhealth: bool = False):
     """Returns ``train_step(state, batch) -> (state, loss, priorities)``:
     loss and gradient through the scan network, the clip + Adam step in
-    place, the step counter, and the hard target sync when
-    ``step % target_net_update_interval == 0``.  ``loss`` (a 0-d tensor)
-    and ``priorities`` (B,) stay on the device; nothing waits for it.
+    place, the step counters, and the hard target sync where the device
+    counter ``step % target_net_update_interval == 0``.  ``loss`` (a 0-d
+    tensor) and ``priorities`` (B,) stay on the device; nothing waits for
+    it.  This is the plain step: the CPU, the mesh and the comparisons
+    call it, and a card's learner replays it as a CUDA graph
+    (learner/graphs.py).
 
     ``learnhealth`` (with ``cfg.learnhealth_interval > 0``) appends the
     diagnostic vector: ``-> (state, loss, priorities, diag (DIAG_SIZE,)
@@ -311,6 +350,7 @@ def make_train_step(cfg: Config, net: R2D2Network,
 
     def train_step(state: TrainState, batch: Batch):
         names = list(state.params)
+        place_counters(state, state.params[names[0]].device)
         params = {k: state.params[k].detach().requires_grad_(True)
                   for k in names}
         armed = lh and (state.step + 1) % cfg.learnhealth_interval == 0
@@ -327,10 +367,12 @@ def make_train_step(cfg: Config, net: R2D2Network,
             updates = {}
         opt.update(grads, state.opt_state, state.params, updates)
         state.step += 1
-        if state.step % cfg.target_net_update_interval == 0:
-            with torch.no_grad():
-                for k in names:
-                    state.target_params[k].copy_(state.params[k])
+        state.step_t.add_(1)
+        sync = (state.step_t % cfg.target_net_update_interval) == 0
+        with torch.no_grad():
+            for k in names:
+                state.target_params[k].copy_(torch.where(
+                    sync, state.params[k], state.target_params[k]))
         if not lh:
             return state, loss.detach(), priorities
         if armed:
@@ -347,30 +389,53 @@ def make_train_step(cfg: Config, net: R2D2Network,
 
 
 class SuperStep:
-    """``k`` train steps on ``k`` batches gathered from the device ring —
-    the port of ``make_super_step_fn``.  One small H2D (the (k, B, 6) index
-    bundle and its weights) and one small D2H (losses and priorities, in
-    the learner) serve k optimizer steps, and batch bytes never cross PCIe.
-    The inner step is exactly :func:`make_train_step`'s: the step counter
-    and the target sync advance per inner step, so a super-step equals k
-    plain steps.
+    """``k`` train steps on ``k`` batches gathered on the device from the
+    replay ring — the port of ``make_super_step_fn``, the retrace guard's
+    ``learner.super_step``.  One small H2D (the (k, B, 6) index bundle and
+    its weights) and one small D2H (losses and priorities, in the learner)
+    serve k optimizer steps, and batch bytes never cross PCIe.  The inner
+    step is exactly :func:`make_train_step`'s: the step counter and the
+    target sync advance per inner step, so a super-step equals k plain
+    steps.
 
     Callable as ``super_step(state, arrays, ints (k,B,6), is_weights (k,B))
     -> (state, losses (k,), priorities (k,B))``, plus ``diags (k,
     DIAG_SIZE)`` — each inner step's diagnostic vector, zeros off cadence
-    — under ``learnhealth``.  The learner calls the two halves apart:
-    :meth:`gather` enqueues the k gathers under the buffer lock (ordering
-    them before any later ring write), :meth:`run` the k steps after the
-    lock is released.  ``train_step`` replaces the plain step (the meshed
-    learner passes ``sharding.mesh_train_step``'s, built with the same
-    ``learnhealth``)."""
+    — under ``learnhealth``.  On a card each inner step (its gather and
+    its train step) is a replay of a CUDA graph (learner/graphs.py) that
+    reads the ring at its fixed address, with the step's index row and
+    weights copied in: issued under the buffer lock, the gathers stay
+    ordered before any later ring write.  ``train_step`` replaces the
+    plain step (the meshed learner passes ``sharding.mesh_train_step``'s,
+    built with the same ``learnhealth``): then nothing is captured, and
+    the learner calls the two halves apart — :meth:`gather` enqueues the
+    k gathers under the buffer lock, :meth:`run` the k steps after the
+    group's broadcast.  ``guard`` replaces the retrace guard."""
 
     def __init__(self, cfg: Config, net: R2D2Network, k: int,
-                 train_step=None, learnhealth: bool = False):
+                 train_step=None, learnhealth: bool = False, guard=None):
+        from r2d2_tpu_torch.learner.graphs import StepGraphs
+
         self.cfg, self.k = cfg, k
         self.lh = learnhealth and cfg.learnhealth_interval > 0
         self._step = train_step or make_train_step(cfg, net,
                                                    learnhealth=self.lh)
+        self.graphs = StepGraphs("learner.super_step",
+                                 capture=train_step is None, guard=guard)
+
+    def _armed(self, state: TrainState) -> bool:
+        return self.lh and (state.step + 1) % self.cfg.learnhealth_interval \
+            == 0
+
+    def _gather_step(self, state, arrays, scratch, row):
+        batch = gather_batch(self.cfg, arrays, row["ints"], row["w"])
+        return self._step(state, batch)[1:]
+
+    def _batch_step(self, state, fixed, scratch, batch):
+        return self._step(state, batch)[1:]
+
+    def _stack(self, state: TrainState, outs: list):
+        return (state,) + tuple(torch.stack(col) for col in zip(*outs))
 
     def gather(self, arrays, ints: torch.Tensor,
                is_weights: torch.Tensor) -> List[Batch]:
@@ -378,29 +443,24 @@ class SuperStep:
                 for j in range(self.k)]
 
     def run(self, state: TrainState, batches: List[Batch]):
-        losses, priorities, diags = [], [], []
-        for batch in batches:
-            out = self._step(state, batch)
-            state, loss, p = out[:3]
-            losses.append(loss)
-            priorities.append(p)
-            if self.lh:
-                diags.append(out[3])
-        if self.lh:
-            return (state, torch.stack(losses), torch.stack(priorities),
-                    torch.stack(diags))
-        return state, torch.stack(losses), torch.stack(priorities)
+        return self._stack(state, [
+            self.graphs.run(self._batch_step, state, inputs=batch,
+                            armed=self._armed(state)) for batch in batches])
 
     def __call__(self, state: TrainState, arrays, ints: torch.Tensor,
                  is_weights: torch.Tensor):
-        return self.run(state, self.gather(arrays, ints, is_weights))
+        return self._stack(state, [
+            self.graphs.run(self._gather_step, state, arrays,
+                            inputs=dict(ints=ints[j], w=is_weights[j]),
+                            armed=self._armed(state))
+            for j in range(self.k)])
 
 
 def make_super_step_fn(cfg: Config, net: R2D2Network, k: int,
-                       learnhealth: bool = False) -> SuperStep:
+                       learnhealth: bool = False, guard=None) -> SuperStep:
     """The host-sampled super-step (see :class:`SuperStep`), by the JAX
     package's name."""
-    return SuperStep(cfg, net, k, learnhealth=learnhealth)
+    return SuperStep(cfg, net, k, learnhealth=learnhealth, guard=guard)
 
 
 def _compensated_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -473,10 +533,11 @@ def scatter_last(leaves: torch.Tensor, idx: torch.Tensor,
 
 def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
                                     train_step=None, cross=None,
-                                    learnhealth: bool = False):
+                                    learnhealth: bool = False, guard=None):
     """``k`` steps with device-side PER: sample → gather → step → priority
     scatter, k times, with no host round trip.  Step j+1 samples from the
-    priorities step j scattered.
+    priorities step j scattered.  The retrace guard's (``guard``'s)
+    ``learner.in_graph_per_super_step``.
 
     Signature: ``super_step(state, arrays, prios (NB*K,) f32, seq_meta
     (NB,K,3) i32, first_burn (NB,) i32, generator=None, uniforms=None) ->
@@ -485,10 +546,14 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
     last write wins, :func:`scatter_last` — JAX's ``.at[idx].set`` leaves
     it unspecified).  The
     uniforms are ``uniforms`` (k, B) when given — the tests feed JAX's own
-    draws — else drawn from ``generator`` on ``prios``' device.  The caller
-    holds the buffer lock for the whole call, so no actor commit lands
-    between a step's draw and its scatter.  ``train_step`` replaces the
-    plain step (the meshed learner's, which returns plain priorities).
+    draws — else drawn from ``generator`` on ``prios``' device, before the
+    k steps.  On a card each inner step is a replay of a CUDA graph
+    (learner/graphs.py) that reads the ring, the leaves and the metadata
+    at their fixed addresses, with its row of uniforms copied in.  The
+    caller holds the buffer lock for the whole call, so no actor commit
+    lands between a step's draw and its scatter.  ``train_step`` replaces
+    the plain step (the meshed learner's, which returns plain priorities);
+    it and ``cross`` run eagerly.
 
     ``cross`` (a :class:`~r2d2_tpu_torch.parallel.cross_rank.CrossRank`)
     is the meshed hook: the ring, ``prios``, ``seq_meta`` and
@@ -506,9 +571,32 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
     inner step's diagnostic vector: ``-> (state, prios, losses, diags (k,
     DIAG_SIZE))``; a ``train_step`` given with it must return the vector
     too."""
+    from r2d2_tpu_torch.learner.graphs import StepGraphs
+
     lh = learnhealth and cfg.learnhealth_interval > 0
     step = train_step or make_train_step(cfg, net, learnhealth=lh)
     B = cfg.batch_size
+    graphs = StepGraphs("learner.in_graph_per_super_step",
+                        capture=train_step is None and cross is None,
+                        guard=guard)
+
+    def inner(state, fixed, scratch, row):
+        arrays, seq_meta, first_burn, meta = fixed
+        prios, u = scratch[0], row.get("u")
+        if cross is None:
+            idx, w, ints = _in_graph_sample(cfg, u, prios, seq_meta,
+                                            first_burn)
+            batch = gather_batch(cfg, arrays, ints, w)
+        else:
+            d, batch = cross.sample_batch(u, prios, meta, arrays)
+            idx = d.idx
+        out = step(state, batch)
+        # feedback: the exponent the host tree applies (sum_tree.py)
+        if cross is None:
+            scatter_last(prios, idx, out[2] ** cfg.prio_exponent)
+        else:
+            cross.scatter_feedback(prios, idx, out[2] ** cfg.prio_exponent)
+        return (out[1], idx) + ((out[3],) if lh else ())
 
     def super_step(state: TrainState, arrays, prios: torch.Tensor,
                    seq_meta: torch.Tensor, first_burn: torch.Tensor,
@@ -520,32 +608,20 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
                                   device=prios.device)
         meta = None if cross is None else cross.global_meta(seq_meta,
                                                             first_burn)
+        fixed = (arrays, seq_meta, first_burn, meta)
         losses, diags = [], []
         for j in range(k):
-            if cross is None:
-                idx, w, ints = _in_graph_sample(cfg, uniforms[j], prios,
-                                                seq_meta, first_burn)
-                batch = gather_batch(cfg, arrays, ints, w)
-            else:
-                d, batch = cross.sample_batch(
-                    None if uniforms is None else uniforms[j], prios, meta,
-                    arrays)
-                idx = d.idx
-            out = step(state, batch)
-            state, loss, new_p = out[:3]
+            armed = lh and (state.step + 1) % cfg.learnhealth_interval == 0
+            out = graphs.run(inner, state, fixed, (prios,), {} if uniforms
+                             is None else dict(u=uniforms[j]), armed)
+            losses.append(out[0])
             if lh:
-                diags.append(out[3])
-            # feedback: the exponent the host tree applies (sum_tree.py)
-            if cross is None:
-                scatter_last(prios, idx, new_p ** cfg.prio_exponent)
-            else:
-                cross.scatter_feedback(prios, idx,
-                                       new_p ** cfg.prio_exponent)
+                diags.append(out[2])
             if record is not None:
-                record.append(idx)
-            losses.append(loss)
+                record.append(out[1])
         if lh:
             return state, prios, torch.stack(losses), torch.stack(diags)
         return state, prios, torch.stack(losses)
 
+    super_step.graphs = graphs
     return super_step

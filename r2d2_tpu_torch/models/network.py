@@ -321,8 +321,12 @@ class LSTMLayer(nn.Module):
         hs = []
         for t in range(xp.shape[0]):
             if remat:
+                # the step draws no random numbers, and a CUDA-graph
+                # capture (learner/graphs.py) cannot read the generator's
+                # state: nothing to preserve
                 h, c = checkpoint(self._step, xp[t], h, c, wh,
-                                  use_reentrant=False)
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
                 h, c = self._step(xp[t], h, c, wh)
             hs.append(h)

@@ -639,9 +639,9 @@ def run_shard_server(cfg: Config, action_dim: int, shard_id: int = 0,
                      max_wall_seconds: Optional[float] = None,
                      stop_fn: Optional[Callable[[], bool]] = None,
                      verbose: bool = True) -> Dict[str, Any]:
-    """The ``replay-shard`` subcommand's body (its argument parser waits
-    for ROADMAP.md A item 11): run ONE standalone shard server until
-    SIGTERM/SIGINT (or ``max_wall_seconds``).
+    """The ``replay-shard`` subcommand's body (its argument parser came
+    with ROADMAP.md A item 11, in ``cli.py``): run ONE standalone shard
+    server until SIGTERM/SIGINT (or ``max_wall_seconds``).
 
     ``cfg`` is the TRAINER-side config (full ``buffer_capacity``,
     ``replay_shards = K``); the shard slice is derived here exactly as

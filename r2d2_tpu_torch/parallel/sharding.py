@@ -364,9 +364,15 @@ def mesh_train_step(cfg, net, table: ShardingTable, state_template=None):
     hold this rank's rows (wrapped without communication).  The loss comes
     back as a plain 0-d tensor (the same on every rank) and the priorities
     as this rank's rows, a plain tensor, so feedback never crosses ranks.
-    Plain tensors the step makes itself (window index ramps) act as
-    replicated.  ``state_template`` resolves every leaf against the table
-    up front, so an unresolved leaf fails here, not mid-step."""
+    Plain tensors the step makes itself (window index ramps, the device
+    counters) act as replicated.  ``state_template`` resolves every leaf
+    against the table up front, so an unresolved leaf fails here, not
+    mid-step.  The step runs eagerly (its CUDA graph is ROADMAP.md A's
+    third host-bound cut), guarded as ``learner.train_step`` by input
+    signature and learnhealth arming; ``__wrapped__`` is the unguarded
+    step, which the meshed super-steps call."""
+    from r2d2_tpu_torch.utils.trace import RETRACES
+
     from r2d2_tpu_torch.learner.step import make_train_step
     from r2d2_tpu_torch.parallel.distributed import local_rows
 
@@ -395,7 +401,10 @@ def mesh_train_step(cfg, net, table: ShardingTable, state_template=None):
                     full(out[3]))
         return state, full(loss), local_rows(priorities)
 
-    return train_step
+    def armed(state, batch):
+        return lh and (state.step + 1) % cfg.learnhealth_interval == 0
+
+    return RETRACES.wrap("learner.train_step", train_step, key=armed)
 
 
 def mesh_super_step(cfg, net, table: ShardingTable, k: int,
@@ -408,5 +417,5 @@ def mesh_super_step(cfg, net, table: ShardingTable, k: int,
     from r2d2_tpu_torch.learner.step import SuperStep
 
     return SuperStep(cfg, net, k, train_step=mesh_train_step(
-        cfg, net, table, state_template=state_template),
+        cfg, net, table, state_template=state_template).__wrapped__,
         learnhealth=cfg.learnhealth_interval > 0)

@@ -6,10 +6,12 @@ batch, and its size is ragged from 1 to ``cfg.serve_max_batch``.  The batch
 is **bucket shaped**: its size is rounded up to the next power of two (or
 the cap), the tail rows are zero padded (their outputs are discarded and
 pad rows never touch session state), and the act runs at one of
-``log2(serve_max_batch)+1`` shapes.  PyTorch does not trace, but the fixed
-shapes still matter on the card: each bucket reuses its cuDNN/cuBLAS
-algorithm choices and the kernel's launch geometry, and :meth:`warmup`
-pays every first-call cost (the kernel build included) before traffic.
+``log2(serve_max_batch)+1`` shapes: the retrace guard's ``serving.act``
+budget is that count plus one, as the reference's, and a trace is a new
+bucket shape (utils/trace.py).  On the card each bucket reuses its
+cuDNN/cuBLAS algorithm choices and the kernel's launch geometry, and
+:meth:`warmup` pays every first-call cost (the kernel build included)
+before traffic.
 
 Transfers: each batch makes exactly ONE host→device put and ONE
 device→host fetch.  The four request arrays of a bucket live in one
@@ -91,7 +93,10 @@ class ContinuousBatcher:
         # the module supplies the structure; published state dicts supply
         # the values (make_act_fn runs it through functional_call)
         self.net = create_network(cfg, action_dim, device=self.device)
-        self._act = make_act_fn(self.net)
+        # one act instance; each bucket shape is one deliberate trace
+        # (+1 slack, the reference's budget)
+        self._act = make_act_fn(self.net, retrace_name="serving.act",
+                                retrace_budget=len(self.buckets) + 1)
         # the parity gate runs on follow mode's thread while the batch loop
         # acts: it gets its own module (an act swaps the module's
         # parameters while it runs), built at its first use
@@ -165,7 +170,9 @@ class ContinuousBatcher:
 
             from r2d2_tpu_torch.actor import make_act_fn
 
-            self._probe_act = make_act_fn(copy.deepcopy(self.net))
+            self._probe_act = make_act_fn(
+                copy.deepcopy(self.net), retrace_name="serving.act",
+                retrace_budget=len(self.buckets) + 1)
         q_ref, _ = self._probe_act(params, *args)
         q_bf16, _ = self._probe_act(self._quantize(params), *args)
         return bool((q_ref.argmax(dim=1) == q_bf16.argmax(dim=1)).all())

@@ -104,11 +104,18 @@ def make_diag_fn(cfg, net) -> Callable[..., Any]:
     from r2d2_tpu_torch.models.network import unshard
     from r2d2_tpu_torch.parallel.sharding import full
 
+    # the edges on each device, made once: a CUDA-graph capture of an
+    # armed step (learner/graphs.py) may copy nothing from the host
+    edge_tensors: Dict[Any, Any] = {}
+
     def bucketize(values, weights, edges):
         # right=False is jnp's side="left", bisect_left: the registry
         # _Histogram's bucket rule, so the counts merge into a declared
         # histogram without re-binning
-        e = torch.tensor(edges, dtype=torch.float32, device=values.device)
+        e = edge_tensors.get((edges, values.device))
+        if e is None:
+            e = edge_tensors[(edges, values.device)] = torch.tensor(
+                edges, dtype=torch.float32, device=values.device)
         idx = torch.searchsorted(e, values.reshape(-1).contiguous(),
                                  right=False)
         return torch.zeros(len(edges) + 1, dtype=torch.float32,

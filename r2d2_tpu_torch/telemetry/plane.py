@@ -2,9 +2,11 @@
 
 Port of ``r2d2_tpu/telemetry/plane.py``: the same entry absorption, the
 same metric names.  The guard surfaces it absorbs are the port's
-(``HOST_TRANSFERS``, ``KERNEL_LAUNCHES`` and ``TRANSFER_GUARD``'s
-``window.*``/``trip.*`` counters); ``RETRACES`` has nothing to count in a
-port that compiles nothing (ROADMAP.md A, item 10).
+(``HOST_TRANSFERS``, ``KERNEL_LAUNCHES``, ``TRANSFER_GUARD``'s
+``window.*``/``trip.*`` counters, and ``RETRACES``' traces per entry
+point as ``retraces.max_traces{entry_point}``: on a card a learner
+step's CUDA-graph captures, elsewhere its input signatures; ROADMAP.md
+A item 10).
 
 One :class:`Telemetry` object per ``train()`` call, wired by the fabric:
 
@@ -373,17 +375,20 @@ class Telemetry:
                 _prio_row(rh["priorities"])
         # the runtime surfaces (utils/trace.py process-wide views): the
         # counted host<->device crossings, the hand-written kernels'
-        # launches, and the transfer guard's windows and trips (a
-        # non-zero trip is the failure signal)
+        # launches, the transfer guard's windows and trips (a non-zero
+        # trip is the failure signal) and each entry point's traces
         from r2d2_tpu_torch.utils.trace import (
             HOST_TRANSFERS,
             KERNEL_LAUNCHES,
+            RETRACES,
             TRANSFER_GUARD,
         )
 
         reg.absorb_counters("host_transfers", HOST_TRANSFERS.snapshot())
         reg.absorb_counters("kernel_launches", KERNEL_LAUNCHES.snapshot())
         reg.absorb_counters("transfer_guard", TRANSFER_GUARD.snapshot())
+        for name, traces in RETRACES.counts().items():
+            reg.set_gauge("retraces.max_traces", traces, entry_point=name)
 
         self.last_entry = entry
         if self.runlog is not None:

@@ -27,18 +27,18 @@ Run:
         [--seed K] [--chaos SPEC] [--max-sessions N] [--out OUT.json]
         [--device {cuda,cpu}]
 
-:func:`main` builds its own server in two cells, ``float32`` and
-``bfloat16``, each serving an untrained flagship network (nature torso,
-LSTM-512, 9 actions) drawn from a seeded ``torch.Generator`` on
-``--device`` (default: the CUDA device).  One difference from the JAX
-package's cells: there, both cells compute in the flagship's bf16 and
-differ only in the published params; here the ``float32`` cell also
-computes in float32, so its LSTM runs the f32 route of the kernel
-(``lstm_step_cudacore``) and the ``bfloat16`` cell the tensor-core route
-(``lstm_step_wgmma``).  Each cell prints one JSON line, with the kernel
-launches it made; then the summary.  Exit code 1 when a cell's
-accounting ``admitted == completed + reaped + evicted + live`` fails or
-its health is ``failing``.
+:func:`main` builds its own server in three cells (:data:`CELLS`), each
+serving an untrained flagship network (nature torso, LSTM-512, 9 actions)
+drawn from a seeded ``torch.Generator`` on ``--device`` (default: the
+CUDA device).  The first two are the reference's: ``float32`` and
+``bfloat16`` published params, both computed in the flagship's bf16, so
+on the card both run the kernel's tensor-core route (``lstm_step_wgmma``).
+The third, ``float32_compute``, publishes and computes in float32, so its
+LSTM runs the f32 route (``lstm_step_f32``, counted under
+``ops/lstm.py``'s ``CUDACORE_COUNTER``).  Each cell prints one JSON line,
+with the kernel launches it made; then the summary.  Exit code 1 when a
+cell's accounting ``admitted == completed + reaped + evicted + live``
+fails or its health is ``failing``.
 """
 from __future__ import annotations
 
@@ -62,7 +62,11 @@ from r2d2_tpu_torch.serving.wire import (
 )
 from r2d2_tpu_torch.utils.supervisor import Supervisor
 
-CELLS = ("float32", "bfloat16")
+# cell name -> (serve_dtype, compute_dtype): the reference's two cells
+# (tools/session_load_gen.py), then the f32-compute cell
+CELLS = {"float32": ("float32", "bfloat16"),
+         "bfloat16": ("bfloat16", "bfloat16"),
+         "float32_compute": ("float32", "float32")}
 
 
 class _SessionSim:
@@ -289,11 +293,13 @@ def _publish_client_percentiles(registry, summary) -> None:
                        summary.get("sessions_per_sec", 0.0))
 
 
-def cell_config(dtype: str, max_batch: int, max_sessions: int) -> Config:
-    """A cell's config: the flagship geometry, ``dtype`` for both the
-    published params and the compute (module docstring)."""
-    return Config(game_name="Fake", serve_dtype=dtype, compute_dtype=dtype,
-                  serve_max_batch=max_batch, serve_max_sessions=max_sessions,
+def cell_config(cell: str, max_batch: int, max_sessions: int) -> Config:
+    """A cell's config: the flagship geometry, the cell's published-param
+    and compute dtypes (:data:`CELLS`)."""
+    serve_dtype, compute_dtype = CELLS[cell]
+    return Config(game_name="Fake", serve_dtype=serve_dtype,
+                  compute_dtype=compute_dtype, serve_max_batch=max_batch,
+                  serve_max_sessions=max_sessions,
                   serve_session_idle_s=30.0)
 
 
@@ -329,8 +335,8 @@ def main(argv=None) -> int:
             else "cpu")
     A = 9  # MsPacman's action count — the default geometry's real head
     cells = []
-    for dtype in CELLS:
-        cfg = cell_config(dtype, args.max_batch,
+    for cell in CELLS:
+        cfg = cell_config(cell, args.max_batch,
                           args.max_sessions or args.sessions)
         net = create_network(cfg, A, device="cpu",
                              generator=torch.Generator().manual_seed(0))
@@ -355,7 +361,8 @@ def main(argv=None) -> int:
             server.stop()
             server.close()
         after = KERNEL_LAUNCHES.snapshot()
-        c = dict(serve_dtype=dtype, client=summary, server=srv,
+        c = dict(cell=cell, serve_dtype=cfg.serve_dtype,
+                 compute_dtype=cfg.compute_dtype, client=summary, server=srv,
                  health=hz["status"],
                  warmup_batches=len(server.batcher.buckets),
                  lstm_layers=cfg.lstm_layers,
@@ -377,10 +384,10 @@ def main(argv=None) -> int:
                     max_batch=args.max_batch, chaos=args.chaos,
                     seed=args.seed),
         cells=cells)
-    print(json.dumps(dict(cells=len(cells), device=kind,
-                          f32_p99_ms=cells[0]["client"].get("act_p99_ms"),
-                          bf16_p99_ms=cells[1]["client"].get(
-                              "act_p99_ms"))), flush=True)
+    p99 = [c["client"].get("act_p99_ms") for c in cells]
+    print(json.dumps(dict(cells=len(cells), device=kind, f32_p99_ms=p99[0],
+                          bf16_p99_ms=p99[1], f32_compute_p99_ms=p99[2])),
+          flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -2,10 +2,8 @@
 
 Port of ``r2d2_tpu/utils/chaos.py``, copied whole: the same spec grammar,
 the same kinds in the same order, so one spec and seed fire the same
-opportunities in either package.  The port's ``train()`` fires the
-thread-transport sites (``freeze_learner``, ``poison_params``,
-``truncate_ckpt``) and refuses a spec naming a site of a plane it has
-not ported (``train.check_chaos_sites``).
+opportunities in either package.  Every plane the sites live in is
+ported, so the port's ``train()`` takes every kind and refuses none.
 
 
 Podracer-style systems treat preemption as routine; the only way the

@@ -1,8 +1,6 @@
 """Tracing and profiling instrumentation.  Port of
-``r2d2_tpu/utils/trace.py``: ``Tracer``, ``TransferCounter``,
-``TransferGuard`` and ``device_profile``.  ``RetraceGuard`` has nothing to
-count here: the port compiles nothing (it waits for a CUDA-graph capture
-of the hot loops, ROADMAP.md A item 10).
+``r2d2_tpu/utils/trace.py``: ``Tracer``, ``RetraceGuard``,
+``TransferCounter``, ``TransferGuard`` and ``device_profile``.
 
 - :class:`Tracer` — in-process stage timers, gauges and counters.  Spans
   record wall-time per stage as exponential moving averages with counts
@@ -12,6 +10,12 @@ of the hot loops, ROADMAP.md A item 10).
   (telemetry/tracing.py).
 - :func:`device_profile` — a context manager around ``torch.profiler``
   that writes a Chrome trace of the CPU and CUDA timeline of a region.
+- :class:`RetraceGuard` — :data:`RETRACES` counts the programs each entry
+  point builds against a budget (ROADMAP.md A item 10).  JAX counts
+  traces; the port has no tracer, so a "trace" is a CUDA-graph capture
+  where the entry captures one (the learner's steps on a card,
+  learner/graphs.py), and elsewhere the first call with a new input
+  :func:`signature` — what ``jax.jit`` retraces on.
 - :class:`TransferCounter` — named thread-safe counters.
   :data:`HOST_TRANSFERS` counts the device<->host crossings of the hot
   loops, so "the batcher puts once and fetches once per batch" is an
@@ -31,10 +35,11 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import dataclasses
 import threading
 import time
 import os
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Hashable, Iterator, List, Optional, Tuple
 
 # fixed log-spaced span-duration buckets (seconds, 4 per decade from
 # 10 µs to 100 s): every span shares them, so the per-update cost is one
@@ -146,6 +151,122 @@ class Tracer:
             for name, v in self._counters.items():
                 out[f"counter.{name}"] = v
         return out
+
+
+def signature(tree: Any) -> Hashable:
+    """What ``jax.jit`` retraces on, for a tree of call arguments: the
+    structure (dict keys, sequence lengths, dataclass fields), each
+    tensor's shape, dtype and device (a DTensor's placements too), each
+    array's shape and dtype, and the type of any other leaf — a Python
+    scalar's value, like a weak-typed JAX scalar's, changes no program."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return (tree.shape, tree.dtype, tree.device,
+                getattr(tree, "placements", None))
+    if isinstance(tree, dict):
+        return tuple((k, signature(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(signature(v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return (type(tree).__name__,) + tuple(
+            signature(getattr(tree, f.name))
+            for f in dataclasses.fields(tree))
+    shape, dtype = getattr(tree, "shape", None), getattr(tree, "dtype", None)
+    if shape is not None and dtype is not None:
+        return (tuple(shape), str(dtype))
+    return None if tree is None else type(tree).__name__
+
+
+class RetraceBudgetExceeded(AssertionError):
+    """A compiled entry point traced more often than its declared budget."""
+
+
+class _RetraceEntry:
+    __slots__ = ("name", "budget", "traces")
+
+    def __init__(self, name: str, budget: int):
+        self.name = name
+        self.budget = budget
+        self.traces = 0
+
+
+class RetraceGuard:
+    """Counts traces per entry-point *instance*.
+
+    ``wrap(name, fn, budget)`` returns a wrapper that counts a trace on
+    the first call with each new :func:`signature` of its arguments (plus
+    ``key(*args, **kwargs)`` when given: the variant a non-tensor argument
+    selects), as ``jax.jit`` traces once per input signature.  An entry
+    that builds its own programs (a CUDA-graph capture) takes an entry
+    from :meth:`register` and counts each build itself.  Each wrap or
+    register creates a fresh entry, so two learners built in one process
+    do not share a counter — the budget is "traces per instance", which
+    for the fabric's static-shape entry points is 1 (plus slack).
+
+    The process-wide :data:`RETRACES` instance is what production entry
+    points register with; tests that deliberately provoke retraces use a
+    private ``RetraceGuard()`` so they never trip the global assertion.
+    """
+
+    def __init__(self, default_budget: int = 2):
+        self.default_budget = default_budget
+        self._entries: List[_RetraceEntry] = []
+        self._lock = threading.Lock()
+
+    def register(self, name: str, budget: Optional[int] = None
+                 ) -> _RetraceEntry:
+        """A fresh entry whose owner adds to ``traces`` per program it
+        builds."""
+        entry = _RetraceEntry(name, self.default_budget
+                              if budget is None else budget)
+        with self._lock:
+            self._entries.append(entry)
+        return entry
+
+    def wrap(self, name: str, fn, budget: Optional[int] = None, key=None):
+        entry = self.register(name, budget)
+        seen: set = set()
+
+        def traced(*args, **kwargs):
+            sig = signature((args, kwargs))
+            if key is not None:
+                sig = (sig, key(*args, **kwargs))
+            if sig not in seen:
+                seen.add(sig)
+                entry.traces += 1  # int += is GIL-atomic enough for a counter
+            return fn(*args, **kwargs)
+
+        traced.__name__ = getattr(fn, "__name__", name)
+        traced.__qualname__ = traced.__name__
+        traced.__wrapped__ = fn
+        return traced
+
+    def counts(self) -> Dict[str, int]:
+        """name → max traces observed on any single instance."""
+        out: Dict[str, int] = {}
+        with self._lock:
+            for e in self._entries:
+                out[e.name] = max(out.get(e.name, 0), e.traces)
+        return out
+
+    def over_budget(self) -> List[Tuple[str, int, int]]:
+        """(name, traces, budget) for every instance past its budget."""
+        with self._lock:
+            return [(e.name, e.traces, e.budget)
+                    for e in self._entries if e.traces > e.budget]
+
+    def assert_within_budgets(self) -> None:
+        bad = self.over_budget()
+        if bad:
+            raise RetraceBudgetExceeded(
+                "jitted entry points exceeded their retrace budgets: "
+                + "; ".join(f"{n} traced {t}x (budget {b})"
+                            for n, t, b in bad))
+
+    def reset(self) -> None:
+        with self._lock:
+            self._entries.clear()
 
 
 class TransferCounter:
@@ -321,15 +442,22 @@ class TransferGuard:
             self._trips.clear()
 
 
-# process-wide instances: the serving batcher ticks HOST_TRANSFERS around
-# its one H2D put and its one D2H fetch per batch; every CUDA kernel
-# wrapper (ops/) ticks KERNEL_LAUNCHES under its kernel's name once per
-# launch call, so a run can show its hot path went through the kernels;
-# the hot loops open TRANSFER_GUARD windows around their dispatch and
-# fetch bodies.  Subprocesses get fresh instances after spawn
+# process-wide instances: entry points register with RETRACES when they
+# are built; the serving batcher ticks HOST_TRANSFERS around its one H2D
+# put and its one D2H fetch per batch; every CUDA kernel wrapper (ops/)
+# ticks KERNEL_LAUNCHES under its kernel's name once per launch call, so
+# a run can show its hot path went through the kernels; the hot loops
+# open TRANSFER_GUARD windows around their dispatch and fetch bodies.
+# Subprocesses get fresh instances after spawn
+RETRACES = RetraceGuard()
 HOST_TRANSFERS = TransferCounter()
 KERNEL_LAUNCHES = TransferCounter()
 TRANSFER_GUARD = TransferGuard()
+# held while torch.profiler starts or stops and while a CUDA graph is
+# captured or launched (learner/graphs.py): a profiler stopped on one
+# thread while another launched a graph hung both on the card (the
+# /profilez window over a training fabric)
+PROFILER_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -356,6 +484,12 @@ def device_profile(log_dir: Optional[str],
     if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    prof = profile(activities=activities)
+    with PROFILER_LOCK:
+        prof.__enter__()
+    try:
         yield prof
+    finally:
+        with PROFILER_LOCK:
+            prof.__exit__(None, None, None)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -55,7 +55,7 @@ from r2d2_tpu_torch.learner.learner import Learner
 from r2d2_tpu_torch.models import create_network, params_from_flax
 from r2d2_tpu_torch.replay.block import LocalBuffer
 from r2d2_tpu_torch.replay.device_ring import DeviceRing
-from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS
+from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, RETRACES
 
 A = 4
 TOL = dict(rtol=0, atol=1e-5)
@@ -411,6 +411,9 @@ def test_one_result_fetch_per_dispatch(kw):
     if cfg.anakin_eval_interval:
         # dispatches 0, 2, 4 ran the eval lane: one episode per lane each
         assert plane.eval_episodes_total == 3 * cfg.num_actors
+    # the rollout and the super-step kept one input signature each, as
+    # JAX's programs stay within their budgets
+    RETRACES.assert_within_budgets()
 
 
 def test_super_step_scatter_is_last_write():
@@ -528,6 +531,7 @@ def test_train_fast_plumbing(tmp_path):
     assert m2["env_steps"] > m["env_steps"]
     assert m2["anakin_super_steps"] == 14
     assert m2["eval_episodes"] > m["eval_episodes"]
+    RETRACES.assert_within_budgets()
 
 
 @pytest.mark.parametrize("stall,hard", [(0.45, False), (3.0, True)],

@@ -940,3 +940,239 @@ def test_dp_groups_over_two_cards_train_over_nccl(cuda, tmp_path):
     for k, v in two[0][0]["params"].items():
         np.testing.assert_allclose(four[0][0]["params"][k], v, rtol=0,
                                    atol=1e-4 * np.abs(v).max(), err_msg=k)
+
+
+# --------------------------------------------------------------------------
+# the learner's CUDA-graph captures (learner/graphs.py)
+# --------------------------------------------------------------------------
+
+def _states_equal(a, b) -> bool:
+    return (a.step == b.step and a.opt_state.count == b.opt_state.count
+            and torch.equal(a.step_t, b.step_t)
+            and torch.equal(a.opt_state.count_t, b.opt_state.count_t)
+            and all(torch.equal(x[k], y[k])
+                    for x, y in ((a.params, b.params),
+                                 (a.target_params, b.target_params),
+                                 (a.opt_state.mu, b.opt_state.mu),
+                                 (a.opt_state.nu, b.opt_state.nu))
+                    for k in x))
+
+
+def _graph_setup(cuda, **kw):
+    """A small learner on the card and two copies of its fresh state; cuDNN
+    deterministic (restored by the caller), so that a graph and the eager
+    step may be held bit for bit."""
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.learner.step import create_train_state
+    from r2d2_tpu_torch.models.network import create_network
+
+    cfg = test_config(target_net_update_interval=2, **kw)
+    net = create_network(cfg, MESH_A, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    return (cfg, net, create_train_state(cfg, net.state_dict()),
+            create_train_state(cfg, net.state_dict()))
+
+
+def _random_ring(cfg, device, seed=0):
+    """Ring arrays, PER leaves, metadata and first burn-ins at the
+    config's slot shapes, random, on ``device``."""
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing
+
+    NB, K = cfg.num_blocks, cfg.seqs_per_block
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for k, v in DeviceRing(cfg, MESH_A, device="cpu").arrays.items():
+        if v.dtype == torch.uint8:
+            a = torch.from_numpy(rng.integers(0, 256, v.shape,
+                                              dtype=np.uint8))
+        elif v.dtype == torch.bool:
+            a = torch.from_numpy(rng.random(v.shape) < 0.5)
+        else:
+            a = torch.from_numpy(rng.normal(size=v.shape).astype(np.float32))
+        if k == "action":
+            a = a % MESH_A
+        arrays[k] = a.to(device)
+    prios = torch.from_numpy(rng.uniform(0.0, 2.0, NB * K).astype(np.float32))
+    prios[::5] = 0.0
+    seq_meta = torch.from_numpy(np.stack([
+        rng.integers(0, cfg.burn_in_steps + 1, (NB, K)),
+        rng.integers(1, cfg.learning_steps + 1, (NB, K)),
+        rng.integers(1, cfg.forward_steps + 1, (NB, K))], -1)
+        .astype(np.int32))
+    first = torch.from_numpy(rng.integers(
+        cfg.burn_in_steps, cfg.burn_in_steps + 3, NB).astype(np.int32))
+    return arrays, prios.to(device), seq_meta.to(device), first.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lh", [0, 2])
+def test_graphed_train_step_is_the_eager_step(cuda, lh):
+    """``learner.train_step`` as a CUDA graph against the plain step from
+    the same state on the same batches, across two target syncs: loss,
+    priorities, the diag rows and the whole state bit for bit; one
+    capture, two with the armed and disarmed learnhealth steps."""
+    from r2d2_tpu_torch.learner.graphs import make_learner_step
+    from r2d2_tpu_torch.learner.step import make_train_step
+    from r2d2_tpu_torch.utils.trace import RetraceGuard
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, net, a, b = _graph_setup(cuda, learnhealth_interval=lh)
+        guard = RetraceGuard()
+        graphed = make_learner_step(cfg, net, learnhealth=lh > 0,
+                                    guard=guard)
+        plain = make_train_step(cfg, net, learnhealth=lh > 0)
+        for seed in range(5):
+            batch = {k: torch.from_numpy(v).to(cuda)
+                     for k, v in _mesh_batch(cfg, seed).items()}
+            ga, gb = graphed(a, batch), plain(b, batch)
+            a, b = ga[0], gb[0]
+            for x, y in zip(ga[1:], gb[1:]):
+                assert torch.equal(x, y)
+            assert _states_equal(a, b)
+        torch.cuda.synchronize()
+        assert guard.counts() == {"learner.train_step": 2 if lh else 1}
+        assert graphed.graphs.captures == (2 if lh else 1)
+        guard.assert_within_budgets()
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+@pytest.mark.cuda
+def test_a_new_batch_shape_captures_again_and_counts_two(cuda):
+    """Shape drift in the hot loop: a batch of another size is a second
+    capture of the step, the second trace its guard counts."""
+    from r2d2_tpu_torch.learner.graphs import make_learner_step
+    from r2d2_tpu_torch.utils.trace import RetraceGuard
+
+    cfg, net, a, _ = _graph_setup(cuda)
+    guard = RetraceGuard(default_budget=1)
+    step = make_learner_step(cfg, net, guard=guard)
+    for B in (cfg.batch_size, cfg.batch_size, cfg.batch_size // 2,
+              cfg.batch_size // 2):
+        batch = {k: torch.from_numpy(v[:B]).to(cuda)
+                 for k, v in _mesh_batch(cfg, B).items()}
+        a, loss, prios = step(a, batch)
+        assert prios.shape == (B,) and torch.isfinite(loss)
+    assert guard.counts() == {"learner.train_step": 2}
+    assert guard.over_budget() == [("learner.train_step", 2, 1)]
+
+
+@pytest.mark.cuda
+def test_graphed_super_step_is_k_eager_steps(cuda):
+    """``learner.super_step`` on the card (each inner step a graph that
+    gathers from the ring and steps) against the gathers and plain steps
+    issued one by one: losses, priorities and the state bit for bit."""
+    from r2d2_tpu_torch.learner import step as tstep
+    from r2d2_tpu_torch.replay.device_ring import gather_batch
+    from r2d2_tpu_torch.utils.trace import RetraceGuard
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, net, a, b = _graph_setup(cuda, device_replay=True,
+                                      superstep_k=3)
+        k, B = cfg.superstep_k, cfg.batch_size
+        arrays, prios, seq_meta, first = _random_ring(cfg, cuda)
+        guard = RetraceGuard()
+        fused = tstep.make_super_step_fn(cfg, net, k, guard=guard)
+        plain = tstep.make_train_step(cfg, net)
+        u = torch.rand((2, k, B), generator=torch.Generator(
+            device=cuda).manual_seed(3), device=cuda)
+        for d in range(2):
+            draws = [tstep._in_graph_sample(cfg, u[d, j], prios, seq_meta,
+                                            first) for j in range(k)]
+            ints = torch.stack([x[2] for x in draws])
+            w = torch.stack([x[1] for x in draws])
+            a, losses, fprios = fused(a, arrays, ints, w)
+            for j in range(k):
+                b, loss, p = plain(b, gather_batch(cfg, arrays, ints[j],
+                                                   w[j]))
+                assert torch.equal(losses[j], loss)
+                assert torch.equal(fprios[j], p)
+            assert _states_equal(a, b)
+        assert guard.counts() == {"learner.super_step": 1}
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+@pytest.mark.cuda
+def test_graphed_in_graph_super_step_is_the_eager_one(cuda):
+    """``learner.in_graph_per_super_step`` on the card (sample, gather,
+    step and scatter in one graph an inner step) against the same super-
+    step run eagerly, from the same ring, state and generator seed:
+    sampled indices, losses, the priority slab and the state bit for
+    bit."""
+    from r2d2_tpu_torch.learner import step as tstep
+    from r2d2_tpu_torch.utils.trace import RetraceGuard
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, net, a, b = _graph_setup(cuda, device_replay=True,
+                                      in_graph_per=True, superstep_k=3)
+        k = cfg.superstep_k
+        arrays, prios, seq_meta, first = _random_ring(cfg, cuda)
+        pa, pb = prios.clone(), prios.clone()
+        guard = RetraceGuard()
+        graphed = tstep.make_in_graph_per_super_step_fn(cfg, net, k,
+                                                        guard=guard)
+        eager = tstep.make_in_graph_per_super_step_fn(
+            cfg, net, k, train_step=tstep.make_train_step(cfg, net),
+            guard=RetraceGuard())
+        ga = torch.Generator(device=cuda).manual_seed(7)
+        gb = torch.Generator(device=cuda).manual_seed(7)
+        for _ in range(2):
+            ra, rb = [], []
+            a, pa, la = graphed(a, arrays, pa, seq_meta, first,
+                                generator=ga, record=ra)
+            b, pb, lb = eager(b, arrays, pb, seq_meta, first, generator=gb,
+                              record=rb)
+            assert torch.equal(la, lb) and torch.equal(pa, pb)
+            assert all(torch.equal(x, y) for x, y in zip(ra, rb))
+            assert len(ra) == k
+            assert _states_equal(a, b)
+        assert graphed.graphs.captures == 1
+        assert guard.counts() == {"learner.in_graph_per_super_step": 1}
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+@pytest.mark.cuda
+def test_profiler_windows_beside_graph_replays_finish(cuda, tmp_path):
+    """``device_profile`` windows opened and closed on one thread while
+    another replays the learner's graph (the ``/profilez`` case): every
+    window writes its trace and both threads finish.  Without
+    ``PROFILER_LOCK`` a profiler stopped beside a graph launch hung both
+    on the card."""
+    import os
+    import threading
+
+    from r2d2_tpu_torch.learner.graphs import make_learner_step
+    from r2d2_tpu_torch.utils.trace import RetraceGuard, device_profile
+
+    cfg, net, state, _ = _graph_setup(cuda)
+    step = make_learner_step(cfg, net, guard=RetraceGuard())
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in _mesh_batch(cfg, 0).items()}
+    stop, replays = threading.Event(), [0]
+
+    def learner():
+        while not stop.is_set():
+            _, loss, _ = step(state, batch)
+            loss.item()
+            replays[0] += 1
+
+    t = threading.Thread(target=learner, daemon=True)
+    t.start()
+    try:
+        for i in range(4):
+            with device_profile(str(tmp_path / str(i)), require_cuda=True):
+                threading.Event().wait(0.2)
+            assert os.path.exists(tmp_path / str(i) / "trace.json")
+    finally:
+        stop.set()
+        t.join(60)
+    assert not t.is_alive() and replays[0] > 0
+    assert step.graphs.captures == 1

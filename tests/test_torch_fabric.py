@@ -40,7 +40,7 @@ from r2d2_tpu_torch.telemetry.console import format_entry
 from r2d2_tpu_torch.telemetry.plane import Telemetry
 from r2d2_tpu_torch.telemetry.runlog import read_entries
 from r2d2_tpu_torch.utils import chaos
-from r2d2_tpu_torch.utils.trace import device_profile
+from r2d2_tpu_torch.utils.trace import RETRACES, device_profile
 
 A = 4
 
@@ -114,6 +114,9 @@ def test_train_fabric_feeds_back_logs_and_serves_telemetry(tmp_path):
                                              "run.jsonl")))
     assert entries and entries[-1]["training_steps"] <= 20
     assert all(v.device.type == "cpu" for v in m["final_params"].values())
+    # retrace discipline: the fabric's entry points kept one input
+    # signature each (a per-step retrace here or in an earlier test fails)
+    RETRACES.assert_within_budgets()
 
 
 def test_train_needs_a_device_or_cuda(monkeypatch):

@@ -41,7 +41,7 @@ from r2d2_tpu_torch.serving import (
     bucket_sizes,
 )
 from r2d2_tpu_torch.serving import wire
-from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS
+from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, RETRACES
 
 A = 4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -188,12 +188,16 @@ def test_batcher_bucket_padding_bit_exact_one_put_one_fetch():
     the direct act on the same rows zero-padded to the bucket, and each
     batch makes one put and one fetch whatever its size.  Against the
     direct act on exactly its n rows it agrees to 1e-6: the CPU BLAS may
-    sum a product in another order at another row count."""
+    sum a product in another order at another row count.  Driving every
+    bucket stays inside the declared retrace budgets (the direct act is
+    deliberately called at each ragged size, and budgeted for it, as the
+    reference's test does)."""
     cfg = _cfg(serve_max_batch=8)
     params = _port_params()
     b = ContinuousBatcher(cfg, A, device="cpu")
     b.publish(params)
-    act = make_act_fn(create_network(cfg, A, device="cpu"))
+    act = make_act_fn(create_network(cfg, A, device="cpu"),
+                      retrace_budget=8)
     rng = np.random.default_rng(0)
     put0 = HOST_TRANSFERS.get("serving.act_put")
     fetch0 = HOST_TRANSFERS.get("serving.act_fetch")
@@ -215,6 +219,7 @@ def test_batcher_bucket_padding_bit_exact_one_put_one_fetch():
     assert HOST_TRANSFERS.get("serving.act_fetch") - fetch0 == len(sizes)
     with pytest.raises(ValueError, match="exceeds serve_max_batch"):
         b.bucket(9)
+    RETRACES.assert_within_budgets()
 
 
 def test_batcher_pad_rows_are_zeroed():

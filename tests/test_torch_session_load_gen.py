@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from r2d2_tpu.config import Config as JaxConfig
 from r2d2_tpu.utils.chaos import ChaosInjector as JaxChaosInjector
 from r2d2_tpu_torch.config import test_config as port_test_config
 from r2d2_tpu_torch.models import create_network
@@ -88,13 +89,22 @@ def test_publish_client_percentiles_reaches_the_registry(server):
 
 
 def test_cells_serve_in_their_dtype():
-    """The float32 cell computes in float32 (so on the card its LSTM takes
-    the f32 route, ``lstm_step_cudacore``), the bfloat16 cell in bf16 with
-    quantized params (``lstm_step_wgmma``); both at the flagship width."""
-    f32, bf16 = (slg.cell_config(d, 64, 192) for d in slg.CELLS)
-    assert (f32.compute_dtype, f32.serve_dtype) == ("float32", "float32")
+    """The reference's two cells, ``float32`` and ``bfloat16`` published
+    params, both compute in the flagship's bf16, as the reference's
+    ``Config(serve_dtype=dtype)`` with the default ``compute_dtype`` (so
+    on the card both take ``lstm_step_wgmma``); the third,
+    ``float32_compute``, computes in float32 (the f32 route,
+    ``lstm_step_f32``); all at the flagship width."""
+    assert list(slg.CELLS) == ["float32", "bfloat16", "float32_compute"]
+    f32, bf16, f32c = (slg.cell_config(d, 64, 192) for d in slg.CELLS)
+    for name, c in (("float32", f32), ("bfloat16", bf16)):
+        ref = JaxConfig(game_name="Fake", serve_dtype=name)
+        assert (c.compute_dtype, c.serve_dtype) == (ref.compute_dtype,
+                                                    ref.serve_dtype)
+    assert (f32.compute_dtype, f32.serve_dtype) == ("bfloat16", "float32")
     assert (bf16.compute_dtype, bf16.serve_dtype) == ("bfloat16", "bfloat16")
-    for c in (f32, bf16):
+    assert (f32c.compute_dtype, f32c.serve_dtype) == ("float32", "float32")
+    for c in (f32, bf16, f32c):
         assert (c.torso, c.hidden_dim, c.obs_space_to_depth) == (
             "nature", 512, True)
         assert c.serve_max_sessions == 192 and c.serve_max_batch == 64
@@ -109,12 +119,15 @@ def test_main_runs_both_cells_and_prints_their_lines(capsys):
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("{")]
     assert rc == 0
-    cells, summary = lines[:2], lines[2]
-    assert [c["serve_dtype"] for c in cells] == list(slg.CELLS)
+    cells, summary = lines[:3], lines[3]
+    assert [c["cell"] for c in cells] == list(slg.CELLS)
+    assert [(c["serve_dtype"], c["compute_dtype"]) for c in cells] == list(
+        slg.CELLS.values())
     for c in cells:
         assert c["accounting_ok"] and c["health"] != "failing"
         assert c["client"]["acts"] > 0
         assert c["kernel_launches"] == {}      # the CPU launches no kernel
         assert c["warmup_batches"] == 4        # buckets 1, 2, 4, 8
-    assert summary["cells"] == 2 and summary["device"] == "cpu"
+    assert summary["cells"] == 3 and summary["device"] == "cpu"
     assert np.isfinite(summary["f32_p99_ms"])
+    assert np.isfinite(summary["f32_compute_p99_ms"])

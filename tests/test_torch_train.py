@@ -19,6 +19,7 @@ from r2d2_tpu_torch.envs import FakeAtariEnv
 from r2d2_tpu_torch.evaluate import evaluate_params, evaluate_sweep
 from r2d2_tpu_torch.models import create_network
 from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+from r2d2_tpu_torch.utils.trace import RETRACES
 
 A = 4
 
@@ -59,6 +60,9 @@ def test_train_sync_short_run_feeds_every_priority_back(monkeypatch,
     assert m["buffer_size"] >= cfg.learning_starts
     assert Checkpointer(ck).steps() == [4, 8]
     assert all(v.device.type == "cpu" for v in m["final_params"].values())
+    # the run's entry points kept within their retrace budgets (a per-step
+    # retrace here, or in any earlier test, fails), as JAX's e2e asserts
+    RETRACES.assert_within_budgets()
 
 
 def test_train_sync_resumes_from_its_checkpoint(tmp_path):
