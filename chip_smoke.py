@@ -63,10 +63,17 @@ Phases (each exits non-zero on failure):
    round in the bf16 head, so it may differ by one ulp); the store's
    ``admitted == completed + reaped + evicted + live``; and the
    tensor-core kernel was launched once per batch and layer, the
-   CUDA-core one never (counts reset just before the traffic).  Prints
-   the client-side p50/p99 act latency, and per act alone at n in {1, 32,
-   256} the host wall clock against the device time, in which the
-   profiler must find the tensor-core kernel and not the CUDA-core one;
+   CUDA-core one never (counts reset just before the traffic; a replayed
+   graph adds the launches its capture recorded).  The act replays one
+   CUDA graph per bucket: ``warmup`` captures all 9, the traffic none,
+   and each bucket's graph is held bit for bit (q and new hidden) to the
+   eager act on the published params and the same rows, cuDNN
+   deterministic through the phase.  Prints the client-side p50/p99 act
+   latency, and per act alone at n in {1, 32, 256} the host wall clock,
+   issue, device time and device events of the graphed act against the
+   same act issued eagerly (``graph_vs_eager``; the put and fetch around
+   both), in which the profiler must find the tensor-core kernel and not
+   the CUDA-core one;
 5. full-width training: ``train_sync(cfg, device="cuda")`` on the flagship
    ``Config(game_name="Fake")`` (nature torso on 21×21×16 frames, H=512,
    bf16 compute, batch 64, burn-in 40 + learning 40 + forward 5, 8 actors,
@@ -112,7 +119,9 @@ Phases (each exits non-zero on failure):
    Prints env steps/s while filling and while training, updates/s and the
    update interval p50, the device time, idle share and top ops of one
    profiled update, an actor iteration's host/device time and the kernel's share,
-   tensor-map encodes per act, the served act and client round trip
+   tensor-map encodes per act, the act's and the update's graph replays
+   with their waits for and holds of ``PROFILER_LOCK`` (a hold is a
+   launch), the served act and client round trip
    p50/p99, and the phase's seconds;
 7. the Pong preset from a device-resident replay ring:
    ``pong_config(game_name="Fake")`` at full width (nature torso on
@@ -387,8 +396,9 @@ Phases (each exits non-zero on failure):
     sessions completed inside every straggler's freeze, and
     ``lstm_infer`` = layers × (batches + warm-up buckets) on the cell's
     route only — ``lstm_step_wgmma`` for the two bf16-compute cells,
-    ``lstm_step_f32`` for ``float32_compute``; prints acts/s and the
-    client p50/p95/p99.  (e) ``serve --port -1 --max-wall-seconds 15`` driven by
+    ``lstm_step_f32`` (its cluster launch) for ``float32_compute`` — all
+    replayed from the cell's bucket graphs, one capture a bucket; prints
+    acts/s and the client p50/p95/p99.  (e) ``serve --port -1 --max-wall-seconds 15`` driven by
     ``run_load`` for 5 s: its summary serves step 8 with the accounting
     exact.  (f) The bench through its isolated driver, cut in steps and
     seconds: the JSON line parses, ``learner_env_frames_per_sec > 0``,
@@ -405,20 +415,29 @@ Phases (each exits non-zero on failure):
     at H = 128 in float32, 32 actors in two thread fleets, device replay,
     k = 4): each prints ``SOAK PASS`` with no fabric failure, exact
     priority accounting and no decay, and ``lstm_infer`` = layers × acts,
-    all on ``lstm_step_f32`` and none on ``lstm_step_wgmma``; prints
-    updates/s (mid and last third) and env steps.  (c) The flagship
+    all on ``lstm_step_f32`` and none on ``lstm_step_wgmma``, replayed
+    from the acts' graphs (each act instance captured at least once);
+    prints updates/s (mid and last third), env steps and each act
+    instance's captures.  (c) The flagship
     ``Config(game_name="Fake")`` at its published widths through
     ``cli.main(["train", ..., "--device", "cuda"])`` with a telemetry port
-    and a checkpoint dir, cut as phase 15: while it trains, ``python -m
+    and a checkpoint dir, cut as phase 15 but for 128 updates with a
+    checkpoint every 64, so that it outlasts the scrape below (the
+    ``reduced:`` line): while it trains, ``python -m
     r2d2_tpu_torch.tools.r2d2_top --once --url`` renders a frame whose
     first line is ``format_entry`` of ``/statusz``'s ``last_entry``;
     after it, ``r2d2_top --once <ckpt_dir>`` renders the run log's last
     entry; ``lstm_infer`` = layers × acts on ``lstm_step_wgmma``, 0 on
     the CUDA-core route.  Prints the frames and the phase's seconds;
-After each of phases 5–16 the script prints ``RETRACES.counts()`` (each
-entry point's traces: on the card the learner steps' CUDA-graph captures,
-elsewhere new input signatures) and fails when an entry point went past
-its budget, as the JAX package's end-to-end tests assert;
+After each of phases 4–16 the script prints each act instance the phase
+built in this process with its traces (on the card an act's CUDA-graph
+captures, actor.py:GraphedAct: every act on the card replays a graph, so
+each phase's exact launch counts are counts of replayed launches; a CPU
+twin's input signatures), and after each of phases 5–16
+``RETRACES.counts()`` (each entry point's traces: on the card the
+learner steps' and the acts' captures, elsewhere new input signatures),
+failing when an entry point went past its budget, as the JAX package's
+end-to-end tests assert;
 
 17. one ``{"kernels": [...]}`` JSON line: the tensor-core route
     (``lstm_infer``, bf16 ``wh``) and the f32 route (``lstm_infer_f32``)
@@ -700,15 +719,17 @@ EDGES_WATCHDOG_S = 900
 # config: test_config at H = 128, f32, two thread fleets, device replay,
 # k = 4) for SOAK_MINUTES in each drivetrain, cut from its 20-minute
 # default; the flagship through the command line, cut as phase 15 (each
-# lane's first block, 8 updates, no replay snapshot), a log entry a
-# second so that /statusz has one while it runs.  The soak's stats
+# lane's first block, no replay snapshot), a log entry a second so that
+# /statusz has one while it runs, and 128 updates with a checkpoint every
+# 64, so that the run outlasts r2d2_top's scrape (the graphed acts fill
+# the warm-up in under a second).  The soak's stats
 # entries come every SOAK_LOG_S (the reference's 10 s), so that its
 # decay check still compares medians of two entries a third
 SOAK_MINUTES = 0.6
 SOAK_LOG_S = 6.0
-TOP_SETS = dict(learning_starts=3_200, save_interval=4,
+TOP_SETS = dict(learning_starts=3_200, save_interval=64,
                 replay_snapshot=False, log_interval=1.0)
-TOP_STEPS = 8
+TOP_STEPS = 128
 TOP_WALL_S = 240
 LINT_WATCHDOG_S = 600
 # the meshless timings of phases 5 and 7, set as they run, printed beside
@@ -1264,9 +1285,7 @@ def phase_serving(torch, card: str):
     """Phase 4: the flagship net served over the session tier."""
     from r2d2_tpu_torch.config import Config
     from r2d2_tpu_torch.models import create_network
-    from r2d2_tpu_torch.ops import lstm
     from r2d2_tpu_torch.serving import SessionServer
-    from r2d2_tpu_torch.utils.trace import KERNEL_LAUNCHES
 
     cfg = Config(serve_max_batch=256)
     if (cfg.torso, cfg.obs_shape, cfg.stored_obs_shape, cfg.hidden_dim,
@@ -1282,13 +1301,34 @@ def phase_serving(torch, card: str):
     server = SessionServer(cfg, ACTION_DIM, host="127.0.0.1")
     if server.batcher.device.type != "cuda":
         fail(f"the server acts on {server.batcher.device}, not the card")
+    # cuDNN deterministic through the phase, so that the bucket graphs
+    # captured here and the eager act they are held to below pick the
+    # same convolution algorithms
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return serve_flagship(torch, card, cfg, params, server)
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def serve_flagship(torch, card: str, cfg, params, server) -> int:
+    """Phase 4's traffic, checks and timings (the docstring's phase 4)."""
+    from r2d2_tpu_torch.ops import lstm
+    from r2d2_tpu_torch.utils.trace import KERNEL_LAUNCHES
+
     server.publish_params(params)
+    graphed = server.batcher._act
     t0 = time.perf_counter()
     server.warmup()
     torch.cuda.synchronize()
-    print(f"serving warmup ({len(server.batcher.buckets)} buckets "
-          f"{server.batcher.buckets}): {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    buckets = server.batcher.buckets
+    print(f"serving warmup ({len(buckets)} buckets {buckets}, "
+          f"{graphed.graphs.captures} CUDA-graph captures of serving.act): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if graphed.graphs.captures != len(buckets) or len(buckets) != 9:
+        fail(f"serving.act captured {graphed.graphs.captures} graphs for "
+             f"{len(buckets)} buckets")
 
     # record every served batch (inputs and outputs, host copies) to hold
     # it against the plain-LSTM act afterwards
@@ -1385,21 +1425,54 @@ def phase_serving(torch, card: str):
     print(f"serving act latency (client round trip, {len(lat)} requests) "
           f"p50 {p50:.3f} ms p99 {p99:.3f} ms on {card}", flush=True)
 
-    # where one batch's time goes, the traffic gone: the host's wall clock
-    # per batcher.act against the device time in it
+    # each bucket's graph against the eager act on the published params
+    # and the same padded rows, bit for bit; no capture after the warm-up
     rng = np.random.default_rng(2)
+    published = server.batcher._params
+    for n in buckets:
+        x = (torch.from_numpy(rng.integers(
+                 0, 256, (n, *cfg.stored_obs_shape), np.uint8)).to("cuda"),
+             torch.from_numpy(np.eye(ACTION_DIM, dtype=np.float32)[
+                 rng.integers(ACTION_DIM, size=n)]).to("cuda"),
+             torch.from_numpy(rng.normal(size=n).astype(np.float32)
+                              ).to("cuda"),
+             torch.from_numpy((rng.normal(size=(
+                 n, 2, cfg.lstm_layers, H)) * 0.3).astype(np.float32)
+                 ).to("cuda"))
+        got = [t.clone() for t in graphed(published, *x)]
+        want = eager_act(torch, server.batcher.net, published, x)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"serving.act's graph at bucket {n} is not the eager act "
+                 "bit for bit")
+    if graphed.graphs.captures != len(buckets) or graphed.adoptions != 1:
+        fail(f"serving.act: {graphed.graphs.captures} captures and "
+             f"{graphed.adoptions} adoptions after the traffic")
+    print(f"serving.act graphs on {card}: each of the {len(buckets)} "
+          f"buckets {buckets} bit for bit the eager act (q and new hidden, "
+          f"cuDNN deterministic), {graphed.graphs.captures} captures, "
+          f"{graphed.adoptions} param adoption", flush=True)
+
+    # where one batch's time goes, the traffic gone: the host's wall clock
+    # per batcher.act against the device time in it, the act replayed
+    # from its graph against the same act issued eagerly (the batcher's
+    # put and fetch around both)
+    def eager_batch(rows):
+        def run():
+            server.batcher._act = lambda p, *x: eager_act(
+                torch, server.batcher.net, p, x)
+            try:
+                return act(*rows)
+            finally:
+                server.batcher._act = graphed
+        return run
+
     for n in (1, 32, 256):
         rows = (rng.integers(0, 256, (n, *cfg.stored_obs_shape), np.uint8),
                 np.zeros((n, ACTION_DIM), np.float32),
                 np.zeros(n, np.float32),
                 np.zeros((n, 2, cfg.lstm_layers, H), np.float32))
-        for _ in range(3):
-            act(*rows)
-        t0 = time.perf_counter()
-        for _ in range(20):
-            act(*rows)
-        wall = (time.perf_counter() - t0) / 20 * 1e3
-        dev, events = device_ms(torch, lambda: act(*rows), iters=20)
+        g, e = graph_vs_eager(torch, lambda: act(*rows), eager_batch(rows),
+                              iters=20)
         kern, n_kern = device_ms(torch, lambda: act(*rows), iters=20,
                                  name=WGMMA_KERNEL)
         _, n_old = device_ms(torch, lambda: act(*rows), iters=20,
@@ -1407,14 +1480,27 @@ def phase_serving(torch, card: str):
         if kern is None or n_kern != cfg.lstm_layers or n_old:
             fail(f"the served act at n={n} ran {n_kern} tensor-core and "
                  f"{n_old} CUDA-core LSTM kernels, device time {fmt(kern)}")
-        casts, n_casts = device_ms(torch, lambda: act(*rows), iters=20,
-                                   name="copy")
-        idle = "not measured" if dev is None else f"{1 - dev / wall:.1%}"
-        print(f"serving act alone n={n}: host wall {wall:.3f} ms per batch, "
-              f"device {fmt(dev)} in {events:.0f} device events (lstm_infer "
-              f"tensor-core kernel {fmt(kern)}, {n_casts:.0f} copy/cast kernels {fmt(casts)}), "
-              f"device idle {idle} on {card}", flush=True)
+        print(f"serving act alone n={n} on {card}: " + fmt_graph(g, e)
+              + f"; lstm_infer tensor-core kernel {fmt(kern)} a batch",
+              flush=True)
+    if graphed.graphs.captures != len(buckets):
+        fail(f"serving.act captured again: {graphed.graphs.captures}")
     return launches
+
+
+def lock_use(name: str, g) -> str:
+    """One entry's replays and its waits for and holds of
+    ``PROFILER_LOCK`` (utils/graphs.py): a hold is the graph's launch."""
+    n = max(g.replays, 1)
+    return (f"the {name}'s {g.replays} replays waited mean "
+            f"{g.wait_s / n * 1e6:.1f} us, max {g.wait_max_s * 1e6:.1f} us, "
+            f"and held it {g.hold_s / n * 1e6:.1f} us a launch")
+
+
+def eager_act(torch, net, params, x):
+    """The act issued eagerly, op by op: what a graphed act replays."""
+    with torch.inference_mode():
+        return torch.func.functional_call(net, params, tuple(x))
 
 
 def profile_events(torch, fn, iters: int, tries: int = 3):
@@ -1582,6 +1668,20 @@ def retraces_line(label: str) -> None:
     if RETRACES.over_budget():
         fail(f"phase {label}: entry points past their retrace budgets: "
              f"{RETRACES.over_budget()}")
+
+
+ACT_ENTRIES = ("actor.act", "serving.act", "league.act")
+
+
+def act_instances(n0: int) -> list:
+    """``(name, traces)`` of every act instance built since the retrace
+    guard held ``n0`` entries: on the card an act's traces are its
+    CUDA-graph captures (actor.py:GraphedAct), on the CPU (a fleet's f32
+    twin) its input signatures."""
+    from r2d2_tpu_torch.utils.trace import RETRACES
+
+    return [(n, t) for n, t, _ in RETRACES.entries()[n0:]
+            if n in ACT_ENTRIES]
 
 
 def graphed_update_checks(torch, card: str, cfg, net) -> dict:
@@ -2084,6 +2184,13 @@ def phase_fabric(torch, card: str):
                   f"lstm_infer launches {launches} = {cfg.lstm_layers} x "
                   f"{acts} actor acts, CUDA-core {old}; tensor-map encodes "
                   f"{encodes} ({encodes / acts:.2f} per act)", flush=True)
+            print(f"PROFILER_LOCK in the fabric on {card} (the actor thread's "
+                  "act graph and the learner's update graph launching beside "
+                  "each other): " + "; ".join(
+                      lock_use(name, g) for name, g in (
+                          ("act", runs[0]["actor"].act_fn.act.graphs),
+                          ("update", runs[0]["step"].graphs.cuda_graphs))),
+                  flush=True)
 
             # the fabric's timings (from the stamps, no synchronisation)
             steps = first["steps"]
@@ -6882,6 +6989,13 @@ def edges_load(torch, card: str) -> dict:
             fail(f"15(d) {dt}: launches {c['kernel_launches']}, want {want}"
                  f" (layers x ({srv['batches']} batches + "
                  f"{c['warmup_batches']} warm-up))")
+        # on the card every act replays a graph: all of the cell's
+        # launches came from its buckets' graphs (the f32 cell's from
+        # lstm_step_f32's cluster launch replayed)
+        graphs = servers[i].batcher._act.graphs.captures
+        if graphs != c["warmup_batches"]:
+            fail(f"15(d) {dt}: serving.act captured {graphs} graphs for "
+                 f"{c['warmup_batches']} buckets")
         launches[dt] = want[counter]
         print(f"15(d) load generator, {dt} cell (params {c['serve_dtype']},"
               f" compute {c['compute_dtype']}) on {card}: {cl['acts']} "
@@ -6895,7 +7009,8 @@ def edges_load(torch, card: str) -> dict:
               f"abandoning {cl['abandoned']}, slows {cl['slow']} with "
               f"{during} completions inside the freezes; health seen "
               f"{worst}; launches {c['kernel_launches']} on "
-              f"{kernels[c['compute_dtype']]}", flush=True)
+              f"{kernels[c['compute_dtype']]}, every one replayed from the "
+              f"act's {graphs} bucket graphs", flush=True)
     print(f"15(d) took {run_s:.1f} s: {lines[-1]}", flush=True)
     return launches
 
@@ -7158,10 +7273,15 @@ def soak_run_card(torch, card: str, ingraph: bool) -> dict:
     from r2d2_tpu_torch.evaluate import EVAL_ACT
     from r2d2_tpu_torch.ops import lstm
     from r2d2_tpu_torch.tools import soak
-    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+    from r2d2_tpu_torch.utils.trace import (
+        HOST_TRANSFERS,
+        KERNEL_LAUNCHES,
+        RETRACES,
+    )
 
     label = "soak_ingraph" if ingraph else "soak_host"
     cfg = soak.soak_config(ingraph)
+    n0 = len(RETRACES.entries())
     with tempfile.TemporaryDirectory(prefix="chip_smoke_soak_") as d:
         out_path = os.path.join(d, "soak.json")
         buf = io.StringIO()
@@ -7191,6 +7311,11 @@ def soak_run_card(torch, card: str, ingraph: bool) -> dict:
         fail(f"16(b) {label}: lstm_infer launched {launches} times on the "
              f"f32 route ({wgmma} on the tensor-core route) for "
              f"{acts} acts, {cfg.lstm_layers} layer, {cfg.compute_dtype}")
+    # every act on the card replays its graph: the launches above are the
+    # f32 route's cluster launch replayed from these captures
+    graphs = act_instances(n0)
+    if not graphs or any(t < 1 for _, t in graphs):
+        fail(f"16(b) {label}: act instances and captures {graphs}")
     print(f"16(b) soak {label} on {card}, {SOAK_MINUTES} min (H = "
           f"{cfg.hidden_dim}, {cfg.compute_dtype}, {cfg.num_actors} actors "
           f"in {cfg.actor_fleets} fleets, k = {cfg.superstep_k}): SOAK PASS "
@@ -7199,7 +7324,9 @@ def soak_run_card(torch, card: str, ingraph: bool) -> dict:
           f"{summary['updates_per_sec_mid']} last "
           f"{summary['updates_per_sec_last']}, {entries} log entries; "
           f"lstm_infer launches {launches} = {cfg.lstm_layers} x {acts} acts"
-          f" on {CUDACORE_KERNEL}, {wgmma} on {WGMMA_KERNEL}", flush=True)
+          f" on {CUDACORE_KERNEL}, {wgmma} on {WGMMA_KERNEL}, replayed from "
+          f"the acts' graphs (captures per act instance: {graphs})",
+          flush=True)
     return dict(launches=launches, seconds=run_s, summary=summary)
 
 
@@ -7367,6 +7494,7 @@ def main() -> None:
     try:
         from r2d2_tpu_torch.ops import _build
         from r2d2_tpu_torch.ops import lstm
+        from r2d2_tpu_torch.utils.trace import RETRACES
     except ImportError as e:
         fail(f"the port is not importable from here ({e}); run from the "
              "root of a checkout")
@@ -7392,9 +7520,15 @@ def main() -> None:
     spent = {}
 
     def timed(label, fn, *args):
+        n0 = len(RETRACES.entries())
         t = time.perf_counter()
         out = fn(*args)
         spent[label] = round(time.perf_counter() - t, 1)
+        if int(label) >= 4:
+            print(f"phase {label} act instances built in this process and "
+                  f"their traces (on the card CUDA-graph captures; a CPU "
+                  f"twin's input signatures): {act_instances(n0)}",
+                  flush=True)
         if int(label) >= 5:
             retraces_line(label)
         return out

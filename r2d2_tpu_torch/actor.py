@@ -18,6 +18,11 @@ the CUDA device, through the network as configured (the fused kernel when
 ``device="cpu"``) acts on the CPU.  Nothing moves to the CPU silently: with
 no CUDA device, ``"auto"`` raises.
 
+Every act instance (:func:`make_act_fn`) adopts each new params dict into
+its own param tensors in place and, on a CUDA device, replays one CUDA
+graph per input shape (:class:`GraphedAct`), the counterpart of JAX's
+jitted act.
+
 The lockstep vector actor steps N environments and issues one batched act
 per step, exactly as the reference package's; each lane keeps its own ε,
 local buffer and episode lifecycle, so the learning semantics are the
@@ -31,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, List, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,8 +46,9 @@ from r2d2_tpu_torch.config import Config
 from r2d2_tpu_torch.models.network import R2D2Network
 from r2d2_tpu_torch.replay.block import Block, VectorLocalBuffer
 from r2d2_tpu_torch.telemetry.tracing import EVENTS
+from r2d2_tpu_torch.utils.graphs import Graphs
 from r2d2_tpu_torch.utils.store import ParamStore
-from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, RETRACES
+from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, RETRACES, signature
 
 ActFn = Callable[..., tuple]
 # HOST_TRANSFERS name of the actors' acts (one per lockstep forward)
@@ -110,30 +116,111 @@ def _resolve_act_device(spec: str, device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+class GraphedAct:
+    """One act instance (:func:`make_act_fn`): ``act(params, obs,
+    last_action, last_reward, hidden) -> (q, new hidden)``.
+
+    Params are adopted in place: the act owns one set of param tensors
+    (its own, not ``net``'s, which a learner or an evaluator may share,
+    and in the dtypes of the first dict it is given), and a call with a
+    params dict that is not the one it adopted last copies that dict
+    into them (:meth:`adopt`, ``adoptions`` counts it) on the caller's
+    thread and stream, before the act's kernels.  So a publish never
+    writes under a batch that still reads the old params, and never makes
+    a new program.  The key is the dict's identity, not its values: a
+    published dict is never written in place, and a caller publishes a
+    new dict.  A dict whose keys, shapes, dtypes or device differ raises.
+
+    On a CUDA device each input signature (each tensor's shape, dtype and
+    device) is one CUDA graph (utils/graphs.py), captured at its first
+    call and counted as a trace: a replay copies the four inputs into the
+    graph's inputs and launches it on the caller's stream, and the
+    returned ``(q, new hidden)`` are the graph's own outputs, valid until
+    this instance's next act (the callers fetch them at once).  A capture
+    that fails raises; nothing acts eagerly on a card in its place.  On
+    the CPU the act runs eagerly and returns fresh tensors, and a trace is
+    a new input signature.  One thread acts through an instance at a
+    time."""
+
+    def __init__(self, net: R2D2Network, entry):
+        self.net = net
+        self.entry = entry
+        self.graphs = Graphs(entry)
+        self.params: Optional[Dict[str, torch.Tensor]] = None
+        self.adoptions = 0
+        self._adopted = None
+        self._seen: set = set()
+
+    def adopt(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Copy ``params`` into the act's own param tensors, unless it is
+        the dict adopted last."""
+        if params is self._adopted:
+            return
+        with torch.inference_mode():
+            own = self.params
+            want = own if own is not None else self.net.state_dict()
+            if set(params) != set(want):
+                raise ValueError(
+                    "params do not match the network: missing "
+                    f"{sorted(set(want) - set(params))}, unexpected "
+                    f"{sorted(set(params) - set(want))}")
+            for k, t in want.items():
+                v = params[k]
+                if v.shape != t.shape or (own is not None and (
+                        v.dtype != t.dtype or v.device != t.device)):
+                    raise ValueError(
+                        f"param {k}: {tuple(v.shape)} {v.dtype} on "
+                        f"{v.device}, the act's is {tuple(t.shape)} "
+                        f"{t.dtype} on {t.device}")
+            if own is None:
+                self.params = {k: params[k].detach().clone() for k in want}
+            else:
+                for k, t in own.items():
+                    t.copy_(params[k])
+        self._adopted = params
+        self.adoptions += 1
+
+    def _forward(self, x: Dict[str, torch.Tensor]):
+        return functional_call(self.net, self.params,
+                               (x["obs"], x["last_action"],
+                                x["last_reward"], x["hidden"]))
+
+    def __call__(self, params: Mapping[str, torch.Tensor], obs, last_action,
+                 last_reward, hidden):
+        x = dict(obs=obs, last_action=last_action, last_reward=last_reward,
+                 hidden=hidden)
+        key = signature(x)
+        with torch.inference_mode():
+            self.adopt(params)
+            if obs.device.type == "cuda":
+                return self.graphs.replay(key, self._forward, x)
+            if key not in self._seen:
+                self._seen.add(key)
+                self.entry.traces += 1
+            return self._forward(x)
+
+
 def make_act_fn(net: R2D2Network, *, retrace_name: str = "actor.act",
-                retrace_budget: Optional[int] = None) -> ActFn:
+                retrace_budget: Optional[int] = None,
+                guard=None) -> GraphedAct:
     """Batched single-step inference:
     ``act(params, obs (B,*obs) u8, last_action (B,A) f32, last_reward (B,)
     f32, hidden (B,2,layers,H) f32) -> (q (B,A) f32, new hidden)``, all
     tensors on ``net``'s device.  ``params`` is a state dict of ``net``
-    (what :meth:`ContinuousBatcher.publish` holds), so a new snapshot is a
-    new dict, never an in-place write under a running batch.
+    (what :meth:`ContinuousBatcher.publish` holds), adopted in place once
+    per new dict (:class:`GraphedAct`); on a CUDA device the act replays
+    one CUDA graph per input shape (ROADMAP.md A's fourth host-bound
+    cut).
 
     Retrace-guarded (utils/trace.py) as ``retrace_name`` with
     ``retrace_budget`` (default: one fixed lane batch, budget 2), as JAX's
-    ``make_act_fn``: a new input signature counts a trace, so shape or
-    dtype drift in the hot loop shows.  The session tier's batcher
-    registers as ``serving.act`` with a bucket-count budget.  The act runs
-    eagerly; its CUDA graph per bucket is ROADMAP.md A's fourth host-bound
-    cut."""
-
-    def act(params: Mapping[str, torch.Tensor], obs, last_action,
-            last_reward, hidden):
-        with torch.inference_mode():
-            return functional_call(net, params,
-                                   (obs, last_action, last_reward, hidden))
-
-    return RETRACES.wrap(retrace_name, act, budget=retrace_budget)
+    ``make_act_fn``: a capture on the card, a new input signature on the
+    CPU, counts a trace, so shape or dtype drift in the hot loop shows; a
+    publish is no trace.  The session tier's batcher registers as
+    ``serving.act`` with a bucket-count budget.  ``guard`` replaces the
+    retrace guard."""
+    return GraphedAct(net, (guard or RETRACES).register(retrace_name,
+                                                        retrace_budget))
 
 
 def make_host_act_fn(net: R2D2Network, name: str = ACTOR_ACT, *,
@@ -142,7 +229,8 @@ def make_host_act_fn(net: R2D2Network, name: str = ACTOR_ACT, *,
     actor, the evaluator): the four inputs go to ``net``'s device, and
     ``(q, new hidden)`` come back as numpy in ONE device→host copy, counted
     under ``HOST_TRANSFERS[name]`` (one per act, so a run can count its
-    acts).  ``params`` must already be on that device."""
+    acts).  ``params`` must already be on that device.  ``act_host.act``
+    is the :class:`GraphedAct` it acts through."""
     act = make_act_fn(net, retrace_name=retrace_name)
     device = next(net.parameters()).device
 
@@ -155,6 +243,7 @@ def make_host_act_fn(net: R2D2Network, name: str = ACTOR_ACT, *,
             flat = torch.cat([q, new_hidden.reshape(B, -1)], 1).cpu().numpy()
         return flat[:, :A], flat[:, A:].reshape(new_hidden.shape)
 
+    act_host.act = act
     return act_host
 
 

@@ -30,20 +30,19 @@ each step's number): an armed and a disarmed step are two graphs of the
 entry, within its budget of 2, so the diagnostic rows come out as JAX's
 ``lax.cond`` gives them.
 
-A capture warms the step up once on copies of the state and scratch (the
-step writes them in place; the warm-up makes the library handles and
-workspaces of the side stream), then records it on that side stream in
-``thread_local`` mode, so the acting threads keep launching their kernels
-and copies meanwhile; both run under ``TRANSFER_GUARD.allow()``, as JAX
-arms its guard after the first compile.  A replay runs on the caller's
-stream and returns copies of the graph's outputs, which the next replay
-overwrites.  A capture and a launch hold ``utils/trace.PROFILER_LOCK``,
-which ``device_profile`` holds to start and stop ``torch.profiler``: on
-the card a profiler stopped on one thread while another launched a graph
-hung both.  A capture that fails raises: nothing runs the step eagerly on
-a card in its place.  Off a card (and for an entry that is not captured:
-the meshed steps) the step runs eagerly, and a trace is the first call
-with a new input signature, what ``jax.jit`` retraces on.
+A capture (utils/graphs.py, shared with the acts) warms the step up once
+on copies of the state and scratch (the step writes them in place; the
+warm-up makes the library handles and workspaces of the side stream),
+then records it on that side stream in ``thread_local`` mode, so the
+acting threads keep launching their kernels and copies meanwhile; both
+run under ``TRANSFER_GUARD.allow()``, as JAX arms its guard after the
+first compile.  A replay runs on the caller's stream and returns copies
+of the graph's outputs, which the next replay overwrites.  A capture and
+a launch enter ``utils/trace.PROFILER_LOCK`` shared.  A capture that fails
+raises: nothing runs the step eagerly on a card in its place.  Off a card
+(and for an entry that is not captured: the meshed steps) the step runs
+eagerly, and a trace is the first call with a new input signature, what
+``jax.jit`` retraces on.
 """
 from __future__ import annotations
 
@@ -52,12 +51,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from r2d2_tpu_torch.utils.trace import (
-    PROFILER_LOCK,
-    RETRACES,
-    TRANSFER_GUARD,
-    signature,
-)
+from r2d2_tpu_torch.utils.graphs import Graphs
+from r2d2_tpu_torch.utils.trace import RETRACES, signature
 
 # body(state, fixed, scratch, inputs) -> the step's output tensors
 Body = Callable[[Any, Any, Sequence[Any], Dict[str, torch.Tensor]],
@@ -101,31 +96,22 @@ def _mirror_copy(state):
         state, opt_state=dataclasses.replace(state.opt_state))
 
 
-@dataclasses.dataclass
-class _Graph:
-    graph: Any
-    inputs: Dict[str, torch.Tensor]
-    outputs: Tuple[torch.Tensor, ...]
-
-
 class StepGraphs:
     """The programs of one learner entry point: CUDA graphs of one train
-    step on a card, keyed by the learnhealth arming and the addresses and
-    shapes of what they read; the eager step elsewhere, or when
-    ``capture`` is False.  ``guard`` (default :data:`RETRACES`) counts
-    each capture, or each new eager signature, under ``name``."""
+    step on a card (``cuda_graphs``), keyed by the learnhealth arming and
+    the addresses and shapes of what they read; the eager step elsewhere,
+    or when ``capture`` is False.  ``guard`` (default :data:`RETRACES`)
+    counts each capture, or each new eager signature, under ``name``."""
 
     def __init__(self, name: str, capture: bool = True, guard=None):
         self.entry = (guard or RETRACES).register(name)
         self.capture = capture
         self._seen: set = set()
-        self._graphs: Dict[Any, _Graph] = {}
-        self._pool = None
-        self._stream = None
+        self.cuda_graphs = Graphs(self.entry)
 
     @property
     def captures(self) -> int:
-        return len(self._graphs)
+        return self.cuda_graphs.captures
 
     def run(self, body: Body, state, fixed=(), scratch: Sequence = (),
             inputs: Optional[Dict[str, torch.Tensor]] = None,
@@ -150,40 +136,17 @@ class StepGraphs:
                      + _leaves(scratch)),
                tuple((k, tuple(v.shape), v.dtype)
                      for k, v in inputs.items()))
-        g = self._graphs.get(key)
-        if g is None:
-            g = self._graphs[key] = self._capture(body, state, fixed,
-                                                  scratch, inputs)
-        for k, v in inputs.items():
-            g.inputs[k].copy_(v)
-        with PROFILER_LOCK:
-            g.graph.replay()
+
+        def warm(x):
+            body(_clone_state(state), fixed,
+                 [None if t is None else t.clone() for t in scratch], x)
+
+        outputs = self.cuda_graphs.replay(
+            key, lambda x: body(_mirror_copy(state), fixed, scratch, x),
+            inputs, warm)
         state.step += 1
         state.opt_state.count += 1
-        return tuple(o.clone() for o in g.outputs)
-
-    def _capture(self, body: Body, state, fixed, scratch, inputs) -> _Graph:
-        with TRANSFER_GUARD.allow():
-            if self._stream is None:
-                self._stream = torch.cuda.Stream()
-            side = self._stream
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                body(_clone_state(state), fixed,
-                     [None if t is None else t.clone() for t in scratch],
-                     {k: v.clone() for k, v in inputs.items()})
-            torch.cuda.current_stream().wait_stream(side)
-            static = {k: torch.empty_like(v) for k, v in inputs.items()}
-            graph = torch.cuda.CUDAGraph()
-            with PROFILER_LOCK, torch.cuda.graph(
-                    graph, pool=self._pool, stream=side,
-                    capture_error_mode="thread_local"):
-                outputs = tuple(body(_mirror_copy(state), fixed, scratch,
-                                     static))
-            if self._pool is None:
-                self._pool = graph.pool()
-            self.entry.traces += 1
-        return _Graph(graph, static, outputs)
+        return tuple(o.clone() for o in outputs)
 
 
 def make_learner_step(cfg, net, learnhealth: bool = False, guard=None):

@@ -42,7 +42,11 @@ under ``HOST_TRANSFERS`` ``serve.act_put`` and ``serve.act_fetch``.  The
 act runs the service's own ``R2D2Network`` (``functional_call`` swaps a
 module's params while it runs, so the learner's module is never shared);
 on a CUDA device it resolves ``lstm_impl="auto"`` to the fused
-``lstm_infer`` kernel, one launch per LSTM layer per batch.  Every port
+``lstm_infer`` kernel, one launch per LSTM layer per batch, and replays
+one CUDA graph of the act (actor.py:GraphedAct), captured by
+:meth:`InferenceService.start`'s warm-up act and reused by every batch and
+peek; each new ParamStore version is copied into the act's own param
+tensors on the serve thread before the batch that first reads it.  Every port
 path issues on the default stream, so a batch queues behind an in-flight
 super-step.  The act runs in a ``TRANSFER_GUARD`` window (``serve.act``)
 whose two declared crossings are those copies, and a capture window marks
@@ -553,8 +557,9 @@ class InferenceService:
 
     def start(self, param_store) -> None:
         """Build the service's network on its device and run one act at
-        the full batch on zeros: the kernel is built and launched here, and
-        a failure raises before any fleet waits on the service."""
+        the full batch on zeros: the kernel is built and launched here (on
+        a card, the act's CUDA graph captured), and a failure raises
+        before any fleet waits on the service."""
         self.param_store = param_store
         if self._act is None:
             from r2d2_tpu_torch.actor import make_act_fn

@@ -8,10 +8,12 @@ the cap), the tail rows are zero padded (their outputs are discarded and
 pad rows never touch session state), and the act runs at one of
 ``log2(serve_max_batch)+1`` shapes: the retrace guard's ``serving.act``
 budget is that count plus one, as the reference's, and a trace is a new
-bucket shape (utils/trace.py).  On the card each bucket reuses its
-cuDNN/cuBLAS algorithm choices and the kernel's launch geometry, and
-:meth:`warmup` pays every first-call cost (the kernel build included)
-before traffic.
+bucket shape (utils/trace.py).  On the card each bucket is one CUDA
+graph of the act (actor.py:GraphedAct), and :meth:`warmup` captures all
+of them, paying every first-call cost (the kernel build included), before
+traffic.  A publish swaps the dict the batch loop acts with; the act
+copies it into its own param tensors on the batch loop's thread, before
+the next batch's kernels, and captures nothing new.
 
 Transfers: each batch makes exactly ONE host→device put and ONE
 device→host fetch.  The four request arrays of a bucket live in one
@@ -91,15 +93,15 @@ class ContinuousBatcher:
         self.buckets = bucket_sizes(cfg.serve_max_batch)
         self.device = _resolve_act_device(cfg.act_device, device)
         # the module supplies the structure; published state dicts supply
-        # the values (make_act_fn runs it through functional_call)
+        # the values (the act adopts each into its own param tensors)
         self.net = create_network(cfg, action_dim, device=self.device)
-        # one act instance; each bucket shape is one deliberate trace
-        # (+1 slack, the reference's budget)
+        # one act instance; each bucket shape is one deliberate trace, on
+        # the card one CUDA graph (+1 slack, the reference's budget)
         self._act = make_act_fn(self.net, retrace_name="serving.act",
                                 retrace_budget=len(self.buckets) + 1)
         # the parity gate runs on follow mode's thread while the batch loop
         # acts: it gets its own module (an act swaps the module's
-        # parameters while it runs), built at its first use
+        # parameters while it runs) and act instance, built at its first use
         self._probe_act = None
         self._params: Optional[Dict[str, torch.Tensor]] = None
         self.version = 0
@@ -234,8 +236,9 @@ class ContinuousBatcher:
 
     def warmup(self) -> None:
         """Run every bucket once before traffic (server start-up): the
-        first real request must not pay the kernel build or the first
-        cuDNN/cuBLAS call of its shape inside its deadline."""
+        first real request must not pay the kernel build, the first
+        cuDNN/cuBLAS call of its shape or, on the card, its bucket's
+        CUDA-graph capture inside its deadline."""
         if self._params is None:
             raise RuntimeError("no params published yet")
         for b in self.buckets:

@@ -13,14 +13,15 @@
 - :class:`RetraceGuard` — :data:`RETRACES` counts the programs each entry
   point builds against a budget (ROADMAP.md A item 10).  JAX counts
   traces; the port has no tracer, so a "trace" is a CUDA-graph capture
-  where the entry captures one (the learner's steps on a card,
-  learner/graphs.py), and elsewhere the first call with a new input
-  :func:`signature` — what ``jax.jit`` retraces on.
+  where the entry captures one (on a card the learner's meshless steps
+  and the acts, utils/graphs.py), and elsewhere the first call with a
+  new input :func:`signature` — what ``jax.jit`` retraces on.
 - :class:`TransferCounter` — named thread-safe counters.
   :data:`HOST_TRANSFERS` counts the device<->host crossings of the hot
   loops, so "the batcher puts once and fetches once per batch" is an
   assertable invariant; :data:`KERNEL_LAUNCHES` counts the hand-written
-  kernels' launches.
+  kernels' launches (a CUDA graph's replay adds the launches its capture
+  recorded, :meth:`TransferCounter.recording`).
 - :class:`TransferGuard` — :data:`TRANSFER_GUARD` enforces the counted
   contract: armed, each dispatch/fetch window runs under
   ``torch.cuda.set_sync_debug_mode("error")``, so a synchronizing call
@@ -250,6 +251,12 @@ class RetraceGuard:
                 out[e.name] = max(out.get(e.name, 0), e.traces)
         return out
 
+    def entries(self) -> List[Tuple[str, int, int]]:
+        """(name, traces, budget) of every instance, in the order they
+        were built."""
+        with self._lock:
+            return [(e.name, e.traces, e.budget) for e in self._entries]
+
     def over_budget(self) -> List[Tuple[str, int, int]]:
         """(name, traces, budget) for every instance past its budget."""
         with self._lock:
@@ -275,10 +282,27 @@ class TransferCounter:
     def __init__(self):
         self._counts: Dict[str, int] = {}
         self._lock = threading.Lock()
+        self._local = threading.local()
 
     def count(self, name: str, n: int = 1) -> None:
+        rec = getattr(self._local, "rec", None)
+        if rec is not None:
+            rec[name] = rec.get(name, 0) + n
+            return
         with self._lock:
             self._counts[name] = self._counts.get(name, 0) + n
+
+    @contextlib.contextmanager
+    def recording(self) -> Iterator[Dict[str, int]]:
+        """Counts made on this thread inside go to the yielded dict and
+        not to the counters: a CUDA-graph capture records the launches its
+        graph holds, and each replay adds them (utils/graphs.py)."""
+        prev = getattr(self._local, "rec", None)
+        rec = self._local.rec = {}
+        try:
+            yield rec
+        finally:
+            self._local.rec = prev
 
     @contextlib.contextmanager
     def allowed(self, name: str, n: int = 1) -> Iterator[None]:
@@ -453,11 +477,57 @@ RETRACES = RetraceGuard()
 HOST_TRANSFERS = TransferCounter()
 KERNEL_LAUNCHES = TransferCounter()
 TRANSFER_GUARD = TransferGuard()
-# held while torch.profiler starts or stops and while a CUDA graph is
-# captured or launched (learner/graphs.py): a profiler stopped on one
-# thread while another launched a graph hung both on the card (the
-# /profilez window over a training fabric)
-PROFILER_LOCK = threading.Lock()
+
+
+class ProfilerGate:
+    """A profiler's start and stop against CUDA-graph captures and
+    launches: a profiler stopped on one thread while another launched a
+    graph hung both on the card (the ``/profilez`` window over a training
+    fabric).  Captures and launches enter :meth:`shared`, any number at
+    once on any threads, so one entry's graphs never queue behind
+    another's; a profiler's start or stop enters :meth:`exclusive`, which
+    holds new shared entries back, waits for those in flight and runs
+    alone."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._writer = threading.Lock()
+        self._shared = 0
+        self._exclusive = False
+
+    @contextlib.contextmanager
+    def shared(self) -> Iterator[None]:
+        with self._cond:
+            while self._exclusive:
+                self._cond.wait(0.1)
+            self._shared += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._shared -= 1
+                if not self._shared:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self) -> Iterator[None]:
+        with self._writer:
+            with self._cond:
+                self._exclusive = True
+                while self._shared:
+                    self._cond.wait(0.1)
+            try:
+                yield
+            finally:
+                with self._cond:
+                    self._exclusive = False
+                    self._cond.notify_all()
+
+
+# entered shared around every CUDA-graph capture and launch
+# (utils/graphs.py), exclusive around torch.profiler's start and stop
+# (device_profile)
+PROFILER_LOCK = ProfilerGate()
 
 
 @contextlib.contextmanager
@@ -485,11 +555,11 @@ def device_profile(log_dir: Optional[str],
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     prof = profile(activities=activities)
-    with PROFILER_LOCK:
+    with PROFILER_LOCK.exclusive():
         prof.__enter__()
     try:
         yield prof
     finally:
-        with PROFILER_LOCK:
+        with PROFILER_LOCK.exclusive():
             prof.__exit__(None, None, None)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -17,7 +17,10 @@ its numerics.  Tolerances (as in chip_smoke.py):
 1e-5 max-abs in float32 with TF32 off, 1e-4 in bfloat16 — both sides round
 the operands at the same points, only the order of the f32 sums differs.
 The session load generator's float32 cell and the soak are held to take the
-f32 route.
+f32 route.  The acts' CUDA graphs (``actor.py:GraphedAct``): each of the 9
+serving buckets' graphs bit for bit the eager act on both routes at 1 and
+2 LSTM layers, a publish between replays taking effect with no new
+capture, launches = layers × replays, and replays beside profiler windows.
 """
 import numpy as np
 import pytest
@@ -1176,3 +1179,140 @@ def test_profiler_windows_beside_graph_replays_finish(cuda, tmp_path):
         t.join(60)
     assert not t.is_alive() and replays[0] > 0
     assert step.graphs.captures == 1
+
+
+# --------------------------------------------------------------------------
+# the acts' CUDA graphs (actor.py:GraphedAct)
+# --------------------------------------------------------------------------
+
+def _act_setup(cuda, compute_dtype, layers):
+    """The flagship serving net (nature torso over 84×84 frames folded to
+    21×21×16, H = 512, 9 actions, 9 buckets up to 256) at the given
+    compute dtype and LSTM depth, with seeded params, and a graphed act
+    over it counting in a guard of its own."""
+    from r2d2_tpu_torch.actor import make_act_fn
+    from r2d2_tpu_torch.config import Config
+    from r2d2_tpu_torch.models.network import create_network
+    from r2d2_tpu_torch.serving.batcher import bucket_sizes
+    from r2d2_tpu_torch.utils.trace import RetraceGuard
+
+    cfg = Config(serve_max_batch=256, compute_dtype=compute_dtype,
+                 lstm_layers=layers)
+    net = create_network(cfg, 9, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    buckets = bucket_sizes(cfg.serve_max_batch)
+    act = make_act_fn(net, retrace_name="serving.act",
+                      retrace_budget=len(buckets) + 1, guard=RetraceGuard())
+    return cfg, net, buckets, act
+
+
+def _act_params(net, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    return {k: (v.detach().cpu() + 0.01 * torch.randn(v.shape, generator=g)
+                ).to(device) for k, v in net.state_dict().items()}
+
+
+def _act_rows(cfg, n, seed, device):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(
+                0, 256, (n, *cfg.stored_obs_shape), dtype=np.uint8)).to(device),
+            torch.from_numpy(np.eye(9, dtype=np.float32)[
+                rng.integers(9, size=n)]).to(device),
+            torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(device),
+            torch.from_numpy((rng.normal(size=(
+                n, 2, cfg.lstm_layers, cfg.hidden_dim)) * 0.3)
+                .astype(np.float32)).to(device))
+
+
+def _eager_act(net, params, x):
+    from torch.func import functional_call
+
+    with torch.inference_mode():
+        return functional_call(net, params, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers", [1, 2])
+@pytest.mark.parametrize("compute_dtype,counter", [
+    ("bfloat16", KERNEL), ("float32", CUDACORE_COUNTER)])
+def test_graphed_act_is_the_eager_act_in_every_bucket(cuda, compute_dtype,
+                                                      counter, layers):
+    """The flagship serving act, one CUDA graph a bucket, against the
+    eager act on the same params and rows: q and the new hidden bit for
+    bit in all 9 buckets (cuDNN deterministic), on the tensor-core route
+    (bf16, ``lstm_step_wgmma``) and the f32 route (``lstm_step_f32``, a
+    cluster launch) at 1 and 2 LSTM layers; 9 captures; the kernel's
+    launches = layers × replays; a publish between replays takes effect
+    bit for bit and captures nothing."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, net, buckets, act = _act_setup(cuda, compute_dtype, layers)
+        p1, p2 = _act_params(net, 1, cuda), _act_params(net, 2, cuda)
+        rows = {n: _act_rows(cfg, n, n, cuda) for n in buckets}
+        before = KERNEL_LAUNCHES.get(counter)
+        graphed = {n: tuple(t.clone() for t in act(p1, *rows[n]))
+                   for n in buckets}
+        torch.cuda.synchronize()
+        assert KERNEL_LAUNCHES.get(counter) - before == layers * len(buckets)
+        assert act.graphs.captures == len(buckets) == 9
+        assert act.entry.traces == 9 and act.adoptions == 1
+        for n in buckets:
+            eager = _eager_act(net, p1, rows[n])
+            assert all(torch.equal(g, e) for g, e in zip(graphed[n], eager)), n
+        # a publish between two replays of one bucket
+        for n in (1, 64, 256):
+            before = KERNEL_LAUNCHES.get(counter)
+            got = tuple(t.clone() for t in act(p2, *rows[n]))
+            assert KERNEL_LAUNCHES.get(counter) - before == layers
+            assert all(torch.equal(g, e) for g, e in zip(
+                got, _eager_act(net, p2, rows[n])))
+            got = tuple(t.clone() for t in act(p1, *rows[n]))
+            assert all(torch.equal(g, e) for g, e in zip(got, graphed[n]))
+        assert act.graphs.captures == 9 and act.adoptions == 7
+        # the published dicts were read, never written
+        assert all(torch.equal(v, _act_params(net, 2, cuda)[k])
+                   for k, v in p2.items())
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+@pytest.mark.cuda
+def test_act_replays_beside_profiler_windows_finish(cuda, tmp_path):
+    """``device_profile`` windows opened and closed on one thread while
+    another replays the act's graph (a ``/profilez`` window over served
+    traffic): every window writes a trace holding the act's kernel, and
+    both threads finish."""
+    import json
+    import os
+    import threading
+
+    from r2d2_tpu_torch.utils.trace import device_profile
+
+    cfg, net, _, act = _act_setup(cuda, "bfloat16", 1)
+    params, rows = _act_params(net, 1, cuda), _act_rows(cfg, 32, 0, cuda)
+    stop, replays = threading.Event(), [0]
+
+    def actor():
+        while not stop.is_set():
+            q, _ = act(params, *rows)
+            q.cpu()
+            replays[0] += 1
+
+    t = threading.Thread(target=actor, daemon=True)
+    t.start()
+    try:
+        for i in range(4):
+            with device_profile(str(tmp_path / str(i)), require_cuda=True):
+                threading.Event().wait(0.2)
+            path = tmp_path / str(i) / "trace.json"
+            assert os.path.exists(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+            assert any("lstm_step_wgmma" in str(e.get("name", ""))
+                       for e in events)
+    finally:
+        stop.set()
+        t.join(60)
+    assert not t.is_alive() and replays[0] > 0
+    assert act.graphs.captures == 1

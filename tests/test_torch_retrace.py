@@ -10,7 +10,10 @@
   learnhealth diagnostics the port's step has an armed and a disarmed
   program (on a card two CUDA graphs), within the budget of 2.
 - The serving batcher over several bucket sizes counts ``serving.act`` as
-  JAX's batcher does.
+  JAX's batcher does; ``actor.act``, ``serving.act`` and the inference
+  service's act count the same traces as JAX's across publishes, call for
+  call: a publish is not a trace in either package (the port adopts the
+  new dict into the act's own param tensors, actor.py:GraphedAct).
 - The step with its counters on the device against JAX's ``train_step``
   over 12 steps across a target sync at interval 8 (loss 1e-5 relative,
   params 1e-4 relative).
@@ -19,7 +22,7 @@
 
 Small: the mlp torso at the test config's tiny widths, on the CPU, where
 a trace is a new signature.  The CUDA-graph captures are checked on the
-card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phases 5 and 7).
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phases 4, 5 and 7).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from r2d2_tpu import actor as jactor
 from r2d2_tpu.config import test_config as jax_test_config
 from r2d2_tpu.learner import step as jstep
 from r2d2_tpu.serving.batcher import ContinuousBatcher as JaxBatcher
@@ -192,6 +196,138 @@ def test_serving_act_counts_as_jax_batcher(monkeypatch):
     assert [e.budget for e in tguard._entries] == [
         e.budget for e in jguard._entries] == [len(tb.buckets) + 1]
     tguard.assert_within_budgets()
+
+
+def _guards(monkeypatch):
+    """Private guards for both packages' acts, so that the counts below
+    are these calls' alone."""
+    jguard, tguard = jtrace.RetraceGuard(), ttrace.RetraceGuard()
+    monkeypatch.setattr(jtrace, "RETRACES", jguard)
+    monkeypatch.setattr(tactor, "RETRACES", tguard)
+    return jguard, tguard
+
+
+def test_act_publishes_are_not_traces_in_either_package(monkeypatch):
+    """``actor.act`` over three publishes and two batch shapes: JAX's
+    jitted act and the port's adopting act count the same traces, call
+    for call (a publish is none); the port adopts once a publish."""
+    jguard, tguard = _guards(monkeypatch)
+    jcfg, cfg = jax_test_config(), port_test_config(act_device="cpu")
+    jact = jactor.make_act_fn(jcfg, jax_setup(jcfg)[0])
+    act = tactor.make_act_fn(create_network(cfg, A, device="cpu"))
+    rng = np.random.default_rng(3)
+    for p, sizes in ((0, (4, 4)), (1, (4, 8)), (2, (8, 4, 8))):
+        jparams = jax_setup(jcfg, seed=p)[1]
+        tparams = flax_to_port(jparams)
+        for n in sizes:
+            rows = _rows(cfg, n, rng)
+            jq, _ = jact(jparams, *rows)
+            tq, _ = act(tparams, *(torch.from_numpy(r) for r in rows))
+            np.testing.assert_allclose(tq.numpy(), np.asarray(jq),
+                                       rtol=1e-5, atol=1e-5)
+            assert tguard.counts() == jguard.counts()
+    assert tguard.counts() == {"actor.act": 2}
+    assert act.adoptions == 3
+    tguard.assert_within_budgets()
+
+
+def test_serving_act_publishes_are_not_traces(monkeypatch):
+    """The session batcher across three publishes: one ``serving.act``
+    trace a bucket in both packages, call for call, and none a publish;
+    the port's act adopts each published dict once."""
+    jguard, tguard = _guards(monkeypatch)
+    kw = dict(serve_max_batch=8, serve_max_sessions=8,
+              serve_session_idle_s=30.0)
+    jcfg, cfg = jax_test_config(**kw), port_test_config(**kw)
+    jb, tb = JaxBatcher(jcfg, A), ContinuousBatcher(cfg, A, device="cpu")
+    rng = np.random.default_rng(1)
+    for p, sizes in ((0, (1, 1)), (1, (1, 3)), (2, (3, 8, 2))):
+        params = jax_setup(jcfg, seed=p)[1]
+        jb.publish(params)
+        tb.publish(flax_to_port(params))
+        for n in sizes:
+            rows = _rows(cfg, n, rng)
+            jq, _ = jb.act(*rows)
+            tq, _ = tb.act(*rows)
+            np.testing.assert_allclose(tq, np.asarray(jq), rtol=1e-5,
+                                       atol=1e-5)
+            assert tguard.counts() == jguard.counts()
+    # buckets 1, 4, 8 and 2
+    assert tguard.counts() == {"serving.act": 4}
+    assert tb._act.adoptions == 3
+    tguard.assert_within_budgets()
+
+
+def test_inference_service_act_traces_equal_jax_across_publishes(
+        monkeypatch):
+    """Each package's service answering its own fleet client over three
+    ParamStore publishes: one ``actor.act`` trace in both (the port's at
+    ``start``'s warm-up act, JAX's at its first batch), none a publish;
+    the port's act adopts each version once, on the serve thread; q
+    within 1e-5 of JAX's service, batch for batch."""
+    import multiprocessing as mp
+
+    from r2d2_tpu.parallel import actor_procs as japs
+    from r2d2_tpu.parallel import inference_service as jis
+    from r2d2_tpu.utils.store import ParamStore as JaxParamStore
+    from r2d2_tpu_torch.parallel import actor_procs as taps
+    from r2d2_tpu_torch.parallel import inference_service as tis
+    from r2d2_tpu_torch.utils.store import ParamStore
+    from test_torch_inference_service import (
+        make_fake_env,
+        pump_while,
+        serve_cfg,
+    )
+
+    jguard, tguard = _guards(monkeypatch)
+    cfg = serve_cfg()
+    jcfg = jax_test_config(num_actors=2, actor_transport="process",
+                           actor_inference="serve")
+    params = [jax_setup(jcfg, seed=p)[1] for p in range(3)]
+    jstore, tstore = (JaxParamStore(params[0]),
+                      ParamStore(flax_to_port(params[0])))
+    jplane = japs.ProcessFleetPlane(jcfg, A, make_fake_env, [0.4, 0.3])
+    tplane = taps.ProcessFleetPlane(cfg, A, make_fake_env, [0.4, 0.3])
+    jplane.stats_slab.close()
+    tplane.stats_slab.close()
+    ctx = mp.get_context("spawn")
+    sides = []
+    for svc, store, client_cls, c in ((jplane.service, jstore,
+                                       jis.RemoteActClient, jcfg),
+                                      (tplane.service, tstore,
+                                       tis.RemoteActClient, cfg)):
+        svc.start(store)
+        ch = svc.make_channel(0)
+        sides.append((svc, store, client_cls(c, A, 2, ch.producer_info(),
+                                             ctx.Event())))
+    rng = np.random.default_rng(2)
+    hidden = np.zeros((2, 2, cfg.lstm_layers, cfg.hidden_dim), np.float32)
+    qs = ([], [])
+    try:
+        for p in range(3):
+            if p:
+                jstore.publish(params[p])
+                tstore.publish(flax_to_port(params[p]))
+            for _ in range(2):
+                obs = rng.integers(0, 256, (2, *cfg.stored_obs_shape),
+                                   np.uint8)
+                la = np.eye(A, dtype=np.float32)[rng.integers(A, size=2)]
+                lr = rng.normal(size=2).astype(np.float32)
+                for i, (svc, _, client) in enumerate(sides):
+                    q, _ = pump_while(svc, lambda: client(
+                        None, obs, la, lr, hidden))
+                    qs[i].append(np.array(q))
+                assert tguard.counts() == jguard.counts() == {
+                    "actor.act": 1}
+        for jq, tq in zip(*qs):
+            np.testing.assert_allclose(tq, jq, rtol=1e-5, atol=1e-5)
+        assert tplane.service._act.adoptions == 3
+        assert tplane.service.batches == jplane.service.batches == 6
+        tguard.assert_within_budgets()
+    finally:
+        for svc, _, client in sides:
+            client.close()
+            svc.close()
 
 
 def test_device_counter_step_matches_jax_across_a_target_sync():
