@@ -753,7 +753,17 @@ def env_factory(c, seed: int):
 
 
 def fail(msg: str) -> None:
+    """Print the failure and exit 1.  The phases' ``finally`` blocks still
+    run; the process fleets are terminated first, and a hard exit follows
+    after 60 s: at exit, multiprocessing joins each queue's feeder thread,
+    and a feeder blocked on a full pipe to a fleet that stopped reading
+    held a failed run to its time limit."""
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    for p in multiprocessing.active_children():
+        p.terminate()
+    timer = threading.Timer(60.0, os._exit, (1,))
+    timer.daemon = True
+    timer.start()
     sys.exit(1)
 
 
@@ -1488,15 +1498,6 @@ def serve_flagship(torch, card: str, cfg, params, server) -> int:
     return launches
 
 
-def lock_use(name: str, g) -> str:
-    """One entry's replays and its waits for and holds of
-    ``PROFILER_LOCK`` (utils/graphs.py): a hold is the graph's launch."""
-    n = max(g.replays, 1)
-    return (f"the {name}'s {g.replays} replays waited mean "
-            f"{g.wait_s / n * 1e6:.1f} us, max {g.wait_max_s * 1e6:.1f} us, "
-            f"and held it {g.hold_s / n * 1e6:.1f} us a launch")
-
-
 def eager_act(torch, net, params, x):
     """The act issued eagerly, op by op: what a graphed act replays."""
     with torch.inference_mode():
@@ -2184,13 +2185,6 @@ def phase_fabric(torch, card: str):
                   f"lstm_infer launches {launches} = {cfg.lstm_layers} x "
                   f"{acts} actor acts, CUDA-core {old}; tensor-map encodes "
                   f"{encodes} ({encodes / acts:.2f} per act)", flush=True)
-            print(f"PROFILER_LOCK in the fabric on {card} (the actor thread's "
-                  "act graph and the learner's update graph launching beside "
-                  "each other): " + "; ".join(
-                      lock_use(name, g) for name, g in (
-                          ("act", runs[0]["actor"].act_fn.act.graphs),
-                          ("update", runs[0]["step"].graphs.cuda_graphs))),
-                  flush=True)
 
             # the fabric's timings (from the stamps, no synchronisation)
             steps = first["steps"]

@@ -136,11 +136,12 @@ class GraphedAct:
     call and counted as a trace: a replay copies the four inputs into the
     graph's inputs and launches it on the caller's stream, and the
     returned ``(q, new hidden)`` are the graph's own outputs, valid until
-    this instance's next act (the callers fetch them at once).  A capture
-    that fails raises; nothing acts eagerly on a card in its place.  On
-    the CPU the act runs eagerly and returns fresh tensors, and a trace is
-    a new input signature.  One thread acts through an instance at a
-    time."""
+    this instance's next act: a caller takes what it needs of them before
+    it acts again (the batcher's parity gate takes the greedy actions of
+    its first act before its second).  A capture that fails raises;
+    nothing acts eagerly on a card in its place.  On the CPU the act runs
+    eagerly and returns fresh tensors, and a trace is a new input
+    signature.  One thread acts through an instance at a time."""
 
     def __init__(self, net: R2D2Network, entry):
         self.net = net
@@ -149,7 +150,6 @@ class GraphedAct:
         self.params: Optional[Dict[str, torch.Tensor]] = None
         self.adoptions = 0
         self._adopted = None
-        self._seen: set = set()
 
     def adopt(self, params: Mapping[str, torch.Tensor]) -> None:
         """Copy ``params`` into the act's own param tensors, unless it is
@@ -192,12 +192,7 @@ class GraphedAct:
         key = signature(x)
         with torch.inference_mode():
             self.adopt(params)
-            if obs.device.type == "cuda":
-                return self.graphs.replay(key, self._forward, x)
-            if key not in self._seen:
-                self._seen.add(key)
-                self.entry.traces += 1
-            return self._forward(x)
+            return self.graphs.run(key, self._forward, x, obs.device)
 
 
 def make_act_fn(net: R2D2Network, *, retrace_name: str = "actor.act",

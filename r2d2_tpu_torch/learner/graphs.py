@@ -105,9 +105,7 @@ class StepGraphs:
 
     def __init__(self, name: str, capture: bool = True, guard=None):
         self.entry = (guard or RETRACES).register(name)
-        self.capture = capture
-        self._seen: set = set()
-        self.cuda_graphs = Graphs(self.entry)
+        self.cuda_graphs = Graphs(self.entry, capture)
 
     @property
     def captures(self) -> int:
@@ -124,26 +122,16 @@ class StepGraphs:
         inputs = inputs or {}
         device = next(iter(state.params.values())).device
         place_counters(state, device)
-        if not (self.capture and device.type == "cuda"):
-            key = (armed, signature((state, fixed, scratch, inputs)))
-            if key not in self._seen:
-                self._seen.add(key)
-                self.entry.traces += 1
-            return tuple(body(state, fixed, scratch, inputs))
-        key = (armed,
-               tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in
-                     _state_tensors(state) + _leaves(fixed)
-                     + _leaves(scratch)),
-               tuple((k, tuple(v.shape), v.dtype)
-                     for k, v in inputs.items()))
 
         def warm(x):
             body(_clone_state(state), fixed,
                  [None if t is None else t.clone() for t in scratch], x)
 
-        outputs = self.cuda_graphs.replay(
-            key, lambda x: body(_mirror_copy(state), fixed, scratch, x),
-            inputs, warm)
+        outputs = self.cuda_graphs.run(
+            (armed, signature((state, fixed, scratch, inputs))),
+            lambda x: body(_mirror_copy(state), fixed, scratch, x),
+            inputs, device, warm,
+            reads=_state_tensors(state) + _leaves(fixed) + _leaves(scratch))
         state.step += 1
         state.opt_state.count += 1
         return tuple(o.clone() for o in outputs)

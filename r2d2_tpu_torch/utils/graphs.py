@@ -7,8 +7,10 @@ captured CUDA graph is the counterpart: the entry's kernels recorded once
 against tensors at fixed addresses, then replayed with one launch.
 :class:`Graphs` holds the graphs of one entry-point instance and counts
 each capture as one trace of it in the retrace guard (utils/trace.py).
-Its users: the learner's steps (learner/graphs.py) and the acts
-(actor.py:make_act_fn, which the thread fleets, the evaluator, the
+Off a card (and for an entry that is not captured) it runs the entry
+eagerly, and a trace is the first call with a new key, what ``jax.jit``
+retraces on.  Its users: the learner's steps (learner/graphs.py) and the
+acts (actor.py:make_act_fn, which the thread fleets, the evaluator, the
 session batcher and the inference service act through).
 
 A capture first runs ``warm`` once on copies of the inputs on a side
@@ -48,8 +50,8 @@ import contextlib
 import dataclasses
 import gc
 import threading
-import time
-from typing import Any, Callable, Dict, Hashable, Iterator, Optional, Tuple
+from typing import (Any, Callable, Dict, Hashable, Iterator, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -93,47 +95,50 @@ class _Graph:
 
 
 class Graphs:
-    """The CUDA graphs of one entry-point instance, keyed by the caller.
-    ``entry`` is its retrace-guard entry (``RetraceGuard.register``):
-    each capture adds one to ``entry.traces``."""
+    """The programs of one entry-point instance, keyed by the caller: on a
+    card (with ``capture``) one CUDA graph per key, elsewhere the eager
+    call.  ``entry`` is its retrace-guard entry
+    (``RetraceGuard.register``): each capture, or each eager call with a
+    new key, adds one to ``entry.traces``."""
 
-    def __init__(self, entry):
+    def __init__(self, entry, capture: bool = True):
         self.entry = entry
+        self.capture = capture
         self._graphs: Dict[Hashable, _Graph] = {}
+        self._eager: set = set()
         self._pool = None
         self._stream = None
-        # replays, and the seconds spent waiting to enter PROFILER_LOCK
-        # and inside it (the graph's launch) over them
-        self.replays = 0
-        self.wait_s = self.wait_max_s = self.hold_s = 0.0
 
     @property
     def captures(self) -> int:
         return len(self._graphs)
 
-    def replay(self, key: Hashable, record: Record,
-               inputs: Dict[str, torch.Tensor],
-               warm: Optional[Callable[[Dict[str, torch.Tensor]], Any]] = None
-               ) -> Tuple[torch.Tensor, ...]:
-        """``record(inputs)``'s outputs from a replay of ``key``'s graph,
-        captured at the key's first call (after ``warm``, default
-        ``record``, on copies of the inputs).  The returned tensors are
-        the graph's own: the next replay of this instance overwrites
-        them."""
+    def run(self, key: Hashable, record: Record,
+            inputs: Dict[str, torch.Tensor], device: torch.device,
+            warm: Optional[Callable[[Dict[str, torch.Tensor]], Any]] = None,
+            reads: Sequence[torch.Tensor] = ()) -> Tuple[torch.Tensor, ...]:
+        """``record(inputs)``'s outputs.  On a CUDA ``device`` with
+        ``capture``, from a replay of the graph of ``key`` and the
+        addresses of ``reads`` (the tensors the graph reads beside its
+        inputs), captured at its first call after ``warm`` (default
+        ``record``) on copies of the inputs; the returned tensors are the
+        graph's own, which the next replay of this instance overwrites.
+        Otherwise ``record`` runs eagerly, and a new ``key`` is a
+        trace."""
+        if not (self.capture and device.type == "cuda"):
+            if key not in self._eager:
+                self._eager.add(key)
+                self.entry.traces += 1
+            return tuple(record(inputs))
+        key = (key, tuple(t.data_ptr() for t in reads))
         g = self._graphs.get(key)
         if g is None:
             g = self._graphs[key] = self._capture(record, inputs,
                                                   warm or record)
         for k, v in inputs.items():
             g.inputs[k].copy_(v)
-        t0 = time.perf_counter()
         with PROFILER_LOCK.shared():
-            t1 = time.perf_counter()
             g.graph.replay()
-            self.hold_s += time.perf_counter() - t1
-        self.replays += 1
-        self.wait_s += t1 - t0
-        self.wait_max_s = max(self.wait_max_s, t1 - t0)
         for name, n in g.launches.items():
             KERNEL_LAUNCHES.count(name, n)
         return g.outputs

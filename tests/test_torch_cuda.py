@@ -20,7 +20,9 @@ The session load generator's float32 cell and the soak are held to take the
 f32 route.  The acts' CUDA graphs (``actor.py:GraphedAct``): each of the 9
 serving buckets' graphs bit for bit the eager act on both routes at 1 and
 2 LSTM layers, a publish between replays taking effect with no new
-capture, launches = layers × replays, and replays beside profiler windows.
+capture, launches = layers × replays, and replays beside profiler windows;
+the serving batcher's bf16 parity gate failing on the card for a head
+whose quantization flips an action.
 """
 import numpy as np
 import pytest
@@ -1275,6 +1277,37 @@ def test_graphed_act_is_the_eager_act_in_every_bucket(cuda, compute_dtype,
                    for k, v in p2.items())
     finally:
         torch.backends.cudnn.deterministic = det
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w0,parity", [(1 + 2 ** -9, False), (1.5, True)])
+def test_greedy_parity_gate_on_the_card_sees_a_flipped_action(cuda, w0,
+                                                              parity):
+    """The batcher's bf16 parity gate on the card, where its probe act
+    returns its graph's outputs, which the probe's second act overwrites:
+    a head whose bf16 quantization flips action 0 to action 1 (action 0's
+    weight 1 + 2^-9 rounds to 1.0, action 1's 1.0 + 2^-10 stays) fails
+    the gate; the same head with a wide margin (1.5) passes.  f32
+    compute, so the quantization is all that differs."""
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.models.network import create_network
+    from r2d2_tpu_torch.serving.batcher import ContinuousBatcher
+
+    cfg = test_config(serve_dtype="bfloat16", serve_max_sessions=8,
+                      serve_max_batch=8)
+    net = create_network(cfg, 4, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    p = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    for k in ("adv_hidden", "adv_out", "val_hidden", "val_out"):
+        p[f"head.{k}.weight"].zero_()
+        p[f"head.{k}.bias"].zero_()
+    p["head.adv_hidden.bias"][0] = 1.0          # the head's input: e0
+    p["head.adv_out.weight"][0, 0] = w0
+    p["head.adv_out.weight"][1, 0] = 1.0
+    p["head.adv_out.bias"][:] = torch.tensor([0.0, 2.0 ** -10, -1.0, -1.0])
+    b = ContinuousBatcher(cfg, 4, device=cuda)
+    assert b.greedy_parity_ok(p) is parity
+    assert b._probe_act.graphs.captures == 1
 
 
 @pytest.mark.cuda

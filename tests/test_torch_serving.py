@@ -253,6 +253,37 @@ def test_batcher_rejects_params_that_do_not_fit():
         b.publish(bad)
 
 
+def _flip_params(net, w0):
+    """``net``'s params with a head whose greedy action hangs on action
+    0's weight ``w0`` against action 1's 1.0 + 2^-10: at w0 = 1 + 2^-9 the
+    full-precision head picks action 0 and the bf16-quantized one action
+    1 (1 + 2^-9 rounds to 1.0 in bf16); at w0 = 1.5 both pick action 0."""
+    p = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    for k in ("adv_hidden", "adv_out", "val_hidden", "val_out"):
+        p[f"head.{k}.weight"].zero_()
+        p[f"head.{k}.bias"].zero_()
+    p["head.adv_hidden.bias"][0] = 1.0          # the head's input: e0
+    p["head.adv_out.weight"][0, 0] = w0
+    p["head.adv_out.weight"][1, 0] = 1.0
+    p["head.adv_out.bias"][:] = torch.tensor(
+        [0.0, 2.0 ** -10] + [-1.0] * (p["head.adv_out.bias"].numel() - 2))
+    return p
+
+
+@pytest.mark.parametrize("w0,parity", [(1 + 2 ** -9, False), (1.5, True)])
+def test_greedy_parity_gate_sees_a_quantization_that_flips_an_action(
+        w0, parity):
+    """The gate compares the greedy actions of the full-precision and the
+    bf16-quantized params (f32 compute, so the quantization is all that
+    differs): a head whose quantization flips an action fails it, the
+    same head with a wide margin passes."""
+    cfg = _cfg(serve_dtype="bfloat16")
+    net = create_network(cfg, A, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    b = ContinuousBatcher(cfg, A, device="cpu")
+    assert b.greedy_parity_ok(_flip_params(net, w0)) is parity
+
+
 def test_serve_dtype_bf16_quantizes_with_greedy_parity():
     cfg32 = _cfg()
     cfg16 = _cfg(serve_dtype="bfloat16")
