@@ -28,7 +28,8 @@ API (every method is batched tensor ops on the env's device, with no
 host synchronisation):
 
 - ``init_state(root, draws=None) -> state``: every lane reset; ``root``
-  is a python int the lanes' streams derive from;
+  (a python int, or a 0-d int64 tensor from :func:`derive`) is what the
+  lanes' streams derive from;
 - ``observe(state) -> (N, *obs_shape) uint8``;
 - ``step(state, actions) -> (state', reward (N,) f32, truncated (N,)
   bool)``: no auto-reset — the caller records the post-step observation
@@ -72,18 +73,25 @@ def mix32(x):
     return x ^ (x >> 16)
 
 
-def derive(root: int, *salts: int) -> int:
-    """A python-int stream root derived from ``root`` and ``salts`` in
-    order: distinct salts give independent streams."""
-    x = mix32(int(root) + _GOLDEN)
+def _int(x):
+    return x if isinstance(x, torch.Tensor) else int(x)
+
+
+def derive(root, *salts):
+    """A stream root derived from ``root`` and ``salts`` in order:
+    distinct salts give independent streams.  Each is a python int, or an
+    int64 tensor of values in [0, 2**32) (a CUDA graph's input index):
+    then the root is a tensor, computed on its device elementwise, bit
+    for bit the python int."""
+    x = mix32(_int(root) + _GOLDEN)
     for s in salts:
-        x = mix32(x ^ mix32(int(s) + _GOLDEN))
+        x = mix32(x ^ mix32(_int(s) + _GOLDEN))
     return x
 
 
-def lane_keys(root: int, n: int, device) -> torch.Tensor:
+def lane_keys(root, n: int, device) -> torch.Tensor:
     """(n, 2) int64 keys [stream id, counter 0] for ``n`` lanes under
-    ``root``."""
+    ``root`` (a python int, or a 0-d int64 tensor from :func:`derive`)."""
     lanes = torch.arange(n, dtype=torch.int64, device=device)
     ids = mix32(mix32(lanes + _GOLDEN) ^ root)
     return torch.stack([ids, torch.zeros_like(ids)], dim=1)
@@ -149,7 +157,7 @@ class AnakinFakeEnv:
                                   device=self.device)
 
     # ------------------------------------------------------------ lifecycle
-    def init_state(self, root: int,
+    def init_state(self, root,
                    draws: Optional[Dict[str, torch.Tensor]] = None) -> dict:
         """All lanes reset, each lane's stream derived from ``root``."""
         n = self.num_lanes
@@ -236,7 +244,7 @@ class AnakinGridEnv:
         self._cols = torch.arange(w, dtype=torch.int32, device=self.device)
 
     # ------------------------------------------------------------ lifecycle
-    def init_state(self, root: int,
+    def init_state(self, root,
                    draws: Optional[Dict[str, torch.Tensor]] = None) -> dict:
         n = self.num_lanes
         state = dict(

@@ -25,12 +25,16 @@ JAX compiles a dispatch — ``k × (E env/actor steps + 1 train step)``,
 E = ``cfg.anakin_env_steps_per_update`` — into one program.  Here Python
 issues the same work op by op on one stream, with no host
 synchronisation inside a dispatch: no ``.item()``, no tensor truth value,
-no ``nonzero`` or boolean-mask indexing.  What leaves the device per
-dispatch is one small float vector (k losses, the :data:`STATS_FIELDS`
-deltas, then the :data:`EVAL_FIELDS` pair when the eval lane is on), in
-one non-blocking copy into pinned memory, ticked as
-``anakin.result_fetch`` on ``HOST_TRANSFERS``; nothing goes up (the
-dispatch index enters the kernels as an argument).
+no ``nonzero`` or boolean-mask indexing.  On a card the meshless plane
+replays that work as one CUDA graph per entry and eval branch
+(learner/graphs.py: the carry, the ring and the PER state written in
+place, at fixed addresses).  What leaves the device per dispatch is one
+small float vector (k losses, the :data:`STATS_FIELDS` deltas, then the
+:data:`EVAL_FIELDS` pair when the eval lane is on), in one non-blocking
+copy into pinned memory, ticked as ``anakin.result_fetch`` on
+``HOST_TRANSFERS``; nothing goes up (the dispatch index enters the
+kernels as an argument, or a graph as a 0-d tensor filled on the device,
+from which the PER uniforms and the eval episodes' root derive there).
 
 Where JAX needs constructs eager torch has not:
 
@@ -176,12 +180,14 @@ def _gamma_tables(cfg: Config):
     return tail, interior, kernel
 
 
-def sample_uniforms(seed: int, dispatch_idx: int, k: int, B: int,
+def sample_uniforms(seed: int, dispatch_idx, k: int, B: int,
                     device) -> torch.Tensor:
     """(k, B) float32 PER uniforms for one dispatch: a counter-based
     stream of (seed, dispatch index), so a resumed run draws what an
     uninterrupted one would (JAX: ``split(fold_in(PRNGKey(seed),
-    dispatch), k)``; the same scheme, not the same bits)."""
+    dispatch), k)``; the same scheme, not the same bits).  The index is
+    a python int, or a 0-d int64 tensor on ``device`` (a graph's input):
+    the same bits, derived on the device."""
     root = derive(seed, _SAMPLE_SALT, dispatch_idx)
     pos = torch.arange(k * B, dtype=torch.int64, device=device)
     return uniform(mix32(mix32(pos + 0x9E3779B9) ^ root)).reshape(k, B)
@@ -769,7 +775,10 @@ def _make_eval_lane(cfg: Config, net: R2D2Network, env: Any,
     episodes are reproducible and never touch the training streams);
     returns ``(2,)`` f32 ``[episodes, return_sum]`` for the dispatch's
     result vector — zeros off cadence.  The cadence test is a host-side
-    ``if`` on the python dispatch index (JAX: ``lax.cond``)."""
+    ``if`` on the python dispatch index (JAX: ``lax.cond``); the episodes'
+    root derives from ``index`` (default the same index; a 0-d int64
+    tensor in a CUDA graph, so that a replay draws its own dispatch's
+    episodes)."""
     N, A = cfg.num_actors, action_dim
     layers, H = cfg.lstm_layers, cfg.hidden_dim
     act_net = _loss_net(net)
@@ -777,8 +786,8 @@ def _make_eval_lane(cfg: Config, net: R2D2Network, env: Any,
     dev = env.device
     actions_a = torch.arange(A, device=dev)
 
-    def eval_rollout(params, dispatch_idx: int) -> torch.Tensor:
-        est = env.init_state(derive(cfg.seed, _EVAL_SALT, dispatch_idx))
+    def eval_rollout(params, index) -> torch.Tensor:
+        est = env.init_state(derive(cfg.seed, _EVAL_SALT, index))
         obs = env.observe(est)
         la = torch.zeros((N, A), dtype=torch.float32, device=dev)
         lr = torch.zeros(N, dtype=torch.float32, device=dev)
@@ -799,9 +808,10 @@ def _make_eval_lane(cfg: Config, net: R2D2Network, env: Any,
             obs = env.observe(est)
         return torch.stack([done.sum().float(), ret.sum()])
 
-    def eval_lane(params, dispatch_idx: int) -> torch.Tensor:
+    def eval_lane(params, dispatch_idx: int, index=None) -> torch.Tensor:
         if dispatch_idx % interval == 0:
-            return eval_rollout(params, dispatch_idx)
+            return eval_rollout(params,
+                                dispatch_idx if index is None else index)
         return torch.zeros(2, dtype=torch.float32, device=dev)
 
     return eval_lane
@@ -815,7 +825,8 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
     Signature::
 
         super_step(train_state, ast, arrays, prios, seq_meta, first,
-                   dispatch_idx: int, uniforms=None, draws=None)
+                   dispatch_idx: int, uniforms=None, draws=None,
+                   index=None)
           -> (train_state', ast', arrays, prios, seq_meta, first, flat)
 
     The ring arrays, ``prios``, ``seq_meta`` and ``first`` are updated in
@@ -827,7 +838,11 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
     payload.  The PER uniforms are
     :func:`sample_uniforms` of (``cfg.seed``, ``dispatch_idx``) unless
     ``uniforms`` (k, B) is given; ``draws`` (a list of k·E per-step
-    dicts, see :func:`_make_actor_step`) replaces the actor's draws.  The
+    dicts, see :func:`_make_actor_step`) replaces the actor's draws.
+    ``index`` (a 0-d int64 tensor holding ``dispatch_idx``: a CUDA
+    graph's input, learner/graphs.py) stands in for ``dispatch_idx`` in
+    every derivation, the uniforms and the eval episodes' root, so that
+    the python int only picks the eval lane's cadence.  The
     priority feedback is :func:`~r2d2_tpu_torch.learner.step.
     scatter_last` of ``new_p ** prio_exponent``, as in the in-graph PER
     super-step.
@@ -843,7 +858,11 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
     global ones.  With ``replicated`` every rank steps every lane
     (``lanes`` is all of them) and writes the cut blocks its slab owns:
     no block moves, and the lane counters are already global.  The eval
-    lane runs alike on every rank."""
+    lane runs alike on every rank.
+
+    The plane counts its traces as ``learner.anakin_super_step``
+    (utils/trace.py): on the mesh by input signature, meshless by CUDA
+    graph (learner/graphs.py:graphed_super_step)."""
     k, E, B = cfg.superstep_k, cfg.anakin_env_steps_per_update, \
         cfg.batch_size
     lh = diag_enabled(cfg)
@@ -856,11 +875,12 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
     def super_step(train_state: TrainState, ast, arrays, prios, seq_meta,
                    first, dispatch_idx: int,
                    uniforms: Optional[torch.Tensor] = None,
-                   draws: Optional[List[dict]] = None):
+                   draws: Optional[List[dict]] = None,
+                   index: Optional[torch.Tensor] = None):
+        at = dispatch_idx if index is None else index
         ast = _zero_deltas(ast)
         if uniforms is None:
-            uniforms = sample_uniforms(cfg.seed, dispatch_idx, k, B,
-                                       prios.device)
+            uniforms = sample_uniforms(cfg.seed, at, k, B, prios.device)
         params = acting_params(train_state.params)
         # whole copies of split params do not follow the step's in-place
         # update: take them again after each step
@@ -896,15 +916,13 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
         ast = _sum_lane_deltas(ast, cross, replicated)
         parts = [torch.stack(losses), _stats_vec(ast)]
         if eval_lane is not None:
-            parts.append(eval_lane(params, dispatch_idx))
+            parts.append(eval_lane(params, dispatch_idx, at))
         if lh:
             parts.append(torch.stack(diags).reshape(-1))
         return (train_state, ast, arrays, prios, seq_meta, first,
                 torch.cat(parts))
 
-    # retrace-guarded (utils/trace.py) by input signature: it runs
-    # eagerly, and its CUDA graph is ROADMAP.md A's second host-bound cut
-    return RETRACES.wrap("learner.anakin_super_step", super_step)
+    return super_step
 
 
 def acting_params(params: Dict[str, torch.Tensor]
@@ -946,7 +964,8 @@ def make_anakin_rollout(cfg: Config, net: R2D2Network, env: Any,
     ``learning_starts``.  ``rollout(params, ast, arrays, prios, seq_meta,
     first) -> (ast', arrays, prios, seq_meta, first, stats (5,))``.
     ``lanes``, ``cross`` and ``replicated`` as in
-    :func:`make_anakin_super_step`."""
+    :func:`make_anakin_super_step`; the plane counts its traces as
+    ``learner.anakin_rollout``."""
     actor_step = _make_actor_step(cfg, net, env, action_dim, lanes, cross,
                                   replicated)
 
@@ -958,7 +977,7 @@ def make_anakin_rollout(cfg: Config, net: R2D2Network, env: Any,
         ast = _sum_lane_deltas(ast, cross, replicated)
         return ast, arrays, prios, seq_meta, first, _stats_vec(ast)
 
-    return RETRACES.wrap("learner.anakin_rollout", rollout)
+    return rollout
 
 
 def make_debug_rollout(cfg: Config, net: R2D2Network, env: Any,
@@ -1050,13 +1069,28 @@ class AnakinPlane:
             state = {k: self._my_rows(v).clone() if self._split(k) else v
                      for k, v in state.items()}
         self.state = state
-        self.super_step = make_anakin_super_step(
+        self.roll_steps = cfg.superstep_k * cfg.anakin_env_steps_per_update
+        super_step = make_anakin_super_step(
             cfg, net, self.env, action_dim, lanes, self.cross, train_step,
             self.replicated_lanes)
-        self.roll_steps = cfg.superstep_k * cfg.anakin_env_steps_per_update
-        self.rollout = make_anakin_rollout(cfg, net, self.env, action_dim,
-                                           self.roll_steps, lanes,
-                                           self.cross, self.replicated_lanes)
+        rollout = make_anakin_rollout(cfg, net, self.env, action_dim,
+                                      self.roll_steps, lanes, self.cross,
+                                      self.replicated_lanes)
+        if self.cross is None:
+            # both entries replay CUDA graphs on a card (learner/graphs.py)
+            from r2d2_tpu_torch.learner.graphs import (
+                graphed_rollout,
+                graphed_super_step,
+            )
+
+            self.super_step = graphed_super_step(cfg, super_step)
+            self.rollout = graphed_rollout(rollout)
+        else:
+            # eager, retrace-guarded by input signature (ROADMAP.md A's
+            # third host-bound cut)
+            self.super_step = RETRACES.wrap("learner.anakin_super_step",
+                                            super_step)
+            self.rollout = RETRACES.wrap("learner.anakin_rollout", rollout)
         self._frames_per_dispatch = self.roll_steps * cfg.num_actors
 
         # host-int counter mirrors (absolute; deltas arrive per dispatch).
@@ -1320,8 +1354,10 @@ class AnakinPlane:
         """Restore the state :meth:`write_state` captured.  Raises
         ``ValueError`` on a geometry or layout mismatch — another config,
         or a snapshot the JAX package wrote (its stream keys are uint32,
-        these int64) — and the caller warns and resumes cold.  The ring
-        arrays are overwritten in place (never reallocated)."""
+        these int64) — and the caller warns and resumes cold.  The carry,
+        the ring arrays and the PER state are overwritten in place (never
+        reallocated), so the entries' CUDA graphs, which read them where
+        they are, replay the restored state."""
         if meta.get("kind") != "anakin":
             raise ValueError("snapshot is not an anakin loop snapshot")
         with np.load(path) as z:
@@ -1343,18 +1379,9 @@ class AnakinPlane:
         flat = {k: (np.ascontiguousarray(self._my_rows(v))
                     if self._split_payload(k) else v)
                 for k, v in flat.items()}
-        dev = self.ring.device
-        self.state = {k[len("state_"):]: torch.from_numpy(v).to(dev)
-                      for k, v in flat.items() if k.startswith("state_")}
         with torch.no_grad():
-            for k, v in flat.items():
-                if k.startswith("ring_"):
-                    self.ring.arrays[k[len("ring_"):]].copy_(
-                        torch.from_numpy(v))
-        self.ring.put_prios(torch.from_numpy(flat["per_prios"]).to(dev))
-        self.ring.put_per_meta(
-            torch.from_numpy(flat["per_seq_meta"]).to(dev),
-            torch.from_numpy(flat["per_first"]).to(dev))
+            for k, dst in self._payload_tensors().items():
+                dst.copy_(torch.from_numpy(flat[k]))
         c = meta.get("counters", {})
         for k in self._COUNTER_FIELDS:
             if k in c:

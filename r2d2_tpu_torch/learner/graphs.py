@@ -1,4 +1,5 @@
-"""CUDA-graph captures of the learner's steps (ROADMAP.md A item 10).
+"""CUDA-graph captures of the learner's steps (ROADMAP.md A item 10) and
+of the meshless anakin entries (ROADMAP.md A's second host-bound cut).
 
 JAX compiles each learner entry point into one program and dispatches it
 in microseconds; the port issues the same step from Python, op by op, and
@@ -43,6 +44,15 @@ raises: nothing runs the step eagerly on a card in its place.  Off a card
 (and for an entry that is not captured: the meshed steps) the step runs
 eagerly, and a trace is the first call with a new input signature, what
 ``jax.jit`` retraces on.
+
+The meshless anakin plane's two entries, ``learner.anakin_rollout`` and
+``learner.anakin_super_step`` (:func:`graphed_rollout`,
+:func:`graphed_super_step`), replay one graph of a whole dispatch: its
+k·E actor steps with their block emits, and for the super-step the k
+samples, gathers, train steps and priority scatters, and the eval lane
+on its cadence.  Their graphs read the carry, the train state, the ring,
+the leaves, ``seq_meta`` and ``first`` where they are; the dispatch index
+is their one input.
 """
 from __future__ import annotations
 
@@ -159,3 +169,117 @@ def make_learner_step(cfg, net, learnhealth: bool = False, guard=None):
 
     train_step.graphs = graphs
     return train_step
+
+
+# --------------------------------------------------------------------------
+# the meshless anakin entries (learner/anakin.py)
+# --------------------------------------------------------------------------
+
+def _settle(ast: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
+            ) -> None:
+    """The carry a dispatch returned, copied into ``ast``'s own tensors:
+    the carry keeps its addresses, which a graph reads."""
+    if new.keys() != ast.keys():
+        raise ValueError(f"the anakin carry changed its keys: "
+                         f"{sorted(set(new) ^ set(ast))}")
+    for k, v in new.items():
+        if v is not ast[k]:
+            ast[k].copy_(v)
+
+
+def _anakin_reads(ast, arrays, prios, seq_meta, first) -> list:
+    return (list(ast.values()) + list(arrays.values())
+            + [prios, seq_meta, first])
+
+
+def graphed_super_step(cfg, body):
+    """``learner.anakin_super_step`` of a meshless plane: ``body``
+    (:func:`~r2d2_tpu_torch.learner.anakin.make_anakin_super_step`), one
+    whole dispatch replayed as a CUDA graph on a card, eager elsewhere.
+    Signature::
+
+        super_step(train_state, ast, arrays, prios, seq_meta, first,
+                   dispatch_idx: int)
+          -> (train_state, ast, arrays, prios, seq_meta, first, flat)
+
+    The carry ``ast``, the train state, the ring arrays, the PER leaves,
+    ``seq_meta`` and ``first`` are written in place and returned (the
+    carry a dispatch computes is copied back into ``ast``'s tensors), so
+    every address the graph reads stays put; ``flat`` is a copy of the
+    graph's result vector.  The dispatch index is the graph's one input,
+    a 0-d int64 tensor filled on the device (no host copy), from which
+    the PER uniforms and the eval episodes' root derive
+    (envs/anakin.py:derive); the python index picks the eval cadence.
+
+    A graph is keyed by the eval cadence and by which of the k inner
+    steps the learnhealth diagnostic arms (both host decisions, JAX's
+    ``lax.cond`` inside its one program), and by the addresses it reads:
+    with the eval lane on, two graphs, and as many again for each arming
+    pattern (one when the interval divides k).  Each capture is a trace
+    of the entry.  The first dispatch of a key runs eagerly as the
+    capture's warm-up (its outputs are the dispatch's) and the capture
+    follows it, so the ring is never copied.  The host mirrors of the
+    step advance by k a dispatch, as the eager steps advance them."""
+    from r2d2_tpu_torch.learner.step import place_counters
+    from r2d2_tpu_torch.telemetry.learnhealth import diag_enabled
+
+    graphs = Graphs(RETRACES.register("learner.anakin_super_step"))
+    k, interval = cfg.superstep_k, cfg.anakin_eval_interval
+    lh = cfg.learnhealth_interval if diag_enabled(cfg) else 0
+
+    def super_step(train_state, ast, arrays, prios, seq_meta, first,
+                   dispatch_idx: int):
+        device = prios.device
+        place_counters(train_state, device)
+        armed = tuple(lh > 0 and (train_state.step + j + 1) % lh == 0
+                      for j in range(k))
+        branch = (interval > 0 and dispatch_idx % interval == 0, armed)
+
+        def record(x):
+            out = body(_mirror_copy(train_state), ast, arrays, prios,
+                       seq_meta, first, dispatch_idx, index=x["index"])
+            _settle(ast, out[1])
+            return out[-1:]
+
+        (flat,) = graphs.run(
+            signature((train_state, ast, arrays, prios, seq_meta, first)),
+            record, {"index": torch.full((), dispatch_idx,
+                                         dtype=torch.int64, device=device)},
+            device, reads=_state_tensors(train_state)
+            + _anakin_reads(ast, arrays, prios, seq_meta, first),
+            branch=branch, eager_first=True)
+        train_state.step += k
+        train_state.opt_state.count += k
+        return (train_state, ast, arrays, prios, seq_meta, first,
+                flat.clone())
+
+    super_step.graphs = graphs
+    return super_step
+
+
+def graphed_rollout(body):
+    """``learner.anakin_rollout`` of a meshless plane: ``body``
+    (:func:`~r2d2_tpu_torch.learner.anakin.make_anakin_rollout`) replayed
+    as one CUDA graph on a card, eager elsewhere; the carry, the ring and
+    the PER state written in place as :func:`graphed_super_step` writes
+    them, the stats vector a copy.  Its graph is keyed by the addresses it
+    reads (the params among them); the first rollout runs eagerly as the
+    capture's warm-up."""
+    graphs = Graphs(RETRACES.register("learner.anakin_rollout"))
+
+    def rollout(params, ast, arrays, prios, seq_meta, first):
+        def record(x):
+            out = body(params, ast, arrays, prios, seq_meta, first)
+            _settle(ast, out[0])
+            return out[-1:]
+
+        (stats,) = graphs.run(
+            signature((params, ast, arrays, prios, seq_meta, first)),
+            record, {}, prios.device,
+            reads=list(params.values())
+            + _anakin_reads(ast, arrays, prios, seq_meta, first),
+            eager_first=True)
+        return ast, arrays, prios, seq_meta, first, stats.clone()
+
+    rollout.graphs = graphs
+    return rollout

@@ -9,15 +9,18 @@ against tensors at fixed addresses, then replayed with one launch.
 each capture as one trace of it in the retrace guard (utils/trace.py).
 Off a card (and for an entry that is not captured) it runs the entry
 eagerly, and a trace is the first call with a new key, what ``jax.jit``
-retraces on.  Its users: the learner's steps (learner/graphs.py) and the
-acts (actor.py:make_act_fn, which the thread fleets, the evaluator, the
-session batcher and the inference service act through).
+retraces on.  Its users: the learner's steps and the meshless anakin
+entries (learner/graphs.py), and the acts (actor.py:make_act_fn, which
+the thread fleets, the evaluator, the session batcher and the inference
+service act through).
 
 A capture first runs ``warm`` once on copies of the inputs on a side
 stream (the library handles, cuDNN's algorithm choices, the kernels'
-builds and shared-memory settings), then records ``record`` on that
-stream in ``thread_local`` mode, so other threads keep launching their
-kernels and copies meanwhile; both run under ``TRANSFER_GUARD.allow()``.
+builds and shared-memory settings), or, for an entry whose state is too
+large to copy (``eager_first``: anakin's ring), runs the call itself
+eagerly there as its warm-up; then it records ``record`` on that stream
+in ``thread_local`` mode, so other threads keep launching their kernels
+and copies meanwhile; both run under ``TRANSFER_GUARD.allow()``.
 A replay copies the inputs into the graph's own input tensors and runs on
 the caller's stream; it returns the graph's own output tensors, which the
 graph's next replay overwrites.  Every tensor a graph reads beside its
@@ -116,25 +119,34 @@ class Graphs:
     def run(self, key: Hashable, record: Record,
             inputs: Dict[str, torch.Tensor], device: torch.device,
             warm: Optional[Callable[[Dict[str, torch.Tensor]], Any]] = None,
-            reads: Sequence[torch.Tensor] = ()) -> Tuple[torch.Tensor, ...]:
+            reads: Sequence[torch.Tensor] = (), branch: Hashable = None,
+            eager_first: bool = False) -> Tuple[torch.Tensor, ...]:
         """``record(inputs)``'s outputs.  On a CUDA ``device`` with
-        ``capture``, from a replay of the graph of ``key`` and the
-        addresses of ``reads`` (the tensors the graph reads beside its
-        inputs), captured at its first call after ``warm`` (default
-        ``record``) on copies of the inputs; the returned tensors are the
-        graph's own, which the next replay of this instance overwrites.
-        Otherwise ``record`` runs eagerly, and a new ``key`` is a
-        trace."""
+        ``capture``, from a replay of the graph of ``key``, ``branch``
+        and the addresses of ``reads`` (the tensors the graph reads
+        beside its inputs), captured at its first call after ``warm``
+        (default ``record``) on copies of the inputs; the returned tensors
+        are the graph's own, which the next replay of this instance
+        overwrites.  With ``eager_first`` the warm-up is that first call
+        itself: ``record`` runs once eagerly on the real tensors, its
+        outputs are the call's, and the capture follows it (for an entry
+        whose state is too large to copy, anakin's ring).  Otherwise
+        ``record`` runs eagerly, and a new ``key`` is a trace: a
+        ``branch`` (what JAX's ``lax.cond`` selects inside one program)
+        is a graph of its own on the card and no new trace eagerly."""
         if not (self.capture and device.type == "cuda"):
             if key not in self._eager:
                 self._eager.add(key)
                 self.entry.traces += 1
             return tuple(record(inputs))
-        key = (key, tuple(t.data_ptr() for t in reads))
+        key = (key, branch, tuple(t.data_ptr() for t in reads))
         g = self._graphs.get(key)
         if g is None:
-            g = self._graphs[key] = self._capture(record, inputs,
-                                                  warm or record)
+            g, first = self._capture(record, inputs, warm or record,
+                                     eager_first)
+            self._graphs[key] = g
+            if eager_first:
+                return first
         for k, v in inputs.items():
             g.inputs[k].copy_(v)
         with PROFILER_LOCK.shared():
@@ -144,14 +156,19 @@ class Graphs:
         return g.outputs
 
     def _capture(self, record: Record, inputs: Dict[str, torch.Tensor],
-                 warm) -> _Graph:
+                 warm, eager_first: bool = False) -> Tuple[_Graph, Any]:
+        first = None
         with TRANSFER_GUARD.allow():
             if self._stream is None:
                 self._stream = torch.cuda.Stream()
             side = self._stream
             side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side), KERNEL_LAUNCHES.recording():
-                warm({k: v.clone() for k, v in inputs.items()})
+            with torch.cuda.stream(side):
+                if eager_first:
+                    first = tuple(record(inputs))
+                else:
+                    with KERNEL_LAUNCHES.recording():
+                        warm({k: v.clone() for k, v in inputs.items()})
             torch.cuda.current_stream().wait_stream(side)
             static = {k: torch.empty_like(v) for k, v in inputs.items()}
             graph = torch.cuda.CUDAGraph()
@@ -163,4 +180,4 @@ class Graphs:
             if self._pool is None:
                 self._pool = graph.pool()
             self.entry.traces += 1
-        return _Graph(graph, static, outputs, launches)
+        return _Graph(graph, static, outputs, launches), first

@@ -22,7 +22,11 @@ serving buckets' graphs bit for bit the eager act on both routes at 1 and
 2 LSTM layers, a publish between replays taking effect with no new
 capture, launches = layers × replays, and replays beside profiler windows;
 the serving batcher's bf16 parity gate failing on the card for a head
-whose quantization flips an action.
+whose quantization flips an action.  The meshless anakin entries' CUDA
+graphs (``learner/graphs.py:graphed_rollout``, ``graphed_super_step``):
+bit for bit the eager entries run from copies of the same state at the
+rollouts and dispatches after each capture, one capture per entry and
+eval branch, and a restored plane's replays the uninterrupted plane's.
 """
 import numpy as np
 import pytest
@@ -1349,3 +1353,135 @@ def test_act_replays_beside_profiler_windows_finish(cuda, tmp_path):
         t.join(60)
     assert not t.is_alive() and replays[0] > 0
     assert act.graphs.captures == 1
+
+
+def _anakin_plane(cuda, seed=0, **kw):
+    """A small meshless anakin plane on the card (the mlp torso, the eval
+    lane every 2nd dispatch) and its learner."""
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.learner.anakin import AnakinPlane
+    from r2d2_tpu_torch.learner.learner import Learner
+    from r2d2_tpu_torch.learner.step import create_train_state
+    from r2d2_tpu_torch.models.network import create_network
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing
+
+    cfg = test_config(**{**dict(
+        game_name="Fake", actor_transport="anakin", device_replay=True,
+        in_graph_per=True, num_actors=2, superstep_k=2,
+        anakin_episode_len=12, training_steps=10 ** 9, learning_starts=48,
+        anakin_eval_interval=2), **kw})
+    net = create_network(cfg, MESH_A, device=cuda,
+                         generator=torch.Generator().manual_seed(seed))
+    plane = AnakinPlane(cfg, net, MESH_A,
+                        DeviceRing(cfg, MESH_A, device=cuda))
+    learner = Learner(cfg, net, create_train_state(cfg, net.state_dict()))
+    return cfg, net, plane, learner
+
+
+def _anakin_copies(plane):
+    """Copies of the plane's carry, ring arrays, leaves, ``seq_meta`` and
+    ``first``, in the entries' argument order."""
+    arrays, prios, seq_meta, first = plane._handles()
+    return ({k: v.clone() for k, v in plane.state.items()},
+            {k: v.clone() for k, v in arrays.items()}, prios.clone(),
+            seq_meta.clone(), first.clone())
+
+
+def _anakin_same(plane, copies) -> bool:
+    ast, arrays, prios, seq_meta, first = copies
+    mine = _anakin_copies(plane)
+    return (all(torch.equal(plane.state[k], ast[k]) for k in ast)
+            and all(torch.equal(mine[1][k], arrays[k]) for k in arrays)
+            and torch.equal(mine[2], prios) and torch.equal(mine[3], seq_meta)
+            and torch.equal(mine[4], first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lh", [0, 2])
+def test_anakin_graphs_are_the_eager_dispatch_at_other_indices(cuda, lh):
+    """The meshless anakin entries as CUDA graphs, held to the eager
+    functions run from copies of the same carry, ring, leaves, train state
+    and index at the rollouts and dispatches after each capture (the
+    eval lane on at dispatches 2 and 4): the result vector, the carry,
+    the ring, the PER state and the train state bit for bit; one capture
+    of the rollout, one of each eval branch of the super-step."""
+    from r2d2_tpu_torch.learner import anakin
+    from r2d2_tpu_torch.learner.graphs import _clone_state
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, net, plane, learner = _anakin_plane(cuda,
+                                                 learnhealth_interval=lh)
+        eager_roll = anakin.make_anakin_rollout(
+            cfg, net, plane.env, MESH_A, plane.roll_steps)
+        eager_step = anakin.make_anakin_super_step(cfg, net, plane.env,
+                                                   MESH_A)
+        rollouts = 0
+        while not plane.ready:
+            copies = _anakin_copies(plane)
+            if rollouts:
+                want = eager_roll(learner.state.params, *copies)
+            out = plane.rollout(learner.state.params, plane.state,
+                                *plane._handles())
+            plane._absorb(out[-1].cpu().numpy())
+            if rollouts:
+                assert torch.equal(out[-1], want[-1])
+                assert _anakin_same(plane, want[:5])
+            rollouts += 1
+        assert rollouts >= 3
+        for d in range(5):
+            copies = _anakin_copies(plane)
+            twin = _clone_state(learner.state)
+            learner.state, *rest = plane.super_step(
+                learner.state, plane.state, *plane._handles(), d)
+            if d >= 2:
+                want = eager_step(twin, *copies, d)
+                assert torch.equal(rest[-1], want[-1])
+                assert _anakin_same(plane, want[1:6])
+                assert _states_equal(learner.state, want[0])
+        torch.cuda.synchronize()
+        assert plane.rollout.graphs.captures == 1
+        assert plane.super_step.graphs.captures == 2
+        assert plane.super_step.graphs.entry.traces == 2
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+@pytest.mark.cuda
+def test_restored_anakin_plane_replays_as_the_uninterrupted_one(cuda,
+                                                                tmp_path):
+    """Snapshot after dispatch 1, restore into a plane built from other
+    params, dispatch twice: its graphs (captured afresh, reading the
+    restored tensors) give the uninterrupted plane's payload and train
+    state bit for bit."""
+    from r2d2_tpu_torch.learner.graphs import _clone_state
+
+    def drive(plane, learner, n):
+        while not plane.ready:
+            plane.rollout_step(learner.state.params)
+        for _ in range(n):
+            learner.state, result = plane.dispatch(learner.state)
+            plane.harvest(result)
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, _, a, la = _anakin_plane(cuda)
+        drive(a, la, 4)
+        _, _, b, lb = _anakin_plane(cuda)
+        drive(b, lb, 2)
+        path = str(tmp_path / "anakin.bin")
+        meta = b.write_state(path)
+        _, _, c, lc = _anakin_plane(cuda, seed=1)
+        c.read_state(path, meta)
+        lc.state = _clone_state(lb.state)
+        drive(c, lc, 2)
+        torch.cuda.synchronize()
+        assert _states_equal(la.state, lc.state)
+        pa, pc = a._payload(), c._payload()
+        assert sorted(pa) == sorted(pc)
+        assert all(np.array_equal(pa[k], pc[k]) for k in pa)
+        assert c.super_step.graphs.captures == 2
+    finally:
+        torch.backends.cudnn.deterministic = det

@@ -17,6 +17,7 @@ two must agree.
   feedback, a drifted geometry refused at the handshake;
 - ``train(device="cpu")`` over managed loopback shard servers.
 """
+import json
 import os
 import signal
 import socket
@@ -563,7 +564,7 @@ def test_train_over_loopback_sockets_on_the_cpu():
     assert [row["circuit"] for row in net["links"]] == ["closed", "closed"]
     assert m["replay_shard_health"]["dropped_blocks"] == 0
     hz = m["healthz"]
-    assert hz["status"] == "ok"
+    assert hz["status"] == "ok", f"/healthz {json.dumps(hz, default=str)}"
     assert hz["replay_shards"]["net"]["circuits"] == ["closed", "closed"]
     assert m["logs"][-1]["replay_shards"]["net"]["transport"] == "socket"
 
