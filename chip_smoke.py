@@ -264,11 +264,15 @@ Phases (each exits non-zero on failure):
 11. the learner mesh: an NCCL group of world size 1 on a loopback store,
     ``make_mesh`` giving dp = fsdp = tp = 1, on the flagship
     ``Config(game_name="Fake")`` (phase 5's widths, 8 thread actors acting
-    through the kernel at B = 8).  First, from one state and one batch,
-    one meshed train step (a DTensor state, every leaf on the card)
-    against the meshless ``train_step``, bitwise in loss, priorities and
-    every new param (cuDNN deterministic for that check only), and a
-    meshless checkpoint restored onto the mesh bitwise.  Then
+    through the kernel at B = 8).  Every meshed entry replays a CUDA
+    graph with its NCCL collectives inside (learner/graphs.py).  First,
+    from one state and one batch, one meshed train step (a DTensor state,
+    every leaf on the card; the step's capture) against the meshless
+    ``train_step``, bitwise in loss, priorities and every new param, then
+    three more graphed meshed updates against the same entry run eagerly
+    (``utils/graphs.eager``) from a copy of the state, bitwise (cuDNN
+    deterministic for these checks only), one capture, the guard's count;
+    and a meshless checkpoint restored onto the mesh bitwise.  Then
     ``train_sync(cfg, use_mesh=True, device="cuda")`` host-staged on phase
     5's cut ring (16 updates), and ``train(cfg, use_mesh=True)`` with
     ``device_replay``, ``device_ring_layout="dp"`` and host-sampled
@@ -278,47 +282,57 @@ Phases (each exits non-zero on failure):
     ``nccl``, a DTensor state; every loss finite and every priority fed
     back to this rank's buffer; ``lstm_infer`` launched lstm_layers x
     acts, the CUDA-core kernel never, none by an update alone; the target
-    synced at step 8 and not 7; one collective gate per update or
+    synced at step 8 and not 7 (read between the steps' replays); one
+    collective gate per update or
     dispatch, one min-density agreement per super-step, and one
     ``group_broadcast`` of the dp group's rows per update or super-step
     (over a group of one: the path a spanning dp group takes); in the ring
     run the slab on the card and ``/healthz`` ok; the train_sync run's
     checkpoint restored without a mesh bitwise.  Prints the update and
     dispatch interval p50 beside phase 5's and phase 7's meshless values,
-    a lone meshed update's host and device time and device events beside
-    the meshless update's (the DTensor dispatch cost), the NCCL kernels
-    in one update with its gate, env steps/s filling and training, peak
-    GB and the phase's seconds;
-12. the cross-rank draw: phase 11's NCCL group of world size 1.  (a)
+    a lone update's host wall, issue, device time and kernel nodes or
+    device events, meshed graphed against meshed eager
+    (``graph_vs_eager_once``) and beside the meshless graphed update, the
+    NCCL kernels in one graphed update with its gate, env steps/s filling
+    and training, peak GB and the phase's seconds;
+12. the cross-rank draw: phase 11's NCCL group of world size 1, every
+    meshed entry a CUDA graph with its collectives inside.  (a)
     ``pong_config(game_name="Fake")`` with in-graph PER on the mesh and
     ``device_ring_layout="dp"`` (this rank's slab is the whole 15.80 GB
     ring): on a 16-block ring at the preset's slot shapes, one meshed
-    super-step (k = 4, through ``parallel/cross_rank.py``) against the
-    meshless one from the same ring, state and generator seed — sampled
-    indices, losses, the priority slab and every new param bitwise (cuDNN
-    deterministic for the check), with the design's collectives; then
-    ``train(cfg, use_mesh=True)`` from the full ring, cut as phase 7's
-    in-graph run (8 updates).  (b) The README's anakin config on the
-    mesh: on a 64-block ring at the full slot shapes, the meshed plane's
-    warm-up and one training dispatch against the meshless plane's —
+    super-step (k = 4, through ``parallel/cross_rank.py``; each inner step
+    one graph with its draw, row exchange, train step, feedback and the
+    dp group's broadcast) against the meshless one from the same ring,
+    state and generator seed — sampled indices, losses, the priority slab
+    and every new param bitwise (cuDNN deterministic for the check), with
+    the design's collectives — and two more against the same entry run
+    eagerly from copies, bitwise, one capture; then ``train(cfg,
+    use_mesh=True)`` from the full ring, cut as phase 7's in-graph run (8
+    updates).  (b) The README's anakin config on the mesh: on a 64-block
+    ring at the full slot shapes, the meshed plane's warm-up, one more
+    rollout and two training dispatches against the meshless plane's —
     every payload array, the losses and every param bitwise, with the
     lanes split over dp and with the replicated lane axis forced (the
     fallback when the lanes do not divide over dp or outnumber a slab's
-    blocks) — and its snapshot read into a meshless plane bitwise; then
-    ``train(cfg,
-    use_mesh=True)`` from the full ring, cut as phase 8 (2 dispatches of
+    blocks) — the second rollout and dispatch (replays) against the eager
+    functions from copies, bitwise, one capture of each entry, and its
+    snapshot read into a meshless plane bitwise; then ``train(cfg,
+    use_mesh=True)`` from the full ring, cut as phase 8 (3 dispatches of
     k = 8).  Checked in both runs: the backend ``nccl`` and a DTensor
-    state; every loss finite; the target synced at step 8 and not 7; the
+    state; every loss finite; the target synced at step 8 and not 7 in
+    (a), at 16 and not 8 or 24 in (b) (read between the replays); the
     collectives ``CROSS_RANK_CALLS`` counts equal to the design's count
-    per inner step and per actor step, and ``group_broadcast`` one per
-    inner step in (a) (the leader's rows to its dp group, here of one) and
-    none in (b); one result fetch per dispatch (and
-    per rollout); ``lstm_infer`` launched layers × acts in (a), 0 in (b),
-    the CUDA-core kernel never; in (b) the second dispatch clean under
+    per inner step and per actor step (a replay adds what its capture
+    recorded), and ``group_broadcast`` one per inner step in (a) (the
+    leader's rows to its dp group, here of one) and none in (b); one
+    result fetch per dispatch (and per rollout); ``lstm_infer`` launched
+    layers × acts in (a), 0 in (b), the CUDA-core kernel never; in (b)
+    the third dispatch (a replay) clean under
     ``set_sync_debug_mode("error")``; ``/healthz`` ok.  Prints a lone
-    meshed super-step's and anakin dispatch's host time, device time,
-    device events and NCCL kernels beside the meshless ones, env steps or
-    frames/s while filling and training, peak GB and the phase's seconds;
+    meshed super-step's and anakin dispatch's host wall, issue, device
+    time and kernel nodes, graphed against eager and beside the meshless
+    graphed one, with the NCCL kernels, env steps or frames/s while
+    filling and training, peak GB and the phase's seconds;
 13. the league: the flagship ``Config(game_name="Fake",
     actor_transport="process", actor_fleets=2, actor_inference="serve",
     population_spec=<the base and the low_resource member preset>,
@@ -639,15 +653,17 @@ MESH_WALL_S = 240
 # preset with in-graph PER on the mesh, its ring this rank's dp slab (the
 # whole ring at dp = 1), cut as phase 7's in-graph run in warm-up and
 # cadences, 8 updates; (b) the README's anakin config on the mesh, cut as
-# phase 8 in warm-up and eval cadence, 2 dispatches of k = 8, no replay
-# snapshot (the plane's snapshot is checked on the 64-block ring)
+# phase 8 in warm-up and eval cadence, 3 dispatches of k = 8 (the third
+# the first replay of a graph; the target synced at 16, read after each
+# dispatch), no replay snapshot (the plane's snapshot is checked on the
+# 64-block ring)
 MESH_IG_REDUCED = dict(device_ring_layout="dp", learning_starts=25_600,
                        training_steps=8, target_net_update_interval=8,
                        save_interval=8, telemetry_port=-1,
                        log_interval=1.0)
 MESH_ANAKIN_REDUCED = dict(learning_starts=4_096, anakin_eval_interval=2,
-                           training_steps=16, target_net_update_interval=8,
-                           save_interval=16, replay_snapshot=False,
+                           training_steps=24, target_net_update_interval=16,
+                           save_interval=24, replay_snapshot=False,
                            telemetry_port=-1, log_interval=1.0)
 # (a)'s parity ring: 16 scripted blocks at the preset's slot shapes
 MESH_CHECK_BLOCKS = 16
@@ -1534,14 +1550,17 @@ def eager_act(torch, net, params, x):
         return torch.func.functional_call(net, params, tuple(x))
 
 
-def profile_events(torch, fn, iters: int, tries: int = 3):
+def profile_events(torch, fn, iters: int, tries: int = 3,
+                   warm: bool = True):
     """Device-side events of ``iters`` calls of ``fn`` under
-    ``torch.profiler``: ``[(name, ms per call, count per call)]``, longest
-    first, or None when no trace in ``tries`` holds device time."""
+    ``torch.profiler`` (after one warm call, with ``warm``): ``[(name, ms
+    per call, count per call)]``, longest first, or None when no trace in
+    ``tries`` holds device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         # device activity only, as device_ms
@@ -2641,6 +2660,7 @@ def in_graph_graph_check(torch, base, net) -> None:
     from r2d2_tpu_torch.learner import step as step_mod
     from r2d2_tpu_torch.replay.device_ring import DeviceRing
     from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+    from r2d2_tpu_torch.utils.graphs import eager
     from r2d2_tpu_torch.utils.trace import RetraceGuard
 
     cuda = torch.device("cuda", torch.cuda.current_device())
@@ -2655,9 +2675,8 @@ def in_graph_graph_check(torch, base, net) -> None:
     meta = ring.per_meta()
     graphed = step_mod.make_in_graph_per_super_step_fn(
         cfg, net, k, guard=RetraceGuard())
-    eager = step_mod.make_in_graph_per_super_step_fn(
-        cfg, net, k, train_step=step_mod.make_train_step(cfg, net),
-        guard=RetraceGuard())
+    twin = step_mod.make_in_graph_per_super_step_fn(cfg, net, k,
+                                                    guard=RetraceGuard())
     states = [step_mod.create_train_state(cfg, net.state_dict())
               for _ in range(2)]
     leaves = [ring.take_prios().clone() for _ in range(2)]
@@ -2669,10 +2688,11 @@ def in_graph_graph_check(torch, base, net) -> None:
         same, drawn = True, 0
         for _ in range(2):
             recs, losses = ([], []), []
-            for i, fn in enumerate((graphed, eager)):
-                out = fn(states[i], ring.snapshot(), leaves[i],
-                         meta["seq_meta"], meta["first"], generator=gens[i],
-                         record=recs[i])
+            for i, fn in enumerate((graphed, twin)):
+                with eager() if i else contextlib.nullcontext():
+                    out = fn(states[i], ring.snapshot(), leaves[i],
+                             meta["seq_meta"], meta["first"],
+                             generator=gens[i], record=recs[i])
                 losses.append(out[2])
             drawn += sum(int(x.numel()) for x in recs[0])
             same = (same and len(recs[0]) == k
@@ -2711,6 +2731,7 @@ def device_replay_run(torch, card: str, cfg, need: int) -> tuple:
     from r2d2_tpu_torch.learner import step as step_mod
     from r2d2_tpu_torch.ops import lstm
     from r2d2_tpu_torch.replay.device_ring import to_device
+    from r2d2_tpu_torch.utils.graphs import eager
     from r2d2_tpu_torch.utils.trace import (
         HOST_TRANSFERS,
         KERNEL_LAUNCHES,
@@ -2912,11 +2933,10 @@ def device_replay_run(torch, card: str, cfg, need: int) -> tuple:
 
         # a lone super-step, the fabric stopped: graphed (as the run's
         # learner) against the same super-step issued eagerly
-        eager_step = step_mod.make_train_step(cfg, learner.net)
         if in_graph:
             fns = [step_mod.make_in_graph_per_super_step_fn(
-                cfg, learner.net, k, train_step=ts, guard=RetraceGuard())
-                for ts in (None, eager_step)]
+                cfg, learner.net, k, guard=RetraceGuard())
+                for _ in range(2)]
             gen = torch.Generator(device=learner.device).manual_seed(1)
             per = ring.per_meta()
 
@@ -2924,9 +2944,9 @@ def device_replay_run(torch, card: str, cfg, need: int) -> tuple:
                 fn(learner.state, ring.snapshot(), ring.take_prios(),
                    per["seq_meta"], per["first"], generator=gen)
         else:
-            fns = [step_mod.SuperStep(cfg, learner.net, k, train_step=ts,
+            fns = [step_mod.SuperStep(cfg, learner.net, k,
                                       guard=RetraceGuard())
-                   for ts in (None, eager_step)]
+                   for _ in range(2)]
 
             def one_super(fn):
                 meta = buffer.sample_meta(k)
@@ -2938,8 +2958,12 @@ def device_replay_run(torch, card: str, cfg, need: int) -> tuple:
             fail(f"{mode}: no device time in a graphed super-step")
         if any("lstm_step" in name for name, _, _ in events):
             fail(f"{mode}: a super-step launched an lstm_infer kernel")
-        g, e = graph_vs_eager(torch, lambda: one_super(fns[0]),
-                              lambda: one_super(fns[1]), iters=1)
+        def eager_super():
+            with eager():
+                one_super(fns[1])
+
+        g, e = graph_vs_eager(torch, lambda: one_super(fns[0]), eager_super,
+                              iters=1)
         # the graphed issue alone: its wall clock and the CPU time of the
         # issuing thread
         t0, c0 = time.perf_counter(), time.thread_time()
@@ -4633,15 +4657,57 @@ def state_equal(torch, a, b) -> bool:
                     for k in x))
 
 
+def mesh_state_equal(torch, a, b) -> bool:
+    """Two DTensor states bit for bit: the host mirrors, the device
+    counters and every leaf gathered whole."""
+    from r2d2_tpu_torch.parallel.sharding import gather_state
+
+    return (torch.equal(a.step_t, b.step_t)
+            and torch.equal(a.opt_state.count_t, b.opt_state.count_t)
+            and state_equal(torch, gather_state(a), gather_state(b)))
+
+
+@contextlib.contextmanager
+def target_sync_probe(torch, rec: dict):
+    """Records in ``rec``, after each learner step through ``StepGraphs``
+    (a graph replay on the card) that ends at step 7 or 8, whether the
+    target params equal the online ones: read between steps, on the
+    learner thread (on the mesh a gather is a collective every rank makes
+    at the same step), never inside a capture."""
+    from r2d2_tpu_torch.learner import graphs as graphs_mod
+    from r2d2_tpu_torch.parallel.sharding import full
+
+    real = graphs_mod.StepGraphs.run
+
+    def run(self, body, state, *args, **kw):
+        out = real(self, body, state, *args, **kw)
+        if state.step in (7, 8):
+            rec[state.step] = all(torch.equal(full(state.params[n]),
+                                              full(state.target_params[n]))
+                                  for n in state.params)
+        return out
+
+    graphs_mod.StepGraphs.run = run
+    try:
+        yield rec
+    finally:
+        graphs_mod.StepGraphs.run = real
+
+
 def mesh_step_checks(torch, card: str, cfg, mesh, device: str,
                      ckdir: str) -> dict:
     """Run 1 of phase 11: from one state and one batch, one meshed train
-    step against one meshless ``train_step`` (phase 5's ``step_batch``),
-    bitwise; the lone updates' host and device time; and a meshless
-    checkpoint restored onto the mesh, bitwise."""
+    step (a CUDA graph with its collectives on the card) against one
+    meshless ``train_step`` (phase 5's ``step_batch``), bitwise; three more
+    graphed meshed updates against the same entry run eagerly from a copy
+    of the state (``utils/graphs.eager``), bitwise, with the captures the
+    guard counts; the lone updates' host and device time, meshed graphed,
+    meshed eager and meshless graphed; and a meshless checkpoint restored
+    onto the mesh, bitwise."""
     from torch.distributed.tensor import DTensor
 
     from r2d2_tpu_torch.checkpoint import Checkpointer
+    from r2d2_tpu_torch.learner.graphs import _clone_state, make_learner_step
     from r2d2_tpu_torch.learner.learner import Learner
     from r2d2_tpu_torch.learner.step import (
         create_train_state,
@@ -4654,13 +4720,17 @@ def mesh_step_checks(torch, card: str, cfg, mesh, device: str,
         gather_state,
         mesh_train_step,
     )
+    from r2d2_tpu_torch.utils.graphs import eager
+    from r2d2_tpu_torch.utils.trace import RetraceGuard
 
     net = create_network(cfg, TRAIN_ACTIONS, device=device,
                          generator=torch.Generator().manual_seed(0))
     plain_state = create_train_state(cfg, net.state_dict())
     mesh_state = create_train_state(cfg, net.state_dict())
     table = ShardingTable(mesh, cfg)
-    meshed = mesh_train_step(cfg, net, table, state_template=mesh_state)
+    guard = RetraceGuard()
+    meshed = mesh_train_step(cfg, net, table, state_template=mesh_state,
+                             guard=guard)
     mesh_state = table.place_state(mesh_state)
     leaves = [v for d in (mesh_state.params, mesh_state.target_params,
                           mesh_state.opt_state.mu, mesh_state.opt_state.nu)
@@ -4669,33 +4739,58 @@ def mesh_step_checks(torch, card: str, cfg, mesh, device: str,
                for v in leaves):
         fail(f"a meshed state leaf is not a DTensor on {device}")
     plain = make_train_step(cfg, net)
-    batch = {k: torch.from_numpy(v).to(device)
-             for k, v in step_batch(cfg, seed=11).items()}
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in step_batch(cfg, seed=11 + i).items()}
+               for i in range(4)]
+    batch = batches[0]
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         plain_state, la, pa = plain(plain_state, batch)
         mesh_state, lb, pb = meshed(mesh_state, batch)
         torch.cuda.synchronize()
+        full = gather_state(mesh_state)
+        param_err = max(float((full.params[k] - plain_state.params[k])
+                              .abs().max()) for k in full.params)
+        bitwise = (torch.equal(la, lb) and torch.equal(pa, pb)
+                   and state_equal(torch, plain_state, full))
+        # graphed against eager: the same entry, issued op by op
+        twin_state = _clone_state(mesh_state)
+        twin = mesh_train_step(cfg, net, table, state_template=twin_state,
+                               guard=RetraceGuard())
+        graph_same = True
+        for b_ in batches[1:]:
+            ga = meshed(mesh_state, b_)
+            with eager():
+                gb = twin(twin_state, b_)
+            graph_same = graph_same and all(
+                torch.equal(x, y) for x, y in zip(ga[1:], gb[1:]))
+        graph_same = graph_same and mesh_state_equal(torch, mesh_state,
+                                                     twin_state)
+        torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = det
-    full = gather_state(mesh_state)
-    param_err = max(float((full.params[k] - plain_state.params[k]).abs()
-                          .max()) for k in full.params)
-    bitwise = (torch.equal(la, lb) and torch.equal(pa, pb)
-               and state_equal(torch, plain_state, full))
+    captures = meshed.graphs.captures
     print(f"mesh step parity on {card}: world size 1, {len(leaves)} state "
-          f"leaves DTensors on {device}; loss meshed {lb.item():.6f} vs "
-          f"meshless {la.item():.6f}, priorities max-abs "
+          f"leaves DTensors on {device}; the meshed step graphed: loss "
+          f"{lb.item():.6f} vs meshless {la.item():.6f}, priorities max-abs "
           f"{(pa - pb).abs().max().item():.3e}, new params max-abs "
-          f"{param_err:.3e}; bitwise {bitwise} (cuDNN deterministic for "
-          "this check only)", flush=True)
+          f"{param_err:.3e}; bitwise {bitwise}; updates 2-4 graphed vs the "
+          f"same entry eager from a copy of the state (loss, priorities, "
+          f"params, target, Adam moments, counters) bitwise {graph_same}; "
+          f"captures {captures}, guard {guard.counts()} (cuDNN "
+          "deterministic for these checks only)", flush=True)
     if not bitwise:
         worst = sorted(((float((full.params[k] - plain_state.params[k])
                                .abs().max()), k) for k in full.params),
                        reverse=True)[:5]
         fail(f"the meshed step is not the meshless step bit for bit: "
              f"loss {la.item()!r} vs {lb.item()!r}, worst params {worst}")
+    if not graph_same or captures != 1 or guard.counts() != {
+            "learner.train_step": captures}:
+        fail(f"the graphed meshed step is not its eager run bit for bit "
+             f"({graph_same}), or captures {captures} against the guard's "
+             f"{guard.counts()}")
 
     # the meshless state, checkpointed, restored onto the mesh
     ck = Checkpointer(ckdir)
@@ -4708,41 +4803,54 @@ def mesh_step_checks(torch, card: str, cfg, mesh, device: str,
     print(f"checkpoint crossing on {card}: a meshless checkpoint restored "
           "with the mesh, gathered back, bit for bit", flush=True)
 
-    # the lone updates: the step alone, meshless and meshed; then one
-    # meshed update with its collective gate, for the NCCL kernels
-    def one_plain():
-        plain(plain_state, batch)
+    # the lone updates: meshed graphed against meshed eager, the meshless
+    # graphed update; then one meshed update with its collective gate, for
+    # the NCCL kernels
+    meshless = make_learner_step(cfg, net, guard=RetraceGuard())
 
-    def one_meshed():
-        meshed(mesh_state, batch)
+    def one_eager():
+        with eager():
+            twin(twin_state, batch)
 
     def one_gated():
         sync_min_array([1.0, 1.0], tag="profile")
         meshed(mesh_state, batch)
 
-    out = {}
-    for name, fn in (("meshless", one_plain), ("meshed", one_meshed)):
-        events = profile_events(torch, fn, 2)
-        if events is None:
-            fail(f"no device time in a {name} update")
-        out[name] = dict(wall=wall_ms(torch, fn, 3),
-                         device=sum(ms for _, ms, _ in events),
-                         events=sum(n for _, _, n in events))
+    g, e = graph_vs_eager_once(torch, lambda: meshed(mesh_state, batch),
+                               one_eager, iters=3)
+    out = dict(meshed=g, eager=e,
+               meshless=lone(torch, lambda: meshless(plain_state, batch), 3))
     gated = profile_events(torch, one_gated, 2)
     if gated is None:
         fail("no device time in a gated meshed update")
-    nccl = [(n, ms, c) for n, ms, c in gated if "nccl" in n.lower()]
-    out["nccl"] = nccl
-    a, b = out["meshless"], out["meshed"]
-    print(f"lone update on {card} (step only, 3 timed): meshless host wall "
-          f"{a['wall']:.2f} ms, device {a['device']:.3f} ms in "
-          f"{a['events']:.0f} device events; meshed host wall "
-          f"{b['wall']:.2f} ms, device {b['device']:.3f} ms in "
-          f"{b['events']:.0f} device events ({b['wall'] / a['wall']:.2f}x "
-          f"the host wall: the DTensor dispatch); NCCL kernels in one "
-          "update with its gate: " + (", ".join(
+    out["nccl"] = [(n, ms, c) for n, ms, c in gated if "nccl" in n.lower()]
+    if meshed.graphs.captures != 1:
+        fail(f"the timed meshed updates captured again: "
+             f"{meshed.graphs.captures}")
+    m = out["meshless"]
+    print(f"lone update on {card} (step only; graphed 3 timed, eager 1 "
+          f"timed, each 1 profiled): meshed graphed vs meshed eager: "
+          + fmt_graph(g, e) + f"; meshless graphed host "
+          f"wall {m['wall']:.2f} ms, device {m['device']:.3f} ms in "
+          f"{m['events']:.0f} kernel nodes; meshed graphed host wall "
+          f"{g['wall'] / m['wall']:.2f}x the meshless, "
+          f"{g['wall'] / g['device']:.2f}x its device time; NCCL kernels in "
+          "one graphed update with its gate: " + (", ".join(
               f"{short_kernel_name(n, 80)} x{c:.0f} ({ms:.4f} ms)"
-              for n, ms, c in nccl) or "none"), flush=True)
+              for n, ms, c in out["nccl"]) or "none"), flush=True)
+    return out
+
+
+def run_captures(n0: int) -> dict:
+    """The traces of each learner entry instance registered with
+    ``RETRACES`` after its ``n0``-th entry (on the card its CUDA-graph
+    captures), by name."""
+    from r2d2_tpu_torch.utils.trace import RETRACES
+
+    out: dict = {}
+    for name, traces, _ in RETRACES.entries()[n0:]:
+        if name.startswith("learner."):
+            out.setdefault(name, []).append(traces)
     return out
 
 
@@ -4759,34 +4867,21 @@ def mesh_run(torch, card: str, cfg, label: str, ckdir: str,
     from r2d2_tpu_torch.actor import ACTOR_ACT
     from r2d2_tpu_torch.checkpoint import Checkpointer
     from r2d2_tpu_torch.evaluate import EVAL_ACT
-    from r2d2_tpu_torch.learner import step as step_mod
     from r2d2_tpu_torch.learner.learner import Learner
     from r2d2_tpu_torch.ops import lstm
     from r2d2_tpu_torch.parallel.distributed import COLLECTIVE_CALLS
-    from r2d2_tpu_torch.parallel.sharding import full, gather_state
+    from r2d2_tpu_torch.parallel.sharding import gather_state
     from r2d2_tpu_torch.replay.replay_buffer import data_bytes
-    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+    from r2d2_tpu_torch.utils.trace import (
+        HOST_TRANSFERS,
+        KERNEL_LAUNCHES,
+        RETRACES,
+    )
 
     steps, k = cfg.training_steps, cfg.superstep_k
     rec = dict(start=None, stamps=[], synced={})
-    real_build, real_mts = train._build, step_mod.make_train_step
+    real_build = train._build
     probe = {}
-
-    def recording_mts(cfg_, net_, **kw):
-        inner = real_mts(cfg_, net_, **kw)
-
-        def step(state, batch):
-            out = inner(state, batch)
-            st = out[0]
-            if st.step in (7, 8):
-                # the learner thread, between steps: the gathers are
-                # collectives every rank makes at the same step
-                rec["synced"][st.step] = all(
-                    torch.equal(full(st.params[n]),
-                                full(st.target_params[n]))
-                    for n in st.params)
-            return out
-        return step
 
     def capture(*args, **kw):
         sys_ = real_build(*args, **kw)
@@ -4842,10 +4937,12 @@ def mesh_run(torch, card: str, cfg, label: str, ckdir: str,
     HOST_TRANSFERS.reset()
     COLLECTIVE_CALLS.clear()
     torch.cuda.reset_peak_memory_stats()
-    train._build, step_mod.make_train_step = capture, recording_mts
+    n0 = len(RETRACES.entries())
+    train._build = capture
     t0 = time.perf_counter()
     try:
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings(record=True) as caught, \
+                target_sync_probe(torch, rec["synced"]):
             warnings.simplefilter("always")
             if sync:
                 m = train.train_sync(cfg, env_factory, checkpoint_dir=ckdir,
@@ -4856,13 +4953,14 @@ def mesh_run(torch, card: str, cfg, label: str, ckdir: str,
                                 max_wall_seconds=MESH_WALL_S, verbose=False,
                                 log_sink=log_sink)
     finally:
-        train._build, step_mod.make_train_step = real_build, real_mts
+        train._build = real_build
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = KERNEL_LAUNCHES.get(lstm.KERNEL)
     old = KERNEL_LAUNCHES.get(lstm.CUDACORE_COUNTER)
     acts = HOST_TRANSFERS.get(ACTOR_ACT) + HOST_TRANSFERS.get(EVAL_ACT)
     calls = dict(COLLECTIVE_CALLS)
+    captures = run_captures(n0)
     learner, buffer, ring = rec["learner"], rec["buffer"], rec["ring"]
     # the run's stamps (the check below steps the learner once more)
     stamps = list(rec["stamps"])
@@ -4904,6 +5002,11 @@ def mesh_run(torch, card: str, cfg, label: str, ckdir: str,
     if launches != cfg.lstm_layers * acts or not acts or old:
         fail(f"{label}: lstm_infer launched {launches} times (CUDA-core "
              f"{old}) for {acts} acts, {cfg.lstm_layers} layer")
+    # the learner's meshed entry replayed one capture all run
+    want = ({"learner.train_step": [1]} if sync else
+            {"learner.train_step": [0], "learner.super_step": [1]})
+    if captures != want:
+        fail(f"{label}: learner captures {captures}, want {want}")
     if rec["synced"] != {7: False, 8: True}:
         fail(f"{label}: target == online after steps 7, 8: "
              f"{rec['synced']} (want False, True)")
@@ -4915,7 +5018,7 @@ def mesh_run(torch, card: str, cfg, label: str, ckdir: str,
             f" collectives {calls}; lstm_infer launches {launches} = "
             f"{cfg.lstm_layers} x {acts} acts, CUDA-core {old}; target == "
             f"online after step 7 {rec['synced'][7]}, after 8 "
-            f"{rec['synced'][8]}")
+            f"{rec['synced'][8]}; learner captures {captures}")
     if not sync:
         fallback = [str(w.message) for w in caught
                     if "host staging" in str(w.message)
@@ -5024,7 +5127,8 @@ def phase_mesh(torch, card: str, device: str = "cuda", base=None) -> dict:
               for k_, v in MESH_RING_REDUCED.items())
           + f", the full ring on the card ({ring_cfg.num_blocks} blocks, "
           f"{need / 1e9:.2f} GB); fake env episodes of {FAKE_EPISODE_LEN} "
-          f"steps, {TRAIN_ACTIONS} actions", flush=True)
+          f"steps, {TRAIN_ACTIONS} actions; the lone eager meshed update "
+          f"1 call timed and 1 profiled (the graphed 3 and 1)", flush=True)
     store = mesh_group(torch, device)     # noqa: F841 (the group's store)
     ckdirs = [tempfile.mkdtemp(prefix="chip_smoke_mesh_") for _ in range(3)]
     try:
@@ -5051,7 +5155,7 @@ def phase_mesh(torch, card: str, device: str = "cuda", base=None) -> dict:
             shutil.rmtree(d, ignore_errors=True)
     p5 = MESHLESS.get("update_p50")
     p7 = MESHLESS.get("host_sampled_interval_p50")
-    a, b = step["meshless"], step["meshed"]
+    a, b, e = step["meshless"], step["meshed"], step["eager"]
     print(f"mesh against meshless on {card}: train_sync update p50 "
           f"{sync['interval_p50']:.2f} ms meshed vs phase 5's "
           f"{p5 if p5 is None else f'{p5:.2f}'} ms meshless "
@@ -5059,10 +5163,12 @@ def phase_mesh(torch, card: str, device: str = "cuda", base=None) -> dict:
           f"device-ring dispatch interval p50 {ring['interval_p50']:.2f} ms"
           f" (flagship, k = {ring_cfg.superstep_k}, 8 actors) vs phase 7's "
           f"host-sampled {p7 if p7 is None else f'{p7:.2f}'} ms (Pong, k = "
-          f"4, 64 actors); lone update host wall {b['wall']:.2f} vs "
-          f"{a['wall']:.2f} ms, device {b['device']:.3f} vs "
-          f"{a['device']:.3f} ms, device events {b['events']:.0f} vs "
-          f"{a['events']:.0f}; phase 11 took "
+          f"4, 64 actors); lone update host wall {b['wall']:.2f} ms meshed "
+          f"graphed vs {e['wall']:.2f} ms meshed eager vs {a['wall']:.2f} "
+          f"ms meshless graphed, device {b['device']:.3f} vs "
+          f"{e['device']:.3f} vs {a['device']:.3f} ms, device events "
+          f"{b['events']:.0f} vs {e['events']:.0f} vs {a['events']:.0f}; "
+          f"phase 11 took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return dict(sync=sync["launches"], ring=ring["launches"])
 
@@ -5130,12 +5236,17 @@ def anakin_calls(cfg, rollouts: int, dispatches: int) -> dict:
 
 def mesh_draw_parity(torch, card: str, base, mesh, device: str) -> dict:
     """12(a), first: on a ring of ``MESH_CHECK_BLOCKS`` scripted blocks at
-    the preset's slot shapes, one meshed in-graph super-step (k = 4)
-    against the meshless one from the same ring, state and generator
-    seed: sampled indices, losses, the priority slab and every new param
-    bitwise (cuDNN deterministic for this check only), with the design's
-    collectives, the leader's rows broadcast to its dp group (of one)
-    each inner step; then each alone, timed."""
+    the preset's slot shapes, one meshed in-graph super-step (k = 4, each
+    inner step a CUDA graph holding its draw, row exchange, train step,
+    feedback and the dp group's broadcast) against the meshless one from
+    the same ring, state and generator seed: sampled indices, losses, the
+    priority slab and every new param bitwise (cuDNN deterministic for
+    this check only), with the design's collectives, the leader's rows
+    broadcast to its dp group (of one) each inner step; two more meshed
+    super-steps against the same entry run eagerly from copies, bitwise,
+    with the captures the guard counts; then each alone, timed: meshed
+    graphed, meshed eager and meshless graphed."""
+    from r2d2_tpu_torch.learner.graphs import _clone_state
     from r2d2_tpu_torch.learner.step import (
         create_train_state,
         make_in_graph_per_super_step_fn,
@@ -5146,10 +5257,12 @@ def mesh_draw_parity(torch, card: str, base, mesh, device: str) -> dict:
     from r2d2_tpu_torch.parallel.sharding import (
         ShardingTable,
         gather_state,
-        mesh_train_step,
+        mesh_step,
     )
     from r2d2_tpu_torch.replay.device_ring import DeviceRing
     from r2d2_tpu_torch.replay.replay_buffer import ReplayBuffer
+    from r2d2_tpu_torch.utils.graphs import eager
+    from r2d2_tpu_torch.utils.trace import RetraceGuard
 
     dev = torch.device(device, torch.cuda.current_device()
                        if device == "cuda" else None)
@@ -5167,14 +5280,21 @@ def mesh_draw_parity(torch, card: str, base, mesh, device: str) -> dict:
     plain_state = create_train_state(cfg, net.state_dict())
     mesh_state = create_train_state(cfg, net.state_dict())
     table = ShardingTable(mesh, cfg)
-    step = mesh_train_step(cfg, net, table, state_template=mesh_state)
     mesh_state = table.place_state(mesh_state)
-    cross = CrossRank(cfg, mesh, cfg.num_blocks, span=dp_group(mesh))
-    plain = make_in_graph_per_super_step_fn(cfg, net, k)
-    meshed = make_in_graph_per_super_step_fn(cfg, net, k, train_step=step,
-                                             cross=cross)
+    span = dp_group(mesh)
+    guard = RetraceGuard()
+
+    def meshed_fn(state, g):
+        return make_in_graph_per_super_step_fn(
+            cfg, net, k, train_step=mesh_step(cfg, net, table, state),
+            cross=CrossRank(cfg, mesh, cfg.num_blocks, span=span), guard=g)
+
+    plain = make_in_graph_per_super_step_fn(cfg, net, k,
+                                            guard=RetraceGuard())
+    meshed = meshed_fn(mesh_state, guard)
     meta = ring.per_meta()
     p0 = ring.take_prios().clone()
+    arrays = ring.snapshot()
 
     def gen():
         return torch.Generator(device=dev).manual_seed(cfg.seed)
@@ -5183,31 +5303,58 @@ def mesh_draw_parity(torch, card: str, base, mesh, device: str) -> dict:
     torch.backends.cudnn.deterministic = True
     try:
         pa, pb, ra, rb = p0.clone(), p0.clone(), [], []
-        plain_state, pa, la = plain(plain_state, ring.snapshot(), pa,
+        plain_state, pa, la = plain(plain_state, arrays, pa,
                                     meta["seq_meta"], meta["first"],
                                     generator=gen(), record=ra)
         CROSS_RANK_CALLS.clear()
         COLLECTIVE_CALLS.clear()
-        mesh_state, pb, lb = meshed(mesh_state, ring.snapshot(), pb,
+        mesh_state, pb, lb = meshed(mesh_state, arrays, pb,
                                     meta["seq_meta"], meta["first"],
                                     generator=gen(), record=rb)
         calls = dict(CROSS_RANK_CALLS)
         broadcasts = COLLECTIVE_CALLS.get("group_broadcast", 0)
         torch.cuda.synchronize()
+        full = gather_state(mesh_state)
+        same_idx = len(ra) == len(rb) == k and all(
+            torch.equal(x, y) for x, y in zip(ra, rb))
+        bitwise = (same_idx and torch.equal(la, lb) and torch.equal(pa, pb)
+                   and state_equal(torch, plain_state, full))
+        # graphed against eager: the same entry, issued op by op, from
+        # copies of the state and the slab
+        twin_state, pt = _clone_state(mesh_state), pb.clone()
+        twin = meshed_fn(twin_state, RetraceGuard())
+        graph_same = True
+        for seed in (1, 2):
+            ga, gb = [], []
+            mesh_state, pb, lg = meshed(
+                mesh_state, arrays, pb, meta["seq_meta"], meta["first"],
+                generator=torch.Generator(device=dev).manual_seed(seed),
+                record=ga)
+            with eager():
+                twin_state, pt, le = twin(
+                    twin_state, arrays, pt, meta["seq_meta"], meta["first"],
+                    generator=torch.Generator(device=dev).manual_seed(seed),
+                    record=gb)
+            graph_same = (graph_same and torch.equal(lg, le)
+                          and torch.equal(pb, pt) and len(ga) == k
+                          and all(torch.equal(x, y) for x, y in zip(ga, gb)))
+        graph_same = graph_same and mesh_state_equal(torch, mesh_state,
+                                                     twin_state)
+        torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = det
-    full = gather_state(mesh_state)
-    same_idx = len(ra) == len(rb) == k and all(
-        torch.equal(x, y) for x, y in zip(ra, rb))
-    bitwise = (same_idx and torch.equal(la, lb) and torch.equal(pa, pb)
-               and state_equal(torch, plain_state, full))
+    captures = meshed.graphs.captures
     print(f"mesh in-graph parity on {card}: world size 1, a "
           f"{cfg.num_blocks}-block ring at the preset's slot shapes, k = "
-          f"{k}: sampled indices equal {same_idx}, losses meshed "
-          f"{lb.tolist()} vs meshless {la.tolist()}, priority slab max-abs "
-          f"{(pa - pb).abs().max().item():.3e}; bitwise {bitwise} (cuDNN "
-          f"deterministic for this check only); collectives {calls}, "
-          f"group broadcasts {broadcasts}", flush=True)
+          f"{k}, the meshed super-step graphed: sampled indices equal "
+          f"{same_idx}, losses meshed {lb.tolist()} vs meshless "
+          f"{la.tolist()}, priority slab max-abs "
+          f"{(pa - pb).abs().max().item():.3e}; bitwise {bitwise}; "
+          f"collectives {calls}, group broadcasts {broadcasts}; super-steps "
+          f"2-3 graphed vs the same entry eager from copies (indices, "
+          f"losses, slab, params, target, Adam moments, counters) bitwise "
+          f"{graph_same}; captures {captures}, guard {guard.counts()} (cuDNN "
+          f"deterministic for these checks only)", flush=True)
     if not bitwise:
         fail("the meshed in-graph super-step is not the meshless one bit "
              "for bit")
@@ -5216,16 +5363,29 @@ def mesh_draw_parity(torch, card: str, base, mesh, device: str) -> dict:
     if calls != draw_calls(k, 1):
         fail(f"mesh in-graph: collectives {calls}, the design counts "
              f"{draw_calls(k, 1)}")
+    if not graph_same or captures != 1 or guard.counts() != {
+            "learner.in_graph_per_super_step": captures}:
+        fail(f"the graphed meshed in-graph super-step is not its eager run "
+             f"bit for bit ({graph_same}), or captures {captures} against "
+             f"the guard's {guard.counts()}")
 
-    arrays = ring.snapshot()
-    out = dict(meshless=lone(torch, lambda: plain(
+    def one_eager():
+        with eager():
+            twin(twin_state, arrays, pt, meta["seq_meta"], meta["first"],
+                 generator=gen())
+
+    g, e = graph_vs_eager_once(torch, lambda: meshed(
+        mesh_state, arrays, pb, meta["seq_meta"], meta["first"],
+        generator=gen()), one_eager)
+    out = dict(meshed=g, eager=e, meshless=lone(torch, lambda: plain(
         plain_state, arrays, pa, meta["seq_meta"], meta["first"],
-        generator=gen())), meshed=lone(torch, lambda: meshed(
-            mesh_state, arrays, pb, meta["seq_meta"], meta["first"],
-            generator=gen())))
+        generator=gen())))
+    if meshed.graphs.captures != 1:
+        fail("mesh in-graph: the timed super-steps captured again")
     print(f"lone in-graph super-step on {card} (k = {k}, batch "
-          f"{cfg.batch_size}, 1 profiled, 1 timed): "
-          + fmt_lone(out["meshless"], out["meshed"]), flush=True)
+          f"{cfg.batch_size}, 1 profiled, 1 timed): meshed graphed vs "
+          f"meshed eager: " + fmt_graph(g, e) + "; meshed graphed vs "
+          f"meshless graphed: " + fmt_lone(out["meshless"], g), flush=True)
     return out
 
 
@@ -5242,32 +5402,20 @@ def mesh_ig_run(torch, card: str, cfg, device: str) -> dict:
     from r2d2_tpu_torch import train
     from r2d2_tpu_torch.actor import ACTOR_ACT
     from r2d2_tpu_torch.evaluate import EVAL_ACT
-    from r2d2_tpu_torch.learner import step as step_mod
     from r2d2_tpu_torch.ops import lstm
     from r2d2_tpu_torch.parallel.cross_rank import CROSS_RANK_CALLS
     from r2d2_tpu_torch.parallel.distributed import COLLECTIVE_CALLS
-    from r2d2_tpu_torch.parallel.sharding import full
     from r2d2_tpu_torch.replay.replay_buffer import data_bytes
-    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+    from r2d2_tpu_torch.utils.trace import (
+        HOST_TRANSFERS,
+        KERNEL_LAUNCHES,
+        RETRACES,
+    )
 
     steps, k = cfg.training_steps, cfg.superstep_k
     rec = dict(start=None, stamps=[], synced={})
     probe = {}
-    real_build, real_mts = train._build, step_mod.make_train_step
-
-    def recording_mts(cfg_, net_, **kw):
-        inner = real_mts(cfg_, net_, **kw)
-
-        def step(state, batch):
-            out = inner(state, batch)
-            st = out[0]
-            if st.step in (7, 8):
-                rec["synced"][st.step] = all(
-                    torch.equal(full(st.params[n]),
-                                full(st.target_params[n]))
-                    for n in st.params)
-            return out
-        return step
+    real_build = train._build
 
     def capture(*args, **kw):
         sys_ = real_build(*args, **kw)
@@ -5308,17 +5456,19 @@ def mesh_ig_run(torch, card: str, cfg, device: str) -> dict:
     CROSS_RANK_CALLS.clear()
     COLLECTIVE_CALLS.clear()
     torch.cuda.reset_peak_memory_stats()
-    train._build, step_mod.make_train_step = capture, recording_mts
+    n0 = len(RETRACES.entries())
+    train._build = capture
     t0 = time.perf_counter()
     try:
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings(record=True) as caught, \
+                target_sync_probe(torch, rec["synced"]):
             warnings.simplefilter("always")
             m = train.train(cfg, env_factory, checkpoint_dir=ckdir,
                             use_mesh=True, device=device,
                             max_wall_seconds=MESH_WALL_S, verbose=False,
                             log_sink=log_sink)
     finally:
-        train._build, step_mod.make_train_step = real_build, real_mts
+        train._build = real_build
         shutil.rmtree(ckdir, ignore_errors=True)
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -5331,6 +5481,7 @@ def mesh_ig_run(torch, card: str, cfg, device: str) -> dict:
     stamps, n = rec["stamps"], len(rec["stamps"])
     fetches = HOST_TRANSFERS.get("learner.result_fetch")
     lh = m["learnhealth"]
+    captures = run_captures(n0)
 
     bad = []
     if dist.get_backend() != ("nccl" if device == "cuda" else "gloo"):
@@ -5369,6 +5520,10 @@ def mesh_ig_run(torch, card: str, cfg, device: str) -> dict:
                    f"{old}) for {acts} acts")
     if rec["synced"] != {7: False, 8: True}:
         bad.append(f"target == online after steps 7, 8: {rec['synced']}")
+    want = {"learner.train_step": [0],
+            "learner.in_graph_per_super_step": [1]}
+    if captures != want:
+        bad.append(f"learner captures {captures}, want {want}")
     if "error" in probe or probe.get("healthz", (0,))[0] != 200 or (
             json.loads(probe["healthz"][1]).get("status") != "ok"
             or m["healthz"].get("status") != "ok"):
@@ -5393,7 +5548,7 @@ def mesh_ig_run(torch, card: str, cfg, device: str) -> dict:
           f"acts, CUDA-core {old}; target == online after step 7 "
           f"{rec['synced'][7]}, after 8 {rec['synced'][8]}; this rank's "
           f"dp slab on the card {ring.nbytes()} bytes = the whole ring; "
-          f"/healthz ok", flush=True)
+          f"learner captures {captures}; /healthz ok", flush=True)
     print(f"mesh in-graph run timings on {card}: dispatch interval p50 "
           f"{pct(gaps, 50):.2f} ms over {len(gaps)}; env steps/s while "
           f"filling {fill:.0f}, while training {training:.0f}; peak "
@@ -5402,24 +5557,69 @@ def mesh_ig_run(torch, card: str, cfg, device: str) -> dict:
                 training=training, peak_gb=peak / 1e9, seconds=run_s)
 
 
+def graph_vs_eager_once(torch, graphed, eager, iters: int = 1) -> tuple:
+    """``graph_vs_eager`` for an eager twin that takes up to seconds a
+    call (a meshed entry issued op by op): the graphed entry over
+    ``iters`` calls after a warm one, the eager twin from one call — its
+    issue, host wall and stream span — then its device time, events and
+    NCCL kernels from one more under ``profile_events``, with no warm
+    call between (the timed call was its warm-up)."""
+    out = []
+    for fn, n in ((graphed, iters), (eager, 1)):
+        if fn is graphed:
+            fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        issue = (time.perf_counter() - t0) * 1e3
+        for _ in range(n - 1):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+        events = profile_events(torch, fn, 1, warm=False)
+        if events is None:
+            fail("no device time in a profiled call")
+        out.append(dict(issue=issue, wall=wall,
+                        span=start.elapsed_time(end) / n,
+                        device=sum(ms for _, ms, _ in events),
+                        events=sum(c for _, _, c in events),
+                        nccl=[(n_, ms, c) for n_, ms, c in events
+                              if "nccl" in n_.lower()],
+                        top=events[:5],
+                        lstm=[n_ for n_, _, _ in events if "lstm_step" in n_]))
+    return tuple(out)
+
+
 def mesh_anakin_checks(torch, card: str, base, mesh, device: str) -> dict:
     """12(b), first: on a ring of ``ANAKIN_CHECK_BLOCKS`` blocks at the
     full slot shapes, cuDNN deterministic, the meshed plane (world size
-    1) against the meshless plane from one seed: the warm-up rollouts and
-    one training dispatch give the same loop state — every payload array,
-    ring, PER leaves and carry — the same losses and params, bit for bit,
-    with the lanes split over dp and with the replicated lane axis forced
-    (the fallback for lanes that do not divide over dp or outnumber a
-    slab's blocks); the meshed plane's snapshot reads into a fresh
-    meshless plane bit for bit; then each dispatch alone, timed."""
+    1, both entries CUDA graphs with their collectives) against the
+    meshless plane from one seed: the warm-up rollout, one more rollout
+    and two training dispatches give the same loop state — every payload
+    array, ring, PER leaves and carry — the same losses and params, bit
+    for bit, with the lanes split over dp and with the replicated lane
+    axis forced (the fallback for lanes that do not divide over dp or
+    outnumber a slab's blocks), one capture of each entry in each layout;
+    with the lanes split the second rollout and the second dispatch
+    (replays) held bit for bit to the eager functions from copies of the
+    same state; the meshed
+    plane's snapshot reads into a fresh meshless plane bit for bit; then
+    a dispatch alone, timed: meshed graphed, meshed eager and meshless
+    graphed."""
     import shutil
     import tempfile
 
+    from r2d2_tpu_torch.learner import anakin
     from r2d2_tpu_torch.learner.anakin import AnakinPlane
+    from r2d2_tpu_torch.learner.graphs import _clone_state
     from r2d2_tpu_torch.learner.learner import Learner
     from r2d2_tpu_torch.learner.step import create_train_state
     from r2d2_tpu_torch.models import create_network
-    from r2d2_tpu_torch.parallel.sharding import ShardingTable
+    from r2d2_tpu_torch.parallel.sharding import ShardingTable, mesh_step
     from r2d2_tpu_torch.replay.device_ring import DeviceRing
 
     dev = torch.device(device, torch.cuda.current_device()
@@ -5443,40 +5643,86 @@ def mesh_anakin_checks(torch, card: str, base, mesh, device: str) -> dict:
                             table=table if meshed else None,
                             state_template=learner.state,
                             replicate_lanes=replicate)
-        return plane, learner
+        if not meshed or replicate:
+            # the replicated layout is held to the meshless plane through
+            # the same replays; its eager twins would repeat the split
+            # layout's minutes of eager dispatch
+            return plane, learner, None
+        lanes = (0, cfg.num_actors)
+        rep = plane.replicated_lanes
+        twins = (anakin.make_anakin_rollout(
+            cfg, net, plane.env, TRAIN_ACTIONS, plane.roll_steps, lanes,
+            plane.cross, rep), anakin.make_anakin_super_step(
+            cfg, net, plane.env, TRAIN_ACTIONS, lanes, plane.cross,
+            mesh_step(cfg, net, table, learner.state), rep))
+        return plane, learner, twins
 
-    def drive(plane, learner):
-        while not plane.ready:
-            plane.rollout_step(learner.state.params)
-        learner.state, res = plane.dispatch(learner.state)
-        return plane.harvest(res)
+    def drive(plane, learner, twins):
+        """Rollouts until ready and one more, then two dispatches; with
+        ``twins`` the replays (the rollout after the first, dispatch 1)
+        held to the eager functions from copies.  Returns the losses and
+        what differed."""
+        bad, rollouts = [], 0
+        while not plane.ready or rollouts < 2:
+            want = (twins[0](learner.state.params, *anakin_copies(plane))
+                    if twins and rollouts else None)
+            out = plane.rollout(learner.state.params, plane.state,
+                                *plane._handles())
+            plane._absorb(out[-1].cpu().numpy())
+            if want is not None:
+                differ = anakin_differs(torch, plane, want[:5])
+                if differ or not torch.equal(out[-1], want[-1]):
+                    bad.append(f"rollout {rollouts}: {differ}")
+            rollouts += 1
+        losses = []
+        for d in range(2):
+            copies, twin = anakin_copies(plane), _clone_state(learner.state)
+            learner.state, res = plane.dispatch(learner.state)
+            losses.append(plane.harvest(res))
+            if twins and d:
+                want = twins[1](twin, *copies, d)
+                differ = anakin_differs(torch, plane, want[1:6])
+                if not np.array_equal(losses[-1], want[-1][
+                        :cfg.superstep_k].cpu().numpy()):
+                    differ.append("losses")
+                if not mesh_state_equal(torch, learner.state, want[0]):
+                    differ.append("train state")
+                if differ:
+                    bad.append(f"dispatch {d}: {differ}")
+        return np.concatenate(losses), bad
 
     d = tempfile.mkdtemp(prefix="chip_smoke_mesh_anakin_")
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
+    layouts = {}
     try:
-        pa, la = build(5, False)
-        loss_a = drive(pa, la)
+        pa, la, _ = build(5, False)
+        loss_a, _ = drive(pa, la, None)
         pay_a = pa._payload()
         params_a = la.full_params()
 
-        def same_as_meshless(plane, learner):
-            loss = drive(plane, learner)
+        def same_as_meshless(plane, learner, twins):
+            loss, bad = drive(plane, learner, twins)
             pay, params = plane._payload(), learner.full_params()
-            ok = (np.array_equal(loss_a, loss) and sorted(pay_a) == sorted(pay)
+            ok = (np.array_equal(loss_a, loss)
+                  and sorted(pay_a) == sorted(pay)
                   and all(np.array_equal(pay_a[k], pay[k]) for k in pay_a)
                   and all(torch.equal(params_a[k], params[k])
                           for k in params_a))
-            return ok, pay
+            captures = (plane.rollout.graphs.captures,
+                        plane.super_step.graphs.captures)
+            return dict(meshless=ok, eager=not bad, bad=bad,
+                        captures=captures), pay
 
-        pr, lr = build(5, True, replicate=True)
-        replicated, _ = same_as_meshless(pr, lr)
-        replicated = replicated and pr.replicated_lanes
-        del pr, lr
-        pb, lb = build(5, True)
-        same, pay_b = same_as_meshless(pb, lb)
+        pr, lr, tr = build(5, True, replicate=True)
+        layouts["replicated"], _ = same_as_meshless(pr, lr, tr)
+        layouts["replicated"]["meshless"] &= pr.replicated_lanes
+        del pr, lr, tr
+        pb, lb, tb = build(5, True)
+        layouts["split"], pay_b = same_as_meshless(pb, lb, tb)
+        layouts["split"]["meshless"] &= not pb.replicated_lanes
         meta = pb.write_state(os.path.join(d, "anakin.bin"))
-        pc, _ = build(6, False)
+        pc, _, _ = build(6, False)
         pc.read_state(os.path.join(d, "anakin.bin"), meta)
         pay_c = pc._payload()
         resumed = all(np.array_equal(pay_b[k], pay_c[k]) for k in pay_b)
@@ -5487,15 +5733,23 @@ def mesh_anakin_checks(torch, card: str, base, mesh, device: str) -> dict:
         shutil.rmtree(d, ignore_errors=True)
     print(f"mesh anakin parity on {card}: world size 1, a "
           f"{cfg.num_blocks}-block ring at the full slot shapes, cuDNN "
-          f"deterministic: warm-up and one training dispatch meshed == "
-          f"meshless over {len(pay_a)} payload arrays, the losses and every"
-          f" param: {same}; the same with the replicated lane axis forced: "
-          f"{replicated}; the meshed snapshot read into a meshless plane "
-          f"bit for bit: {resumed}", flush=True)
-    if not (same and replicated and resumed):
-        fail("mesh anakin: a meshed plane (lanes split or replicated) is "
-             "not the meshless plane bit for bit, or its snapshot does not "
-             "read back")
+          f"deterministic; both entries graphed: the warm-up, one more "
+          f"rollout and two training dispatches meshed == meshless over "
+          f"{len(pay_a)} payload arrays, the losses and every param, lanes "
+          f"split {layouts['split']['meshless']}, the replicated lane axis "
+          f"forced {layouts['replicated']['meshless']}; the second rollout "
+          f"and dispatch (replays) bit for bit the eager functions from "
+          f"copies (result vector, carry, ring, PER state, train state), "
+          f"lanes split: {layouts['split']['eager']}; captures (rollout, "
+          f"super-step) split {layouts['split']['captures']}, replicated "
+          f"{layouts['replicated']['captures']}; the meshed snapshot read "
+          f"into a meshless plane bit for bit: {resumed}", flush=True)
+    if not (resumed and all(v["meshless"] and v["eager"]
+                            and v["captures"] == (1, 1)
+                            for v in layouts.values())):
+        fail(f"mesh anakin: a meshed plane (lanes split or replicated) is "
+             f"not the meshless plane or its eager run bit for bit, or its "
+             f"snapshot does not read back: {layouts}, resumed {resumed}")
 
     def one(plane, learner):
         def fn():
@@ -5503,21 +5757,37 @@ def mesh_anakin_checks(torch, card: str, base, mesh, device: str) -> dict:
             plane.harvest(res)
         return fn
 
-    out = dict(meshless=lone(torch, one(pa, la)),
-               meshed=lone(torch, one(pb, lb)))
+    def one_graphed():
+        lb.state, *_ = pb.super_step(lb.state, pb.state, *pb._handles(),
+                                     pb.dispatch_no)
+
+    def one_eager():
+        # the eager twin on the plane's own tensors (its carry is not
+        # kept: a timing only)
+        tb[1](lb.state, pb.state, *pb._handles(), pb.dispatch_no)
+
+    g, e = graph_vs_eager_once(torch, one_graphed, one_eager)
+    out = dict(meshed=g, eager=e, meshless=lone(torch, one(pa, la)))
+    if (pb.super_step.graphs.captures, pa.super_step.graphs.captures) != (
+            1, 1):
+        fail("mesh anakin: the timed dispatches captured again")
     print(f"lone anakin training dispatch on {card} (k = "
           f"{cfg.superstep_k} x (E = {cfg.anakin_env_steps_per_update} "
-          f"steps of {cfg.num_actors} lanes + 1 train step), 1 profiled, "
-          f"1 timed): "
-          + fmt_lone(out["meshless"], out["meshed"]), flush=True)
+          f"steps of {cfg.num_actors} lanes + 1 train step), lanes split): "
+          f"meshed graphed vs meshed eager (the entry alone, no harvest; "
+          f"1 timed, 1 profiled): "
+          + fmt_graph(g, e) + "; meshed graphed vs meshless graphed: "
+          + fmt_lone(out["meshless"], g), flush=True)
     return out
 
 
 def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
     """12(b), then: ``train(cfg, use_mesh=True)`` with the anakin
     transport on this rank's slab of the full ring; its checks and
-    timings.  The second dispatch runs under
-    ``set_sync_debug_mode("error")``."""
+    timings.  The third dispatch (the first replay of a captured graph)
+    runs under ``set_sync_debug_mode("error")``; the target params are
+    read after each dispatch (the synchronisation at
+    ``target_net_update_interval`` happens inside a graph)."""
     import shutil
     import tempfile
 
@@ -5525,34 +5795,23 @@ def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
 
     from r2d2_tpu_torch import train
     from r2d2_tpu_torch.learner import anakin
-    from r2d2_tpu_torch.learner import step as step_mod
     from r2d2_tpu_torch.ops import lstm
     from r2d2_tpu_torch.parallel.cross_rank import CROSS_RANK_CALLS
     from r2d2_tpu_torch.parallel.distributed import COLLECTIVE_CALLS
     from r2d2_tpu_torch.parallel.sharding import full
     from r2d2_tpu_torch.replay.replay_buffer import data_bytes
-    from r2d2_tpu_torch.utils.trace import HOST_TRANSFERS, KERNEL_LAUNCHES
+    from r2d2_tpu_torch.utils.trace import (
+        HOST_TRANSFERS,
+        KERNEL_LAUNCHES,
+        RETRACES,
+    )
 
     k, N = cfg.superstep_k, cfg.num_actors
     fetches = "anakin.result_fetch"
     rec = dict(rollouts=[], dispatches=[], bad=[], synced={},
                sync_checked=None)
     probe = {}
-    real_loop, real_mts = anakin.run_anakin_loop, step_mod.make_train_step
-
-    def recording_mts(cfg_, net_, **kw):
-        inner = real_mts(cfg_, net_, **kw)
-
-        def step(state, batch):
-            out = inner(state, batch)
-            st = out[0]
-            if st.step in (7, 8):
-                rec["synced"][st.step] = all(
-                    torch.equal(full(st.params[n]),
-                                full(st.target_params[n]))
-                    for n in st.params)
-            return out
-        return step
+    real_loop = anakin.run_anakin_loop
 
     def loop(learner, plane, **kw):
         rec.update(learner=learner, plane=plane)
@@ -5567,9 +5826,11 @@ def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
 
         def dispatch(state):
             t = time.perf_counter()
-            if len(rec["dispatches"]) == 1:
+            if len(rec["dispatches"]) == 2:
                 # one training dispatch under the sync debug mode: any
-                # device->host synchronisation in it raises
+                # device->host synchronisation in it raises (the graphs
+                # of dispatches 0 and 1, the eval lane on and off, are
+                # captured after them; dispatch 2 replays)
                 torch.cuda.set_sync_debug_mode("error")
                 try:
                     out = disp(state)
@@ -5582,6 +5843,12 @@ def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
             else:
                 out = disp(state)
             rec["dispatches"].append((t, time.perf_counter()))
+            # between dispatches, on the learner thread: the gathers are
+            # collectives every rank makes at the same step
+            st = out[0]
+            rec["synced"][st.step] = all(
+                torch.equal(full(st.params[n]), full(st.target_params[n]))
+                for n in st.params)
             return out
 
         plane.rollout_step, plane.dispatch = rollout_step, dispatch
@@ -5601,7 +5868,8 @@ def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
     CROSS_RANK_CALLS.clear()
     COLLECTIVE_CALLS.clear()
     torch.cuda.reset_peak_memory_stats()
-    anakin.run_anakin_loop, step_mod.make_train_step = loop, recording_mts
+    n0 = len(RETRACES.entries())
+    anakin.run_anakin_loop = loop
     t0 = time.perf_counter()
     try:
         m = train.train(cfg, checkpoint_dir=ckdir, use_mesh=True,
@@ -5611,8 +5879,7 @@ def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
         fail(f"mesh anakin run: {e} (sync debug check: "
              f"{rec['sync_checked']})")
     finally:
-        anakin.run_anakin_loop, step_mod.make_train_step = real_loop, \
-            real_mts
+        anakin.run_anakin_loop = real_loop
         shutil.rmtree(ckdir, ignore_errors=True)
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -5623,6 +5890,7 @@ def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
     n_roll, n_disp = len(rec["rollouts"]), len(rec["dispatches"])
     calls = dict(CROSS_RANK_CALLS)
     want_calls = anakin_calls(cfg, n_roll, n_disp)
+    captures = run_captures(n0)
     lh = m["learnhealth"]
 
     bad = list(rec["bad"])
@@ -5660,8 +5928,17 @@ def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
                    f"{ring.arrays['obs'].device}")
     if launches:
         bad.append(f"lstm_infer launched {launches} times")
-    if rec["synced"] != {7: False, 8: True}:
-        bad.append(f"target == online after steps 7, 8: {rec['synced']}")
+    want_synced = {s_: s_ % cfg.target_net_update_interval == 0
+                   for s_ in range(k, cfg.training_steps + 1, k)}
+    if rec["synced"] != want_synced:
+        bad.append(f"target == online after dispatches: {rec['synced']} "
+                   f"(want {want_synced})")
+    # one graph of each entry, the super-step's per eval branch (on the
+    # CPU a trace is a new signature: one)
+    want = {"learner.train_step": [0], "learner.anakin_rollout": [1],
+            "learner.anakin_super_step": [2 if device == "cuda" else 1]}
+    if captures != want:
+        bad.append(f"captures {captures}, want {want}")
     if plane.eval_episodes_total < N:
         bad.append(f"eval episodes {plane.eval_episodes_total}")
     if "error" in probe or probe.get("healthz", (0,))[0] != 200 or (
@@ -5679,15 +5956,16 @@ def mesh_anakin_run(torch, card: str, cfg, device: str) -> dict:
     print(f"mesh anakin run on {card}: {m['num_updates']} updates in "
           f"{n_disp} dispatches of k={k} after {n_roll} rollouts, "
           f"{run_s:.2f} s; backend {dist.get_backend()}, DTensor state; "
+          f"captures {captures}; "
           f"result fetches {HOST_TRANSFERS.get(fetches)} = {n_roll} + "
           f"{n_disp}; collectives {calls} = the design's, no group "
-          f"broadcast; dispatch 2 under "
+          f"broadcast; dispatch 3 (a replay) under "
           f"set_sync_debug_mode('error'): clean; losses finite, mean "
           f"{m['mean_loss']:.5f}; eval episodes "
           f"{plane.eval_episodes_total}; fill {plane.fill} = sum of "
           f"block_learning_total; lstm_infer launches {launches}; target "
-          f"== online after step 7 {rec['synced'][7]}, after 8 "
-          f"{rec['synced'][8]}; /healthz ok", flush=True)
+          f"== online after each dispatch's last step {rec['synced']}; "
+          f"/healthz ok", flush=True)
     print(f"mesh anakin run timings on {card}: env frames/s while filling "
           f"{fill_fps:.1f}, while training {train_fps:.1f}; dispatch issue "
           f"{', '.join(f'{x:.2f}' for x in issue)} ms; ring "
@@ -5731,9 +6009,12 @@ def phase_mesh_draw(torch, card: str, device: str = "cuda", ig_base=None,
           + ", ".join(f"{k_} {getattr(anakin_base, k_)} -> {v}"
                       for k_, v in MESH_ANAKIN_REDUCED.items())
           + f", the full ring ({an_cfg.num_blocks} blocks); the parity "
-          f"checks: a lone super-step 1 call profiled and 1 timed, the "
-          f"anakin planes' warm-up {ANAKIN_CHECK_STARTS} transitions",
-          flush=True)
+          f"checks: a lone super-step 1 call profiled and 1 timed (the "
+          f"eager twins of (a) and (b) 1 timed and 1 profiled, no warm "
+          f"call), the anakin planes' warm-up {ANAKIN_CHECK_STARTS} "
+          f"transitions and 2 dispatches, the eager twins of (b)'s replays "
+          f"in the split lane layout only (the replicated layout held to "
+          f"the meshless plane through the same replays)", flush=True)
     store = mesh_group(torch, device)     # noqa: F841 (the group's store)
     try:
         if dist.get_backend() != ("nccl" if device == "cuda" else "gloo"):
@@ -5761,13 +6042,17 @@ def phase_mesh_draw(torch, card: str, device: str = "cuda", ig_base=None,
         dist.destroy_process_group()
     faulthandler.cancel_dump_traceback_later()
     print(f"phase 12 on {card}: (a) lone super-step host wall "
-          f"{ig['meshed']['wall']:.2f} vs {ig['meshless']['wall']:.2f} ms "
-          f"meshless, run dispatch interval p50 "
+          f"{ig['meshed']['wall']:.2f} ms meshed graphed vs "
+          f"{ig['eager']['wall']:.2f} ms meshed eager vs "
+          f"{ig['meshless']['wall']:.2f} ms meshless graphed, run dispatch "
+          f"interval p50 "
           f"{ig_run['interval_p50']:.2f} ms, env steps/s filling "
           f"{ig_run['fill']:.0f} training {ig_run['training']:.0f}, peak "
           f"{ig_run['peak_gb']:.2f} GB; (b) lone dispatch host wall "
-          f"{an['meshed']['wall']:.2f} vs {an['meshless']['wall']:.2f} ms "
-          f"meshless, env frames/s filling {an_run['fill_fps']:.1f} "
+          f"{an['meshed']['wall']:.2f} ms meshed graphed vs "
+          f"{an['eager']['wall']:.2f} ms meshed eager vs "
+          f"{an['meshless']['wall']:.2f} ms meshless graphed, env frames/s "
+          f"filling {an_run['fill_fps']:.1f} "
           f"training {an_run['train_fps']:.1f}, peak "
           f"{an_run['peak_gb']:.2f} GB; phase 12 took "
           f"{time.perf_counter() - t_phase:.1f} s (in-graph checks, run, "

@@ -25,10 +25,11 @@ JAX compiles a dispatch — ``k × (E env/actor steps + 1 train step)``,
 E = ``cfg.anakin_env_steps_per_update`` — into one program.  Here Python
 issues the same work op by op on one stream, with no host
 synchronisation inside a dispatch: no ``.item()``, no tensor truth value,
-no ``nonzero`` or boolean-mask indexing.  On a card the meshless plane
-replays that work as one CUDA graph per entry and eval branch
-(learner/graphs.py: the carry, the ring and the PER state written in
-place, at fixed addresses).  What leaves the device per dispatch is one
+no ``nonzero`` or boolean-mask indexing.  On a card the plane, meshless
+or on the mesh, replays that work as one CUDA graph per entry and eval
+branch (learner/graphs.py: the carry, the ring and the PER state written
+in place, at fixed addresses; on the mesh the collectives below inside
+the graph).  What leaves the device per dispatch is one
 small float vector (k losses, the :data:`STATS_FIELDS` deltas, then the
 :data:`EVAL_FIELDS` pair when the eval lane is on), in one non-blocking
 copy into pinned memory, ticked as ``anakin.result_fetch`` on
@@ -137,7 +138,6 @@ from r2d2_tpu_torch.utils.resilience import Deadline
 from r2d2_tpu_torch.telemetry.learnhealth import DIAG_SIZE, diag_enabled
 from r2d2_tpu_torch.utils.trace import (
     HOST_TRANSFERS,
-    RETRACES,
     TRANSFER_GUARD,
     Tracer,
 )
@@ -861,8 +861,8 @@ def make_anakin_super_step(cfg: Config, net: R2D2Network, env: Any,
     lane runs alike on every rank.
 
     The plane counts its traces as ``learner.anakin_super_step``
-    (utils/trace.py): on the mesh by input signature, meshless by CUDA
-    graph (learner/graphs.py:graphed_super_step)."""
+    (utils/trace.py): on a card by CUDA graph, meshless and on the mesh
+    (learner/graphs.py:graphed_super_step)."""
     k, E, B = cfg.superstep_k, cfg.anakin_env_steps_per_update, \
         cfg.batch_size
     lh = diag_enabled(cfg)
@@ -1076,21 +1076,16 @@ class AnakinPlane:
         rollout = make_anakin_rollout(cfg, net, self.env, action_dim,
                                       self.roll_steps, lanes, self.cross,
                                       self.replicated_lanes)
-        if self.cross is None:
-            # both entries replay CUDA graphs on a card (learner/graphs.py)
-            from r2d2_tpu_torch.learner.graphs import (
-                graphed_rollout,
-                graphed_super_step,
-            )
+        # both entries replay CUDA graphs on a card (learner/graphs.py),
+        # on the mesh with the routed emits, the lane sums and the draw's
+        # collectives inside
+        from r2d2_tpu_torch.learner.graphs import (
+            graphed_rollout,
+            graphed_super_step,
+        )
 
-            self.super_step = graphed_super_step(cfg, super_step)
-            self.rollout = graphed_rollout(rollout)
-        else:
-            # eager, retrace-guarded by input signature (ROADMAP.md A's
-            # third host-bound cut)
-            self.super_step = RETRACES.wrap("learner.anakin_super_step",
-                                            super_step)
-            self.rollout = RETRACES.wrap("learner.anakin_rollout", rollout)
+        self.super_step = graphed_super_step(cfg, super_step)
+        self.rollout = graphed_rollout(rollout)
         self._frames_per_dispatch = self.roll_steps * cfg.num_actors
 
         # host-int counter mirrors (absolute; deltas arrive per dispatch).
@@ -1127,7 +1122,7 @@ class AnakinPlane:
         instead, the JAX package's replicated lane axis: the same
         trajectory, nothing routed.  Returns ``(lanes, train_step)``."""
         from r2d2_tpu_torch.parallel.cross_rank import CrossRank
-        from r2d2_tpu_torch.parallel.sharding import mesh_train_step
+        from r2d2_tpu_torch.parallel.sharding import mesh_step
 
         cfg, mesh = self.cfg, self.table.mesh
         if state_template is None:
@@ -1142,8 +1137,7 @@ class AnakinPlane:
         # of one routed emit on N distinct rows of every slab
         self.replicated_lanes = bool(replicate_lanes or N % dp or N > nb)
         self._shardings = self.table.anakin_state_shardings(state)
-        train_step = mesh_train_step(cfg, net, self.table,
-                                     state_template=state_template)
+        train_step = mesh_step(cfg, net, self.table, state_template)
         if self.replicated_lanes:
             return (0, N), train_step
         n = N // dp

@@ -1,5 +1,6 @@
 """CUDA-graph captures of the learner's steps (ROADMAP.md A item 10) and
-of the meshless anakin entries (ROADMAP.md A's second host-bound cut).
+of the anakin entries (ROADMAP.md A's second host-bound cut, and its
+third for the meshed plane).
 
 JAX compiles each learner entry point into one program and dispatches it
 in microseconds; the port issues the same step from Python, op by op, and
@@ -8,9 +9,10 @@ JAX's compiled program is a captured CUDA graph: the step's kernels
 recorded once against tensors at fixed addresses, then replayed with one
 launch.  :class:`StepGraphs` holds the graphs of one entry point and
 counts each capture as one trace of it in the retrace guard
-(utils/trace.py): ``learner.train_step`` (:func:`make_learner_step`),
+(utils/trace.py): ``learner.train_step`` (:func:`make_learner_step`,
+and on the mesh ``parallel/sharding.py:mesh_train_step``),
 ``learner.super_step`` and ``learner.in_graph_per_super_step``
-(learner/step.py).
+(learner/step.py), meshless and meshed alike.
 
 A graph runs one train step (with the super-steps' gather, or their
 sample, gather and priority scatter) and reads:
@@ -41,18 +43,30 @@ first compile.  A replay runs on the caller's stream and returns copies
 of the graph's outputs, which the next replay overwrites.  A capture and
 a launch enter ``utils/trace.PROFILER_LOCK`` shared.  A capture that fails
 raises: nothing runs the step eagerly on a card in its place.  Off a card
-(and for an entry that is not captured: the meshed steps) the step runs
-eagerly, and a trace is the first call with a new input signature, what
-``jax.jit`` retraces on.
+the step runs eagerly, and a trace is the first call with a new input
+signature, what ``jax.jit`` retraces on.
 
-The meshless anakin plane's two entries, ``learner.anakin_rollout`` and
+On the mesh the state is DTensors, written in place through their local
+shards (the addresses a graph is keyed by, ``utils/graphs.address``), and
+the graph holds the step's collectives: the gradient and loss reductions
+DTensor inserts, and in the meshed in-graph super-step the cross-rank
+draw's gathers and row exchanges, the feedback's gather and the dp
+group's broadcast (parallel/cross_rank.py).  The warm-up runs each of
+them once before the capture, so that NCCL makes every communicator and
+``group_broadcast`` agrees its layout (a host read) outside the capture;
+the host agreements (the gate, the min densities) stay outside every
+graph.
+
+The anakin plane's two entries, ``learner.anakin_rollout`` and
 ``learner.anakin_super_step`` (:func:`graphed_rollout`,
 :func:`graphed_super_step`), replay one graph of a whole dispatch: its
 k·E actor steps with their block emits, and for the super-step the k
 samples, gathers, train steps and priority scatters, and the eval lane
 on its cadence.  Their graphs read the carry, the train state, the ring,
 the leaves, ``seq_meta`` and ``first`` where they are; the dispatch index
-is their one input.
+is their one input.  On the mesh a graph also holds the routed emit's
+gathers and block exchanges, the lane counters' sum and the cross-rank
+draw, all of shapes fixed by the configuration.
 """
 from __future__ import annotations
 
@@ -109,13 +123,13 @@ def _mirror_copy(state):
 class StepGraphs:
     """The programs of one learner entry point: CUDA graphs of one train
     step on a card (``cuda_graphs``), keyed by the learnhealth arming and
-    the addresses and shapes of what they read; the eager step elsewhere,
-    or when ``capture`` is False.  ``guard`` (default :data:`RETRACES`)
-    counts each capture, or each new eager signature, under ``name``."""
+    the addresses and shapes of what they read; the eager step elsewhere.
+    ``guard`` (default :data:`RETRACES`) counts each capture, or each new
+    eager signature, under ``name``."""
 
-    def __init__(self, name: str, capture: bool = True, guard=None):
+    def __init__(self, name: str, guard=None):
         self.entry = (guard or RETRACES).register(name)
-        self.cuda_graphs = Graphs(self.entry, capture)
+        self.cuda_graphs = Graphs(self.entry)
 
     @property
     def captures(self) -> int:
@@ -172,7 +186,7 @@ def make_learner_step(cfg, net, learnhealth: bool = False, guard=None):
 
 
 # --------------------------------------------------------------------------
-# the meshless anakin entries (learner/anakin.py)
+# the anakin entries (learner/anakin.py)
 # --------------------------------------------------------------------------
 
 def _settle(ast: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
@@ -193,7 +207,7 @@ def _anakin_reads(ast, arrays, prios, seq_meta, first) -> list:
 
 
 def graphed_super_step(cfg, body):
-    """``learner.anakin_super_step`` of a meshless plane: ``body``
+    """``learner.anakin_super_step`` of a plane, meshless or meshed: ``body``
     (:func:`~r2d2_tpu_torch.learner.anakin.make_anakin_super_step`), one
     whole dispatch replayed as a CUDA graph on a card, eager elsewhere.
     Signature::
@@ -258,7 +272,7 @@ def graphed_super_step(cfg, body):
 
 
 def graphed_rollout(body):
-    """``learner.anakin_rollout`` of a meshless plane: ``body``
+    """``learner.anakin_rollout`` of a plane, meshless or meshed: ``body``
     (:func:`~r2d2_tpu_torch.learner.anakin.make_anakin_rollout`) replayed
     as one CUDA graph on a card, eager elsewhere; the carry, the ring and
     the PER state written in place as :func:`graphed_super_step` writes

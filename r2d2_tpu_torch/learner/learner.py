@@ -35,9 +35,11 @@ only drives data and cadences.
   on the host.
 - Weight publication is a versioned snapshot (ParamStore): a detached
   clone, because the step updates the parameters in place.
-- On a card the meshless steps replay as CUDA graphs (learner/graphs.py):
-  the train step, and each inner step of both super-steps.  The state is
-  placed once, here, and never rebound: a graph reads it at its address.
+- On a card the steps replay as CUDA graphs (learner/graphs.py): the
+  train step, and each inner step of both super-steps, meshless and on
+  the mesh, where a graph holds the step's collectives.  The state is
+  placed once, here, and never rebound: a graph reads it at its address
+  (a DTensor's at its local shard's).
 """
 from __future__ import annotations
 
@@ -747,8 +749,9 @@ class Learner:
         super-step as one asynchronous dispatch, in microseconds; on a
         card the port replays one CUDA graph an inner step
         (learner/graphs.py), and the hold is those k replays; the first
-        dispatch also captures them.  Under a mesh the host issues each
-        inner step's kernels, and the hold is that long.
+        dispatch also captures them.  Under a mesh an inner step's graph
+        holds its collectives too, and only the metadata gather of each
+        dispatch runs outside the graphs.
 
         Under a mesh, at every world size, the ring is this rank's slab
         and the draw is global (parallel/cross_rank.py): every rank draws
@@ -778,10 +781,14 @@ class Learner:
 
             cross = CrossRank(cfg, self.mesh, ring.cfg.num_blocks,
                               span=self.span)
+        train_step = None
+        if self.mesh is not None:
+            from r2d2_tpu_torch.parallel.sharding import mesh_step
+
+            train_step = mesh_step(cfg, self.net, self.table, self.state)
         super_step = make_in_graph_per_super_step_fn(
-            cfg, self.net, k, train_step=(
-                None if self.mesh is None else self._step_fn.__wrapped__),
-            cross=cross, learnhealth=self._lh)
+            cfg, self.net, k, train_step=train_step, cross=cross,
+            learnhealth=self._lh)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(cfg.seed)
         losses_hist: deque = deque(maxlen=100)

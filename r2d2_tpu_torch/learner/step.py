@@ -406,11 +406,12 @@ class SuperStep:
     reads the ring at its fixed address, with the step's index row and
     weights copied in: issued under the buffer lock, the gathers stay
     ordered before any later ring write.  ``train_step`` replaces the
-    plain step (the meshed learner passes ``sharding.mesh_train_step``'s,
-    built with the same ``learnhealth``): then nothing is captured, and
-    the learner calls the two halves apart — :meth:`gather` enqueues the
-    k gathers under the buffer lock, :meth:`run` the k steps after the
-    group's broadcast.  ``guard`` replaces the retrace guard."""
+    plain step (the meshed learner passes ``sharding.mesh_step``, built
+    with the same ``learnhealth``): each inner step's graph then holds
+    the meshed step with its collectives, and the learner calls the two
+    halves apart — :meth:`gather` enqueues the k gathers under the buffer
+    lock, :meth:`run` replays the k steps on the rows of the group's
+    broadcast.  ``guard`` replaces the retrace guard."""
 
     def __init__(self, cfg: Config, net: R2D2Network, k: int,
                  train_step=None, learnhealth: bool = False, guard=None):
@@ -420,8 +421,7 @@ class SuperStep:
         self.lh = learnhealth and cfg.learnhealth_interval > 0
         self._step = train_step or make_train_step(cfg, net,
                                                    learnhealth=self.lh)
-        self.graphs = StepGraphs("learner.super_step",
-                                 capture=train_step is None, guard=guard)
+        self.graphs = StepGraphs("learner.super_step", guard=guard)
 
     def _armed(self, state: TrainState) -> bool:
         return self.lh and (state.step + 1) % self.cfg.learnhealth_interval \
@@ -552,20 +552,25 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
     at their fixed addresses, with its row of uniforms copied in.  The
     caller holds the buffer lock for the whole call, so no actor commit
     lands between a step's draw and its scatter.  ``train_step`` replaces
-    the plain step (the meshed learner's, which returns plain priorities);
-    it and ``cross`` run eagerly.
+    the plain step (the meshed learner's ``sharding.mesh_step``, which
+    returns plain priorities).
 
     ``cross`` (a :class:`~r2d2_tpu_torch.parallel.cross_rank.CrossRank`)
     is the meshed hook: the ring, ``prios``, ``seq_meta`` and
     ``first_burn`` are then this rank's slab, the draw runs over every
-    rank's leaves (``seq_meta`` and ``first`` gathered once per call, the
+    rank's leaves (``seq_meta`` and ``first`` gathered once per call,
+    outside the graphs, into buffers that keep their addresses; the
     leaves once per inner step), each rank trains its rows of the global
     batch, exchanged from their owners, and the feedback goes back to the
-    slabs that own the leaves.  On a peer of a dp group that spans ranks
-    ``cross`` is a :class:`~r2d2_tpu_torch.parallel.cross_rank.GroupPeer`,
-    the ring arguments are None and no uniforms are drawn: each inner
-    step's rows come from the group's leader.  ``record`` (a list), when
-    given, collects each inner step's global sampled indices.
+    slabs that own the leaves.  On a card an inner step's graph holds its
+    draw, row exchange, train step and feedback with their collectives,
+    and on a dp group's leader the broadcast of its rows to the group.
+    On a peer of a dp group that spans ranks ``cross`` is a
+    :class:`~r2d2_tpu_torch.parallel.cross_rank.GroupPeer`, the ring
+    arguments are None and no uniforms are drawn: each inner step's rows
+    come from the group's leader, received inside the peer's graph.
+    ``record`` (a list), when given, collects each inner step's global
+    sampled indices.
 
     ``learnhealth`` (with ``cfg.learnhealth_interval > 0``) appends each
     inner step's diagnostic vector: ``-> (state, prios, losses, diags (k,
@@ -576,9 +581,7 @@ def make_in_graph_per_super_step_fn(cfg: Config, net: R2D2Network, k: int,
     lh = learnhealth and cfg.learnhealth_interval > 0
     step = train_step or make_train_step(cfg, net, learnhealth=lh)
     B = cfg.batch_size
-    graphs = StepGraphs("learner.in_graph_per_super_step",
-                        capture=train_step is None and cross is None,
-                        guard=guard)
+    graphs = StepGraphs("learner.in_graph_per_super_step", guard=guard)
 
     def inner(state, fixed, scratch, row):
         arrays, seq_meta, first_burn, meta = fixed

@@ -48,7 +48,10 @@ reduce_sum` adds the lanes' counters.
 At world size 1 every collective is still issued, over a group of one:
 the path a larger world takes is the one a single card runs.  Every call
 ticks :data:`CROSS_RANK_CALLS` by operation, and every call must come
-from the learner thread (``parallel/distributed.py``).
+from the learner thread (``parallel/distributed.py``).  None reads a
+result on the host, so each can be recorded in a CUDA graph (the meshed
+in-graph super-step's inner steps, the anakin dispatches); the shapes
+follow from the configuration alone.
 """
 from __future__ import annotations
 
@@ -67,9 +70,11 @@ from r2d2_tpu_torch.parallel.distributed import (
 )
 from r2d2_tpu_torch.parallel.sharding import DEVICE_BATCH_KEYS
 from r2d2_tpu_torch.replay.device_ring import gather_batch
+from r2d2_tpu_torch.utils.graphs import tick
 
 # collectives issued by this module, by operation ("all_gather",
-# "all_to_all", "all_reduce"): the counts a run is held to
+# "all_to_all", "all_reduce"): the counts a run is held to; a CUDA graph
+# that holds some adds them at each replay (utils/graphs.tick)
 CROSS_RANK_CALLS: collections.Counter = collections.Counter()
 
 # the gathered ring fields a rank sends to the rows' trainers
@@ -124,22 +129,31 @@ class CrossRank:
         self.nb = int(slab_blocks)
         self.K = cfg.seqs_per_block
         self.rows = dp_rows_for_process(mesh, cfg.batch_size)
+        self._kept: Dict[tuple, torch.Tensor] = {}
         if self.nb * self.dp != cfg.num_blocks:
             raise ValueError(
                 f"a slab of {self.nb} blocks on each of dp={self.dp} ranks "
                 f"is not the ring's {cfg.num_blocks} blocks")
 
     # ------------------------------------------------------- collectives
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t`` concatenated along dim 0 in rank order."""
+    def all_gather(self, t: torch.Tensor, keep: bool = False
+                   ) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along dim 0 in rank order; with
+        ``keep``, into a buffer this instance keeps for ``t``'s shape, so
+        that each call's result has one address."""
         _check_thread()
         src = t.contiguous()
         if src.dtype == torch.bool:
             return self.all_gather(src.view(torch.uint8)).bool()
-        out = torch.empty((self.dp * src.shape[0], *src.shape[1:]),
-                          dtype=src.dtype, device=src.device)
+        shape = (self.dp * src.shape[0], *src.shape[1:])
+        key = (shape, src.dtype, src.device)
+        out = self._kept.get(key) if keep else None
+        if out is None:
+            out = torch.empty(shape, dtype=src.dtype, device=src.device)
+            if keep:
+                self._kept[key] = out
         dist.all_gather_into_tensor(out, src, group=self.group)
-        CROSS_RANK_CALLS["all_gather"] += 1
+        tick(CROSS_RANK_CALLS, "all_gather")
         return out
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
@@ -150,7 +164,7 @@ class CrossRank:
         src = t.contiguous()
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=self.group)
-        CROSS_RANK_CALLS["all_to_all"] += 1
+        tick(CROSS_RANK_CALLS, "all_to_all")
         return out.view(self.dp, src.shape[0] // self.dp, *src.shape[1:])
 
     def reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -158,7 +172,7 @@ class CrossRank:
         _check_thread()
         out = t.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
-        CROSS_RANK_CALLS["all_reduce"] += 1
+        tick(CROSS_RANK_CALLS, "all_reduce")
         return out
 
     # ---------------------------------------------------------- the draw
@@ -169,8 +183,10 @@ class CrossRank:
     def global_meta(self, seq_meta: torch.Tensor, first: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The global ``seq_meta`` (NB, K, 3) and ``first`` (NB,) (two
-        all_gathers)."""
-        return self.all_gather(seq_meta), self.all_gather(first)
+        all_gathers), in buffers that keep their addresses call after call
+        (a graph of the draw reads them there)."""
+        return (self.all_gather(seq_meta, keep=True),
+                self.all_gather(first, keep=True))
 
     def draw(self, u: torch.Tensor, leaves: torch.Tensor,
              seq_meta: torch.Tensor, first: torch.Tensor) -> Draw:

@@ -24,7 +24,8 @@ the fsdp and tp axes) holds ``fsdp × tp`` ranks:
   small host values over every rank (the learner's stop/ready gate, the
   global min density of a draw, the ring decision).  With a process group
   they always reduce, even over one rank: a world of one issues the same
-  collectives as a world of eight.
+  collectives as a world of eight.  They read their result back on the
+  host, so they run outside every CUDA graph.
 
 Every collective here must run on the learner's thread: a collective one
 rank issues and its peer does not hangs both, and only the learner thread
@@ -43,9 +44,11 @@ import torch
 import torch.distributed as dist
 
 from r2d2_tpu_torch.parallel.sharding import DEVICE_BATCH_KEYS, ShardingTable
+from r2d2_tpu_torch.utils.graphs import tick
 
 # collectives issued per call site, for the checks that a run made exactly
-# the agreement it should ("gate", "min_density", ...)
+# the agreement it should ("gate", "min_density", ...); a CUDA graph that
+# holds a group_broadcast adds it at each replay (utils/graphs.tick)
 COLLECTIVE_CALLS: collections.Counter = collections.Counter()
 
 _learner_thread: Optional[threading.Thread] = None
@@ -230,10 +233,12 @@ def group_broadcast(span: DpGroup, tensors: Optional[Sequence[torch.Tensor]]
     group.  The leader passes its tensors and gets them back as they are;
     a peer passes nothing and gets new tensors on the collective device.
     The first call of a ``tag`` first broadcasts the shapes and dtypes
-    (kept in ``span.layouts``); a later leader call whose tensors do not
-    match them raises.  Issued over a group of one too, so a world of one
-    runs the path a larger one does.  Learner thread only; counted once a
-    call under ``"group_broadcast"`` in :data:`COLLECTIVE_CALLS`."""
+    (kept in ``span.layouts``) and reads their count back on the host, so
+    a CUDA graph may hold a tag's later calls, not its first; a later
+    leader call whose tensors do not match them raises.  Issued over a
+    group of one too, so a world of one runs the path a larger one does.
+    Learner thread only; counted once a call under ``"group_broadcast"``
+    in :data:`COLLECTIVE_CALLS`."""
     _check_thread()
     dev = _collective_device()
     leader = span.is_leader
@@ -278,7 +283,7 @@ def group_broadcast(span: DpGroup, tensors: Optional[Sequence[torch.Tensor]]
             flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
             buf[o:o + flat.numel()].copy_(flat)
     dist.broadcast(buf, src=span.leader, group=span.group)
-    COLLECTIVE_CALLS["group_broadcast"] += 1
+    tick(COLLECTIVE_CALLS, "group_broadcast")
     if leader:
         return list(tensors)
     out = []
@@ -383,7 +388,7 @@ def sync_counter(value: int, reduce: str = "max", tag: str = "counter"
     t = torch.tensor([int(value)], dtype=torch.int64,
                      device=_collective_device())
     dist.all_reduce(t, op=_OPS[reduce])
-    COLLECTIVE_CALLS[tag] += 1
+    tick(COLLECTIVE_CALLS, tag)
     return int(t.item())
 
 
@@ -397,5 +402,5 @@ def sync_min_array(values: Any, tag: str = "min_array") -> np.ndarray:
     _check_thread()
     t = torch.from_numpy(values.copy()).to(_collective_device())
     dist.all_reduce(t, op=dist.ReduceOp.MIN)
-    COLLECTIVE_CALLS[tag] += 1
+    tick(COLLECTIVE_CALLS, tag)
     return t.cpu().numpy()

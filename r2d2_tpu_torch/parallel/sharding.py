@@ -35,7 +35,9 @@ the counterparts of JAX's ``pjit_train_step`` and ``pjit_super_step``: the
 same train step (learner/step.py) run on a DTensor ``TrainState`` whose
 batch is sharded over dp.  DTensor inserts the reductions XLA inserts
 there — the gradient sums over dp, the gathers over fsdp and tp, the
-global-norm sum over every shard.
+global-norm sum over every shard.  On a card each step, with those
+collectives, replays a CUDA graph (learner/graphs.py), as JAX dispatches
+one compiled program.
 """
 from __future__ import annotations
 
@@ -354,11 +356,13 @@ def _check_batch(cfg, table: ShardingTable) -> None:
                          f"dp={table.sizes['dp']}")
 
 
-def mesh_train_step(cfg, net, table: ShardingTable, state_template=None):
-    """THE meshed train step (JAX's ``pjit_train_step``): returns
-    ``train_step(state, batch) -> (state, loss, priorities)`` for a DTensor
-    ``state`` in the table layout, plus the diagnostic vector (whole and
-    the same on every rank) when ``cfg.learnhealth_interval > 0``.
+def mesh_step(cfg, net, table: ShardingTable, state_template=None):
+    """The meshed train step op by op: ``step(state, batch) -> (state,
+    loss, priorities)`` for a DTensor ``state`` in the table layout, plus
+    the diagnostic vector (whole and the same on every rank) when
+    ``cfg.learnhealth_interval > 0``.  :func:`mesh_train_step` replays it
+    as a CUDA graph; the meshed super-steps and the anakin plane record it
+    inside their own graphs.
 
     ``batch`` fields are DTensors sharded over dp, or plain tensors that
     hold this rank's rows (wrapped without communication).  The loss comes
@@ -367,12 +371,7 @@ def mesh_train_step(cfg, net, table: ShardingTable, state_template=None):
     Plain tensors the step makes itself (window index ramps, the device
     counters) act as replicated.  ``state_template`` resolves every leaf
     against the table up front, so an unresolved leaf fails here, not
-    mid-step.  The step runs eagerly (its CUDA graph is ROADMAP.md A's
-    third host-bound cut), guarded as ``learner.train_step`` by input
-    signature and learnhealth arming; ``__wrapped__`` is the unguarded
-    step, which the meshed super-steps call."""
-    from r2d2_tpu_torch.utils.trace import RETRACES
-
+    mid-step."""
     from r2d2_tpu_torch.learner.step import make_train_step
     from r2d2_tpu_torch.parallel.distributed import local_rows
 
@@ -388,7 +387,7 @@ def mesh_train_step(cfg, net, table: ShardingTable, state_template=None):
     mesh = table.mesh
     batch_pl = table.batch_shardings()
 
-    def train_step(state, batch):
+    def plain(state, batch):
         batch = {k: v if isinstance(v, DTensor) else DTensor.from_local(
             v, mesh, list(batch_pl[k])) for k, v in batch.items()}
         with implicit_replication():
@@ -401,21 +400,47 @@ def mesh_train_step(cfg, net, table: ShardingTable, state_template=None):
                     full(out[3]))
         return state, full(loss), local_rows(priorities)
 
-    def armed(state, batch):
-        return lh and (state.step + 1) % cfg.learnhealth_interval == 0
+    return plain
 
-    return RETRACES.wrap("learner.train_step", train_step, key=armed)
+
+def mesh_train_step(cfg, net, table: ShardingTable, state_template=None,
+                    guard=None):
+    """THE meshed train step (JAX's ``pjit_train_step``): :func:`mesh_step`
+    (same signature and results), on a card a replay of a CUDA graph of
+    the whole step with its collectives (learner/graphs.py:StepGraphs,
+    ``graphs``), counted as ``learner.train_step`` by ``guard`` (default
+    ``RETRACES``); eager elsewhere.  The graph's inputs are this rank's
+    plain rows of the batch (a DTensor batch gives its local rows), which
+    the recorded step wraps as the dp-sharded DTensor batch; an armed and
+    a disarmed learnhealth step are two graphs."""
+    from r2d2_tpu_torch.learner.graphs import StepGraphs
+    from r2d2_tpu_torch.parallel.distributed import local_rows
+
+    plain = mesh_step(cfg, net, table, state_template)
+    interval = cfg.learnhealth_interval
+    graphs = StepGraphs("learner.train_step", guard=guard)
+
+    def body(state, fixed, scratch, rows):
+        return plain(state, rows)[1:]
+
+    def train_step(state, batch):
+        armed = interval > 0 and (state.step + 1) % interval == 0
+        rows = {k: local_rows(v) for k, v in batch.items()}
+        return (state,) + graphs.run(body, state, inputs=rows, armed=armed)
+
+    train_step.graphs = graphs
+    return train_step
 
 
 def mesh_super_step(cfg, net, table: ShardingTable, k: int,
-                    state_template=None):
+                    state_template=None, guard=None):
     """The host-sampled super-step on the mesh (JAX's ``pjit_super_step``):
     k meshed train steps on batches each rank gathers from its own ring
     (its dp slab, or the whole ring in a world of one) with this rank's
-    rows of the (k, B, 6) bundles.  Returns a :class:`~r2d2_tpu_torch.
-    learner.step.SuperStep`."""
+    rows of the (k, B, 6) bundles, each inner step a CUDA graph on a card.
+    Returns a :class:`~r2d2_tpu_torch.learner.step.SuperStep`."""
     from r2d2_tpu_torch.learner.step import SuperStep
 
-    return SuperStep(cfg, net, k, train_step=mesh_train_step(
-        cfg, net, table, state_template=state_template).__wrapped__,
-        learnhealth=cfg.learnhealth_interval > 0)
+    return SuperStep(cfg, net, k, train_step=mesh_step(
+        cfg, net, table, state_template),
+        learnhealth=cfg.learnhealth_interval > 0, guard=guard)

@@ -282,7 +282,7 @@ def task_cross_rank(cfg_kw, ring, us, fb_idx, fb_vals, params=None,
     from r2d2_tpu_torch.parallel.sharding import (
         ShardingTable,
         gather_state,
-        mesh_train_step,
+        mesh_step,
     )
 
     cfg = test_config(device_replay=True, in_graph_per=True, **cfg_kw)
@@ -318,7 +318,7 @@ def task_cross_rank(cfg_kw, ring, us, fb_idx, fb_vals, params=None,
         state = create_train_state(
             cfg, {k: torch.from_numpy(v) for k, v in params.items()})
         table = ShardingTable(mesh, cfg)
-        step = mesh_train_step(cfg, net, table, state_template=state)
+        step = mesh_step(cfg, net, table, state)
         state = table.place_state(state)
         fn = make_in_graph_per_super_step_fn(
             cfg, net, len(uniforms), train_step=step, cross=cross)
@@ -470,7 +470,7 @@ def task_span(layouts, params, batches, ring, uniforms, anakin_kw,
     from r2d2_tpu_torch.parallel.sharding import (
         ShardingTable,
         gather_state,
-        mesh_train_step,
+        mesh_step,
     )
     from r2d2_tpu_torch.replay.device_ring import (
         DeviceRing,
@@ -538,7 +538,7 @@ def task_span(layouts, params, batches, ring, uniforms, anakin_kw,
         ispan = dp_group(imesh)
         state = state_of(icfg)
         table = ShardingTable(imesh, icfg)
-        istep = mesh_train_step(icfg, net, table, state_template=state)
+        istep = mesh_step(icfg, net, table, state)
         state = table.place_state(state)
         if ispan.is_leader:
             nb = icfg.num_blocks // dp
@@ -598,6 +598,133 @@ def task_span(layouts, params, batches, ring, uniforms, anakin_kw,
         results[tuple(map(tuple, shape))] = out
         dist.barrier()
     return results
+
+
+def task_mesh_graphs(cfg_kw, params, batches, anakin_kw, dispatches):
+    """The meshed entries as their graphs' users call them (on the CPU
+    the graph-ready bodies, eagerly) against the plain functions from
+    copies of the same state, on this rank: ``mesh_train_step`` against
+    ``mesh_step`` over ``batches`` (global batches, this rank's dp rows),
+    and the meshed anakin plane's rollouts and ``dispatches`` dispatches
+    against ``make_anakin_rollout`` / ``make_anakin_super_step``.  Per
+    part whether every output, the carry, the ring, the PER state and the
+    train state were equal bit for bit, the collectives each call
+    issued, and the losses."""
+    import torch
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.learner import anakin
+    from r2d2_tpu_torch.learner.graphs import _clone_state
+    from r2d2_tpu_torch.learner.learner import Learner
+    from r2d2_tpu_torch.learner.step import create_train_state
+    from r2d2_tpu_torch.models.network import create_network
+    from r2d2_tpu_torch.parallel.cross_rank import CROSS_RANK_CALLS
+    from r2d2_tpu_torch.parallel.mesh import make_mesh
+    from r2d2_tpu_torch.parallel.sharding import (
+        ShardingTable,
+        gather_state,
+        mesh_step,
+        mesh_train_step,
+    )
+    from r2d2_tpu_torch.replay.device_ring import (
+        DeviceRing,
+        ring_slice_config,
+    )
+
+    def same_state(a, b):
+        fa, fb = gather_state(a), gather_state(b)
+        return (a.step == b.step and torch.equal(a.step_t, b.step_t)
+                and torch.equal(a.opt_state.count_t, b.opt_state.count_t)
+                and all(torch.equal(x[k], y[k]) for x, y in (
+                    (fa.params, fb.params),
+                    (fa.target_params, fb.target_params),
+                    (fa.opt_state.mu, fb.opt_state.mu),
+                    (fa.opt_state.nu, fb.opt_state.nu)) for k in x))
+
+    dp, r = dist.get_world_size(), dist.get_rank()
+    out = {}
+    cfg = test_config(mesh_shape=(("dp", dp),), **cfg_kw)
+    table = ShardingTable(make_mesh(cfg, "cpu"), cfg)
+    net = create_network(cfg, 4, device="cpu", lstm_impl="scan")
+    a, b = (table.place_state(create_train_state(
+        cfg, {k: torch.from_numpy(v) for k, v in params.items()}))
+        for _ in range(2))
+    graphed = mesh_train_step(cfg, net, table, state_template=a)
+    plain = mesh_step(cfg, net, table, b)
+    per = cfg.batch_size // dp
+    same, losses = True, []
+    for batch in batches:
+        rows = {k: torch.from_numpy(v[r * per:(r + 1) * per])
+                for k, v in batch.items()}
+        ga, gb = graphed(a, rows), plain(b, rows)
+        same = same and all(torch.equal(x, y)
+                            for x, y in zip(ga[1:], gb[1:]))
+        losses.append(float(ga[1]))
+    out["step"] = dict(same=same and same_state(a, b), losses=losses)
+
+    acfg = test_config(mesh_shape=(("dp", dp),), **anakin_kw)
+    atable = ShardingTable(make_mesh(acfg, "cpu"), acfg)
+    anet = create_network(acfg, 4, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    learner = Learner(acfg, anet, create_train_state(acfg,
+                                                     anet.state_dict()),
+                      mesh=atable.mesh, table=atable)
+    plane = anakin.AnakinPlane(
+        acfg, anet, 4, DeviceRing(ring_slice_config(acfg, dp), 4,
+                                  device="cpu", layout="dp"),
+        table=atable, state_template=learner.state)
+    rep = plane.replicated_lanes
+    n = acfg.num_actors if rep else acfg.num_actors // dp
+    lanes = (0, n) if rep else (r * n, (r + 1) * n)
+    roll = anakin.make_anakin_rollout(acfg, anet, plane.env, 4,
+                                      plane.roll_steps, lanes, plane.cross,
+                                      rep)
+    step = anakin.make_anakin_super_step(
+        acfg, anet, plane.env, 4, lanes, plane.cross,
+        mesh_step(acfg, anet, atable, learner.state), rep)
+
+    def copies():
+        arrays, prios, seq_meta, first = plane._handles()
+        return ({k: v.clone() for k, v in plane.state.items()},
+                {k: v.clone() for k, v in arrays.items()}, prios.clone(),
+                seq_meta.clone(), first.clone())
+
+    def same_as(want):
+        ast, arrays, prios, seq_meta, first = want
+        mine = plane._handles()
+        return (all(torch.equal(plane.state[k], ast[k]) for k in ast)
+                and all(torch.equal(mine[0][k], arrays[k]) for k in arrays)
+                and torch.equal(mine[1], prios)
+                and torch.equal(mine[2], seq_meta)
+                and torch.equal(mine[3], first))
+
+    carry = {k: v.data_ptr() for k, v in plane.state.items()}
+    ok, calls = True, dict(rollout=[], dispatch=[])
+    while not plane.ready:
+        want = roll(learner.state.params, *copies())
+        CROSS_RANK_CALLS.clear()
+        got = plane.rollout(learner.state.params, plane.state,
+                            *plane._handles())
+        calls["rollout"].append(dict(CROSS_RANK_CALLS))
+        plane._absorb(got[-1].numpy())
+        ok = ok and torch.equal(got[-1], want[-1]) and same_as(want[:5])
+    dlosses = []
+    for d in range(dispatches):
+        want = step(_clone_state(learner.state), *copies(), d)
+        CROSS_RANK_CALLS.clear()
+        learner.state, *rest = plane.super_step(
+            learner.state, plane.state, *plane._handles(), d)
+        calls["dispatch"].append(dict(CROSS_RANK_CALLS))
+        ok = (ok and torch.equal(rest[-1], want[-1])
+              and same_as(want[1:6]) and same_state(learner.state, want[0]))
+        dlosses.append(rest[-1][:acfg.superstep_k].tolist())
+    out["anakin"] = dict(
+        same=ok and carry == {k: v.data_ptr()
+                              for k, v in plane.state.items()},
+        calls=calls, losses=dlosses, replicated=rep,
+        roll_steps=plane.roll_steps)
+    return out
 
 
 def task_span_train(runs, device="cpu"):

@@ -7,12 +7,14 @@ captured CUDA graph is the counterpart: the entry's kernels recorded once
 against tensors at fixed addresses, then replayed with one launch.
 :class:`Graphs` holds the graphs of one entry-point instance and counts
 each capture as one trace of it in the retrace guard (utils/trace.py).
-Off a card (and for an entry that is not captured) it runs the entry
-eagerly, and a trace is the first call with a new key, what ``jax.jit``
-retraces on.  Its users: the learner's steps and the meshless anakin
-entries (learner/graphs.py), and the acts (actor.py:make_act_fn, which
-the thread fleets, the evaluator, the session batcher and the inference
-service act through).
+Off a card (and under :func:`eager`, the twin a check holds a replay
+to) it runs the entry eagerly, and a trace is the first call with a new
+key, what ``jax.jit`` retraces on.  Its users: the learner's steps, meshless and meshed, and
+both anakin entries, meshless and meshed (learner/graphs.py), and the
+acts (actor.py:make_act_fn, which the thread fleets, the evaluator, the
+session batcher and the inference service act through).  A meshed
+entry's graph holds its NCCL collectives; its state is DTensors, keyed
+by the addresses of their local shards (:func:`address`).
 
 A capture first runs ``warm`` once on copies of the inputs on a side
 stream (the library handles, cuDNN's algorithm choices, the kernels'
@@ -33,7 +35,15 @@ them (``KERNEL_LAUNCHES``, ops/lstm.py), and a replay runs no wrapper.
 So the warm-up and the capture count nothing: the capture records how
 many launches of each counter its graph holds, and each replay adds
 those.  A path's exact "launches = layers × acts" checks hold as they did
-when every act ran eagerly.
+when every act ran eagerly.  The host counters of the collectives a
+graph issues (``CROSS_RANK_CALLS``, ``COLLECTIVE_CALLS``, ticked through
+:func:`tick`) are kept the same way, per thread: the warm-up on copies
+and the capture add nothing, the capture records what its own thread
+ticked, and each replay adds it, so a run's exact per-step collective
+counts hold while other threads tick the same counters.  A
+collective that syncs with the host (an agreement that reads its result
+back, a broadcast's first layout exchange) runs at the warm-up or
+outside every graph, never inside a capture.
 
 Captures are serialised in the process, and no automatic garbage
 collection runs during one (``_no_gc``): a graph that went out of use,
@@ -49,6 +59,7 @@ eagerly on a card in its place.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -57,6 +68,7 @@ from typing import (Any, Callable, Dict, Hashable, Iterator, Optional,
                     Sequence, Tuple)
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from r2d2_tpu_torch.utils.trace import (
     KERNEL_LAUNCHES,
@@ -71,6 +83,50 @@ Record = Callable[[Dict[str, torch.Tensor]], Tuple[torch.Tensor, ...]]
 # device-wide synchronize and frees the allocator's cached blocks, which
 # must not fall inside another thread's capture
 _CAPTURE_LOCK = threading.Lock()
+
+_LOCAL = threading.local()
+
+
+def tick(counter: collections.Counter, key: str, n: int = 1) -> None:
+    """``counter[key] += n`` (a module's count of the collectives it
+    issues), or, inside this thread's capture or warm-up, into the
+    capture's record: each replay of its graph adds the record."""
+    rec = getattr(_LOCAL, "counts", None)
+    if rec is None:
+        counter[key] += n
+    else:
+        rec.setdefault(id(counter), (counter, collections.Counter()))[1][
+            key] += n
+
+
+def address(t: torch.Tensor) -> int:
+    """Where ``t``'s data lives: a DTensor (a wrapper with no storage of
+    its own) at its local shard's."""
+    return (t.to_local() if isinstance(t, DTensor) else t).data_ptr()
+
+
+@contextlib.contextmanager
+def eager() -> Iterator[None]:
+    """Every entry this thread calls inside runs op by op, also on a card:
+    the eager twin that a replay is held to in a check."""
+    prev = getattr(_LOCAL, "eager", False)
+    _LOCAL.eager = True
+    try:
+        yield
+    finally:
+        _LOCAL.eager = prev
+
+
+@contextlib.contextmanager
+def _recorded_ticks() -> Iterator[Dict[int, tuple]]:
+    """This thread's :func:`tick` calls inside go to the yielded record,
+    ``{id(counter): (counter, Counter)}``, and not to the counters."""
+    prev = getattr(_LOCAL, "counts", None)
+    rec = _LOCAL.counts = {}
+    try:
+        yield rec
+    finally:
+        _LOCAL.counts = prev
 
 
 @contextlib.contextmanager
@@ -95,18 +151,18 @@ class _Graph:
     inputs: Dict[str, torch.Tensor]
     outputs: Tuple[torch.Tensor, ...]
     launches: Dict[str, int]
+    counts: Dict[int, tuple]
 
 
 class Graphs:
     """The programs of one entry-point instance, keyed by the caller: on a
-    card (with ``capture``) one CUDA graph per key, elsewhere the eager
-    call.  ``entry`` is its retrace-guard entry
+    card one CUDA graph per key, elsewhere (or under :func:`eager`) the
+    eager call.  ``entry`` is its retrace-guard entry
     (``RetraceGuard.register``): each capture, or each eager call with a
     new key, adds one to ``entry.traces``."""
 
-    def __init__(self, entry, capture: bool = True):
+    def __init__(self, entry):
         self.entry = entry
-        self.capture = capture
         self._graphs: Dict[Hashable, _Graph] = {}
         self._eager: set = set()
         self._pool = None
@@ -121,8 +177,7 @@ class Graphs:
             warm: Optional[Callable[[Dict[str, torch.Tensor]], Any]] = None,
             reads: Sequence[torch.Tensor] = (), branch: Hashable = None,
             eager_first: bool = False) -> Tuple[torch.Tensor, ...]:
-        """``record(inputs)``'s outputs.  On a CUDA ``device`` with
-        ``capture``, from a replay of the graph of ``key``, ``branch``
+        """``record(inputs)``'s outputs.  On a CUDA ``device``, from a replay of the graph of ``key``, ``branch``
         and the addresses of ``reads`` (the tensors the graph reads
         beside its inputs), captured at its first call after ``warm``
         (default ``record``) on copies of the inputs; the returned tensors
@@ -134,12 +189,12 @@ class Graphs:
         ``record`` runs eagerly, and a new ``key`` is a trace: a
         ``branch`` (what JAX's ``lax.cond`` selects inside one program)
         is a graph of its own on the card and no new trace eagerly."""
-        if not (self.capture and device.type == "cuda"):
+        if device.type != "cuda" or getattr(_LOCAL, "eager", False):
             if key not in self._eager:
                 self._eager.add(key)
                 self.entry.traces += 1
             return tuple(record(inputs))
-        key = (key, branch, tuple(t.data_ptr() for t in reads))
+        key = (key, branch, tuple(address(t) for t in reads))
         g = self._graphs.get(key)
         if g is None:
             g, first = self._capture(record, inputs, warm or record,
@@ -153,6 +208,8 @@ class Graphs:
             g.graph.replay()
         for name, n in g.launches.items():
             KERNEL_LAUNCHES.count(name, n)
+        for counter, delta in g.counts.values():
+            counter.update(delta)
         return g.outputs
 
     def _capture(self, record: Record, inputs: Dict[str, torch.Tensor],
@@ -167,17 +224,18 @@ class Graphs:
                 if eager_first:
                     first = tuple(record(inputs))
                 else:
-                    with KERNEL_LAUNCHES.recording():
+                    with KERNEL_LAUNCHES.recording(), _recorded_ticks():
                         warm({k: v.clone() for k, v in inputs.items()})
             torch.cuda.current_stream().wait_stream(side)
             static = {k: torch.empty_like(v) for k, v in inputs.items()}
             graph = torch.cuda.CUDAGraph()
             with _CAPTURE_LOCK, _no_gc(), KERNEL_LAUNCHES.recording() as \
-                    launches, PROFILER_LOCK.shared(), torch.cuda.graph(
+                    launches, _recorded_ticks() as counts, \
+                    PROFILER_LOCK.shared(), torch.cuda.graph(
                         graph, pool=self._pool, stream=side,
                         capture_error_mode="thread_local"):
                 outputs = tuple(record(static))
             if self._pool is None:
                 self._pool = graph.pool()
             self.entry.traces += 1
-        return _Graph(graph, static, outputs, launches), first
+        return _Graph(graph, static, outputs, launches, counts), first

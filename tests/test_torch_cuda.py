@@ -1114,6 +1114,7 @@ def test_graphed_in_graph_super_step_is_the_eager_one(cuda):
     sampled indices, losses, the priority slab and the state bit for
     bit."""
     from r2d2_tpu_torch.learner import step as tstep
+    from r2d2_tpu_torch.utils.graphs import eager
     from r2d2_tpu_torch.utils.trace import RetraceGuard
 
     det = torch.backends.cudnn.deterministic
@@ -1127,17 +1128,17 @@ def test_graphed_in_graph_super_step_is_the_eager_one(cuda):
         guard = RetraceGuard()
         graphed = tstep.make_in_graph_per_super_step_fn(cfg, net, k,
                                                         guard=guard)
-        eager = tstep.make_in_graph_per_super_step_fn(
-            cfg, net, k, train_step=tstep.make_train_step(cfg, net),
-            guard=RetraceGuard())
+        twin = tstep.make_in_graph_per_super_step_fn(cfg, net, k,
+                                                     guard=RetraceGuard())
         ga = torch.Generator(device=cuda).manual_seed(7)
         gb = torch.Generator(device=cuda).manual_seed(7)
         for _ in range(2):
             ra, rb = [], []
             a, pa, la = graphed(a, arrays, pa, seq_meta, first,
                                 generator=ga, record=ra)
-            b, pb, lb = eager(b, arrays, pb, seq_meta, first, generator=gb,
-                              record=rb)
+            with eager():
+                b, pb, lb = twin(b, arrays, pb, seq_meta, first,
+                                 generator=gb, record=rb)
             assert torch.equal(la, lb) and torch.equal(pa, pb)
             assert all(torch.equal(x, y) for x, y in zip(ra, rb))
             assert len(ra) == k
@@ -1485,3 +1486,295 @@ def test_restored_anakin_plane_replays_as_the_uninterrupted_one(cuda,
         assert c.super_step.graphs.captures == 2
     finally:
         torch.backends.cudnn.deterministic = det
+
+
+# --------------------------------------------------------------------------
+# the meshed entries as CUDA graphs, collectives inside (world size 1 over
+# NCCL: the path a larger world takes, on the one card)
+# --------------------------------------------------------------------------
+
+def _nccl_mesh(cuda, cfg):
+    """An NCCL world of one and its mesh (the caller destroys the group)."""
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.parallel.distributed import init_distributed
+    from r2d2_tpu_torch.parallel.mesh import make_mesh
+
+    init_distributed(store=dist.HashStore(), world_size=1, rank=0,
+                     device=cuda)
+    assert dist.get_backend() == "nccl"
+    return make_mesh(cfg, "cuda")
+
+
+def _mesh_pair(cfg, net, table):
+    """Two DTensor states of ``net``'s params in the table layout."""
+    from r2d2_tpu_torch.learner.step import create_train_state
+
+    return tuple(table.place_state(create_train_state(cfg, net.state_dict()))
+                 for _ in range(2))
+
+
+def _gathered_equal(a, b) -> bool:
+    """Two DTensor states bit for bit: the host mirrors, the device
+    counters and every leaf gathered whole."""
+    from r2d2_tpu_torch.parallel.sharding import gather_state
+
+    fa, fb = gather_state(a), gather_state(b)
+    fa.step_t, fa.opt_state.count_t = a.step_t, a.opt_state.count_t
+    fb.step_t, fb.opt_state.count_t = b.step_t, b.opt_state.count_t
+    return _states_equal(fa, fb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lh", [0, 2])
+def test_graphed_meshed_train_step_is_its_eager_run(cuda, lh):
+    """``learner.train_step`` on the mesh as a CUDA graph (the DTensor
+    wrap, the step and its reductions inside) against the same entry run
+    eagerly, from the same DTensor state on the same batches, across two
+    target syncs: loss, priorities, the diag rows and the whole state bit
+    for bit; one capture, two with the armed and disarmed steps; then a
+    checkpoint's values restored into the state's shards in place replay
+    as the eager step from them, with no new capture."""
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.parallel.sharding import (
+        ShardingTable,
+        gather_state,
+        mesh_train_step,
+    )
+    from r2d2_tpu_torch.utils.graphs import eager
+    from r2d2_tpu_torch.utils.trace import RetraceGuard
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, net, _, _ = _graph_setup(cuda, learnhealth_interval=lh)
+        table = ShardingTable(_nccl_mesh(cuda, cfg), cfg)
+        a, b = _mesh_pair(cfg, net, table)
+        guard = RetraceGuard()
+        graphed = mesh_train_step(cfg, net, table, state_template=a,
+                                  guard=guard)
+        twin = mesh_train_step(cfg, net, table, state_template=b,
+                               guard=RetraceGuard())
+
+        def both(seed):
+            batch = {k: torch.from_numpy(v).to(cuda)
+                     for k, v in _mesh_batch(cfg, seed).items()}
+            ga = graphed(a, batch)
+            with eager():
+                gb = twin(b, batch)
+            for x, y in zip(ga[1:], gb[1:]):
+                assert torch.equal(x, y)
+            assert _gathered_equal(a, b)
+
+        for seed in range(5):
+            both(seed)
+        assert guard.counts() == {"learner.train_step": 2 if lh else 1}
+        assert graphed.graphs.captures == (2 if lh else 1)
+        # a restore into the addresses the graph reads
+        saved = gather_state(b)
+        for seed in range(5, 7):
+            both(seed)
+        for st in (a, b):
+            for src, dst in ((saved.params, st.params),
+                             (saved.target_params, st.target_params),
+                             (saved.opt_state.mu, st.opt_state.mu),
+                             (saved.opt_state.nu, st.opt_state.nu)):
+                for k, v in src.items():
+                    dst[k].to_local().copy_(v)
+        for seed in range(7, 9):
+            both(seed)
+        torch.cuda.synchronize()
+        assert graphed.graphs.captures == (2 if lh else 1)
+        guard.assert_within_budgets()
+    finally:
+        torch.backends.cudnn.deterministic = det
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_graphed_meshed_super_steps_are_their_eager_runs(cuda):
+    """Both meshed super-steps on the card, each inner step one graph with
+    its collectives, against the same entries run eagerly from the same
+    state and ring: the host-sampled one (``mesh_super_step.run`` on the
+    rows of a group broadcast) and the in-graph one over the cross-rank
+    draw with the dp group's broadcast (losses, sampled indices, the
+    priority slab and the state bit for bit), across two calls; one
+    capture each; the replays count the design's collectives."""
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.learner import step as tstep
+    from r2d2_tpu_torch.parallel.cross_rank import CROSS_RANK_CALLS, CrossRank
+    from r2d2_tpu_torch.parallel.distributed import (
+        COLLECTIVE_CALLS,
+        dp_group,
+    )
+    from r2d2_tpu_torch.parallel.sharding import (
+        ShardingTable,
+        mesh_step,
+        mesh_super_step,
+    )
+    from r2d2_tpu_torch.replay.device_ring import gather_batch
+    from r2d2_tpu_torch.utils.graphs import eager
+    from r2d2_tpu_torch.utils.trace import RetraceGuard
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, net, _, _ = _graph_setup(cuda, device_replay=True,
+                                      in_graph_per=True, superstep_k=3)
+        k, B = cfg.superstep_k, cfg.batch_size
+        mesh = _nccl_mesh(cuda, cfg)
+        table = ShardingTable(mesh, cfg)
+        arrays, prios, seq_meta, first = _random_ring(cfg, cuda)
+
+        # host-sampled: k gathered batches a call
+        a, b = _mesh_pair(cfg, net, table)
+        guard = RetraceGuard()
+        graphed = mesh_super_step(cfg, net, table, k, state_template=a,
+                                  guard=guard)
+        twin = mesh_super_step(cfg, net, table, k, state_template=b,
+                               guard=RetraceGuard())
+        u = torch.rand((2, k, B), generator=torch.Generator(
+            device=cuda).manual_seed(3), device=cuda)
+        for d in range(2):
+            draws = [tstep._in_graph_sample(cfg, u[d, j], prios, seq_meta,
+                                            first) for j in range(k)]
+            batches = [gather_batch(cfg, arrays, x[2], x[1]) for x in draws]
+            ga = graphed.run(a, batches)
+            with eager():
+                gb = twin.run(b, batches)
+            for x, y in zip(ga[1:], gb[1:]):
+                assert torch.equal(x, y)
+            assert _gathered_equal(a, b)
+        assert guard.counts() == {"learner.super_step": 1}
+
+        # in-graph over the cross-rank draw, the leader's broadcast inside
+        a, b = _mesh_pair(cfg, net, table)
+        span = dp_group(mesh)
+        guard = RetraceGuard()
+        fns = [tstep.make_in_graph_per_super_step_fn(
+            cfg, net, k, train_step=mesh_step(cfg, net, table, st),
+            cross=CrossRank(cfg, mesh, cfg.num_blocks, span=span),
+            guard=g) for st, g in ((a, guard), (b, RetraceGuard()))]
+        pa, pb = prios.clone(), prios.clone()
+        gens = [torch.Generator(device=cuda).manual_seed(7)
+                for _ in range(2)]
+        for d in range(2):
+            ra, rb = [], []
+            CROSS_RANK_CALLS.clear()
+            COLLECTIVE_CALLS.clear()
+            a, pa, la = fns[0](a, arrays, pa, seq_meta, first,
+                               generator=gens[0], record=ra)
+            calls = (dict(CROSS_RANK_CALLS),
+                     COLLECTIVE_CALLS["group_broadcast"])
+            with eager():
+                b, pb, lb = fns[1](b, arrays, pb, seq_meta, first,
+                                   generator=gens[1], record=rb)
+            assert torch.equal(la, lb) and torch.equal(pa, pb)
+            assert len(ra) == k and all(torch.equal(x, y)
+                                        for x, y in zip(ra, rb))
+            assert _gathered_equal(a, b)
+            assert calls == (dict(all_gather=2 + 2 * k, all_to_all=7 * k), k)
+        assert fns[0].graphs.captures == 1
+        assert guard.counts() == {"learner.in_graph_per_super_step": 1}
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("replicate", [False, True])
+def test_graphed_meshed_anakin_is_its_eager_dispatch(cuda, replicate):
+    """The meshed anakin plane's entries as CUDA graphs (routed or owned
+    emits, the lane sums and the cross-rank draw inside), with the lanes
+    split over dp and with the replicated lane axis: at each rollout and
+    dispatch after a capture, the result vector, the carry, the ring, the
+    PER state and the train state bit for bit the eager functions' from
+    copies of the same state; one capture of the rollout, one of each
+    eval branch of the super-step; the replays count the design's
+    collectives."""
+    import torch.distributed as dist
+
+    from r2d2_tpu_torch.config import test_config
+    from r2d2_tpu_torch.learner import anakin
+    from r2d2_tpu_torch.learner.graphs import _clone_state
+    from r2d2_tpu_torch.learner.learner import Learner
+    from r2d2_tpu_torch.learner.step import create_train_state
+    from r2d2_tpu_torch.models.network import create_network
+    from r2d2_tpu_torch.parallel.cross_rank import CROSS_RANK_CALLS
+    from r2d2_tpu_torch.parallel.sharding import ShardingTable, mesh_step
+    from r2d2_tpu_torch.replay.device_ring import DeviceRing
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = test_config(
+            game_name="Fake", actor_transport="anakin", device_replay=True,
+            in_graph_per=True, num_actors=2, superstep_k=2,
+            anakin_episode_len=12, training_steps=10 ** 9,
+            learning_starts=48, anakin_eval_interval=2)
+        table = ShardingTable(_nccl_mesh(cuda, cfg), cfg)
+        net = create_network(cfg, MESH_A, device=cuda,
+                             generator=torch.Generator().manual_seed(0))
+        learner = Learner(cfg, net, create_train_state(cfg,
+                                                       net.state_dict()),
+                          mesh=table.mesh, table=table)
+        plane = anakin.AnakinPlane(
+            cfg, net, MESH_A, DeviceRing(cfg, MESH_A, device=cuda,
+                                         layout="dp"),
+            table=table, state_template=learner.state,
+            replicate_lanes=replicate)
+        assert plane.replicated_lanes == replicate
+        lanes = (0, cfg.num_actors)
+        eager_roll = anakin.make_anakin_rollout(
+            cfg, net, plane.env, MESH_A, plane.roll_steps, lanes,
+            plane.cross, replicate)
+        eager_step = anakin.make_anakin_super_step(
+            cfg, net, plane.env, MESH_A, lanes, plane.cross,
+            mesh_step(cfg, net, table, learner.state), replicate)
+        steps = plane.roll_steps
+        per_roll = {} if replicate else dict(all_gather=2 * steps,
+                                             all_to_all=2 * steps,
+                                             all_reduce=1)
+        rollouts = 0
+        while not plane.ready:
+            copies = _anakin_copies(plane)
+            if rollouts:
+                want = eager_roll(learner.state.params, *copies)
+            CROSS_RANK_CALLS.clear()
+            out = plane.rollout(learner.state.params, plane.state,
+                                *plane._handles())
+            if rollouts:
+                assert dict(CROSS_RANK_CALLS) == per_roll
+            plane._absorb(out[-1].cpu().numpy())
+            if rollouts:
+                assert torch.equal(out[-1], want[-1])
+                assert _anakin_same(plane, want[:5])
+            rollouts += 1
+        assert rollouts >= 3
+        k = cfg.superstep_k
+        per_dispatch = {key: v + n for key, v, n in (
+            ("all_gather", per_roll.get("all_gather", 0), 4 * k),
+            ("all_to_all", per_roll.get("all_to_all", 0), 7 * k),
+            ("all_reduce", per_roll.get("all_reduce", 0), 0)) if v + n}
+        for d in range(5):
+            copies = _anakin_copies(plane)
+            twin = _clone_state(learner.state)
+            CROSS_RANK_CALLS.clear()
+            learner.state, *rest = plane.super_step(
+                learner.state, plane.state, *plane._handles(), d)
+            assert dict(CROSS_RANK_CALLS) == per_dispatch
+            if d >= 2:
+                want = eager_step(twin, *copies, d)
+                assert torch.equal(rest[-1], want[-1])
+                assert _anakin_same(plane, want[1:6])
+                assert _gathered_equal(learner.state, want[0])
+        torch.cuda.synchronize()
+        assert plane.rollout.graphs.captures == 1
+        assert plane.super_step.graphs.captures == 2
+        assert plane.super_step.graphs.entry.traces == 2
+    finally:
+        torch.backends.cudnn.deterministic = det
+        dist.destroy_process_group()
